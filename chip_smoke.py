@@ -9,18 +9,31 @@ checkout of the repository. Phases:
 
   1. the card's name and power limit; build of the kernels from csrc/;
   2. each kernel against its plain PyTorch version on the card, at the
-     production head dims and the main path's shapes, with times;
+     production head dims and the main path's shapes, with times: B1, B2,
+     and the int8 vision kernels B3, B4, B6 at the 7B tower's widths;
   3. the main path at the full width and depth of qwen25-vl-7b (bf16
      random weights): three `generate` requests through LVU / LVUEngine on
      64 seeded 420x420 yuv420 frames, groups of 32, key_norms_small at
      top_p=0.5; launch counts, cache lengths and per-span timings;
      then, only where the CPU decoder library is built, one request through
      `LVU.generate(question, video_path)` on an encoded clip;
+  3b. the same three requests with int8 weights (param_dtype="int8"): B1-B4
+     launch counts, cache lengths, spans, peak memory, and the rel. L2
+     between the int8 and bf16 final-prefill logits of one request
+     (printed, not asserted);
   4. the same prefill on the card and (plain versions) on the CPU for a
-     narrow config with production head dims: final-prefill logits agree.
+     narrow config with production head dims, with bf16 and with int8
+     weights: final-prefill logits agree.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --profile
+
+runs phase 1, then one warm 7B request (request 0 of phase 3) with bf16
+and with int8 weights under torch.profiler, and prints the wall time, the
+busy share of the card, the spans, kernel time by kind and the top kernels.
+It prints no result line.
 """
 
 import json
@@ -49,6 +62,12 @@ KERNEL_RTOL = 1e-2
 # weights): ~4e-3 relative per bf16 rounding, through the vision stem, 2
 # vision blocks, the merger, 2 decoder layers and the head
 LOGITS_REL_L2 = 5e-2
+# the same with int8 weights: every act-quantized product re-quantizes
+# activations that differ by bf16 rounding, flipping some int8 codes (the
+# CPU's plain versions give 1.9e-2 for bf16 vs f32 activations)
+INT8_LOGITS_REL_L2 = 6e-2
+# B3/B4/B6 kernel vs plain: quickvideo_tpu_torch/testing.py states and
+# applies the rule (FUSED_*)
 
 REQUEST_FRAMES = 64
 FRAME_HW = 420  # 30 x 30 patches: ragged 64/48/36-patch window buckets
@@ -176,6 +195,48 @@ def check_vision(dev, cases):
     return rows
 
 
+def check_fused(dev, cases):
+    """B3, B4, B6 at the 7B tower's widths (C 1280, QKV N 3840, MLP I 3420
+    padded to 3456) for each row count."""
+    import torch
+
+    from quickvideo_tpu_torch.ops import fused_vision_mlp as fm
+    from quickvideo_tpu_torch.ops.quantization import quantize_act
+    from quickvideo_tpu_torch.testing import (
+        bf16_rows_close,
+        fused_block,
+        quantized_close,
+    )
+
+    rows = []
+    for s_len in cases:
+        bp = fused_block(dev, 1280, 3840, 3420, s_len)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(s_len + 1)
+        x = torch.randn(s_len, 1280, generator=gen, device=dev).bfloat16()
+        xq, xs = quantize_act(x)
+        eps = 1e-6
+        for name, kernel, plain, args, compare in (
+            ("B3", fm.ln_gemm_bias, fm.ln_gemm_bias_plain,
+             (x, bp["ln"], bp["wqkv"], bp["bqkv"], eps), bf16_rows_close),
+            ("B4", fm.ln_dual_gemm_silu_quant,
+             fm.ln_dual_gemm_silu_quant_plain,
+             (x, bp["ln"], bp["wgu_p"], bp["bgu_p"], eps), quantized_close),
+            ("B6", fm.dual_gemm_silu_quant, fm.dual_gemm_silu_quant_plain,
+             (xq, xs, bp["wgu_p"], bp["bgu_p"]), quantized_close),
+        ):
+            err, ok, why = compare(kernel(*args), plain(*args))
+            ms = _time_ms(lambda: kernel(*args), 20)
+            plain_ms = _time_ms(lambda: plain(*args), 5)
+            log(f"{name} S={s_len}: max_abs_err={err:.3e} (rule: "
+                f"quickvideo_tpu_torch/testing.py FUSED_*) kernel {ms:.4f} ms "
+                f"plain {plain_ms:.4f} ms {'OK' if ok else 'FAIL: ' + why}")
+            rows.append(dict(name=name, s=s_len, err=err, ms=ms,
+                             plain_ms=plain_ms, ok=ok))
+        del bp
+    return rows
+
+
 # -- phase 3: the main path ------------------------------------------------
 
 
@@ -223,14 +284,25 @@ def expected_cache_length(lvu, inputs, n_tokens) -> int:
     return kept + (len(ids) - int(vid[-1]) - 1) + max(0, n_tokens - 1)
 
 
-def run_main_path(dev):
-    import torch
-
-    from quickvideo_tpu.config import LVUConfig
-    from quickvideo_tpu_torch.api import LVU
-    from quickvideo_tpu_torch.models.qwen25_vl.model import layout_for
+def _kernel_counters():
+    from quickvideo_tpu_torch.ops import fused_vision_mlp as fm
     from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
     from quickvideo_tpu_torch.ops.vision_attention import block_diag_attention
+
+    return {
+        "flash": flash_past_attention,
+        "vision": block_diag_attention,
+        "ln_gemm": fm.ln_gemm_bias,
+        "ln_mlp": fm.ln_dual_gemm_silu_quant,
+        "mlp_pre": fm.dual_gemm_silu_quant,
+    }
+
+
+def make_lvu(dev, param_dtype):
+    """LVU for qwen25-vl-7b at full width and depth, random weights from
+    seed 0, as the main path runs it."""
+    from quickvideo_tpu.config import LVUConfig
+    from quickvideo_tpu_torch.api import LVU
 
     cfg = LVUConfig(
         model_name_or_path="qwen25-vl-7b",
@@ -242,25 +314,39 @@ def run_main_path(dev):
         max_decode_tokens=16,
         decode_output="yuv420",
         dtype="bfloat16",
+        param_dtype=param_dtype,
         seed=0,
     )
+    return LVU(cfg, device=dev)
+
+
+QUESTIONS = (
+    "What happens in this video?",
+    "Which objects move from left to right, and when?",
+    "Describe the scene at the end of the clip.",
+)
+
+
+def run_main_path(dev, param_dtype="bfloat16"):
+    """Three 7B requests; returns (lvu, ok, launch counts, final-prefill
+    logits of request 0 on the host)."""
+    import torch
+
+    from quickvideo_tpu_torch.models.qwen25_vl.model import layout_for
+
+    tag = "int8" if param_dtype == "int8" else "bf16"
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    lvu = LVU(cfg, device=dev)
+    lvu = make_lvu(dev, param_dtype)
     torch.cuda.synchronize()
-    n_params = sum(
-        t.numel() for t in _leaves(lvu.params)
-    )
-    log(f"7B init on the card: {time.perf_counter() - t0:.2f} s, "
-        f"{n_params / 1e9:.3f} B parameters")
+    n_params = sum(t.numel() for t in _leaves(lvu.params))
+    log(f"[{tag}] 7B init on the card: {time.perf_counter() - t0:.2f} s, "
+        f"{n_params / 1e9:.3f} B parameter values, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
     mcfg = lvu.model_config
-    questions = [
-        "What happens in this video?",
-        "Which objects move from left to right, and when?",
-        "Describe the scene at the end of the clip.",
-    ]
     requests = [
         make_request(mcfg, lvu.tokenizer, q, seed=i)
-        for i, q in enumerate(questions)
+        for i, q in enumerate(QUESTIONS)
     ]
     layout = layout_for(mcfg, tuple(requests[0].group_grids[0]))
     n_buckets = len(layout.buckets) or 1
@@ -268,8 +354,9 @@ def run_main_path(dev):
     b2_per_group = (mcfg.vision.depth - n_full) * n_buckets + n_full
     n_layers = mcfg.text.num_hidden_layers
 
-    flash_past_attention.launches = 0
-    block_diag_attention.launches = 0
+    counters = _kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
     results = []
     for i, inputs in enumerate(requests):
         # the last request synchronizes at span edges: its spans partition
@@ -284,15 +371,17 @@ def run_main_path(dev):
         wall = time.perf_counter() - t0
         results.append((inputs, res, wall))
     os.environ.pop("QV_SYNC_SPANS", None)
-    b1 = flash_past_attention.launches
-    b2 = block_diag_attention.launches
+    counts = {k: fn.launches for k, fn in counters.items()}
 
     ok = True
-    exp_b1 = exp_b2 = 0
+    exp = dict.fromkeys(counters, 0)
     for i, (inputs, res, wall) in enumerate(results):
         n_groups = len(inputs.group_grids)
-        exp_b1 += n_groups * n_layers + n_layers + (len(res.tokens) - 1) * n_layers
-        exp_b2 += n_groups * b2_per_group
+        exp["flash"] += (n_groups + 1 + len(res.tokens) - 1) * n_layers
+        exp["vision"] += n_groups * b2_per_group
+        if param_dtype == "int8":
+            exp["ln_gemm"] += n_groups * mcfg.vision.depth
+            exp["ln_mlp"] += n_groups * mcfg.vision.depth
         want_len = expected_cache_length(lvu, inputs, len(res.tokens))
         lens_ok = (
             res.cache_length == want_len
@@ -304,18 +393,28 @@ def run_main_path(dev):
         )
         ok &= lens_ok and toks_ok
         spans = {k: round(v, 4) for k, v in sorted(res.timings.items())}
-        log(f"request {i} ({'sync spans' if i == len(results) - 1 else 'async'}"
+        n_dec = len(res.tokens) - 1
+        per_tok = (f"{1e3 * res.timings['decode'] / n_dec:.2f} ms/token"
+                   if n_dec > 0 else "n/a")
+        log(f"[{tag}] request {i} ("
+            f"{'sync spans' if i == len(results) - 1 else 'async'}"
             f"): prefill_tokens={res.prefill_tokens} tokens={res.tokens.tolist()} "
             f"cache_length={res.cache_length} (expected {want_len}, layers "
             f"{sorted(set(res.layer_lengths))}) kv_fraction="
-            f"{res.kv_memory_fraction:.3f} wall={wall:.3f} s spans(s)={spans} "
+            f"{res.kv_memory_fraction:.3f} wall={wall:.3f} s decode "
+            f"{per_tok} spans(s)={spans} "
             f"{'OK' if lens_ok and toks_ok else 'FAIL'}")
-    counts_ok = b1 == exp_b1 and b2 == exp_b2 and b1 > 0 and b2 > 0
+    counts_ok = counts == exp and counts["flash"] > 0 and counts["vision"] > 0
     ok &= counts_ok
-    log(f"main-path launches: B1 {b1} (expected {exp_b1}), B2 {b2} "
-        f"(expected {exp_b2}) {'OK' if counts_ok else 'FAIL'}")
-    log(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    return lvu, ok, {"flash": b1, "vision": b2}
+    log(f"[{tag}] main-path launches: "
+        + ", ".join(f"{k} {counts[k]} (expected {exp[k]})" for k in counts)
+        + f" {'OK' if counts_ok else 'FAIL'}")
+    log(f"[{tag}] peak device memory: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    cache, state = lvu.engine.prefill(requests[0])
+    logits = lvu.engine.final_prefill(cache, state).float().cpu()
+    del cache, state
+    return lvu, ok, counts, logits
 
 
 def run_video_file(lvu):
@@ -341,6 +440,91 @@ def run_video_file(lvu):
             f"{time.perf_counter() - t0:.3f} s, spans(s)="
             f"{ {k: round(v, 4) for k, v in sorted(res.timings.items())} }")
         return isinstance(text, list) and len(res.tokens) >= 1
+
+
+# -- --profile: where the time goes -------------------------------------------
+
+# kernel name fragment -> kind, first match wins
+KERNEL_KINDS = (
+    ("flash_fwd_kernel", "B1 flash"),
+    ("vision_attn_kernel", "B2 vision attn"),
+    ("fused_gemm_kernel<false>", "B3 GEMM"),
+    ("fused_gemm_kernel<true>", "B4/B6 GEMM"),
+    ("requantize_kernel", "B4/B6 requantize"),
+    ("ln_quantize_kernel", "B3/B4 prologue"),
+    ("gemm_s8", "int8 GEMM (_int_mm)"),
+    ("imma", "int8 GEMM (_int_mm)"),
+    ("gemm", "bf16/f32 GEMM"),
+    ("nvjet", "bf16/f32 GEMM"),
+    ("copy", "copies/casts"),
+    ("Memcpy", "copies/casts"),
+    ("Memset", "copies/casts"),
+)
+
+
+def _kind(name: str) -> str:
+    for frag, kind in KERNEL_KINDS:
+        if frag in name:
+            return kind
+    return "other elementwise/reductions"
+
+
+def run_profile(dev, param_dtype):
+    """One warm 7B request (request 0 of the main path) under
+    torch.profiler: wall time, the sum of kernel times, the busy share (the
+    union of kernel intervals over the wall time), the spans, kernel time by
+    kind and the top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    lvu = make_lvu(dev, param_dtype)
+    inputs = make_request(lvu.model_config, lvu.tokenizer, QUESTIONS[0],
+                          seed=0)
+
+    def request():
+        return lvu.engine.generate(
+            inputs, max_new_tokens=8,
+            eos_token_ids=[lvu.tokenizer.eos_token_id],
+        )
+
+    request()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = request()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        n, us = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, us + end - start)
+    busy, reach = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > reach:
+            busy += end - max(start, reach)
+            reach = end
+    total = sum(us for _, us in by_name.values())
+    by_kind = {}
+    for name, (_, us) in by_name.items():
+        by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + us
+    log(f"== {param_dtype}: wall {wall:.4f} s under the profiler, kernels "
+        f"{total / 1e6:.4f} s, busy {busy / 1e6:.4f} s, busy share "
+        f"{busy / 1e6 / wall:.3f}, {len(res.tokens)} tokens, spans(s)="
+        f"{ {k: round(v, 4) for k, v in sorted(res.timings.items())} }")
+    for kind, us in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        log(f"  {us / 1e3:10.2f} ms  {kind}")
+    log("  top kernels:")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:15]
+    for name, (n, us) in top:
+        log(f"  {us / 1e3:10.2f} ms  n={n:6d}  {name[:100]}")
+    del lvu
+    torch.cuda.empty_cache()
 
 
 # -- phase 4: card vs CPU ----------------------------------------------------
@@ -395,6 +579,8 @@ def run_card_vs_cpu(dev):
     )
     from quickvideo_tpu_torch.prefill import LVUEngine
 
+    from quickvideo_tpu_torch.ops.quantization import quantize_model_params
+
     mcfg = narrow_config()
     base = init_params(mcfg, seed=3, dtype=torch.bfloat16, device="cpu")
     p_gpu = params_to(base, device=dev)
@@ -433,12 +619,43 @@ def run_card_vs_cpu(dev):
                     overlaps.append(f"g{gi}l{li}={len(sa & sb) / len(sb):.3f}")
             log(f"card vs CPU, top_p=0.5: logits rel L2 {rel:.3e} (not "
                 f"asserted); retained-set overlap {' '.join(overlaps)}")
+
+    # int8 weights: the same int8 codes on both sides (quantized once on
+    # the host), bf16 activations on the card, f32 on the CPU
+    q = quantize_model_params(params_to(base))
+    lvu_cfg = LVUConfig(model_name_or_path="narrow128", max_decode_tokens=8,
+                        param_dtype="int8")
+    eg = LVUEngine(params_to(q, device=dev), mcfg, lvu_cfg, torch.bfloat16,
+                   dev)
+    ec = LVUEngine(params_to(q, dtype=torch.float32), mcfg, lvu_cfg,
+                   torch.float32, "cpu")
+    cache_g, st_g = eg.prefill(request())
+    lg = eg.final_prefill(cache_g, st_g).float().cpu()
+    cache_c, st_c = ec.prefill(request())
+    lc = ec.final_prefill(cache_c, st_c).float()
+    rel = ((lg - lc).norm() / lc.norm()).item()
+    this_ok = bool(rel <= INT8_LOGITS_REL_L2 and torch.isfinite(lg).all())
+    ok &= this_ok
+    log(f"card vs CPU, int8 weights, top_p=1: final-prefill logits rel L2 "
+        f"{rel:.3e} (tol {INT8_LOGITS_REL_L2}), argmax card "
+        f"{int(lg.argmax())} cpu {int(lc.argmax())} "
+        f"{'OK' if this_ok else 'FAIL'}")
     return ok
 
 
 def main():
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument(
+        "--profile", action="store_true",
+        help="instead of the smoke test, profile one warm 7B request with "
+             "bf16 and with int8 weights (torch.profiler) and print where "
+             "the device time goes",
+    )
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit(
             "chip_smoke.py: torch.cuda.is_available() is False; this smoke "
@@ -458,6 +675,10 @@ def main():
     _build.library()
     log(f"kernels built in {time.perf_counter() - t0:.2f} s -> "
         f"{os.path.relpath(lib_path, ROOT)}")
+    if args.profile:
+        for param_dtype in ("bfloat16", "int8"):
+            run_profile(dev, param_dtype)
+        return
 
     flash_rows = check_flash(dev, [
         (3600, 1807, 16384),  # group 2 step of the 7B main path
@@ -473,12 +694,36 @@ def main():
     ])
     ok = all(r["ok"] for r in flash_rows + vision_rows)
 
-    lvu, main_ok, launches = run_main_path(dev)
+    fused_rows = check_fused(dev, [14400, 250])
+    ok &= all(r["ok"] for r in fused_rows)
+
+    lvu, main_ok, launches, logits_bf16 = run_main_path(dev)
     ok &= main_ok
     ok &= run_video_file(lvu)
     del lvu
     torch.cuda.empty_cache()
+    lvu, main_ok, launches_int8, logits_int8 = run_main_path(dev, "int8")
+    ok &= main_ok
+    del lvu
+    torch.cuda.empty_cache()
+    rel = ((logits_int8 - logits_bf16).norm() / logits_bf16.norm()).item()
+    log(f"7B final-prefill logits, int8 vs bf16 weights of one seed: rel L2 "
+        f"{rel:.3e} (printed, not asserted); argmax int8 "
+        f"{int(logits_int8.argmax())} bf16 {int(logits_bf16.argmax())}")
     ok &= run_card_vs_cpu(dev)
+
+    def fused_entry(name, label, line, key):
+        rows = [r for r in fused_rows if r["name"] == label]
+        return {
+            "name": name,
+            "route": "cuda",
+            "source": "quickvideo_tpu_torch/csrc/fused_vision_mlp.cu",
+            "replaces": f"quickvideo_tpu/ops/fused_vision_mlp.py:{line}",
+            "launches": launches[key] + launches_int8[key],
+            "max_abs_err": max(r["err"] for r in rows),
+            "ms": rows[0]["ms"],
+            "plain_ms": rows[0]["plain_ms"],
+        }
 
     kernels = [
         {
@@ -486,7 +731,7 @@ def main():
             "route": "cuda",
             "source": "quickvideo_tpu_torch/csrc/flash_attention.cu",
             "replaces": "quickvideo_tpu/ops/flash_attention.py:38",
-            "launches": launches["flash"],
+            "launches": launches["flash"] + launches_int8["flash"],
             "max_abs_err": max(r["err"] for r in flash_rows),
             "ms": flash_rows[0]["ms"],
             "plain_ms": flash_rows[0]["plain_ms"],
@@ -496,11 +741,16 @@ def main():
             "route": "cuda",
             "source": "quickvideo_tpu_torch/csrc/vision_attention.cu",
             "replaces": "quickvideo_tpu/ops/vision_attention.py:140",
-            "launches": launches["vision"],
+            "launches": launches["vision"] + launches_int8["vision"],
             "max_abs_err": max(r["err"] for r in vision_rows),
             "ms": vision_rows[0]["ms"],
             "plain_ms": vision_rows[0]["plain_ms"],
         },
+        fused_entry("ln_gemm_bias (B3)", "B3", 272, "ln_gemm"),
+        fused_entry("ln_dual_gemm_silu_quant (B4)", "B4", 162, "ln_mlp"),
+        # B6 has no caller on the main path (nor in the JAX package, but
+        # its module's probe): 0 launches there, checked in phase 2
+        fused_entry("dual_gemm_silu_quant (B6)", "B6", 126, "mlp_pre"),
     ]
     if not ok:
         log("chip_smoke: FAILED (see the lines marked FAIL)")

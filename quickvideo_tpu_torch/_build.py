@@ -1,7 +1,8 @@
 """Build the package's CUDA kernels at first use and bind them with ctypes.
 
-Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`) into ONE
-shared library with a plain C interface, then loaded with `ctypes`. No
+Every `csrc/*.cu` file is compiled by `nvcc` for Hopper (`sm_90a`), one
+`nvcc` process per source, all started together; the objects are linked
+into ONE shared library with a plain C interface, loaded with `ctypes`. No
 PyTorch headers are included, so a cold build takes seconds, not the minutes
 that `torch.utils.cpp_extension.load` needs.
 
@@ -29,7 +30,7 @@ SRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
 _P = ctypes.c_void_p
@@ -50,6 +51,12 @@ SIGNATURES = {
     "qv_vision_attention": (
         [_P] * 6 + [_L] * 5 + [_I] * 3 + [_F, _P]
     ),
+    # x, ln_w, w, sc, b, xq, xs, out; s, c, n; eps; stream
+    "qv_ln_gemm_bias": [_P] * 8 + [_I] * 3 + [_F, _P],
+    # x, ln_w, w, sc, b, xq, xs, mid, amax, q, s; rows, c, np; eps; stream
+    "qv_ln_dual_gemm_silu_quant": [_P] * 11 + [_I] * 3 + [_F, _P],
+    # xq, xs, w, sc, b, mid, amax, q, s; rows, c, np; stream
+    "qv_dual_gemm_silu_quant": [_P] * 9 + [_I] * 3 + [_P],
 }
 
 _lock = threading.Lock()
@@ -83,30 +90,47 @@ def source_hash() -> str:
 
 def build(verbose: bool = False) -> Path:
     """Compile csrc/*.cu into the build directory (skipped when the library
-    for this source hash exists). Returns the library path. Raises on any
-    compiler error, with the compiler's output in the message."""
+    for this source hash exists): one nvcc per source in parallel, then one
+    link. Returns the library path. Raises on any compiler error, with the
+    compiler's output in the message."""
     out = BUILD_DIR / f"libqv_kernels_{source_hash()}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(SRC_DIR.glob("*.cu"))]
-    # compile to a temporary name, then rename: a concurrent or interrupted
-    # build never leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(SRC_DIR), "-o", tmp, *cu]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
-    if verbose and (proc.stdout or proc.stderr):
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for cu in sorted(SRC_DIR.glob("*.cu")):
+            obj = os.path.join(tmp, cu.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(SRC_DIR), "-c", "-o", obj,
+                   str(cu)]
+            if verbose:
+                cmd.insert(1, "-Xptxas=-v")
+            procs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True,
+            )))
+        logs = [(cmd, proc.communicate()[0], proc.returncode)
+                for cmd, _, proc in procs]
+        for cmd, log, rc in logs:
+            if rc != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{log}"
+                )
+            if verbose and log:
+                print(log)
+        # link under a temporary name, then rename: a concurrent or
+        # interrupted build never leaves a half-written library in place
+        lib = os.path.join(tmp, out.name)
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib,
+               *[obj for _, obj, _ in procs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                f"{proc.stdout}\n{proc.stderr}"
+            )
+        os.replace(lib, out)
     return out
 
 

@@ -5,7 +5,12 @@ the parameters on the device, the engine, and binds the registered engine's
 run/chat drivers. A bare preset name (qwen25-vl-3b / -7b / -72b, tiny) gives
 deterministic random weights at the preset's shapes, made on the device from
 `config.seed`; a name with a "/" must be a local checkpoint directory, and
-loading one is not ported yet.
+loading one is not ported yet. `config.param_dtype="int8"` quantizes the
+weights (random ones as they are drawn, passed-in float ones in place).
+
+The device is CUDA unless `device` says otherwise: without a card `LVU`
+raises instead of running on the CPU. `device="cpu"` runs the kernels'
+plain versions.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from quickvideo_tpu_torch.models import (
     lvu_run_model_map,
 )
 from quickvideo_tpu_torch.models.qwen25_vl.convert import init_params
+from quickvideo_tpu_torch.ops.quantization import quantize_model_params
 from quickvideo_tpu_torch.prefill.engine import LVUEngine, check_slice
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -41,15 +47,18 @@ class LVU:
         check_slice(config)
         ensure_builtin_engines()
         self.config = config
-        self.device = torch.device(
-            device if device is not None
-            else ("cuda" if torch.cuda.is_available() else "cpu")
-        )
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "LVU runs on a CUDA device and none is available; pass "
+                "device='cpu' to run the kernels' plain versions on the CPU"
+            )
+        int8 = config.param_dtype == "int8"
         name = config.model_name_or_path or "qwen25-vl-7b"
         self.model_config = get_config(name)
         dtype = DTYPES[config.dtype]
         if params is not None:
-            self.params = params
+            self.params = quantize_model_params(params) if int8 else params
         elif os.path.isdir(config.model_name_or_path or ""):
             raise NotImplementedError(
                 "loading a safetensors checkpoint is not ported yet"
@@ -68,7 +77,8 @@ class LVU:
                 name, self.model_config.name, self.device,
             )
             self.params = init_params(
-                self.model_config, config.seed, dtype, self.device
+                self.model_config, config.seed, dtype, self.device,
+                param_dtype=config.param_dtype,
             )
         self.tokenizer = load_tokenizer(
             config.model_name_or_path or "", self.model_config
@@ -76,6 +86,7 @@ class LVU:
         self.engine = LVUEngine(
             self.params, self.model_config, config, dtype, self.device
         )
+        self.params = self.engine.params  # with the engine's weight prep
         self.last_result = None
         self.init_lvu()
 

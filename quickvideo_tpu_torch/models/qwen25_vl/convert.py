@@ -12,8 +12,10 @@ the stacked per-layer leaves become per-layer lists:
                             "bg", "wu", "bu", "wd", "bd"}, ...]}}
 
 Matrices keep the JAX (in, out) layout and the port applies them as
-`x @ w`, so no leaf is transposed. Loading a safetensors checkpoint is not
-ported yet.
+`x @ w`, so no leaf is transposed. With int8 weights a matrix is a
+{"q8", "sc"} dict (ops/quantization.py): q8 keeps the (in, out) shape as a
+view of a row-major (out, in) tensor, the layout the int8 products read.
+Loading a safetensors checkpoint is not ported yet.
 """
 
 from __future__ import annotations
@@ -24,6 +26,11 @@ import numpy as np
 import torch
 
 from quickvideo_tpu.models.qwen25_vl.config import ModelConfig
+from quickvideo_tpu_torch.ops.quantization import (
+    col_major,
+    is_quantized,
+    quantize_weight,
+)
 
 
 def _to(a, device, dtype) -> torch.Tensor:
@@ -35,10 +42,25 @@ def _to(a, device, dtype) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
+def _leaf(a, device, dtype, i=None, row_scales=False):
+    """One leaf (layer `i` of a stacked one); a quantized {"q8", "sc"} leaf
+    keeps its int8 codes and f32 scales whatever `dtype` says."""
+    if not is_quantized(a):
+        return _to(a if i is None else a[i], device, dtype)
+    q8, sc = (np.asarray(a[k]) if i is None else np.asarray(a[k])[i]
+              for k in ("q8", "sc"))
+    q8 = torch.from_numpy(np.ascontiguousarray(q8))
+    return {
+        "q8": (q8 if row_scales else col_major(q8)).to(device),
+        "sc": torch.from_numpy(np.asarray(sc, np.float32)).to(device),
+    }
+
+
 def _unstack(stacked: dict, device, dtype) -> list:
-    n = len(next(iter(stacked.values())))
+    first = next(iter(stacked.values()))
+    n = len(first["q8"] if is_quantized(first) else first)
     return [
-        {name: _to(leaf[i], device, dtype) for name, leaf in stacked.items()}
+        {name: _leaf(leaf, device, dtype, i) for name, leaf in stacked.items()}
         for i in range(n)
     ]
 
@@ -46,23 +68,24 @@ def _unstack(stacked: dict, device, dtype) -> list:
 def params_from_jax(tree: dict, device="cpu", dtype=None) -> dict:
     """Map the JAX parameter tree (leaves as numpy arrays, e.g.
     `jax.tree.map(np.asarray, params)`) onto the port's state. `dtype`
-    None keeps each leaf's dtype."""
+    None keeps each leaf's dtype. Quantized leaves (the JAX package's
+    quantize_model_params) stay quantized."""
     out = {}
     if "language" in tree:
         lang = tree["language"]
         out["language"] = {
-            "embed": _to(lang["embed"], device, dtype),
+            "embed": _leaf(lang["embed"], device, dtype, row_scales=True),
             "norm": _to(lang["norm"], device, dtype),
-            "lm_head": _to(lang["lm_head"], device, dtype),
+            "lm_head": _leaf(lang["lm_head"], device, dtype),
             "layers": _unstack(lang["layers"], device, dtype),
         }
     if "vision" in tree:
         vis = tree["vision"]
         out["vision"] = {
-            "patch_embed": _to(vis["patch_embed"], device, dtype),
+            "patch_embed": _leaf(vis["patch_embed"], device, dtype),
             "blocks": _unstack(vis["blocks"], device, dtype),
             "merger": {
-                k: _to(v, device, dtype) for k, v in vis["merger"].items()
+                k: _leaf(v, device, dtype) for k, v in vis["merger"].items()
             },
         }
     return out
@@ -73,18 +96,26 @@ def init_params(
     seed: int = 0,
     dtype=torch.bfloat16,
     device="cpu",
+    param_dtype: Optional[str] = None,
 ) -> dict:
     """Seeded random weights at the config's full shapes, generated ON
     `device` (the 7B's ~16.6 GB of bf16 never passes through the host).
     Same scheme as the JAX package's init: N(0, 0.02) matrices, unit norm
-    weights, zero biases. The numbers differ from jax.random's."""
+    weights, zero biases. The numbers differ from jax.random's.
+
+    param_dtype="int8": each matrix is quantized as soon as it is drawn
+    (the embedding per row), so the float tree never exists whole. The
+    generator runs the same sequence, so the int8 and float trees of one
+    seed hold the same weights up to quantization."""
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    int8 = param_dtype == "int8"
 
-    def nrm(*shape):
+    def nrm(*shape, contract_axis=-2):
         w = torch.empty(shape, dtype=torch.float32, device=device)
         w.normal_(0.0, 0.02, generator=gen)
-        return w.to(dtype)
+        w = w.to(dtype)
+        return quantize_weight(w, contract_axis) if int8 else w
 
     def ones(n):
         return torch.ones(n, dtype=dtype, device=device)
@@ -96,7 +127,7 @@ def init_params(
     c, hd = t.hidden_size, t.head_dim
     hq, hkv = t.num_attention_heads * hd, t.num_key_value_heads * hd
     language = {
-        "embed": nrm(t.vocab_size, c),
+        "embed": nrm(t.vocab_size, c, contract_axis=-1),
         "layers": [
             {
                 "ln1": ones(c), "ln2": ones(c),
@@ -139,7 +170,10 @@ def init_params(
 
 
 def params_to(params: dict, device=None, dtype: Optional[torch.dtype] = None):
-    """Copy of a state dict with every tensor moved/cast."""
+    """Copy of a state dict with every tensor moved/cast. Quantized leaves
+    are only moved (their layout is kept)."""
+    if is_quantized(params):
+        return {k: v.to(device=device) for k, v in params.items()}
     if isinstance(params, dict):
         return {k: params_to(v, device, dtype) for k, v in params.items()}
     if isinstance(params, list):

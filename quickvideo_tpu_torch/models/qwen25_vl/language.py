@@ -12,6 +12,12 @@ plain version on CPU), o-project, select-and-compact the group's keys, and
 overwrite the raw span with the compact one. The query-based mode, cascade,
 decay schedules, attention-statistics predictors, context parallelism and
 tensor parallelism are not ported in this slice.
+
+Every matrix product goes through ops/quantization.py, so a layer runs bf16
+or int8 weights alike (the JAX package's qdot / qdot_multi / qtake call
+sites). `min_rows` is the act-quant row gate: None is the default gate
+(decode steps of one row stay weight-only), 0 acts for the final prefill,
+which the JAX package runs as a padded bucket of at least 32 rows.
 """
 
 from __future__ import annotations
@@ -26,6 +32,12 @@ from quickvideo_tpu_torch.models.qwen25_vl.rope import apply_rotary
 from quickvideo_tpu_torch.ops import kv_cache as kv
 from quickvideo_tpu_torch.ops import prune as prune_ops
 from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
+from quickvideo_tpu_torch.ops.quantization import (
+    linear,
+    linear_multi,
+    qdot,
+    qtake,
+)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -34,32 +46,37 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
-def swiglu_mlp(x: torch.Tensor, lp: dict) -> torch.Tensor:
-    g = x @ lp["wg"]
-    u = x @ lp["wu"]
-    return (F.silu(g) * u) @ lp["wd"]
+def swiglu_mlp(x: torch.Tensor, lp: dict,
+               min_rows: Optional[int] = None) -> torch.Tensor:
+    g, u = linear_multi(x, (lp["wg"], lp["wu"]), min_rows=min_rows)
+    return linear(F.silu(g) * u, lp["wd"], min_rows=min_rows)
 
 
-def _project_qkv(lp: dict, h: torch.Tensor, cfg: TextConfig):
+def _project_qkv(lp: dict, h: torch.Tensor, cfg: TextConfig,
+                 min_rows: Optional[int] = None):
     """(L, C) -> q (Hq, L, D), k/v (Hkv, L, D), as strided views."""
     l = h.shape[0]
     hd = cfg.head_dim
-    q = (h @ lp["wq"] + lp["bq"]).view(l, cfg.num_attention_heads, hd)
-    k = (h @ lp["wk"] + lp["bk"]).view(l, cfg.num_key_value_heads, hd)
-    v = (h @ lp["wv"] + lp["bv"]).view(l, cfg.num_key_value_heads, hd)
+    q, k, v = linear_multi(
+        h, (lp["wq"], lp["wk"], lp["wv"]), min_rows=min_rows
+    )
+    q = (q + lp["bq"]).view(l, cfg.num_attention_heads, hd)
+    k = (k + lp["bk"]).view(l, cfg.num_key_value_heads, hd)
+    v = (v + lp["bv"]).view(l, cfg.num_key_value_heads, hd)
     return q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1)
 
 
 def embed_tokens(params: dict, token_ids: torch.Tensor) -> torch.Tensor:
-    return params["embed"].index_select(0, token_ids)
+    return qtake(params["embed"], token_ids, params["norm"].dtype)
 
 
 def compute_logits(
     params: dict, hidden: torch.Tensor, cfg: TextConfig
 ) -> torch.Tensor:
-    """(C,) or (L, C) -> logits in f32."""
+    """(C,) or (L, C) -> logits in f32 (the product is not rounded to the
+    model dtype first, as in the JAX package)."""
     h = rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
-    return (h @ params["lm_head"]).float()
+    return qdot(h, params["lm_head"])
 
 
 def layer_step(
@@ -72,13 +89,14 @@ def layer_step(
     cfg: TextConfig,
     keep_k: int = 0,  # retained tokens of this group (0 = keep all)
     predict_type: str = "key_norms_small",
+    min_rows: Optional[int] = None,  # act-quant row gate (module docstring)
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One decoder layer over the current group. Writes the group's K/V (or
     its compact) into layer `li` of the cache at `cache.lengths[li]`; the
     caller advances the length. Returns (x_out, retained indices | None)."""
     length = cache.lengths[li]
     h = rms_norm(x, lp["ln1"], cfg.rms_norm_eps)
-    q, k, v = _project_qkv(lp, h, cfg)
+    q, k, v = _project_qkv(lp, h, cfg, min_rows)
     q, k = apply_rotary(q, k, cos, sin)
     # raw group at [length, length + G); attention over [0, length + i]
     kv.stacked_append(cache, li, length, k, v)
@@ -87,7 +105,7 @@ def layer_step(
     )
     g = x.shape[0]
     attn = out.transpose(0, 1).reshape(g, cfg.num_attention_heads * cfg.head_dim)
-    x = x + attn @ lp["wo"]
+    x = x + linear(attn, lp["wo"], min_rows=min_rows)
     indices = None
     if keep_k > 0:
         res = prune_ops.select_and_compact(predict_type, keep_k, k, v)
@@ -95,7 +113,7 @@ def layer_step(
         # stays past the valid length, never attended
         kv.stacked_append(cache, li, length, res.k_keep, res.v_keep)
         indices = res.indices
-    x = x + swiglu_mlp(rms_norm(x, lp["ln2"], cfg.rms_norm_eps), lp)
+    x = x + swiglu_mlp(rms_norm(x, lp["ln2"], cfg.rms_norm_eps), lp, min_rows)
     return x, indices
 
 
@@ -108,6 +126,7 @@ def prefill_step(
     cfg: TextConfig,
     keep_k: int = 0,
     predict_type: str = "key_norms_small",
+    min_rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, List[Optional[torch.Tensor]]]:
     """One group through all layers. Advances every layer's cache length by
     keep_k (or G when keep_k == 0). Returns (final hidden states (G, C),
@@ -116,7 +135,7 @@ def prefill_step(
     indices = []
     for li, lp in enumerate(params["layers"]):
         x, idx = layer_step(
-            lp, x, cos, sin, cache, li, cfg, keep_k, predict_type
+            lp, x, cos, sin, cache, li, cfg, keep_k, predict_type, min_rows
         )
         cache.lengths[li] += append_n
         indices.append(idx)

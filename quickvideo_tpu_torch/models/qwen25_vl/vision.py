@@ -9,9 +9,13 @@ and merges. Every block's attention is kernel B2
 (ops/vision_attention.py): one call per window-size bucket in window
 blocks, one call over the frame-grouped rows in full-attention blocks.
 
-Weights keep the JAX layout (in, out) and are applied as `x @ w`. int8
-weights (and the fused int8 kernels B3/B4) are not ported in this slice;
-neither is the on-device Lanczos resize.
+Weights keep the JAX layout (in, out) and are applied as `x @ w`. With
+int8 weights (ops/quantization.py) a block runs kernel B3 for ln1 + QKV and
+kernel B4 for ln2 + gate/up + SwiGLU (ops/fused_vision_mlp.py, after the
+one-time `fuse_vision_mlp_weights` prep), and every other matrix product
+(patch embed, attention output, down projection, merger) is an act-quantized
+int8 product, as the JAX package's code does on its kernel backend. The
+on-device Lanczos resize is not ported.
 """
 
 from __future__ import annotations
@@ -25,6 +29,16 @@ import torch.nn.functional as F
 
 from quickvideo_tpu.models.qwen25_vl.config import VisionConfig
 from quickvideo_tpu.video.preprocess import patch_norm_scale_bias
+from quickvideo_tpu_torch.ops.fused_vision_mlp import (
+    ln_dual_gemm_silu_quant,
+    ln_gemm_bias,
+)
+from quickvideo_tpu_torch.ops.quantization import (
+    is_quantized,
+    linear,
+    qdot,
+    qdot_pre,
+)
 from quickvideo_tpu_torch.ops.vision_attention import block_diag_attention
 
 
@@ -171,7 +185,18 @@ def _rms_norm(x, w, eps):
 
 
 def _vision_mlp(bp: dict, x: torch.Tensor, cfg: VisionConfig) -> torch.Tensor:
-    """ln2 + gated MLP (bf16 weights; the int8 fused path is kernel B4's)."""
+    """ln2 + gated MLP. int8: kernel B4 (ln2, gate/up, silu * mul, per-row
+    requantize), then the down projection from its int8 output."""
+    if "wgu_p" in bp:
+        mq8, ms = ln_dual_gemm_silu_quant(
+            x, bp["ln2"], bp["wgu_p"], bp["bgu_p"], cfg.rms_norm_eps
+        )
+        return x + (qdot_pre(mq8, ms, bp["wd_p"]).to(x.dtype) + bp["bd"])
+    if is_quantized(bp["wg"]):
+        raise ValueError(
+            "an int8 vision tower needs its one-time MLP weight prep: "
+            "ops.fused_vision_mlp.fuse_vision_mlp_weights"
+        )
     h2 = _rms_norm(x, bp["ln2"], cfg.rms_norm_eps)
     g = h2 @ bp["wg"] + bp["bg"]
     u = h2 @ bp["wu"] + bp["bu"]
@@ -190,8 +215,14 @@ def vision_block(
     s_len, c = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
     scale = hd ** -0.5
-    h = _rms_norm(x, bp["ln1"], cfg.rms_norm_eps)
-    qkv = h @ bp["wqkv"] + bp["bqkv"]  # (S, 3C)
+    if is_quantized(bp["wqkv"]):
+        # kernel B3: ln1 + per-row int8 + GEMM + bias, always bf16 out
+        qkv = ln_gemm_bias(
+            x, bp["ln1"], bp["wqkv"], bp["bqkv"], cfg.rms_norm_eps
+        )
+    else:
+        h = _rms_norm(x, bp["ln1"], cfg.rms_norm_eps)
+        qkv = h @ bp["wqkv"] + bp["bqkv"]  # (S, 3C)
     # strided views of the fused projection: the kernel reads them in place
     q = qkv[:, :c].view(s_len, nh, hd)
     k = qkv[:, c : 2 * c].view(s_len, nh, hd)
@@ -210,13 +241,13 @@ def vision_block(
         out = block_diag_attention(q, k, v, cos, sin, layout.mw, scale)
     else:
         # one call per window-size bucket, each writing its rows in place
-        out = torch.empty(s_len, nh, hd, dtype=x.dtype, device=x.device)
+        out = torch.empty(s_len, nh, hd, dtype=qkv.dtype, device=x.device)
         for span, a, b in layout.buckets:
             block_diag_attention(
                 q[a:b], k[a:b], v[a:b], cos[a:b], sin[a:b], span, scale,
                 out=out[a:b],
             )
-    x = x + out.reshape(s_len, c) @ bp["wo"] + bp["bo"]
+    x = x + (linear(out.reshape(s_len, c), bp["wo"], x.dtype) + bp["bo"])
     return _vision_mlp(bp, x, cfg)
 
 
@@ -287,7 +318,7 @@ def vision_forward(
         pixels = pixels.float() * torch.as_tensor(
             scale, device=pixels.device
         ) + torch.as_tensor(bias, device=pixels.device)
-    x = pixels.to(pdtype) @ params["patch_embed"]
+    x = linear(pixels.to(pdtype), params["patch_embed"])
     x = x[lt["perm"]]
     full = set(cfg.fullatt_block_indexes)
     for bi, bp in enumerate(params["blocks"]):
@@ -297,7 +328,8 @@ def vision_forward(
     mp = params["merger"]
     xm = _rms_norm(x, mp["ln_q"], cfg.rms_norm_eps)
     xm = xm.reshape(-1, cfg.spatial_merge_unit * cfg.hidden_size)
-    h1 = (xm @ mp["w1"]).float() + mp["b1"].float()
+    # f32 product, f32 bias and GELU, as vision.py:709-710 of the JAX package
+    h1 = qdot(xm, mp["w1"]) + mp["b1"].float()
     h1 = F.gelu(h1).to(x.dtype)
-    out = h1 @ mp["w2"] + mp["b2"]
+    out = linear(h1, mp["w2"]) + mp["b2"]
     return out[lt["inv_perm_units"]]

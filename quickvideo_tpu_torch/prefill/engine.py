@@ -11,8 +11,13 @@ same as the JAX package's padded bucket), and decode is a Python loop of
 q = 1 steps. Cache lengths are host ints, so the group loop never waits on
 the device; the first wait is the argmax of the first token.
 
-Not in this slice (each raises NotImplementedError): int8 / int8k KV, int8
-weights, pipeline / context / tensor parallelism, image inputs, sampling,
+int8 weights (`param_dtype="int8"`) run the same path: the engine preps the
+vision MLP weights for kernel B4 once, and the final prefill act-quantizes
+whatever the suffix length (the JAX package's padded bucket always passes
+its row gate).
+
+Not in this slice (each raises NotImplementedError): int8 / int8k KV,
+pipeline / context / tensor parallelism, image inputs, sampling,
 continuation scoring, streamed tokens (`on_tokens`), the query-based, decay
 and cascade pruning modes, predictors other than key_norms_small,
 `do_top_k_for_query`, the on-device resize and the disk frame cache.
@@ -38,6 +43,7 @@ from quickvideo_tpu_torch.models.qwen25_vl.language import (
     prefill_step,
 )
 from quickvideo_tpu_torch.models.qwen25_vl.vision import layout_tensors
+from quickvideo_tpu_torch.ops.fused_vision_mlp import fuse_vision_mlp_weights
 from quickvideo_tpu_torch.ops import kv_cache as kvc
 from quickvideo_tpu_torch.utils.timing import SpanTimer
 
@@ -89,7 +95,6 @@ def check_slice(lvu: LVUConfig) -> None:
         "adaptive_local_attention=False": not lvu.adaptive_local_attention,
         "do_top_k_for_query": lvu.do_top_k_for_query,
         "kv_cache_dtype": lvu.kv_cache_dtype in ("int8", "int8k"),
-        "param_dtype=int8": lvu.param_dtype == "int8",
         "mesh (multi-device)": lvu.mesh.num_devices > 1,
         "resize_on_device": lvu.resize_on_device,
         "save_video_cache": lvu.save_video_cache,
@@ -114,12 +119,19 @@ class LVUEngine:
     ):
         check_slice(lvu_cfg)
         self.params = params
+        if "vision" in params:
+            # one-time weight prep of an int8 tower for kernel B4 (a float
+            # tower comes back as it is)
+            self.params = dict(params)
+            self.params["vision"] = fuse_vision_mlp_weights(
+                params["vision"], model_cfg.vision
+            )
         self.cfg = model_cfg
         self.lvu = lvu_cfg
         self.dtype = dtype
         self.device = torch.device(
             device if device is not None
-            else params["language"]["embed"].device
+            else params["language"]["norm"].device
         )
         self._layouts = {}
 
@@ -305,7 +317,7 @@ class LVUEngine:
             x = embed_tokens(lang, state["ids_t"][ss:L])
             hidden, _ = prefill_step(
                 lang, cache, x, state["cos"][ss:L], state["sin"][ss:L],
-                self.cfg.text,
+                self.cfg.text, min_rows=0,
             )
             logits = compute_logits(lang, hidden[-1], self.cfg.text)
         return logits

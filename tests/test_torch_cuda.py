@@ -12,13 +12,28 @@ computes in f32 and rounds once, the kernel also rounds its softmax weights
 to bf16 before the PV product. Outputs are bf16 (2^-7 relative spacing), so
 one rounding step apart plus the rounded weights stay within 1e-2 + 1e-2 *
 |plain|.
+
+B3/B4/B6 (int8): quickvideo_tpu_torch/testing.py states the rule, shared
+with chip_smoke.py.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from quickvideo_tpu_torch.ops import fused_vision_mlp as fm
 from quickvideo_tpu_torch.ops.attention import unified_causal_attention
+from quickvideo_tpu_torch.ops.quantization import (
+    int_mm,
+    qdot,
+    quantize_act,
+    quantize_weight,
+)
+from quickvideo_tpu_torch.testing import (
+    bf16_rows_close,
+    fused_block,
+    quantized_close,
+)
 from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
 from quickvideo_tpu_torch.ops.vision_attention import (
     block_diag_attention,
@@ -108,6 +123,102 @@ def test_vision_wrapper_rejects_what_the_kernel_does_not_take(dev):
     xb = torch.zeros(64, 2, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         block_diag_attention(xb, xb, xb, cs[:, :64], cs[:, :64], 64, 1.0)
+
+
+def assert_quantized_close(got, ref):
+    _, ok, why = quantized_close(got, ref)
+    assert ok, why
+
+
+@pytest.mark.parametrize(
+    "s,c,n,inter",
+    [(14400, 1280, 3840, 3420), (250, 1280, 3840, 3420), (90, 1280, 3840, 3420),
+     (100, 160, 480, 256)],
+)
+def test_fused_kernels_match_plain(dev, s, c, n, inter):
+    bp = fused_block(dev, c, n, inter, s)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(s, c, generator=gen, device=dev).bfloat16()
+    x[3] = 0  # variance 0: the row's codes are all zero
+    eps = 1e-6
+    before = (fm.ln_gemm_bias.launches, fm.ln_dual_gemm_silu_quant.launches,
+              fm.dual_gemm_silu_quant.launches)
+    got = fm.ln_gemm_bias(x, bp["ln"], bp["wqkv"], bp["bqkv"], eps)
+    ref = fm.ln_gemm_bias_plain(x, bp["ln"], bp["wqkv"], bp["bqkv"], eps)
+    _, ok, why = bf16_rows_close(got, ref)
+    assert ok, why
+    assert torch.equal(got[3], bp["bqkv"].bfloat16())
+    got4 = fm.ln_dual_gemm_silu_quant(x, bp["ln"], bp["wgu_p"], bp["bgu_p"], eps)
+    ref4 = fm.ln_dual_gemm_silu_quant_plain(
+        x, bp["ln"], bp["wgu_p"], bp["bgu_p"], eps
+    )
+    assert_quantized_close(got4, ref4)
+    assert not got4[0][:, inter : got4[0].shape[1]].any()  # pad columns
+    xq, xs = quantize_act(x.float())
+    got6 = fm.dual_gemm_silu_quant(xq, xs, bp["wgu_p"], bp["bgu_p"])
+    ref6 = fm.dual_gemm_silu_quant_plain(xq, xs, bp["wgu_p"], bp["bgu_p"])
+    assert_quantized_close(got6, ref6)
+    after = (fm.ln_gemm_bias.launches, fm.ln_dual_gemm_silu_quant.launches,
+             fm.dual_gemm_silu_quant.launches)
+    assert after == tuple(b + 1 for b in before)
+
+
+def test_fused_wrappers_count_no_launch_on_empty_input(dev):
+    """S = 0 launches no kernel, so it adds nothing to the counts."""
+    bp = fused_block(dev, 160, 480, 256, 1)
+    x = torch.zeros(0, 160, device=dev, dtype=torch.bfloat16)
+    xq, xs = quantize_act(x)
+    counters = (fm.ln_gemm_bias, fm.ln_dual_gemm_silu_quant,
+                fm.dual_gemm_silu_quant)
+    before = tuple(f.launches for f in counters)
+    out = fm.ln_gemm_bias(x, bp["ln"], bp["wqkv"], bp["bqkv"], 1e-6)
+    q4, s4 = fm.ln_dual_gemm_silu_quant(x, bp["ln"], bp["wgu_p"],
+                                        bp["bgu_p"], 1e-6)
+    q6, s6 = fm.dual_gemm_silu_quant(xq, xs, bp["wgu_p"], bp["bgu_p"])
+    assert out.shape == (0, 480)
+    assert q4.shape == q6.shape == (0, 256) and s4.shape == s6.shape == (0, 1)
+    assert tuple(f.launches for f in counters) == before
+
+
+def test_fused_wrappers_reject_what_the_kernels_do_not_take(dev):
+    bp = fused_block(dev, 160, 480, 256, 0)
+    x = torch.zeros(64, 160, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):  # f32 rows
+        fm.ln_gemm_bias(x.float(), bp["ln"], bp["wqkv"], bp["bqkv"], 1e-6)
+    wide = torch.zeros(64, 161, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # rows not 16-byte aligned / contiguous
+        fm.ln_gemm_bias(wide[:, 1:], bp["ln"], bp["wqkv"], bp["bqkv"], 1e-6)
+    row_major = {"q8": bp["wqkv"]["q8"].contiguous(), "sc": bp["wqkv"]["sc"]}
+    with pytest.raises(ValueError):  # weight not in the (out, in) layout
+        fm.ln_gemm_bias(x, bp["ln"], row_major, bp["bqkv"], 1e-6)
+    with pytest.raises(ValueError):  # C not a multiple of 32
+        xs = torch.zeros(64, 48, device=dev, dtype=torch.bfloat16)
+        w = quantize_weight(torch.zeros(48, 64, device=dev))
+        fm.ln_gemm_bias(xs, xs[0], w, torch.zeros(64, device=dev), 1e-6)
+    with pytest.raises(TypeError):  # B6 takes int8 rows
+        fm.dual_gemm_silu_quant(x, torch.ones(64, 1, device=dev),
+                                bp["wgu_p"], bp["bgu_p"])
+    with pytest.raises(ValueError):  # [wg | wu] not padded to 2 x 64k
+        odd = {"q8": bp["wgu_p"]["q8"][:, :448], "sc": bp["wgu_p"]["sc"][:448]}
+        fm.ln_dual_gemm_silu_quant(x, bp["ln"], odd, bp["bgu_p"][:448], 1e-6)
+
+
+@pytest.mark.parametrize("rows", [5, 17, 3600])
+def test_int8_products_on_the_card(dev, rows):
+    """torch._int_mm needs more than 16 rows on CUDA; int_mm pads fewer
+    (the final prefill act-quantizes a suffix of any length). Exact against
+    an int64 product; qdot's act-quant path equals its CPU result."""
+    gen = torch.Generator(device=dev).manual_seed(rows)
+    a = torch.randint(-127, 128, (rows, 3584), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = quantize_weight(torch.randn(3584, 512, generator=gen, device=dev))
+    got = int_mm(a, w["q8"])
+    ref = a.cpu().long() @ w["q8"].cpu().long()
+    assert torch.equal(got.cpu().long(), ref)
+    x = torch.randn(rows, 3584, generator=gen, device=dev).bfloat16()
+    on_card = qdot(x, w, min_rows=0)
+    on_cpu = qdot(x.cpu(), {k: v.cpu() for k, v in w.items()}, min_rows=0)
+    torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-6, atol=1e-6)
 
 
 class _Reader:

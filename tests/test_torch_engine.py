@@ -200,7 +200,7 @@ def test_out_of_slice_requests_raise(params):
         {"do_top_k_for_query": True},
         {"kv_cache_dtype": "int8"},
         {"kv_cache_dtype": "int8k"},
-        {"param_dtype": "int8"},
+        {"top_k_predict_type": "key_norms"},
         {"mesh": {"tp": 2}},
         {"resize_on_device": True},
         {"save_video_cache": True},
@@ -213,3 +213,83 @@ def test_out_of_slice_configs_raise(params, kw):
         LVUEngine(tp, CFG, cfg, torch.float32)
     with pytest.raises(NotImplementedError, match="not ported"):
         TLVU(cfg, params=tp, device="cpu")
+
+
+def _jax_final_prefill_logits(eng, inputs):
+    """The JAX engine's final-prefill logits (its padded-bucket program, as
+    _generate_from_cache runs it)."""
+    from quickvideo_tpu.models.qwen25_vl.language import StepSpec
+
+    cache, st = eng.prefill(inputs)
+    ss, L = st["suffix_start"], st["L"]
+    n = L - ss
+    bucket = max(32, -(-n // 32) * 32)
+    ids_pad = np.zeros(bucket, np.int64)
+    ids_pad[:n] = st["ids"][ss:]
+    spec = StepSpec(cfg=CFG.text, q_len=bucket, keep_k=0,
+                    attn_impl=eng.lvu.attention_impl,
+                    kv_quant=eng._cache_quant(cache), cp_mesh=eng.cp_mesh)
+    _, logits = eng._final_prefill_jit(
+        eng.params["language"], cache, jnp.asarray(ids_pad, jnp.int32),
+        st["cos"][ss : ss + bucket], st["sin"][ss : ss + bucket],
+        np.int32(0), np.int32(n), spec=spec, img=st.get("img_suffix"),
+    )
+    return np.asarray(logits)
+
+
+@pytest.fixture(scope="module")
+def params_int8(params):
+    from quickvideo_tpu.ops import quantization as jq
+
+    jp = jax.tree.map(np.asarray, params[0])
+    # the JAX quantizer donates its input: give it a copy
+    jqp = jax.tree.map(np.asarray, jq.quantize_model_params(
+        jax.tree.map(jnp.array, jp)
+    ))
+    return jqp, params_from_jax(jqp)
+
+
+# final-prefill logits, int8 weights, f32 activations: the vision towers
+# differ by ~1e-2 rel. L2 (tests/test_torch_vision.py), which the language
+# stack carries to the logits. Measured 1.6e-3 / 4.2e-3 (top_p=1, default /
+# lowered gates) and 5.9e-3 / 1.2e-2 (top_p=0.5, where a flipped retained
+# key moves more)
+INT8_LOGITS_REL_L2 = 3e-2
+
+
+@pytest.mark.parametrize("gates", ["default", "lowered"])
+@pytest.mark.parametrize("top_p", [None, 0.5])
+def test_int8_greedy_tokens_identical_to_jax_engine(params_int8, monkeypatch,
+                                                     top_p, gates):
+    """param_dtype="int8": the JAX engine on its kernel route
+    (QV_PALLAS_INTERPRET=1: B3/B4 and the padded-head vision attention in
+    interpret mode) against the port's plain versions. `lowered` sets both
+    packages' act-quant width gate to 16 so that every product acts."""
+    from quickvideo_tpu.ops import quantization as jq
+    from quickvideo_tpu_torch.ops import quantization as tq
+
+    if gates == "lowered":
+        monkeypatch.setattr(jq, "_ACT_MIN_DIM", 16)
+        monkeypatch.setattr(tq, "ACT_MIN_DIM", 16)
+    jqp, tqp = params_int8
+    ids, grid, groups, grids = build_request()
+    lvu = LVUConfig(model_name_or_path="tiny", top_p=top_p,
+                    max_decode_tokens=8, param_dtype="int8")
+    monkeypatch.setenv("QV_PALLAS_INTERPRET", "1")
+    jeng = JEngine(jax.tree.map(jnp.asarray, jqp), CFG, lvu, dtype=jnp.float32)
+    ref = jeng.generate(JInputs(ids, grid, groups, grids, 2.0),
+                        max_new_tokens=6)
+    ref_logits = _jax_final_prefill_logits(
+        jeng, JInputs(ids, grid, groups, grids, 2.0)
+    )
+    monkeypatch.delenv("QV_PALLAS_INTERPRET")
+    eng = LVUEngine(tqp, CFG, lvu, dtype=torch.float32)
+    got = eng.generate(PrefillInputs(ids, grid, groups, grids, 2.0),
+                       max_new_tokens=6)
+    np.testing.assert_array_equal(got.tokens, ref.tokens)
+    assert got.cache_length == ref.cache_length
+    cache, st = eng.prefill(PrefillInputs(ids, grid, groups, grids, 2.0))
+    logits = eng.final_prefill(cache, st).numpy()
+    rel = np.linalg.norm(logits - ref_logits) / np.linalg.norm(ref_logits)
+    assert rel <= INT8_LOGITS_REL_L2, rel
+    assert int(logits.argmax()) == int(ref_logits.argmax())

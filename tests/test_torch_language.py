@@ -122,3 +122,121 @@ def test_cache_append_past_capacity_raises():
     c = tkv.init_cache(1, 2, 16, 4, dtype=torch.float32)
     with pytest.raises(ValueError, match="overflows"):
         tkv.stacked_append(c, 0, 10, torch.zeros(2, 7, 4), torch.zeros(2, 7, 4))
+
+
+@pytest.fixture(scope="module")
+def params_int8():
+    from quickvideo_tpu.ops import quantization as jq
+
+    jp = jax.tree.map(
+        np.asarray, jmodel.init_params(CFG, seed=0, dtype=jnp.float32)
+    )["language"]
+    # the JAX quantizer donates its input: give it a copy
+    jqp = jax.tree.map(np.asarray, jq.quantize_language_params(
+        jax.tree.map(jnp.array, jp)
+    ))
+    return jax.tree.map(jnp.asarray, jqp), params_from_jax(
+        {"language": jqp}
+    )["language"]
+
+
+# int8 weights with act-quant on every product. The int32 products are
+# exact and the codes come out identical, so only f32 sums differ (measured
+# 1.5e-7 of the hidden states' scale, 2.7e-7 of the logits'); one flipped
+# code would show as ~1e-4
+INT8_ATOL = 1e-5
+
+
+def _lower_gates(monkeypatch):
+    from quickvideo_tpu.ops import quantization as jq
+    from quickvideo_tpu_torch.ops import quantization as tq
+
+    monkeypatch.setattr(jq, "_ACT_MIN_DIM", 16)
+    monkeypatch.setattr(tq, "ACT_MIN_DIM", 16)
+
+
+def test_int8_prefill_and_decode_steps_match_jax(params_int8, monkeypatch):
+    """int8 weights, both packages' _ACT_MIN_DIM lowered so that every
+    product of the tiny stack is act-quantized: prefill_step hidden states
+    and the weight-only decode logits."""
+    _lower_gates(monkeypatch)
+    jp, tp = params_int8
+    rng = np.random.default_rng(2)
+    g, cap = 40, 256
+    pos = np.stack([np.arange(g + 1)] * 3)
+    cos_t, sin_t = mrope_cos_sin(pos, T.head_dim, T.mrope_section, T.rope_theta, "cpu")
+    cos_j, sin_j = jnp.asarray(cos_t.numpy()), jnp.asarray(sin_t.numpy())
+    ids = rng.integers(0, T.vocab_size, g)
+    xj = jlang.embed_tokens(jp, jnp.asarray(ids))
+    xt = tlang.embed_tokens(tp, torch.from_numpy(ids))
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=1e-6)
+
+    jc = jkv.init_cache(T.num_hidden_layers, T.num_key_value_heads, cap,
+                        T.head_dim, dtype=jnp.float32)
+    spec = jlang.StepSpec(cfg=T, q_len=g, keep_k=0)
+    jc, hj = jlang.prefill_step(jp, jc, xj, cos_j[:g], sin_j[:g],
+                                jax.random.key(0), spec)
+    tc = tkv.init_cache(T.num_hidden_layers, T.num_key_value_heads, cap,
+                        T.head_dim, dtype=torch.float32)
+    ht, _ = tlang.prefill_step(tp, tc, xt, cos_t[:g], sin_t[:g], T)
+    hj = np.asarray(hj)
+    np.testing.assert_allclose(ht.numpy(), hj, atol=INT8_ATOL * np.abs(hj).max())
+
+    dspec = dataclasses.replace(spec, q_len=1)
+    jc, lj = jlang.decode_step(jp, jc, jnp.int32(17), cos_j[g:], sin_j[g:], dspec)
+    lt = tlang.decode_step(tp, tc, torch.tensor([17]), cos_t[g:], sin_t[g:], T)
+    lj = np.asarray(lj)
+    np.testing.assert_allclose(lt.numpy(), lj, atol=INT8_ATOL * np.abs(lj).max())
+
+
+def test_int8_final_prefill_rows_act_like_the_padded_bucket(params_int8,
+                                                            monkeypatch):
+    """A 5-row suffix: the JAX package runs it as a 32-row bucket, whose
+    products pass the 16-row gate; the port's exact-length final prefill
+    (min_rows=0) must act-quantize the same, and by default (decode-sized
+    rows) it would not."""
+    _lower_gates(monkeypatch)
+    jp, tp = params_int8
+    rng = np.random.default_rng(3)
+    n, bucket, cap = 5, 32, 64
+    pos = np.stack([np.arange(bucket)] * 3)
+    cos_t, sin_t = mrope_cos_sin(pos, T.head_dim, T.mrope_section, T.rope_theta, "cpu")
+    x0 = rng.standard_normal((bucket, T.hidden_size)).astype(np.float32)
+    jc = jkv.init_cache(T.num_hidden_layers, T.num_key_value_heads, cap,
+                        T.head_dim, dtype=jnp.float32)
+    spec = jlang.StepSpec(cfg=T, q_len=bucket, keep_k=0)
+    _, hj = jlang.prefill_step(
+        jp, jc, jnp.asarray(x0), jnp.asarray(cos_t.numpy()),
+        jnp.asarray(sin_t.numpy()), jax.random.key(0), spec,
+    )
+    hj = np.asarray(hj)[:n]  # causal: the pad rows do not reach these
+
+    def port(min_rows):
+        tc = tkv.init_cache(T.num_hidden_layers, T.num_key_value_heads, cap,
+                            T.head_dim, dtype=torch.float32)
+        h, _ = tlang.prefill_step(tp, tc, torch.from_numpy(x0[:n]),
+                                  cos_t[:n], sin_t[:n], T, min_rows=min_rows)
+        return h.numpy()
+
+    scale = np.abs(hj).max()
+    # measured: 1.8e-8 with min_rows=0, 1.9e-4 with the default gate
+    assert np.abs(port(0) - hj).max() <= 1e-6 * scale
+    assert np.abs(port(None) - hj).max() > 2e-5 * scale
+
+
+def test_logits_keep_the_f32_product():
+    """bf16 weights: compute_logits returns the f32 accumulator of the head
+    product (the JAX package's qdot), not a bf16-rounded one, which would
+    be off by up to half a bf16 step (~2e-3 of the magnitude)."""
+    gen = torch.Generator().manual_seed(5)
+    p = {
+        "norm": torch.ones(T.hidden_size).bfloat16(),
+        "lm_head": (torch.randn(T.hidden_size, T.vocab_size, generator=gen)
+                    * 0.5).bfloat16(),
+    }
+    h = torch.randn(3, T.hidden_size, generator=gen).bfloat16()
+    got = tlang.compute_logits(p, h, T)
+    hn = tlang.rms_norm(h, p["norm"], T.rms_norm_eps)
+    ref = hn.float() @ p["lm_head"].float()
+    assert got.dtype == torch.float32
+    assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()

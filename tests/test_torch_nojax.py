@@ -36,6 +36,14 @@ res = lvu.engine.generate(
     max_new_tokens=3,
 )
 assert len(res.tokens) == 3, res.tokens
+lvu8 = LVU(LVUConfig(model_name_or_path="tiny", top_p=0.5, dtype="float32",
+                     param_dtype="int8", max_decode_tokens=4), device="cpu")
+res8 = lvu8.engine.generate(
+    PrefillInputs(ids, (2, 16, 16), [frames[:2], frames[2:]],
+                  [(1, 16, 16), (1, 16, 16)], 1.0),
+    max_new_tokens=3,
+)
+assert len(res8.tokens) == 3, res8.tokens
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax", "jaxlib")))
 assert not bad, bad
 print("NOJAX_OK")
