@@ -9,7 +9,9 @@ checkout of the repository. Phases:
 
   1. the card's name and power limit; build of the kernels from csrc/;
   2. each kernel against its plain PyTorch version on the card, at the
-     production head dims and the main path's shapes, with times: B1, B2,
+     production head dims and the main path's shapes, with times: B1 (bf16
+     cache, and its int8-QK variants for the int8 and int8k caches, up to
+     the 1024-frame headline's last group step and hour-scale decode), B2,
      and the int8 vision kernels B3, B4, B6 at the 7B tower's widths;
   3. the main path at the full width and depth of qwen25-vl-7b (bf16
      random weights): three `generate` requests through LVU / LVUEngine on
@@ -21,9 +23,15 @@ checkout of the repository. Phases:
      launch counts, cache lengths, spans, peak memory, and the rel. L2
      between the int8 and bf16 final-prefill logits of one request
      (printed, not asserted);
+  3c. the same three requests with bf16 weights and an int8 KV cache
+     (kv_cache_dtype="int8", then "int8k"): launch counts per B1 variant,
+     cache lengths and dtypes, spans, peak memory, kv_cache_bytes, and the
+     rel. L2 against the bf16-KV logits (printed, not asserted); then one
+     request with int8 weights, kv_cache_dtype="auto" and
+     kv_cache_capacity=131072, which must resolve to an int8 cache;
   4. the same prefill on the card and (plain versions) on the CPU for a
      narrow config with production head dims, with bf16 and with int8
-     weights: final-prefill logits agree.
+     weights, and with an int8 KV cache: final-prefill logits agree.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -31,9 +39,10 @@ error and times; the last line is {"ok": true, "device": {...}}.
     python3 chip_smoke.py --profile
 
 runs phase 1, then one warm 7B request (request 0 of phase 3) with bf16
-and with int8 weights under torch.profiler, and prints the wall time, the
-busy share of the card, the spans, kernel time by kind and the top kernels.
-It prints no result line.
+weights, with int8 weights, and with bf16 weights and an int8 KV cache
+under torch.profiler, and prints the wall time, the busy share of the card,
+the spans, kernel time by kind and the top kernels. It prints no result
+line.
 """
 
 import json
@@ -66,6 +75,12 @@ LOGITS_REL_L2 = 5e-2
 # activations that differ by bf16 rounding, flipping some int8 codes (the
 # CPU's plain versions give 1.9e-2 for bf16 vs f32 activations)
 INT8_LOGITS_REL_L2 = 6e-2
+# the same with an int8 KV cache (bf16 weights): both sides quantize K, V
+# and q at the same rounding points, from activations that differ by bf16
+# rounding, which flips some codes; the CPU's plain versions give 5.3e-3
+# for bf16 vs f32 activations with int8 KV against 5.1e-3 with bf16 KV, so
+# the bf16 tolerance holds
+INT8_KV_LOGITS_REL_L2 = LOGITS_REL_L2
 # B3/B4/B6 kernel vs plain: quickvideo_tpu_torch/testing.py states and
 # applies the rule (FUSED_*)
 
@@ -100,6 +115,27 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_ms(fn, names, reps: int) -> float:
+    """Device time per call of fn of the kernels whose names hold one of
+    `names`, from torch.profiler: the kernels alone, without the host's
+    launch gaps that _time_ms sees when a call is host-bound."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA
+             and any(n in e.name for n in names))
+    return us / 1e3 / reps
 
 
 # -- phase 2: kernels vs plain --------------------------------------------
@@ -153,6 +189,75 @@ def check_flash(dev, cases):
         rows.append(dict(g=g, length=length, err=err, ms=ms,
                          plain_ms=plain_ms, ok=ok))
         del k_all, v_all
+    return rows
+
+
+def check_flash_int8(dev, cases):
+    """B1's int8-QK variants (int8 K and V; int8 K with bf16 V) against
+    their plain version on the same int8 codes, on a 2-layer stacked cache
+    quantized from seeded bf16 rows, layer 1, Hq=28 / Hkv=4 / D=128; and
+    the bf16 kernel's time at the same shape (bf16 cache of the same rows).
+    Both plain versions round the PV operand (p, or p * vs) to bf16 as the
+    kernels do, so B1's bf16 tolerance holds."""
+    import torch
+
+    from quickvideo_tpu_torch.ops.attention import (
+        quantize_q,
+        unified_causal_attention_int8,
+    )
+    from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
+    from quickvideo_tpu_torch.ops.kv_cache import init_cache, stacked_append
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    scale = 128 ** -0.5
+    rows = []
+    for g, length, cap in cases:
+        k = torch.randn(4, cap, 128, generator=gen, device=dev).bfloat16()
+        v = torch.randn(4, cap, 128, generator=gen, device=dev).bfloat16()
+        q = torch.randn(g, 28, 128, generator=gen, device=dev).bfloat16()
+        q = q.transpose(0, 1)
+        def bf16():
+            return flash_past_attention(q, k, v, length, scale)
+
+        bf16_ms = _time_ms(bf16, 10)
+        bf16_dev = _device_ms(bf16, ("flash_fwd_kernel", "flash_merge"), 10)
+        q_ms = _time_ms(lambda: quantize_q(q, scale), 10)
+        row = dict(g=g, length=length, bf16_ms=bf16_ms, q_ms=q_ms, ok=True)
+        for variant, mode in (("int8", True), ("int8k", "k")):
+            cache = init_cache(2, 4, cap, 128, device=dev, quantized=mode)
+            stacked_append(cache, 1, 0, k, v)
+            ks = cache.k_scale[1]
+            vs = None if cache.v_scale is None else cache.v_scale[1]
+
+            def kernel():
+                return flash_past_attention(q, cache.k[1], cache.v[1], length,
+                                            scale, k_scale=ks, v_scale=vs)
+
+            def plain():
+                q8, qs = quantize_q(q, scale)
+                return unified_causal_attention_int8(
+                    q8, qs, cache.k[1], ks, cache.v[1], vs, length,
+                    torch.bfloat16,
+                )
+
+            err, within = _compare(kernel(), plain())
+            ms = _time_ms(kernel, 10)
+            dev_ms = _device_ms(kernel, ("flash_fwd_int8", "flash_merge"), 10)
+            plain_ms = _time_ms(plain, 2)
+            row.update({variant: dict(err=err, ms=ms, plain_ms=plain_ms)})
+            row["ok"] &= within
+            log(f"B1 {variant} G={g} length={length} cap={cap}: "
+                f"max_abs_err={err:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}"
+                f"*|plain|) kernel {ms:.4f} ms (with the q quantize, alone "
+                f"{q_ms:.4f} ms; device time of the B1 kernels "
+                f"{dev_ms:.4f} ms) plain {plain_ms:.4f} ms, bf16 kernel "
+                f"{bf16_ms:.4f} ms (device {bf16_dev:.4f} ms) "
+                f"{'OK' if within else 'FAIL'}")
+            del cache
+        rows.append(row)
+        del k, v, q
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -284,6 +389,26 @@ def expected_cache_length(lvu, inputs, n_tokens) -> int:
     return kept + (len(ids) - int(vid[-1]) - 1) + max(0, n_tokens - 1)
 
 
+def _reset_counters(counters):
+    from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
+
+    for fn in counters.values():
+        fn.launches = 0
+    for variant in flash_past_attention.variant_launches:
+        flash_past_attention.variant_launches[variant] = 0
+
+
+def _read_counters(counters):
+    """Each wrapper's launches, and B1's per variant ("flash_bf16",
+    "flash_int8", "flash_int8k")."""
+    from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
+
+    counts = {k: fn.launches for k, fn in counters.items()}
+    for variant, n in flash_past_attention.variant_launches.items():
+        counts[f"flash_{variant}"] = n
+    return counts
+
+
 def _kernel_counters():
     from quickvideo_tpu_torch.ops import fused_vision_mlp as fm
     from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
@@ -298,9 +423,10 @@ def _kernel_counters():
     }
 
 
-def make_lvu(dev, param_dtype):
+def make_lvu(dev, param_dtype, kv_cache_dtype="auto", kv_cache_capacity=None):
     """LVU for qwen25-vl-7b at full width and depth, random weights from
-    seed 0, as the main path runs it."""
+    seed 0, as the main path runs it ("auto" KV, which resolves to bf16 for
+    the 64-frame requests)."""
     from quickvideo_tpu.config import LVUConfig
     from quickvideo_tpu_torch.api import LVU
 
@@ -315,6 +441,8 @@ def make_lvu(dev, param_dtype):
         decode_output="yuv420",
         dtype="bfloat16",
         param_dtype=param_dtype,
+        kv_cache_dtype=kv_cache_dtype,
+        kv_cache_capacity=kv_cache_capacity,
         seed=0,
     )
     return LVU(cfg, device=dev)
@@ -327,19 +455,24 @@ QUESTIONS = (
 )
 
 
-def run_main_path(dev, param_dtype="bfloat16"):
+def run_main_path(dev, param_dtype="bfloat16", kv_cache_dtype="auto"):
     """Three 7B requests; returns (lvu, ok, launch counts, final-prefill
-    logits of request 0 on the host)."""
+    logits of request 0 on the host). B1 must run the variant of the cache
+    the request resolves to ("auto" -> bf16 here) and no other."""
     import torch
 
     from quickvideo_tpu_torch.models.qwen25_vl.model import layout_for
+    from quickvideo_tpu_torch.prefill.engine import tensor_leaves
 
     tag = "int8" if param_dtype == "int8" else "bf16"
+    variant = {"int8": "int8", "int8k": "int8k"}.get(kv_cache_dtype, "bf16")
+    if variant != "bf16":
+        tag += f" weights, {variant} KV"
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    lvu = make_lvu(dev, param_dtype)
+    lvu = make_lvu(dev, param_dtype, kv_cache_dtype)
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(lvu.params))
+    n_params = sum(t.numel() for t in tensor_leaves(lvu.params))
     log(f"[{tag}] 7B init on the card: {time.perf_counter() - t0:.2f} s, "
         f"{n_params / 1e9:.3f} B parameter values, "
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
@@ -355,8 +488,7 @@ def run_main_path(dev, param_dtype="bfloat16"):
     n_layers = mcfg.text.num_hidden_layers
 
     counters = _kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    _reset_counters(counters)
     results = []
     for i, inputs in enumerate(requests):
         # the last request synchronizes at span edges: its spans partition
@@ -371,10 +503,10 @@ def run_main_path(dev, param_dtype="bfloat16"):
         wall = time.perf_counter() - t0
         results.append((inputs, res, wall))
     os.environ.pop("QV_SYNC_SPANS", None)
-    counts = {k: fn.launches for k, fn in counters.items()}
+    counts = _read_counters(counters)
 
     ok = True
-    exp = dict.fromkeys(counters, 0)
+    exp = dict.fromkeys(counts, 0)
     for i, (inputs, res, wall) in enumerate(results):
         n_groups = len(inputs.group_grids)
         exp["flash"] += (n_groups + 1 + len(res.tokens) - 1) * n_layers
@@ -383,6 +515,7 @@ def run_main_path(dev, param_dtype="bfloat16"):
             exp["ln_gemm"] += n_groups * mcfg.vision.depth
             exp["ln_mlp"] += n_groups * mcfg.vision.depth
         want_len = expected_cache_length(lvu, inputs, len(res.tokens))
+        exp[f"flash_{variant}"] = exp["flash"]
         lens_ok = (
             res.cache_length == want_len
             and all(l == want_len for l in res.layer_lengths)
@@ -401,7 +534,8 @@ def run_main_path(dev, param_dtype="bfloat16"):
             f"): prefill_tokens={res.prefill_tokens} tokens={res.tokens.tolist()} "
             f"cache_length={res.cache_length} (expected {want_len}, layers "
             f"{sorted(set(res.layer_lengths))}) kv_fraction="
-            f"{res.kv_memory_fraction:.3f} wall={wall:.3f} s decode "
+            f"{res.kv_memory_fraction:.3f} kv_cache_bytes={res.kv_cache_bytes} "
+            f"wall={wall:.3f} s decode "
             f"{per_tok} spans(s)={spans} "
             f"{'OK' if lens_ok and toks_ok else 'FAIL'}")
     counts_ok = counts == exp and counts["flash"] > 0 and counts["vision"] > 0
@@ -412,9 +546,69 @@ def run_main_path(dev, param_dtype="bfloat16"):
     log(f"[{tag}] peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     cache, state = lvu.engine.prefill(requests[0])
+    want_mode = {"bf16": False, "int8": True, "int8k": "k"}[variant]
+    cache_ok = cache.quantized == want_mode
+    ok &= cache_ok
+    log(f"[{tag}] cache: kv_dtype={state['kv_dtype']} K {cache.k.dtype} "
+        f"V {cache.v.dtype} capacity {cache.capacity} scales "
+        f"{'K+V' if want_mode is True else 'K' if want_mode else 'none'} "
+        f"{'OK' if cache_ok else 'FAIL'}")
     logits = lvu.engine.final_prefill(cache, state).float().cpu()
     del cache, state
     return lvu, ok, counts, logits
+
+
+def run_auto_hour_capacity(dev):
+    """The JAX bench's 7B setting (int8 weights, kv_cache_dtype="auto") at
+    hour-scale capacity (131,072 slots): "auto" must resolve to int8, the
+    cache must hold int8 K and V with f32 scales, and one request must run
+    through B1's int8 variant only. Returns (ok, launch counts)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    lvu = make_lvu(dev, "int8", "auto", kv_cache_capacity=131072)
+    eng = lvu.engine
+    inputs = make_request(lvu.model_config, lvu.tokenizer, QUESTIONS[0],
+                          seed=0)
+    counters = _kernel_counters()
+    _reset_counters(counters)
+    t0 = time.perf_counter()
+    res = eng.generate(inputs, max_new_tokens=8,
+                       eos_token_ids=[lvu.tokenizer.eos_token_id])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _read_counters(counters)
+    n_layers = lvu.model_config.text.num_hidden_layers
+    want = (len(inputs.group_grids) + len(res.tokens)) * n_layers
+    want_len = expected_cache_length(lvu, inputs, len(res.tokens))
+    counts_ok = (counts["flash_int8"] == want == counts["flash"]
+                 and counts["flash_bf16"] == counts["flash_int8k"] == 0)
+    len_ok = res.cache_length == want_len
+    cache, state = eng.prefill(inputs)
+    t = lvu.model_config.text
+    scales = (t.num_hidden_layers, t.num_key_value_heads, 131072)
+    cache_ok = (
+        state["kv_dtype"] == "int8" and cache.capacity == 131072
+        and cache.k.dtype == cache.v.dtype == torch.int8
+        and all(sc is not None and sc.dtype == torch.float32
+                and tuple(sc.shape) == scales
+                for sc in (cache.k_scale, cache.v_scale))
+    )
+    del cache, state
+    ok = counts_ok and len_ok and cache_ok
+    log(f"[int8 weights, auto KV, capacity 131072] resolved "
+        f"{eng.resolve_kv_dtype(131072)} (card memory "
+        f"{eng.device_memory_bytes() / 2**30:.2f} GiB); cache int8 K/V with "
+        f"f32 scales {'OK' if cache_ok else 'FAIL'}; tokens="
+        f"{res.tokens.tolist()} cache_length={res.cache_length} (expected "
+        f"{want_len}) kv_cache_bytes={res.kv_cache_bytes} wall={wall:.3f} s; "
+        f"B1 launches int8 {counts['flash_int8']} (expected {want}), bf16 "
+        f"{counts['flash_bf16']}, int8k {counts['flash_int8k']} "
+        f"{'OK' if counts_ok and len_ok else 'FAIL'}; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del lvu, eng
+    torch.cuda.empty_cache()
+    return ok, counts
 
 
 def run_video_file(lvu):
@@ -447,6 +641,8 @@ def run_video_file(lvu):
 # kernel name fragment -> kind, first match wins
 KERNEL_KINDS = (
     ("flash_fwd_kernel", "B1 flash"),
+    ("flash_fwd_int8_kernel", "B1 flash int8-QK"),
+    ("flash_merge_kernel", "B1 split-K merge"),
     ("vision_attn_kernel", "B2 vision attn"),
     ("fused_gemm_kernel<false>", "B3 GEMM"),
     ("fused_gemm_kernel<true>", "B4/B6 GEMM"),
@@ -469,7 +665,7 @@ def _kind(name: str) -> str:
     return "other elementwise/reductions"
 
 
-def run_profile(dev, param_dtype):
+def run_profile(dev, param_dtype, kv_cache_dtype="auto"):
     """One warm 7B request (request 0 of the main path) under
     torch.profiler: wall time, the sum of kernel times, the busy share (the
     union of kernel intervals over the wall time), the spans, kernel time by
@@ -478,7 +674,7 @@ def run_profile(dev, param_dtype):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    lvu = make_lvu(dev, param_dtype)
+    lvu = make_lvu(dev, param_dtype, kv_cache_dtype)
     inputs = make_request(lvu.model_config, lvu.tokenizer, QUESTIONS[0],
                           seed=0)
 
@@ -513,7 +709,8 @@ def run_profile(dev, param_dtype):
     by_kind = {}
     for name, (_, us) in by_name.items():
         by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + us
-    log(f"== {param_dtype}: wall {wall:.4f} s under the profiler, kernels "
+    log(f"== {param_dtype} weights, {kv_cache_dtype} KV: wall {wall:.4f} s "
+        f"under the profiler, kernels "
         f"{total / 1e6:.4f} s, busy {busy / 1e6:.4f} s, busy share "
         f"{busy / 1e6 / wall:.3f}, {len(res.tokens)} tokens, spans(s)="
         f"{ {k: round(v, 4) for k, v in sorted(res.timings.items())} }")
@@ -555,17 +752,6 @@ def narrow_config():
         vision_start_token_id=2042,
         vision_end_token_id=2043,
     )
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
 
 
 def run_card_vs_cpu(dev):
@@ -640,6 +826,25 @@ def run_card_vs_cpu(dev):
         f"{rel:.3e} (tol {INT8_LOGITS_REL_L2}), argmax card "
         f"{int(lg.argmax())} cpu {int(lc.argmax())} "
         f"{'OK' if this_ok else 'FAIL'}")
+
+    # int8 KV cache, bf16 weights: B1's int8 variant on the card, its
+    # plain version on the CPU
+    lvu_cfg = LVUConfig(model_name_or_path="narrow128", max_decode_tokens=8,
+                        kv_cache_dtype="int8")
+    eg = LVUEngine(p_gpu, mcfg, lvu_cfg, torch.bfloat16, dev)
+    ec = LVUEngine(p_cpu, mcfg, lvu_cfg, torch.float32, "cpu")
+    cache_g, st_g = eg.prefill(request())
+    lg = eg.final_prefill(cache_g, st_g).float().cpu()
+    cache_c, st_c = ec.prefill(request())
+    lc = ec.final_prefill(cache_c, st_c).float()
+    rel = ((lg - lc).norm() / lc.norm()).item()
+    this_ok = bool(rel <= INT8_KV_LOGITS_REL_L2 and torch.isfinite(lg).all()
+                   and cache_g.k.dtype == cache_g.v.dtype == torch.int8)
+    ok &= this_ok
+    log(f"card vs CPU, int8 KV, top_p=1: final-prefill logits rel L2 "
+        f"{rel:.3e} (tol {INT8_KV_LOGITS_REL_L2}), argmax card "
+        f"{int(lg.argmax())} cpu {int(lc.argmax())} "
+        f"{'OK' if this_ok else 'FAIL'}")
     return ok
 
 
@@ -652,8 +857,8 @@ def main():
     ap.add_argument(
         "--profile", action="store_true",
         help="instead of the smoke test, profile one warm 7B request with "
-             "bf16 and with int8 weights (torch.profiler) and print where "
-             "the device time goes",
+             "bf16 weights, int8 weights and an int8 KV cache "
+             "(torch.profiler) and print where the device time goes",
     )
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -676,23 +881,30 @@ def main():
     log(f"kernels built in {time.perf_counter() - t0:.2f} s -> "
         f"{os.path.relpath(lib_path, ROOT)}")
     if args.profile:
-        for param_dtype in ("bfloat16", "int8"):
-            run_profile(dev, param_dtype)
+        for param_dtype, kv_cache_dtype in (
+            ("bfloat16", "auto"), ("int8", "auto"), ("bfloat16", "int8"),
+        ):
+            run_profile(dev, param_dtype, kv_cache_dtype)
         return
 
-    flash_rows = check_flash(dev, [
+    flash_cases = [
         (3600, 1807, 16384),  # group 2 step of the 7B main path
         (3600, 0, 8192),      # group 1: empty past
         (1, 4000, 8192),      # decode
         (1, 57344, 65536),    # decode at the 1024-frame headline's occupancy
         (37, 3607, 8192),     # final prefill: not a tile multiple
         (100, 1000, 4096),    # length + G ends mid-tile
+    ]
+    flash_rows = check_flash(dev, flash_cases)
+    flash_int8_rows = check_flash_int8(dev, flash_cases + [
+        (3600, 53744, 65536),  # the 1024-frame headline's last group step
+        (1, 122880, 131072),   # hour-scale decode
     ])
     vision_rows = check_vision(dev, [
         (64, 14400), (48, 3600), (36, 3600), (4, 3600), (900, 14400),
         (2304, 9216),
     ])
-    ok = all(r["ok"] for r in flash_rows + vision_rows)
+    ok = all(r["ok"] for r in flash_rows + flash_int8_rows + vision_rows)
 
     fused_rows = check_fused(dev, [14400, 250])
     ok &= all(r["ok"] for r in fused_rows)
@@ -702,14 +914,26 @@ def main():
     ok &= run_video_file(lvu)
     del lvu
     torch.cuda.empty_cache()
-    lvu, main_ok, launches_int8, logits_int8 = run_main_path(dev, "int8")
-    ok &= main_ok
-    del lvu
-    torch.cuda.empty_cache()
-    rel = ((logits_int8 - logits_bf16).norm() / logits_bf16.norm()).item()
-    log(f"7B final-prefill logits, int8 vs bf16 weights of one seed: rel L2 "
-        f"{rel:.3e} (printed, not asserted); argmax int8 "
-        f"{int(logits_int8.argmax())} bf16 {int(logits_bf16.argmax())}")
+    runs = [launches]  # every main-path run's launch counts
+    for param_dtype, kv_dtype, what in (
+        ("int8", "auto", "int8 vs bf16 weights"),
+        ("bfloat16", "int8", "int8 vs bf16 KV"),
+        ("bfloat16", "int8k", "int8k vs bf16 KV"),
+    ):
+        lvu, main_ok, counts, logits = run_main_path(dev, param_dtype,
+                                                     kv_dtype)
+        ok &= main_ok
+        runs.append(counts)
+        del lvu
+        torch.cuda.empty_cache()
+        rel = ((logits - logits_bf16).norm() / logits_bf16.norm()).item()
+        log(f"7B final-prefill logits, {what} of one seed: rel L2 "
+            f"{rel:.3e} (printed, not asserted); argmax "
+            f"{int(logits.argmax())} vs {int(logits_bf16.argmax())}")
+    auto_ok, counts = run_auto_hour_capacity(dev)
+    ok &= auto_ok
+    runs.append(counts)
+    launches = {k: sum(r[k] for r in runs) for k in launches}
     ok &= run_card_vs_cpu(dev)
 
     def fused_entry(name, label, line, key):
@@ -719,7 +943,20 @@ def main():
             "route": "cuda",
             "source": "quickvideo_tpu_torch/csrc/fused_vision_mlp.cu",
             "replaces": f"quickvideo_tpu/ops/fused_vision_mlp.py:{line}",
-            "launches": launches[key] + launches_int8[key],
+            "launches": launches[key],
+            "max_abs_err": max(r["err"] for r in rows),
+            "ms": rows[0]["ms"],
+            "plain_ms": rows[0]["plain_ms"],
+        }
+
+    def flash_entry(variant):
+        rows = [r[variant] for r in flash_int8_rows]
+        return {
+            "name": f"flash_past_attention (B1, {variant} KV, int8-QK)",
+            "route": "cuda",
+            "source": "quickvideo_tpu_torch/csrc/flash_attention.cu",
+            "replaces": "quickvideo_tpu/ops/flash_attention.py:38",
+            "launches": launches[f"flash_{variant}"],
             "max_abs_err": max(r["err"] for r in rows),
             "ms": rows[0]["ms"],
             "plain_ms": rows[0]["plain_ms"],
@@ -727,21 +964,23 @@ def main():
 
     kernels = [
         {
-            "name": "flash_past_attention (B1)",
+            "name": "flash_past_attention (B1, bf16 KV)",
             "route": "cuda",
             "source": "quickvideo_tpu_torch/csrc/flash_attention.cu",
             "replaces": "quickvideo_tpu/ops/flash_attention.py:38",
-            "launches": launches["flash"] + launches_int8["flash"],
+            "launches": launches["flash_bf16"],
             "max_abs_err": max(r["err"] for r in flash_rows),
             "ms": flash_rows[0]["ms"],
             "plain_ms": flash_rows[0]["plain_ms"],
         },
+        flash_entry("int8"),
+        flash_entry("int8k"),
         {
             "name": "block_diag_attention (B2)",
             "route": "cuda",
             "source": "quickvideo_tpu_torch/csrc/vision_attention.cu",
             "replaces": "quickvideo_tpu/ops/vision_attention.py:140",
-            "launches": launches["vision"] + launches_int8["vision"],
+            "launches": launches["vision"],
             "max_abs_err": max(r["err"] for r in vision_rows),
             "ms": vision_rows[0]["ms"],
             "plain_ms": vision_rows[0]["plain_ms"],

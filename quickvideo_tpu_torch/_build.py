@@ -46,6 +46,11 @@ SIGNATURES = {
     "qv_flash_attention": (
         [_P] * 6 + [_L] * 8 + [_I] * 6 + [_F, _P]
     ),
+    # q8, qs, k, ksc, v, vsc, o, part_o, part_ml; the same strides and ints;
+    # ks_sh, vs_sh; stream
+    "qv_flash_attention_int8": (
+        [_P] * 9 + [_L] * 8 + [_I] * 6 + [_L] * 2 + [_P]
+    ),
     # q, k, v, o, cos, sin; row strides (q, k, v, o, cos/sin); s, nh, span;
     # scale; stream
     "qv_vision_attention": (

@@ -9,6 +9,13 @@
 //   B (16x8,  B[k][n]):   b0 = B[2t..2t+1][g],   b1 = B[2t+8..+9][g]
 //   C (16x8, f32):        c0,c1 = C[g][2t..2t+1], c2,c3 = C[g+8][2t..2t+1]
 // Each 32-bit register holds two bf16 values, the lower index in the low half.
+//
+// The integer primitive is mma.sync m16n8k32 with s8 operands and s32
+// accumulators. Each 32-bit register holds four int8 values:
+//   A (16x32, row-major): a0 = A[g][4t..4t+3],    a1 = A[g+8][4t..4t+3],
+//                         a2 = A[g][4t+16..+19],  a3 = A[g+8][4t+16..+19]
+//   B (32x8,  B[k][n]):   b0 = B[4t..4t+3][g],    b1 = B[4t+16..+19][g]
+//   C (16x8, s32):        as for bf16.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -28,13 +35,24 @@ __device__ __forceinline__ void mma_bf16_16816(
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
 }
 
+__device__ __forceinline__ void mma_s8_16832(
+    int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 // two f32 -> one register of two bf16 (round to nearest even); lo first
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+// 4 bytes (two bf16 or four int8 values) as one fragment register
+template <typename T>
+__device__ __forceinline__ uint32_t ld32(const T* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 

@@ -1,10 +1,15 @@
 // Kernel B1: unified-causal GQA flash attention over one layer of the
-// stacked bf16 KV cache, for Hopper (sm_90a).
+// stacked KV cache, for Hopper (sm_90a): bf16 cache (flash_fwd_kernel), and
+// the int8 caches on the int8-QK route (flash_fwd_int8_kernel).
 //
 // Replaces the TPU kernel quickvideo_tpu/ops/flash_attention.py::_flash_kernel
-// (entry _flash_past_attention_impl) in its bf16 unified-causal mode: query
-// row i of a group of G rows attends cache slots [0, length + i]; the caller
-// has already appended the group's K/V at [length, length + G).
+// (entry _flash_past_attention_impl) in its unified-causal mode: query row i
+// of a group of G rows attends cache slots [0, length + i]; the caller has
+// already appended the group's K/V at [length, length + G). Variants:
+//   bf16   bf16 q, K, V (the "bfloat16" cache);
+//   int8   int8 K and V with one f32 scale per (head, token) row, int8 q
+//          with one f32 scale per (head, row) ("int8" cache, int8-QK);
+//   int8k  int8 K with scales, bf16 V, int8 q ("int8k" cache, int8-QK).
 //
 // Operands: q (Hq, G, 128) and the layer view k/v (Hkv, cap, 128) are passed
 // as pointers with strides, so the layer view k_all[li] is never copied. The
@@ -16,24 +21,38 @@
 //    packed row r = (position r / rep, query head kv*rep + r % rep). The rep
 //    (= 7 on the 7B) query heads that share a kv head read each K/V tile from
 //    shared memory once. rep need not be a power of two.
-//  * 4 warps x 16 rows; keys in tiles of 64 through shared memory; QK^T and
-//    PV on tensor cores with mma.sync m16n8k16 (bf16 in, f32 accumulate).
-//    The P tile is re-packed from the score accumulators in registers.
-//  * Online softmax in f32, in log2 units (scores scaled by scale*log2 e).
+//  * 4 warps x 16 rows; keys in tiles of 64 through shared memory. bf16: QK^T
+//    on mma.sync m16n8k16 (bf16 in, f32 accumulate). int8-QK: QK^T on
+//    mma.sync m16n8k32 (s8 in, exact s32 accumulate; the int8 q fragments
+//    stay in registers, 4 k-steps of 32 at D = 128), then
+//    s = (float(acc) * qs[row]) * ks[col], the JAX kernel's order; q was
+//    pre-scaled by scale*log2 e before it was quantized, so qs absorbed the
+//    softmax scale and no second scale is applied. The tile's key scales
+//    are staged in shared memory. PV is mma.sync m16n8k16 in bf16 in every
+//    variant; int8 V codes are converted to bf16 (exactly) while staging the
+//    transposed V tile, and p * vs[col] is formed before the bf16 packing,
+//    as `pv = p * vs` in the JAX kernel. The P tile is re-packed from the
+//    score accumulators in registers.
+//  * Online softmax in f32, in log2 units (bf16: scores scaled by
+//    scale*log2 e); the denominator sums the f32 p.
 //  * The key loop stops at min(length + last position of the CTA + 1, cap):
 //    nothing past the valid prefix is read. Tiles wholly below every row's
 //    bound skip the mask.
 //  * Split-K (decode): when there are too few CTAs to fill the card (q = 1
 //    decode has Hkv CTAs), a third grid axis splits each CTA's key range;
 //    the splits write f32 partials plus (max, sum) per row and a second
-//    kernel merges them. Prefill shapes run unsplit.
+//    kernel merges them. Prefill shapes run unsplit. The merge serves every
+//    variant.
 //
 // What bounds it. Prefill (G = 3600 on the 7B group step) is tensor-core
 // work: ~4*G*(length+G/2)*128*Hq flops; this version uses warp-level
-// mma.sync (not wgmma/TMA), so it reaches a fraction of the bf16 peak.
+// mma.sync with synchronous tile loads (not wgmma/TMA), so it reaches a
+// fraction of the peak, and the int8 tiles' halved bytes show in its time.
 // Decode (G = 1) is bound by the K/V bytes of the layer; the GQA packing
 // reads each K/V tile once per kv head and split-K spreads the read over
-// the SMs.
+// the SMs. An int8 cache reads 128 + 4 bytes per K or V row instead of 256.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -43,6 +62,9 @@ constexpr int kBM = 64;            // packed rows per CTA (4 warps x 16)
 constexpr int kBN = 64;            // keys per tile
 constexpr int kThreads = 128;
 constexpr int kKStride = kD + 8;   // smem row stride of K (bank-conflict pad)
+constexpr int kK8Stride = kD + 16; // smem row stride of int8 K (bytes): 36
+                                   // words, so the 8 rows of a fragment load
+                                   // hit 8 distinct bank quads
 constexpr int kVStride = kBN + 8;  // smem row stride of V^T
 
 struct FlashParams {
@@ -57,54 +79,182 @@ struct FlashParams {
   float scale_log2;
 };
 
-__global__ void __launch_bounds__(kThreads)
+// The CTA's key range and this thread's two rows (accumulator rows g and
+// g+8 of its warp), the same in every variant.
+struct CtaRows {
+  int head[2], pos[2];
+  int bound[2];       // last visible slot (inclusive); -1 for a padding row
+  int pos_lo;         // every row of the CTA sees at least [0, length + pos_lo]
+  int kend;           // nothing at or past kend is read
+  int kb0, kb1;       // this split's key tiles
+  bool has_pad_rows;
+};
+
+__device__ __forceinline__ CtaRows cta_rows(const FlashParams& p) {
+  const int warp = threadIdx.x >> 5;
+  const int gq = (threadIdx.x & 31) >> 2;
+  const int nrows = p.g * p.rep;
+  const int row0 = blockIdx.x * kBM;
+  CtaRows c;
+  c.pos_lo = row0 / p.rep;
+  const int pos_hi = min(row0 + kBM - 1, nrows - 1) / p.rep;
+  c.has_pad_rows = row0 + kBM > nrows;
+  c.kend = min(p.length + pos_hi + 1, p.cap);
+  const int nkb = (c.kend + kBN - 1) / kBN;
+  c.kb0 = 0;
+  c.kb1 = nkb;
+  if (p.n_split > 1) {
+    const int chunk = (nkb + p.n_split - 1) / p.n_split;
+    c.kb0 = min(nkb, (int)blockIdx.z * chunk);
+    c.kb1 = min(nkb, c.kb0 + chunk);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + warp * 16 + gq + 8 * i;
+    const bool ok = r < nrows;
+    c.pos[i] = ok ? r / p.rep : 0;
+    c.head[i] = blockIdx.y * p.rep + (ok ? r % p.rep : 0);
+    c.bound[i] = ok ? p.length + c.pos[i] : -1;
+  }
+  return c;
+}
+
+// causal / padding mask is needed where the tile at key0 can cross some
+// row's bound
+__device__ __forceinline__ bool tile_needs_mask(const FlashParams& p,
+                                                const CtaRows& c, int key0) {
+  return c.has_pad_rows || key0 + kBN - 1 > p.length + c.pos_lo;
+}
+
+// Online softmax over one tile of scores in log2 units: s becomes
+// p = exp2(s - m) (f32), and m_run, l_run (per-thread partial row sums of
+// the f32 p) and acc are brought up to date.
+__device__ __forceinline__ void online_softmax(float (&s)[kBN / 8][4],
+                                               float (&m_run)[2],
+                                               float (&l_run)[2],
+                                               float (&acc)[kD / 8][4]) {
+  float m_use[2], alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int nt = 0; nt < kBN / 8; ++nt) {
+      mx = fmaxf(mx, fmaxf(s[nt][2 * i], s[nt][2 * i + 1]));
+    }
+    mx = qv::warp_max4(mx);
+    const float m_new = fmaxf(m_run[i], mx);
+    m_use[i] = m_new == -INFINITY ? 0.f : m_new;  // fully masked so far
+    alpha[i] = exp2f(m_run[i] - m_use[i]);
+    m_run[i] = m_new;
+  }
+  float rs[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < kBN / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pe = exp2f(s[nt][e] - m_use[e >> 1]);
+      s[nt][e] = pe;
+      rs[e >> 1] += pe;
+    }
+  }
+  l_run[0] = l_run[0] * alpha[0] + rs[0];
+  l_run[1] = l_run[1] * alpha[1] + rs[1];
+#pragma unroll
+  for (int dt = 0; dt < kD / 8; ++dt) {
+    acc[dt][0] *= alpha[0];
+    acc[dt][1] *= alpha[0];
+    acc[dt][2] *= alpha[1];
+    acc[dt][3] *= alpha[1];
+  }
+}
+
+// O += P V against the transposed bf16 V tile: the score accumulators of
+// key tiles 2kk, 2kk+1 are exactly the A fragment of a 16-key chunk
+__device__ __forceinline__ void pv_product(const float (&s)[kBN / 8][4],
+                                           const __nv_bfloat16* vt,
+                                           float (&acc)[kD / 8][4]) {
+  const int gq = (threadIdx.x & 31) >> 2;
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    const uint32_t a0 = qv::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    const uint32_t a1 = qv::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    const uint32_t a2 = qv::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    const uint32_t a3 = qv::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+    for (int dt = 0; dt < kD / 8; ++dt) {
+      const __nv_bfloat16* vp = &vt[(dt * 8 + gq) * kVStride + kk * 16 + 2 * t4];
+      qv::mma_bf16_16816(acc[dt], a0, a1, a2, a3, qv::ld32(vp), qv::ld32(vp + 8));
+    }
+  }
+}
+
+// The rows' output (unsplit), or their f32 partials and (max, sum)
+// (split-K, merged by flash_merge_kernel)
+__device__ __forceinline__ void store_rows(const FlashParams& p,
+                                           const CtaRows& c,
+                                           const float (&acc)[kD / 8][4],
+                                           const float (&m_run)[2],
+                                           const float (&l_run)[2]) {
+  const int t4 = threadIdx.x & 3;
+  const float l_tot[2] = {qv::warp_sum4(l_run[0]), qv::warp_sum4(l_run[1])};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    if (c.bound[i] < 0) continue;  // padding row
+    if (p.n_split == 1) {
+      const float inv = l_tot[i] > 0.f ? 1.f / l_tot[i] : 0.f;
+      __nv_bfloat16* orow =
+          p.o + c.head[i] * p.o_sh + (long long)c.pos[i] * p.o_st;
+#pragma unroll
+      for (int dt = 0; dt < kD / 8; ++dt) {
+        *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t4) =
+            qv::pack_bf16(acc[dt][2 * i] * inv, acc[dt][2 * i + 1] * inv);
+      }
+    } else {
+      const long long prow =
+          ((long long)blockIdx.z * p.hq + c.head[i]) * p.g + c.pos[i];
+      float* orow = p.part_o + prow * kD;
+#pragma unroll
+      for (int dt = 0; dt < kD / 8; ++dt) {
+        *reinterpret_cast<float2*>(orow + dt * 8 + 2 * t4) =
+            make_float2(acc[dt][2 * i], acc[dt][2 * i + 1]);
+      }
+      if (t4 == 0) p.part_ml[prow] = make_float2(m_run[i], l_tot[i]);
+    }
+  }
+}
+
+// Both kernels are capped at 168 registers, for 3 CTAs per SM. The int8
+// variants are a kernel of their own because folding both into one
+// template cost the bf16 kernel three registers, which took it from 3
+// CTAs per SM to 2 and its group step from 2.72 to 3.10 ms (measured on an
+// H100).
+__global__ void __launch_bounds__(kThreads, 3)
 flash_fwd_kernel(FlashParams p) {
   __shared__ __align__(16) __nv_bfloat16 ks[kBN * kKStride];
   __shared__ __align__(16) __nv_bfloat16 vt[kD * kVStride];
 
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int gq = lane >> 2;  // accumulator row within the warp's 16
-  const int t4 = lane & 3;
-  const int hk = blockIdx.y;
-  const int nrows = p.g * p.rep;
-  const int row0 = blockIdx.x * kBM;
-  const int pos_lo = row0 / p.rep;
-  const int pos_hi = min(row0 + kBM - 1, nrows - 1) / p.rep;
-  const bool has_pad_rows = row0 + kBM > nrows;
-  const int kend = min(p.length + pos_hi + 1, p.cap);
-  const int nkb = (kend + kBN - 1) / kBN;
-  int kb0 = 0, kb1 = nkb;
-  if (p.n_split > 1) {
-    const int chunk = (nkb + p.n_split - 1) / p.n_split;
-    kb0 = min(nkb, (int)blockIdx.z * chunk);
-    kb1 = min(nkb, kb0 + chunk);
-  }
-
-  // this thread's two rows (accumulator rows g and g+8 of its warp)
-  int head[2], pos[2], bound[2];
+  const int gq = (tid & 31) >> 2;  // accumulator row within the warp's 16
+  const int t4 = tid & 3;
+  const CtaRows c = cta_rows(p);
   const __nv_bfloat16* qrow[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const int r = row0 + warp * 16 + gq + 8 * i;
-    const bool ok = r < nrows;
-    pos[i] = ok ? r / p.rep : 0;
-    head[i] = hk * p.rep + (ok ? r % p.rep : 0);
-    bound[i] = ok ? p.length + pos[i] : -1;  // last visible slot (inclusive)
-    qrow[i] = ok ? p.q + head[i] * p.q_sh + (long long)pos[i] * p.q_st
-                 : nullptr;
+    qrow[i] = c.bound[i] >= 0
+                  ? p.q + c.head[i] * p.q_sh + (long long)c.pos[i] * p.q_st
+                  : nullptr;
   }
 
   // Q fragments stay in registers for the whole key loop
   uint32_t qf[kD / 16][4];
 #pragma unroll
   for (int kk = 0; kk < kD / 16; ++kk) {
-    const int c = kk * 16 + 2 * t4;
-    qf[kk][0] = qrow[0] ? qv::ld32(qrow[0] + c) : 0u;
-    qf[kk][1] = qrow[1] ? qv::ld32(qrow[1] + c) : 0u;
-    qf[kk][2] = qrow[0] ? qv::ld32(qrow[0] + c + 8) : 0u;
-    qf[kk][3] = qrow[1] ? qv::ld32(qrow[1] + c + 8) : 0u;
+    const int col = kk * 16 + 2 * t4;
+    qf[kk][0] = qrow[0] ? qv::ld32(qrow[0] + col) : 0u;
+    qf[kk][1] = qrow[1] ? qv::ld32(qrow[1] + col) : 0u;
+    qf[kk][2] = qrow[0] ? qv::ld32(qrow[0] + col + 8) : 0u;
+    qf[kk][3] = qrow[1] ? qv::ld32(qrow[1] + col + 8) : 0u;
   }
 
   float acc[kD / 8][4];
@@ -113,12 +263,12 @@ flash_fwd_kernel(FlashParams p) {
     acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
   }
   float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};  // per-thread partial row sums
+  float l_run[2] = {0.f, 0.f};
 
-  const __nv_bfloat16* kbase = p.k + hk * p.k_sh;
-  const __nv_bfloat16* vbase = p.v + hk * p.v_sh;
+  const __nv_bfloat16* kbase = p.k + blockIdx.y * p.k_sh;
+  const __nv_bfloat16* vbase = p.v + blockIdx.y * p.v_sh;
 
-  for (int kb = kb0; kb < kb1; ++kb) {
+  for (int kb = c.kb0; kb < c.kb1; ++kb) {
     const int key0 = kb * kBN;
     __syncthreads();  // previous tile fully consumed
     // K tile row-major, V tile transposed; rows past kend are zero
@@ -128,7 +278,7 @@ flash_fwd_kernel(FlashParams p) {
       const int key = key0 + r;
       uint4 kv4 = make_uint4(0u, 0u, 0u, 0u);
       uint4 vv4 = make_uint4(0u, 0u, 0u, 0u);
-      if (key < kend) {
+      if (key < c.kend) {
         kv4 = *reinterpret_cast<const uint4*>(kbase + key * p.k_st + c8);
         vv4 = *reinterpret_cast<const uint4*>(vbase + key * p.v_st + c8);
       }
@@ -155,9 +305,8 @@ flash_fwd_kernel(FlashParams p) {
       }
     }
 
-    // scale into log2 units; causal / padding mask where a tile can cross
-    // some row's bound (rows of this CTA see at least [0, length + pos_lo])
-    const bool need_mask = has_pad_rows || key0 + kBN - 1 > p.length + pos_lo;
+    // scale into log2 units; mask
+    const bool need_mask = tile_needs_mask(p, c, key0);
 #pragma unroll
     for (int nt = 0; nt < kBN / 8; ++nt) {
 #pragma unroll
@@ -165,87 +314,165 @@ flash_fwd_kernel(FlashParams p) {
         float x = s[nt][e] * p.scale_log2;
         if (need_mask) {
           const int key = key0 + nt * 8 + 2 * t4 + (e & 1);
-          if (key > bound[e >> 1]) x = -INFINITY;
+          if (key > c.bound[e >> 1]) x = -INFINITY;
         }
         s[nt][e] = x;
       }
     }
+    online_softmax(s, m_run, l_run, acc);
+    pv_product(s, vt, acc);
+  }
+  store_rows(p, c, acc, m_run, l_run);
+}
 
-    // online softmax update, per row
-    float m_use[2], alpha[2];
+// The int8-QK variants: int8 K (and V when kV8) with per-token f32 scales,
+// int8 q with per-row f32 scales.
+struct FlashInt8Params {
+  FlashParams b;     // strides, sizes, output, split-K partials
+  const int8_t* q8;  // (hq, g, D) codes through b.q_sh / b.q_st
+  const float* qs;   // (hq, g) contiguous; absorbed scale*log2 e
+  const int8_t* k8;  // layer's K codes through b.k_sh / b.k_st
+  const void* v;     // layer's V: int8 codes (kV8) or bf16
+  const float* ksc;  // layer's (hkv, cap) K scales, stride 1 along cap
+  const float* vsc;  // the same for V (kV8 only)
+  long long ks_sh, vs_sh;
+};
+
+template <bool kV8>
+__global__ void __launch_bounds__(kThreads, 3)
+flash_fwd_int8_kernel(FlashInt8Params pi) {
+  using VT = std::conditional_t<kV8, int8_t, __nv_bfloat16>;
+  const FlashParams& p = pi.b;
+  __shared__ __align__(16) int8_t ks[kBN * kK8Stride];
+  __shared__ __align__(16) __nv_bfloat16 vt[kD * kVStride];
+  __shared__ float ksc_s[kBN];
+  __shared__ float vsc_s[kBN];
+
+  const int tid = threadIdx.x;
+  const int gq = (tid & 31) >> 2;  // accumulator row within the warp's 16
+  const int t4 = tid & 3;
+  const int hk = blockIdx.y;
+  const CtaRows c = cta_rows(p);
+  const int8_t* qrow[2];
+  float qsc[2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      float mx = -INFINITY;
+  for (int i = 0; i < 2; ++i) {
+    const bool ok = c.bound[i] >= 0;
+    qrow[i] = ok ? pi.q8 + c.head[i] * p.q_sh + (long long)c.pos[i] * p.q_st
+                 : nullptr;
+    qsc[i] = ok ? pi.qs[(long long)c.head[i] * p.g + c.pos[i]] : 0.f;
+  }
+
+  // int8 Q fragments stay in registers: 4 k-steps of 32 columns
+  uint32_t qf[kD / 32][4];
+#pragma unroll
+  for (int kk = 0; kk < kD / 32; ++kk) {
+    const int col = kk * 32 + 4 * t4;
+    qf[kk][0] = qrow[0] ? qv::ld32(qrow[0] + col) : 0u;
+    qf[kk][1] = qrow[1] ? qv::ld32(qrow[1] + col) : 0u;
+    qf[kk][2] = qrow[0] ? qv::ld32(qrow[0] + col + 16) : 0u;
+    qf[kk][3] = qrow[1] ? qv::ld32(qrow[1] + col + 16) : 0u;
+  }
+
+  float acc[kD / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < kD / 8; ++dt) {
+    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
+  }
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+
+  const int8_t* kbase = pi.k8 + hk * p.k_sh;
+  const VT* vbase = static_cast<const VT*>(pi.v) + hk * p.v_sh;
+
+  for (int kb = c.kb0; kb < c.kb1; ++kb) {
+    const int key0 = kb * kBN;
+    __syncthreads();  // previous tile fully consumed
+    // K codes row-major with the tile's scales; V transposed (int8 codes
+    // converted to bf16, exactly); rows past kend are zero, as are their
+    // scales
+    for (int i = tid; i < kBN * (kD / 16); i += kThreads) {
+      const int r = i / (kD / 16);
+      const int c16 = (i % (kD / 16)) * 16;
+      const int key = key0 + r;
+      uint4 kv4 = make_uint4(0u, 0u, 0u, 0u);
+      if (key < c.kend) {
+        kv4 = *reinterpret_cast<const uint4*>(kbase + key * p.k_st + c16);
+      }
+      *reinterpret_cast<uint4*>(&ks[r * kK8Stride + c16]) = kv4;
+    }
+    if (tid < kBN) {
+      const int key = key0 + tid;
+      ksc_s[tid] = key < c.kend ? pi.ksc[hk * pi.ks_sh + key] : 0.f;
+      if constexpr (kV8) {
+        vsc_s[tid] = key < c.kend ? pi.vsc[hk * pi.vs_sh + key] : 0.f;
+      }
+    }
+    constexpr int kVPer = 16 / sizeof(VT);  // V elements per 16-byte load
+    for (int i = tid; i < kBN * (kD / kVPer); i += kThreads) {
+      const int r = i / (kD / kVPer);
+      const int col = (i % (kD / kVPer)) * kVPer;
+      const int key = key0 + r;
+      uint4 vv4 = make_uint4(0u, 0u, 0u, 0u);
+      if (key < c.kend) {
+        vv4 = *reinterpret_cast<const uint4*>(vbase + key * p.v_st + col);
+      }
+      const VT* ve = reinterpret_cast<const VT*>(&vv4);
+#pragma unroll
+      for (int j = 0; j < kVPer; ++j) {
+        if constexpr (kV8) {
+          vt[(col + j) * kVStride + r] = __float2bfloat16_rn((float)ve[j]);
+        } else {
+          vt[(col + j) * kVStride + r] = ve[j];
+        }
+      }
+    }
+    __syncthreads();
+
+    // S = Q K^T for this warp's 16 rows x 64 keys: exact s32 products
+    int si[kBN / 8][4];
+#pragma unroll
+    for (int nt = 0; nt < kBN / 8; ++nt) {
+      si[nt][0] = si[nt][1] = si[nt][2] = si[nt][3] = 0;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kD / 32; ++kk) {
 #pragma unroll
       for (int nt = 0; nt < kBN / 8; ++nt) {
-        mx = fmaxf(mx, fmaxf(s[nt][2 * i], s[nt][2 * i + 1]));
+        const int8_t* kp = &ks[(nt * 8 + gq) * kK8Stride + kk * 32 + 4 * t4];
+        qv::mma_s8_16832(si[nt], qf[kk], qv::ld32(kp), qv::ld32(kp + 16));
       }
-      mx = qv::warp_max4(mx);
-      const float m_new = fmaxf(m_run[i], mx);
-      m_use[i] = m_new == -INFINITY ? 0.f : m_new;  // fully masked so far
-      alpha[i] = exp2f(m_run[i] - m_use[i]);
-      m_run[i] = m_new;
     }
-    float rs[2] = {0.f, 0.f};
+
+    // into log2 units as (acc * qs[row]) * ks[col], the JAX kernel's order
+    // (qs absorbed scale*log2 e); mask
+    float s[kBN / 8][4];
+    const bool need_mask = tile_needs_mask(p, c, key0);
 #pragma unroll
     for (int nt = 0; nt < kBN / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float pe = exp2f(s[nt][e] - m_use[e >> 1]);
-        s[nt][e] = pe;
-        rs[e >> 1] += pe;
+        float x = ((float)si[nt][e] * qsc[e >> 1]) *
+                  ksc_s[nt * 8 + 2 * t4 + (e & 1)];
+        if (need_mask) {
+          const int key = key0 + nt * 8 + 2 * t4 + (e & 1);
+          if (key > c.bound[e >> 1]) x = -INFINITY;
+        }
+        s[nt][e] = x;
       }
     }
-    l_run[0] = l_run[0] * alpha[0] + rs[0];
-    l_run[1] = l_run[1] * alpha[1] + rs[1];
+    online_softmax(s, m_run, l_run, acc);
+    // the int8 variant scales p's columns by the V scales (pv = p * vs)
+    if constexpr (kV8) {
 #pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
-    }
-
-    // O += P V: the score accumulators of key tiles 2kk, 2kk+1 are exactly
-    // the A fragment of a 16-key chunk
+      for (int nt = 0; nt < kBN / 8; ++nt) {
 #pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      const uint32_t a0 = qv::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      const uint32_t a1 = qv::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      const uint32_t a2 = qv::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      const uint32_t a3 = qv::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-      for (int dt = 0; dt < kD / 8; ++dt) {
-        const __nv_bfloat16* vp = &vt[(dt * 8 + gq) * kVStride + kk * 16 + 2 * t4];
-        qv::mma_bf16_16816(acc[dt], a0, a1, a2, a3, qv::ld32(vp), qv::ld32(vp + 8));
+        for (int e = 0; e < 4; ++e) s[nt][e] *= vsc_s[nt * 8 + 2 * t4 + (e & 1)];
       }
     }
+    pv_product(s, vt, acc);
   }
-
-  const float l_tot[2] = {qv::warp_sum4(l_run[0]), qv::warp_sum4(l_run[1])};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (bound[i] < 0) continue;  // padding row
-    if (p.n_split == 1) {
-      const float inv = l_tot[i] > 0.f ? 1.f / l_tot[i] : 0.f;
-      __nv_bfloat16* orow = p.o + head[i] * p.o_sh + (long long)pos[i] * p.o_st;
-#pragma unroll
-      for (int dt = 0; dt < kD / 8; ++dt) {
-        *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t4) =
-            qv::pack_bf16(acc[dt][2 * i] * inv, acc[dt][2 * i + 1] * inv);
-      }
-    } else {
-      const long long prow =
-          ((long long)blockIdx.z * p.hq + head[i]) * p.g + pos[i];
-      float* orow = p.part_o + prow * kD;
-#pragma unroll
-      for (int dt = 0; dt < kD / 8; ++dt) {
-        *reinterpret_cast<float2*>(orow + dt * 8 + 2 * t4) =
-            make_float2(acc[dt][2 * i], acc[dt][2 * i + 1]);
-      }
-      if (t4 == 0) p.part_ml[prow] = make_float2(m_run[i], l_tot[i]);
-    }
-  }
+  store_rows(p, c, acc, m_run, l_run);
 }
 
 // split-K merge: one CTA of kD threads per (head, position) row
@@ -273,8 +500,16 @@ flash_merge_kernel(FlashParams p) {
       __float2bfloat16(l > 0.f ? acc / l : 0.f);
 }
 
+cudaError_t merge_if_split(const FlashParams& p, cudaStream_t st) {
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || p.n_split == 1) return err;
+  flash_merge_kernel<<<p.hq * p.g, kD, 0, st>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
+// bf16 cache: q, k, v bf16; strides in elements
 extern "C" int qv_flash_attention(
     const void* q, const void* k, const void* v, void* o, void* part_o,
     void* part_ml, long long q_sh, long long q_st, long long k_sh,
@@ -294,13 +529,47 @@ extern "C" int qv_flash_attention(
   p.length = length; p.cap = cap; p.n_split = n_split;
   p.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = g * p.rep;
-  dim3 grid((rows + kBM - 1) / kBM, hkv, n_split);
+  dim3 grid((g * p.rep + kBM - 1) / kBM, hkv, n_split);
   flash_fwd_kernel<<<grid, kThreads, 0, st>>>(p);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || n_split == 1) return (int)err;
-  flash_merge_kernel<<<hq * g, kD, 0, st>>>(p);
-  return (int)cudaGetLastError();
+  return (int)merge_if_split(p, st);
+}
+
+// int8 caches on the int8-QK route: q8 int8 with qs (hq, g) f32 contiguous
+// (qs absorbed scale*log2 e); k int8 with its layer's (hkv, cap) scales
+// ksc; v int8 with vsc (the "int8" cache), or bf16 with vsc == nullptr
+// ("int8k"). Strides in elements; ks_sh / vs_sh are the scales' head
+// strides.
+extern "C" int qv_flash_attention_int8(
+    const void* q8, const void* qs, const void* k, const void* ksc,
+    const void* v, const void* vsc, void* o, void* part_o, void* part_ml,
+    long long q_sh, long long q_st, long long k_sh, long long k_st,
+    long long v_sh, long long v_st, long long o_sh, long long o_st, int hq,
+    int hkv, int g, int length, int cap, int n_split, long long ks_sh,
+    long long vs_sh, void* stream) {
+  FlashInt8Params pi = {};
+  FlashParams& p = pi.b;
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.part_o = static_cast<float*>(part_o);
+  p.part_ml = static_cast<float2*>(part_ml);
+  p.q_sh = q_sh; p.q_st = q_st; p.k_sh = k_sh; p.k_st = k_st;
+  p.v_sh = v_sh; p.v_st = v_st; p.o_sh = o_sh; p.o_st = o_st;
+  p.hq = hq; p.rep = hq / hkv; p.g = g;
+  p.length = length; p.cap = cap; p.n_split = n_split;
+  pi.q8 = static_cast<const int8_t*>(q8);
+  pi.qs = static_cast<const float*>(qs);
+  pi.k8 = static_cast<const int8_t*>(k);
+  pi.v = v;
+  pi.ksc = static_cast<const float*>(ksc);
+  pi.vsc = static_cast<const float*>(vsc);
+  pi.ks_sh = ks_sh; pi.vs_sh = vs_sh;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  dim3 grid((g * p.rep + kBM - 1) / kBM, hkv, n_split);
+  if (vsc != nullptr) {
+    flash_fwd_int8_kernel<true><<<grid, kThreads, 0, st>>>(pi);
+  } else {
+    flash_fwd_int8_kernel<false><<<grid, kThreads, 0, st>>>(pi);
+  }
+  return (int)merge_if_split(p, st);
 }
 
 extern "C" const char* qv_error_string(int err) {

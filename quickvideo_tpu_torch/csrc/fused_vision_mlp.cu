@@ -61,15 +61,6 @@ constexpr int kBStride = kBK + 16;   // smem row stride of a weight stage
 constexpr int kYStride = kBN + 4;    // smem row stride of the f32 epilogue tile
 constexpr float kEps = 1e-8f;
 
-__device__ __forceinline__ void mma_s8_16832(
-    int c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
                                            int bytes) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
@@ -267,7 +258,7 @@ __global__ void __launch_bounds__(kThreads) fused_gemm_kernel(
         const uint32_t b0 = *reinterpret_cast<const uint32_t*>(bp);
         const uint32_t b1 = *reinterpret_cast<const uint32_t*>(bp + 16);
 #pragma unroll
-        for (int i = 0; i < 2; ++i) mma_s8_16832(acc[i][j], a[i], b0, b1);
+        for (int i = 0; i < 2; ++i) qv::mma_s8_16832(acc[i][j], a[i], b0, b1);
       }
     }
     __syncthreads();  // this stage (and, after the last, the row tile) is free

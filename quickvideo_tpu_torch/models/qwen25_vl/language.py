@@ -9,7 +9,9 @@ The port has ONE attention path, the JAX package's unified "hot" path
 (language.py:427-509 then :533-563): append the raw group's K/V to the cache,
 run one unified-causal attention over [past | group] (kernel B1 on CUDA, its
 plain version on CPU), o-project, select-and-compact the group's keys, and
-overwrite the raw span with the compact one. The query-based mode, cascade,
+overwrite the raw span with the compact one. With an int8 or int8k cache the
+appends quantize and B1 runs its int8-QK variant (language.py:436-450,
+486-502, 552-563). The query-based mode, cascade,
 decay schedules, attention-statistics predictors, context parallelism and
 tensor parallelism are not ported in this slice.
 
@@ -79,6 +81,10 @@ def compute_logits(
     return qdot(h, params["lm_head"])
 
 
+def _layer(scales: Optional[torch.Tensor], li: int):
+    return None if scales is None else scales[li]
+
+
 def layer_step(
     lp: dict,
     x: torch.Tensor,  # (G, C)
@@ -98,19 +104,23 @@ def layer_step(
     h = rms_norm(x, lp["ln1"], cfg.rms_norm_eps)
     q, k, v = _project_qkv(lp, h, cfg, min_rows)
     q, k = apply_rotary(q, k, cos, sin)
-    # raw group at [length, length + G); attention over [0, length + i]
+    # raw group at [length, length + G) (quantized where the cache is, so
+    # the group attends its own K/V with the int8 rounding); attention over
+    # [0, length + i]
     kv.stacked_append(cache, li, length, k, v)
     out = flash_past_attention(
-        q, cache.k[li], cache.v[li], length, scale=cfg.head_dim ** -0.5
+        q, cache.k[li], cache.v[li], length, scale=cfg.head_dim ** -0.5,
+        k_scale=_layer(cache.k_scale, li), v_scale=_layer(cache.v_scale, li),
     )
     g = x.shape[0]
     attn = out.transpose(0, 1).reshape(g, cfg.num_attention_heads * cfg.head_dim)
     x = x + linear(attn, lp["wo"], min_rows=min_rows)
     indices = None
     if keep_k > 0:
+        # the raw rotary keys are scored; the kept raw rows are (re)quantized
+        # into the compact, which overwrites the first keep_k raw slots; the
+        # raw tail stays past the valid length, never attended
         res = prune_ops.select_and_compact(predict_type, keep_k, k, v)
-        # the compact overwrites the first keep_k raw slots; the raw tail
-        # stays past the valid length, never attended
         kv.stacked_append(cache, li, length, res.k_keep, res.v_keep)
         indices = res.indices
     x = x + swiglu_mlp(rms_norm(x, lp["ln2"], cfg.rms_norm_eps), lp, min_rows)

@@ -3,20 +3,31 @@
 `flash_past_attention` is the port's only language attention entry. On a
 CUDA tensor it launches the hand-written Hopper kernel
 (csrc/flash_attention.cu) and counts the launch in
-`flash_past_attention.launches`; on a CPU tensor it runs the plain version
-(ops/attention.py::unified_causal_attention). A CUDA tensor the kernel does
-not take (dtype, head dim, strides) raises: there is no fallback.
+`flash_past_attention.launches` and, per variant, in
+`flash_past_attention.variant_launches` ("bf16", "int8", "int8k"); on a
+CPU tensor it runs the plain version (ops/attention.py). A CUDA tensor the
+kernel does not take (dtype, head dim, strides) raises: there is no
+fallback.
 
 Replaces quickvideo_tpu/ops/flash_attention.py::flash_past_attention in its
-bf16 unified-causal mode (`causal=True, layer_idx=li`).
+unified-causal mode (`causal=True, layer_idx=li`): with a bf16 cache, and
+with an int8 cache (`k_scale`, and `v_scale` unless V is unquantized) on
+its default int8-QK route, where q is quantized per row first
+(ops/attention.py::quantize_q, shared with the plain version).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from quickvideo_tpu_torch import _build
-from quickvideo_tpu_torch.ops.attention import unified_causal_attention
+from quickvideo_tpu_torch.ops.attention import (
+    quantize_q,
+    unified_causal_attention,
+    unified_causal_attention_int8,
+)
 
 HEAD_DIM = 128  # the kernel is compiled for this head dim
 
@@ -30,17 +41,52 @@ def _split_count(ctas: int, key_blocks: int, sms: int) -> int:
     return max(1, min(want, key_blocks // 4))
 
 
+def _check_rows(name: str, t: torch.Tensor, dtype, dev) -> None:
+    """A (H, cap or G, 128) operand: dtype, device, contiguous head dim,
+    16-byte aligned rows (the kernel's vector loads)."""
+    if t.dtype != dtype:
+        raise TypeError(f"flash kernel takes {dtype} {name}, got {t.dtype}")
+    if t.device != dev:
+        raise ValueError(f"{name} on {t.device}, q on {dev}")
+    if t.shape[-1] != HEAD_DIM or t.stride(-1) != 1:
+        raise ValueError(
+            f"flash kernel needs head dim {HEAD_DIM} contiguous, got "
+            f"{name} shape {tuple(t.shape)} strides {t.stride()}"
+        )
+    step = 16 // t.element_size()
+    if t.stride(0) % step or t.stride(1) % step or t.data_ptr() % 16:
+        raise ValueError(f"{name} rows are not 16-byte aligned")
+
+
+def _check_scales(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
+    """(Hkv, cap) f32 per-token scales of a layer, stride 1 along cap."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"flash kernel takes f32 {name}, got {t.dtype}")
+    if t.device != like.device:
+        raise ValueError(f"{name} on {t.device}, cache on {like.device}")
+    if tuple(t.shape) != tuple(like.shape[:2]) or t.stride(1) != 1:
+        raise ValueError(
+            f"{name} must be (Hkv, cap) = {tuple(like.shape[:2])} with "
+            f"stride 1 along cap, got {tuple(t.shape)} strides {t.stride()}"
+        )
+    if t.data_ptr() % 4:
+        raise ValueError(f"{name} is not 4-byte aligned")
+
+
 def flash_past_attention(
     q: torch.Tensor,  # (Hq, G, D), last dim contiguous
     k_layer: torch.Tensor,  # (Hkv, cap, D) layer view of the stacked cache
     v_layer: torch.Tensor,
     length: int,  # host int: valid slots before the group
     scale: float,
+    k_scale: Optional[torch.Tensor] = None,  # (Hkv, cap) f32, int8 K
+    v_scale: Optional[torch.Tensor] = None,  # (Hkv, cap) f32, int8 V
 ) -> torch.Tensor:
     """Unified causal attention: row i attends [0, length + i]. The group's
-    K/V must already sit at [length, length + G). Returns (Hq, G, D) in q's
-    dtype (on CUDA: a (G, Hq, D)-major view, so `.transpose(0, 1)` is
-    contiguous for the o-projection)."""
+    K/V must already sit at [length, length + G). With `k_scale` the cache
+    is int8 (K, and V when `v_scale` is given) and q runs the int8-QK route.
+    Returns (Hq, G, D) in q's dtype (on CUDA: a (G, Hq, D)-major view, so
+    `.transpose(0, 1)` is contiguous for the o-projection)."""
     hq, g, d = q.shape
     hkv, cap, _ = k_layer.shape
     if hq % hkv:
@@ -49,26 +95,41 @@ def flash_past_attention(
         raise ValueError(
             f"length {length} + group {g} exceeds cache capacity {cap}"
         )
+    if v_scale is not None and k_scale is None:
+        raise ValueError("v_scale without k_scale: int8 V needs int8 K")
+    quant = k_scale is not None
     if q.device.type == "cpu":
+        if quant:
+            q8, qs = quantize_q(q, scale)
+            return unified_causal_attention_int8(
+                q8, qs, k_layer, k_scale, v_layer, v_scale, length, q.dtype
+            )
         return unified_causal_attention(q, k_layer, v_layer, length, scale)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    for name, t in (("q", q), ("k", k_layer), ("v", v_layer)):
-        if t.dtype != torch.bfloat16:
-            raise TypeError(f"flash kernel takes bf16, got {name} {t.dtype}")
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
-        if t.shape[-1] != HEAD_DIM or t.stride(-1) != 1:
-            raise ValueError(
-                f"flash kernel needs head dim {HEAD_DIM} contiguous, got "
-                f"{name} shape {tuple(t.shape)} strides {t.stride()}"
-            )
-    for name, t in (("k", k_layer), ("v", v_layer)):
-        # 16-byte vector loads of K/V rows
-        if t.stride(0) % 8 or t.stride(1) % 8 or t.data_ptr() % 16:
-            raise ValueError(f"{name} layer view is not 16-byte aligned")
-    if q.stride(0) % 2 or q.stride(1) % 2 or q.data_ptr() % 4:
-        raise ValueError("q rows are not 4-byte aligned")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"flash kernel takes bf16 q, got {q.dtype}")
+    if q.shape[-1] != HEAD_DIM or q.stride(-1) != 1:
+        raise ValueError(
+            f"flash kernel needs head dim {HEAD_DIM} contiguous, got q "
+            f"shape {tuple(q.shape)} strides {q.stride()}"
+        )
+    _check_rows("k", k_layer, torch.int8 if quant else torch.bfloat16, q.device)
+    v_dtype = torch.int8 if v_scale is not None else torch.bfloat16
+    _check_rows("v", v_layer, v_dtype, q.device)
+    if quant:
+        _check_scales("k_scale", k_scale, k_layer)
+        if v_scale is not None:
+            _check_scales("v_scale", v_scale, v_layer)
+        q8, qs = quantize_q(q, scale)
+        qs = qs.contiguous()
+        q_in = q8  # 4-byte fragment loads of int8 rows
+        if q8.stride(0) % 4 or q8.stride(1) % 4 or q8.data_ptr() % 4:
+            raise ValueError("int8 q rows are not 4-byte aligned")
+    else:
+        q_in = q
+        if q.stride(0) % 2 or q.stride(1) % 2 or q.data_ptr() % 4:
+            raise ValueError("q rows are not 4-byte aligned")
     out = torch.empty(g, hq, d, dtype=q.dtype, device=q.device).transpose(0, 1)
     rep = hq // hkv
     ctas = -(-g * rep // 64) * hkv
@@ -84,18 +145,36 @@ def flash_past_attention(
             n_split, hq, g, 2, dtype=torch.float32, device=q.device
         )
     lib = _build.library()
-    err = lib.qv_flash_attention(
-        q.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(), out.data_ptr(),
+    common = (
+        q_in.stride(0), q_in.stride(1), k_layer.stride(0), k_layer.stride(1),
+        v_layer.stride(0), v_layer.stride(1), out.stride(0), out.stride(1),
+        hq, hkv, g, int(length), cap, n_split,
+    )
+    parts = (
         part_o.data_ptr() if part_o is not None else None,
         part_ml.data_ptr() if part_ml is not None else None,
-        q.stride(0), q.stride(1), k_layer.stride(0), k_layer.stride(1),
-        v_layer.stride(0), v_layer.stride(1), out.stride(0), out.stride(1),
-        hq, hkv, g, int(length), cap, n_split, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _build.check(err, "qv_flash_attention")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if quant:
+        variant = "int8" if v_scale is not None else "int8k"
+        err = lib.qv_flash_attention_int8(
+            q8.data_ptr(), qs.data_ptr(), k_layer.data_ptr(),
+            k_scale.data_ptr(), v_layer.data_ptr(),
+            v_scale.data_ptr() if v_scale is not None else None,
+            out.data_ptr(), *parts, *common, k_scale.stride(0),
+            v_scale.stride(0) if v_scale is not None else 0, stream,
+        )
+    else:
+        variant = "bf16"
+        err = lib.qv_flash_attention(
+            q.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(),
+            out.data_ptr(), *parts, *common, float(scale), stream,
+        )
+    _build.check(err, f"qv_flash_attention ({variant})")
     flash_past_attention.launches += 1
+    flash_past_attention.variant_launches[variant] += 1
     return out
 
 
 flash_past_attention.launches = 0
+flash_past_attention.variant_launches = {"bf16": 0, "int8": 0, "int8k": 0}

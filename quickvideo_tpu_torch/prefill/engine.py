@@ -16,8 +16,14 @@ vision MLP weights for kernel B4 once, and the final prefill act-quantizes
 whatever the suffix length (the JAX package's padded bucket always passes
 its row gate).
 
-Not in this slice (each raises NotImplementedError): int8 / int8k KV,
-pipeline / context / tensor parallelism, image inputs, sampling,
+The KV cache is bf16 (the compute dtype), int8 K and V, or int8 K only
+(`kv_cache_dtype` "bfloat16" / "int8" / "int8k"); "auto" resolves per
+request as the JAX package's rule does (`config.resolve_auto_kv_dtype`:
+int8 above 65,536 planned slots or when a bf16 cache would not fit beside
+the weights), with the card's memory.
+
+Not in this slice (each raises NotImplementedError): pipeline / context /
+tensor parallelism, image inputs, sampling,
 continuation scoring, streamed tokens (`on_tokens`), the query-based, decay
 and cascade pruning modes, predictors other than key_norms_small,
 `do_top_k_for_query`, the on-device resize and the disk frame cache.
@@ -26,13 +32,19 @@ and cascade pruning modes, predictors other than key_norms_small,
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from typing import Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from quickvideo_tpu.config import LVUConfig, resolve_effective_top_k
+from quickvideo_tpu.config import (
+    LVUConfig,
+    kv_quant_mode,
+    resolve_auto_kv_dtype,
+    resolve_effective_top_k,
+)
 from quickvideo_tpu.models.qwen25_vl.config import ModelConfig
 from quickvideo_tpu_torch.models.qwen25_vl import model as qmodel
 from quickvideo_tpu_torch.models.qwen25_vl import rope
@@ -94,7 +106,6 @@ def check_slice(lvu: LVUConfig) -> None:
         ),
         "adaptive_local_attention=False": not lvu.adaptive_local_attention,
         "do_top_k_for_query": lvu.do_top_k_for_query,
-        "kv_cache_dtype": lvu.kv_cache_dtype in ("int8", "int8k"),
         "mesh (multi-device)": lvu.mesh.num_devices > 1,
         "resize_on_device": lvu.resize_on_device,
         "save_video_cache": lvu.save_video_cache,
@@ -104,6 +115,18 @@ def check_slice(lvu: LVUConfig) -> None:
         raise NotImplementedError(
             f"not ported to quickvideo_tpu_torch yet: {', '.join(bad)}"
         )
+
+
+def tensor_leaves(tree):
+    """The tensors of a nested dict / list / tuple of parameters."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from tensor_leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from tensor_leaves(v)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
 
 
 class LVUEngine:
@@ -134,6 +157,7 @@ class LVUEngine:
             else params["language"]["norm"].device
         )
         self._layouts = {}
+        self._weight_bytes = None
 
     def _layout_tensors(self, grid):
         if grid not in self._layouts:
@@ -152,15 +176,33 @@ class LVUEngine:
 
     # -- planning --------------------------------------------------------
 
+    def device_memory_bytes(self) -> int:
+        """What the auto KV rule takes as device memory: QV_HBM_GB (GiB)
+        when set, else the card's total memory, else the JAX engine's 16 GiB
+        default (so both packages resolve alike on the CPU)."""
+        env = os.environ.get("QV_HBM_GB")
+        if env:
+            return int(float(env) * (1 << 30))
+        if self.device.type == "cuda":
+            return torch.cuda.get_device_properties(self.device).total_memory
+        return 16 << 30
+
     def resolve_kv_dtype(self, capacity: int) -> str:
-        """kv_cache_dtype='auto' resolves to bfloat16 in this slice: int8
-        caches are not ported, and an 80 GB card holds the 7B's bf16 cache
-        at the bench's 2^16 slots (the JAX package's rule was sized for a
-        16 GB chip)."""
-        if self.lvu.kv_cache_dtype in ("auto", "bfloat16"):
-            return "bfloat16"
-        raise NotImplementedError(
-            f"kv_cache_dtype={self.lvu.kv_cache_dtype!r} is not ported yet"
+        """Resolve kv_cache_dtype='auto' for a request with `capacity`
+        planned KV slots by the JAX package's rule
+        (config.resolve_auto_kv_dtype, thresholds measured on a TPU), with
+        this engine's weight bytes and device memory; explicit dtypes pass
+        through."""
+        if self.lvu.kv_cache_dtype != "auto":
+            return self.lvu.kv_cache_dtype
+        if self._weight_bytes is None:
+            self._weight_bytes = sum(
+                t.nbytes for t in tensor_leaves(self.params)
+            )
+        return resolve_auto_kv_dtype(
+            capacity, self.cfg.text, self._weight_bytes,
+            self.device_memory_bytes(),
+            compute_itemsize=torch.empty((), dtype=self.dtype).element_size(),
         )
 
     def plan_capacity(
@@ -247,12 +289,13 @@ class LVUEngine:
                     f"to the 4096-slot quantum ({cap_fixed})"
                 )
             capacity = cap_fixed
-        self.resolve_kv_dtype(capacity)  # bf16; raises for the unported
+        kv_dtype = self.resolve_kv_dtype(capacity)
         t = cfg.text
         with timer.span("cache_alloc"):
             cache = kvc.init_cache(
                 t.num_hidden_layers, t.num_key_value_heads, capacity,
                 t.head_dim, dtype=self.dtype, device=self.device,
+                quantized=kv_quant_mode(kv_dtype),
             )
 
         lang = self.params["language"]
@@ -304,6 +347,7 @@ class LVUEngine:
             "ids_t": ids_t,
             "cache_len": logical_len,
             "retained": retained,
+            "kv_dtype": kv_dtype,
         }
         return cache, state
 
@@ -368,10 +412,14 @@ class LVUEngine:
         suffix_len = L - state["suffix_start"]
         cache_len = state["cache_len"] + suffix_len + max(0, len(tokens) - 1)
         itemsize = torch.empty((), dtype=self.dtype).element_size()
-        per_tok = (
-            t.num_hidden_layers * t.num_key_value_heads * 2 * t.head_dim
-            * itemsize
-        )
+        # bytes per (K, V) token slot: int8 stores 1 B values and one f32
+        # scale per head_dim row; int8k quantizes K only
+        full = t.head_dim * itemsize
+        k_b, v_b = {
+            "int8": (t.head_dim + 4, t.head_dim + 4),
+            "int8k": (t.head_dim + 4, full),
+        }.get(state["kv_dtype"], (full, full))
+        per_tok = t.num_hidden_layers * t.num_key_value_heads * (k_b + v_b)
         return GenerationResult(
             tokens=np.asarray(tokens, np.int64),
             timings=timer.totals(),

@@ -7,11 +7,13 @@ installed, without tests/conftest.py (which imports JAX):
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
-Tolerances: both sides read the same bf16 operands; the plain version
-computes in f32 and rounds once, the kernel also rounds its softmax weights
-to bf16 before the PV product. Outputs are bf16 (2^-7 relative spacing), so
-one rounding step apart plus the rounded weights stay within 1e-2 + 1e-2 *
-|plain|.
+Tolerances: both sides read the same bf16 operands (B1's int8 variants:
+the same int8 codes and scales); the plain version computes in f32 and
+rounds once, the kernel also rounds its softmax weights to bf16 before the
+PV product (the plain int8 versions round p * vs or p to bf16 as well, but
+against the global row max where the kernel uses the running one). Outputs
+are bf16 (2^-7 relative spacing), so one rounding step apart plus the
+rounded weights stay within 1e-2 + 1e-2 * |plain|.
 
 B3/B4/B6 (int8): quickvideo_tpu_torch/testing.py states the rule, shared
 with chip_smoke.py.
@@ -22,7 +24,16 @@ import pytest
 import torch
 
 from quickvideo_tpu_torch.ops import fused_vision_mlp as fm
-from quickvideo_tpu_torch.ops.attention import unified_causal_attention
+from quickvideo_tpu_torch.ops.attention import (
+    quantize_q,
+    unified_causal_attention,
+    unified_causal_attention_int8,
+)
+from quickvideo_tpu_torch.ops.kv_cache import (
+    init_cache,
+    quantize_kv,
+    stacked_append,
+)
 from quickvideo_tpu_torch.ops.quantization import (
     int_mm,
     qdot,
@@ -94,6 +105,111 @@ def test_flash_wrapper_rejects_what_the_kernel_does_not_take(dev):
     q96 = torch.zeros(28, 4, 96, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
         flash_past_attention(q96, k96, k96, 0, 1.0)
+
+
+def _int8_cache(dev, cap, variant, seed):
+    """A 2-layer stacked int8 cache (K, and V for "int8") quantized from
+    seeded bf16 rows, as the main path's appends write it."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cache = init_cache(2, 4, cap, 128, device=dev,
+                       quantized=True if variant == "int8" else "k")
+    k = torch.randn(4, cap, 128, generator=gen, device=dev).bfloat16()
+    v = torch.randn(4, cap, 128, generator=gen, device=dev).bfloat16()
+    for li in range(2):
+        stacked_append(cache, li, 0, k, v)
+    q = torch.randn(cap, 28, 128, generator=gen, device=dev).bfloat16()
+    return cache, q
+
+
+def _int8_args(cache, li=1):
+    return dict(
+        k_scale=cache.k_scale[li],
+        v_scale=None if cache.v_scale is None else cache.v_scale[li],
+    )
+
+
+@pytest.mark.parametrize("variant", ["int8", "int8k"])
+@pytest.mark.parametrize(
+    "g,length,cap",
+    [(1, 4000, 8192), (1, 122880, 131072), (37, 3607, 8192), (600, 0, 4096),
+     (3600, 1807, 8192)],
+)
+def test_flash_int8_kernels_match_plain(dev, variant, g, length, cap):
+    """B1's int8-QK variants against their plain version on the same int8
+    codes: q quantized once by the shared quantize_q, same tolerance as
+    bf16 (both round p * vs or p to bf16 for the PV product)."""
+    cache, q = _int8_cache(dev, cap, variant, g)
+    q = q[:g].transpose(0, 1)  # (G, Hq, D) storage, as the projection
+    scale = 128 ** -0.5
+    before = dict(flash_past_attention.variant_launches)
+    got = flash_past_attention(q, cache.k[1], cache.v[1], length, scale,
+                               **_int8_args(cache))
+    assert flash_past_attention.variant_launches[variant] == before[variant] + 1
+    q8, qs = quantize_q(q, scale)
+    a = _int8_args(cache)
+    ref = unified_causal_attention_int8(
+        q8, qs, cache.k[1], a["k_scale"], cache.v[1], a["v_scale"], length,
+        torch.bfloat16,
+    )
+    torch.testing.assert_close(got.float(), ref.float(), **TOL)
+
+
+@pytest.mark.parametrize("variant", ["int8", "int8k"])
+def test_flash_int8_kernel_reads_only_its_layer(dev, variant):
+    """NaN codes cannot exist, so poison the scales: of the other layer and
+    past length + G."""
+    cache, q = _int8_cache(dev, 1024, variant, 3)
+    q = q[:50].transpose(0, 1)
+    got = flash_past_attention(q, cache.k[1], cache.v[1], 300, 0.1,
+                               **_int8_args(cache))
+    for sc in (cache.k_scale, cache.v_scale):
+        if sc is not None:
+            sc[0].fill_(float("nan"))
+            sc[1, :, 350:].fill_(float("nan"))
+    cache.k[1, :, 350:].fill_(127)
+    if variant == "int8k":
+        cache.v[1, :, 350:].fill_(float("nan"))
+    again = flash_past_attention(q, cache.k[1], cache.v[1], 300, 0.1,
+                                 **_int8_args(cache))
+    assert torch.equal(got, again)
+
+
+def test_kv_and_q_quantization_on_the_card_equal_the_cpu(dev):
+    """quantize_kv and quantize_q at 3600 rows: codes and scales on the
+    card bit-identical to the CPU's (a division by a Python scalar would
+    become a multiply by its reciprocal on CUDA and flip codes)."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    x = torch.randn(4, 3600, 128, generator=gen, device=dev)
+    x = (x * torch.rand(4, 3600, 1, generator=gen, device=dev) * 20).bfloat16()
+    for got, want in ((quantize_kv(x), quantize_kv(x.cpu())),
+                      (quantize_kv(x.float()), quantize_kv(x.float().cpu())),
+                      (quantize_q(x, 128 ** -0.5),
+                       quantize_q(x.cpu(), 128 ** -0.5))):
+        assert torch.equal(got[0].cpu(), want[0])
+        assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_flash_int8_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    cache, q = _int8_cache(dev, 256, "int8", 5)
+    q = q[:4].transpose(0, 1)
+    k, v, ks, vs = cache.k[1], cache.v[1], cache.k_scale[1], cache.v_scale[1]
+    with pytest.raises(TypeError):  # bf16 K with K scales
+        flash_past_attention(q, k.bfloat16(), v, 0, 1.0, k_scale=ks,
+                             v_scale=vs)
+    with pytest.raises(TypeError):  # int8 V without V scales
+        flash_past_attention(q, k, v, 0, 1.0, k_scale=ks)
+    with pytest.raises(TypeError):  # scales not f32
+        flash_past_attention(q, k, v, 0, 1.0, k_scale=ks.bfloat16(),
+                             v_scale=vs)
+    strided = torch.zeros(256, 4, device=dev).t()  # stride 4 along cap
+    with pytest.raises(ValueError, match="stride 1"):
+        flash_past_attention(q, k, v, 0, 1.0, k_scale=strided, v_scale=vs)
+    flat = torch.zeros(4 * 256 * 128 + 8, dtype=torch.int8, device=dev)
+    off = flat[8:].view(4, 256, 128)  # rows 8 bytes off 16-byte alignment
+    with pytest.raises(ValueError, match="aligned"):
+        flash_past_attention(q, off, v, 0, 1.0, k_scale=ks, v_scale=vs)
+    with pytest.raises(TypeError):  # f32 activations
+        flash_past_attention(q.float(), k, v, 0, 1.0, k_scale=ks, v_scale=vs)
 
 
 @pytest.mark.parametrize(

@@ -1,9 +1,10 @@
 """Kernel B1 (unified-causal flash attention) of the PyTorch port.
 
-The plain version (the CPU path of the wrapper) is held against the JAX
+The plain versions (the CPU path of the wrapper) are held against the JAX
 package's Pallas kernel in interpret mode, on the same numpy inputs, at the
 production head dim 128 and the 7B's GQA ratio rep = 7 (Hq=14, Hkv=2), on a
-stacked cache read at layer 1.
+stacked cache read at layer 1: the bf16-cache mode, and the int8 and int8k
+caches on the int8-QK route.
 The CUDA kernel is held against the plain version on the card in
 test_torch_cuda.py.
 """
@@ -16,7 +17,10 @@ import jax
 import jax.numpy as jnp
 
 from quickvideo_tpu.ops.flash_attention import flash_past_attention as jax_flash
-from quickvideo_tpu_torch.ops.attention import unified_causal_attention
+from quickvideo_tpu_torch.ops.attention import (
+    quantize_q,
+    unified_causal_attention,
+)
 from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
 
 torch.set_num_threads(2)
@@ -66,4 +70,85 @@ def test_overflowing_group_raises():
         flash_past_attention(
             torch.from_numpy(q), torch.from_numpy(k)[0],
             torch.from_numpy(v)[0], CAP - 4, SCALE,
+        )
+
+
+def _int8_cache(seed, v_int8=True):
+    """A stacked int8 cache quantized by the JAX package's quantize_kv,
+    as numpy: K codes and scales, and V codes and scales or V in f32."""
+    from quickvideo_tpu.ops.kv_cache import quantize_kv as jax_quantize_kv
+
+    rng = np.random.default_rng(seed)
+    k = rng.standard_normal((LAYERS, HKV, CAP, D)).astype(np.float32)
+    v = rng.standard_normal((LAYERS, HKV, CAP, D)).astype(np.float32)
+    k = k * rng.uniform(0.2, 3.0, (LAYERS, HKV, CAP, 1)).astype(np.float32)
+    kq, ks = zip(*(jax_quantize_kv(jnp.asarray(x)) for x in k))
+    out = {"k": np.stack(kq), "k_scale": np.stack(ks), "v": v,
+           "v_scale": None}
+    if v_int8:
+        vq, vs = zip(*(jax_quantize_kv(jnp.asarray(x)) for x in v))
+        out["v"], out["v_scale"] = np.stack(vq), np.stack(vs)
+    return {n: None if a is None else np.asarray(a) for n, a in out.items()}
+
+
+# f32 activations on both sides and identical int8 codes (q codes are
+# pinned by test_q_quantization_equals_the_jax_wrappers): the scores are
+# exact int32 products times the same scales, so only the online softmax's
+# rescaling and summation order differ
+INT8_ATOL = INT8_RTOL = 2e-5
+
+
+@pytest.mark.parametrize("v_int8", [True, False], ids=["int8", "int8k"])
+@pytest.mark.parametrize("g", [1, 37, 300])
+@pytest.mark.parametrize("where", ["zero", "mid", "edge"])
+def test_int8_plain_matches_pallas_int8_qk(g, where, v_int8):
+    length = {"zero": 0, "mid": 411, "edge": CAP - g}[where]
+    rng = np.random.default_rng(g + length)
+    q = rng.standard_normal((HQ, g, D)).astype(np.float32) * 2.0
+    c = _int8_cache(g + length + 1, v_int8)
+    vs = c["v_scale"]
+    ref = jax_flash(
+        jnp.asarray(q), jnp.asarray(c["k"]), jnp.asarray(c["v"]),
+        jnp.int32(length), scale=SCALE, causal=True, layer_idx=jnp.int32(1),
+        block_q=128, block_k=256, interpret=True,
+        k_scale=jnp.asarray(c["k_scale"][1]),
+        v_scale=None if vs is None else jnp.asarray(vs[1]),
+        int8_qk=True,
+    ).out
+    got = flash_past_attention(
+        torch.from_numpy(q), torch.from_numpy(c["k"])[1],
+        torch.from_numpy(c["v"])[1], length, SCALE,
+        k_scale=torch.from_numpy(c["k_scale"])[1],
+        v_scale=None if vs is None else torch.from_numpy(vs)[1],
+    )
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=INT8_ATOL,
+                               rtol=INT8_RTOL)
+
+
+@pytest.mark.parametrize("rows", [1, 37, 3600])
+def test_q_quantization_equals_the_jax_wrappers(rows):
+    """quantize_q is bit-identical to the JAX wrapper's int8-QK q
+    quantization (flash_attention.py:304-312), zero rows included."""
+    from quickvideo_tpu.ops.flash_attention import LOG2E as JAX_LOG2E
+
+    rng = np.random.default_rng(rows)
+    q = rng.standard_normal((4, rows, D)).astype(np.float32)
+    q *= rng.uniform(0.01, 40.0, (4, rows, 1)).astype(np.float32)
+    q[1, 0] = 0.0
+    qf = jnp.asarray(q) * (SCALE * JAX_LOG2E)
+    qs = jnp.maximum(jnp.max(jnp.abs(qf), axis=-1, keepdims=True), 1e-20) / 127.0
+    q8 = jnp.clip(jnp.round(qf / qs), -127, 127).astype(jnp.int8)
+    got8, got_s = quantize_q(torch.from_numpy(q), SCALE)
+    np.testing.assert_array_equal(got8.numpy(), np.asarray(q8))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(qs)[..., 0])
+    assert got8.dtype == torch.int8 and got_s.dtype == torch.float32
+
+
+def test_int8_wrapper_rejects_v_scale_without_k_scale():
+    q, k, v = _inputs(4, seed=0)
+    with pytest.raises(ValueError, match="v_scale"):
+        flash_past_attention(
+            torch.from_numpy(q), torch.from_numpy(k)[0],
+            torch.from_numpy(v)[0], 0, SCALE,
+            v_scale=torch.ones(HKV, CAP),
         )

@@ -240,3 +240,105 @@ def test_logits_keep_the_f32_product():
     ref = hn.float() @ p["lm_head"].float()
     assert got.dtype == torch.float32
     assert (got - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def _assert_codes_close(q, s, jq, js, n):
+    """The K or V rows both caches hold come from hidden states that agree
+    to f32 summation order (ATOL), so a row scale may differ by an ulp and a
+    code sitting on a rounding boundary may flip by one."""
+    q, jq = q[:, :, :n].numpy().astype(np.int32), np.asarray(jq)[:, :, :n]
+    s, js = s[:, :, :n].numpy(), np.asarray(js)[:, :, :n]
+    np.testing.assert_allclose(s, js, rtol=1e-5)
+    diff = np.abs(q - jq)
+    # measured: every code equal, scales within 6e-7 relative
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.999
+
+
+@pytest.mark.parametrize("quant", [True, "k"], ids=["int8", "int8k"])
+@pytest.mark.parametrize("top_p", [None, 0.5])
+def test_int8_kv_layers_match_jax_hot_route(params, monkeypatch, quant,
+                                            top_p):
+    """int8 / int8k KV cache, two groups then a decode step: the port's
+    layer_step against the JAX package's hot route (attn_impl="pallas",
+    QV_PALLAS_INTERPRET=1): hidden states, retained sets, and the cache's
+    codes and scales."""
+    monkeypatch.setenv("QV_PALLAS_INTERPRET", "1")
+    jp, tp = params
+    rng = np.random.default_rng(4)
+    groups, cap = [96, 80], 4096  # the JAX int8 kernel tiles 128-slot blocks
+    pos = np.stack([np.arange(sum(groups) + 1)] * 3)
+    pos[1, 20:60] //= 3
+    cos_t, sin_t = mrope_cos_sin(pos, T.head_dim, T.mrope_section, T.rope_theta, "cpu")
+    cos_j, sin_j = jnp.asarray(cos_t.numpy()), jnp.asarray(sin_t.numpy())
+    jc = jkv.init_cache(T.num_hidden_layers, T.num_key_value_heads, cap,
+                        T.head_dim, dtype=jnp.float32, quantized=quant)
+    tc = tkv.init_cache(T.num_hidden_layers, T.num_key_value_heads, cap,
+                        T.head_dim, dtype=torch.float32, quantized=quant)
+    assert tc.quantized == quant
+    off = 0
+    for g in groups:
+        keep = int(g * top_p) if top_p else 0
+        spec = jlang.StepSpec(cfg=T, q_len=g, keep_k=keep, attn_impl="pallas",
+                              kv_quant=quant)
+        x0 = rng.standard_normal((g, T.hidden_size)).astype(np.float32)
+        rows = slice(off, off + g)
+        jc, hj = jlang.prefill_step(jp, jc, jnp.asarray(x0), cos_j[rows],
+                                    sin_j[rows], jax.random.key(0), spec)
+        ht, _ = tlang.prefill_step(tp, tc, torch.from_numpy(x0), cos_t[rows],
+                                   sin_t[rows], T, keep)
+        np.testing.assert_allclose(ht.numpy(), np.asarray(hj), atol=ATOL,
+                                   rtol=RTOL, err_msg=f"group at {off}")
+        assert tc.lengths == np.asarray(jc.length).tolist()
+        off += g
+    n = tc.lengths[0]
+    _assert_codes_close(tc.k, tc.k_scale, jc.k, jc.k_scale, n)
+    if quant is True:
+        _assert_codes_close(tc.v, tc.v_scale, jc.v, jc.v_scale, n)
+    else:
+        assert tc.v_scale is None and jc.v_scale is None
+        np.testing.assert_allclose(tc.v[:, :, :n].numpy(),
+                                   np.asarray(jc.v)[:, :, :n], atol=ATOL)
+    dspec = jlang.StepSpec(cfg=T, q_len=1, keep_k=0, attn_impl="pallas",
+                           kv_quant=quant)
+    jc, lj = jlang.decode_step(jp, jc, jnp.int32(17), cos_j[off:],
+                               sin_j[off:], dspec)
+    lt = tlang.decode_step(tp, tc, torch.tensor([17]), cos_t[off:],
+                           sin_t[off:], T)
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=ATOL, rtol=RTOL)
+
+
+def test_quantize_kv_equals_the_jax_package():
+    """Codes and scales bit-identical to quickvideo_tpu.ops.kv_cache.
+    quantize_kv, zero rows (scale 1e-8) and rows with ties included;
+    dequantize_kv likewise."""
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((4, 300, 128)).astype(np.float32)
+    x *= rng.uniform(1e-3, 30.0, (4, 300, 1)).astype(np.float32)
+    x[0, 0] = 0.0
+    x[1, 1] = np.arange(128, dtype=np.float32) - 63.5  # scale 0.5: x / s ties
+    jq, js = jkv.quantize_kv(jnp.asarray(x))
+    tq, ts = tkv.quantize_kv(torch.from_numpy(x))
+    assert tq.dtype == torch.int8 and ts.dtype == torch.float32
+    np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(ts.numpy(), np.asarray(js))
+    np.testing.assert_array_equal(
+        tkv.dequantize_kv(tq, ts).numpy(),
+        np.asarray(jkv.dequantize_kv(jq, js)),
+    )
+
+
+@pytest.mark.parametrize("quant", [True, "k"], ids=["int8", "int8k"])
+def test_quantized_append_writes_codes_and_scales(quant):
+    c = tkv.init_cache(2, 2, 64, 8, dtype=torch.float32, quantized=quant)
+    k = torch.randn(2, 5, 8)
+    v = torch.randn(2, 5, 8)
+    tkv.stacked_append(c, 1, 3, k, v)
+    kq, ks = tkv.quantize_kv(k)
+    assert torch.equal(c.k[1, :, 3:8], kq) and torch.equal(c.k_scale[1, :, 3:8], ks)
+    assert not c.k[0].any() and not c.k_scale[0].any()
+    if quant is True:
+        vq, vs = tkv.quantize_kv(v)
+        assert torch.equal(c.v[1, :, 3:8], vq) and torch.equal(c.v_scale[1, :, 3:8], vs)
+    else:
+        assert c.v.dtype == torch.float32 and c.v_scale is None
+        assert torch.equal(c.v[1, :, 3:8], v)
