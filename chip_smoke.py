@@ -9,10 +9,13 @@ checkout of the repository. Phases:
 
   1. the card's name and power limit; build of the kernels from csrc/;
   2. each kernel against its plain PyTorch version on the card, at the
-     production head dims and the main path's shapes, with times: B1 (bf16
-     cache, and its int8-QK variants for the int8 and int8k caches, up to
-     the 1024-frame headline's last group step and hour-scale decode), B2,
-     and the int8 vision kernels B3, B4, B6 at the 7B tower's widths;
+     production head dims and the main path's shapes, with times, the
+     bound (the card's peaks) and, where one PyTorch call computes the
+     same function, that call's time: B1 (bf16 cache, and its int8-QK
+     variants for the int8 and int8k caches, up to the 1024-frame
+     headline's last group step and hour-scale decode; its lse output and
+     pure-past mode on every cache, out and lse apart), B2, and the int8
+     vision kernels B3, B4, B6 at the 7B tower's widths;
   3. the main path at the full width and depth of qwen25-vl-7b (bf16
      random weights): three `generate` requests through LVU / LVUEngine on
      64 seeded 420x420 yuv420 frames, groups of 32, key_norms_small at
@@ -29,9 +32,17 @@ checkout of the repository. Phases:
      rel. L2 against the bf16-KV logits (printed, not asserted); then one
      request with int8 weights, kv_cache_dtype="auto" and
      kv_cache_capacity=131072, which must resolve to an int8 cache;
+  3d. one 7B request per entry of MODE_REQUESTS on the bf16 weights of
+     phase 3 (salient_tokens with bf16 and int8 KV, query-based, a linear
+     decay with the cascade, query-based with int8 KV and a decay and with
+     int8k KV and do_top_k_for_query): B1 launches per variant and mode,
+     cache lengths per layer against the config's rules, spans, peak
+     memory;
   4. the same prefill on the card and (plain versions) on the CPU for a
      narrow config with production head dims, with bf16 and with int8
-     weights, and with an int8 KV cache: final-prefill logits agree.
+     weights, with an int8 KV cache, and with salient_tokens and
+     query-based pruning: final-prefill logits agree, and the retained
+     index sets of the pruned runs.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -39,8 +50,9 @@ error and times; the last line is {"ok": true, "device": {...}}.
     python3 chip_smoke.py --profile
 
 runs phase 1, then one warm 7B request (request 0 of phase 3) with bf16
-weights, with int8 weights, and with bf16 weights and an int8 KV cache
-under torch.profiler, and prints the wall time, the busy share of the card,
+weights, with int8 weights, with bf16 weights and an int8 KV cache, and
+with bf16 weights and salient_tokens, then query-based, pruning under
+torch.profiler, and prints the wall time, the busy share of the card,
 the spans, kernel time by kind and the top kernels. It prints no result
 line.
 """
@@ -83,6 +95,30 @@ INT8_LOGITS_REL_L2 = 6e-2
 INT8_KV_LOGITS_REL_L2 = LOGITS_REL_L2
 # B3/B4/B6 kernel vs plain: quickvideo_tpu_torch/testing.py states and
 # applies the rule (FUSED_*)
+# card vs CPU with an attention-statistics or query-based predictor at
+# top_p 0.5: the scores behind the retained set come from bf16 attention on
+# the card and f32 on the CPU, and a retained index that flips swaps a key
+# for another where a key-norm order rarely moves. The CPU's plain versions
+# give rel. L2 5.9e-3 (salient_tokens) and 8.3e-3 (query_attention_weights)
+# for bf16 vs f32 activations, with 99.4-100% of each (group, layer)'s
+# retained indices agreeing; the card rounds at other points than the CPU's
+# bf16 path, so the unpruned budget is doubled and each set must agree on at
+# least RETAINED_AGREE of its indices
+PRUNED_LOGITS_REL_L2 = 2 * LOGITS_REL_L2
+RETAINED_AGREE = 0.9
+
+# B1's lse (f32, natural log), kernel vs plain: both take the same f32
+# scores (exact products of the bf16 or int8 operands) and differ in
+# summation order and exp2 / log rounding, ~1e-6 of an lse of magnitude
+# <= 20; two orders of margin
+LSE_ATOL = 1e-4
+
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
+# a kernel's bound is the larger of its bytes (each input read once, each
+# output written once) over the memory rate and its operations over the
+# peak rate of their type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 
 REQUEST_FRAMES = 64
 FRAME_HW = 420  # 30 x 30 patches: ragged 64/48/36-patch window buckets
@@ -115,6 +151,65 @@ def _time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, ops: dict):
+    """(bound ms, "bytes" or "operations") for `nbytes` moved and
+    `ops` operations by type ("bf16", "int8")."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = sum(n / PEAK_OPS_PER_S[kind] for kind, n in ops.items())
+    return 1e3 * max(t_bytes, t_ops), (
+        "bytes" if t_bytes >= t_ops else "operations"
+    )
+
+
+def nbytes(*objs) -> int:
+    """Bytes of the tensors in nested tuples, lists and dicts."""
+    import torch
+
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, dict):
+            total += nbytes(*o.values())
+        elif isinstance(o, (tuple, list)):
+            total += nbytes(*o)
+    return total
+
+
+def flash_bound(g, length, variant="bf16", causal=True, out_bytes=2,
+                with_lse=False, hq=28, hkv=4, d=128):
+    """B1's bound: q (bf16) read, the attended slots' K and V (and scales)
+    read, out (and lse) written; QK and PV over the attended (row, slot)
+    pairs, QK at the int8 rate on the int8-QK route."""
+    n = length + g if causal else length
+    pairs = g * length + (g * (g + 1) // 2 if causal else 0)
+    k_b, v_b = {"bf16": (2 * d, 2 * d), "int8": (d + 4, d + 4),
+                "int8k": (d + 4, 2 * d)}[variant]
+    moved = (hq * g * d * 2 + hkv * n * (k_b + v_b) + hq * g * d * out_bytes
+             + (hq * g * 4 if with_lse else 0))
+    prod = 2 * hq * d * pairs
+    ops = ({"bf16": 2 * prod} if variant == "bf16"
+           else {"int8": prod, "bf16": prod})
+    return bound(moved, ops)
+
+
+def sdpa_ms(q, k, v, length, causal=True, reps=5):
+    """One PyTorch call computing B1's output on bf16 operands:
+    scaled_dot_product_attention with an explicit mask and enable_gqa
+    (timed for comparison only; the port never calls it)."""
+    import torch
+    import torch.nn.functional as F
+
+    g = q.shape[1]
+    n = length + g if causal else length
+    rows = torch.arange(g, device=q.device)[:, None]
+    cols = torch.arange(n, device=q.device)[None, :]
+    mask = cols <= rows + length if causal else cols < length
+    qb, kb, vb = q[None], k[None, :, :n], v[None, :, :n]
+    return _time_ms(lambda: F.scaled_dot_product_attention(
+        qb, kb, vb, attn_mask=mask, enable_gqa=True), reps)
 
 
 def _device_ms(fn, names, reps: int) -> float:
@@ -156,7 +251,7 @@ def check_flash(dev, cases):
     """B1 on a 2-layer stacked cache, layer 1, Hq=28 / Hkv=4 / D=128."""
     import torch
 
-    from quickvideo_tpu_torch.ops.attention import unified_causal_attention
+    from quickvideo_tpu_torch.ops.attention import cache_attention
     from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
 
     gen = torch.Generator(device=dev)
@@ -169,25 +264,26 @@ def check_flash(dev, cases):
         q = torch.randn(g, 28, 128, generator=gen, device=dev).bfloat16()
         q = q.transpose(0, 1)
         scale = 128 ** -0.5
-        got = flash_past_attention(q, k_all[1], v_all[1], length, scale)
-        ref = unified_causal_attention(q, k_all[1], v_all[1], length, scale)
+        got, _ = flash_past_attention(q, k_all[1], v_all[1], length, scale)
+        ref, _ = cache_attention(q, k_all[1], v_all[1], length, scale)
         err, within = _compare(got, ref)
         ms = _time_ms(
             lambda: flash_past_attention(q, k_all[1], v_all[1], length, scale),
             20,
         )
         plain_ms = _time_ms(
-            lambda: unified_causal_attention(
-                q, k_all[1], v_all[1], length, scale
-            ),
-            3,
+            lambda: cache_attention(q, k_all[1], v_all[1], length, scale), 3
         )
+        library_ms = sdpa_ms(q, k_all[1], v_all[1], length)
+        bound_ms, bound_by = flash_bound(g, length)
         ok = within
         log(f"B1 G={g} length={length} cap={cap}: max_abs_err={err:.3e} "
-            f"(tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-            f"{'OK' if ok else 'FAIL'}")
+            f"(tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|) kernel {ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms sdpa {library_ms:.4f} ms bound "
+            f"{bound_ms:.4f} ms ({bound_by}) {'OK' if ok else 'FAIL'}")
         rows.append(dict(g=g, length=length, err=err, ms=ms,
-                         plain_ms=plain_ms, ok=ok))
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, ok=ok))
         del k_all, v_all
     return rows
 
@@ -202,8 +298,8 @@ def check_flash_int8(dev, cases):
     import torch
 
     from quickvideo_tpu_torch.ops.attention import (
+        cache_attention_int8,
         quantize_q,
-        unified_causal_attention_int8,
     )
     from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
     from quickvideo_tpu_torch.ops.kv_cache import init_cache, stacked_append
@@ -218,7 +314,7 @@ def check_flash_int8(dev, cases):
         q = torch.randn(g, 28, 128, generator=gen, device=dev).bfloat16()
         q = q.transpose(0, 1)
         def bf16():
-            return flash_past_attention(q, k, v, length, scale)
+            return flash_past_attention(q, k, v, length, scale)[0]
 
         bf16_ms = _time_ms(bf16, 10)
         bf16_dev = _device_ms(bf16, ("flash_fwd_kernel", "flash_merge"), 10)
@@ -232,30 +328,116 @@ def check_flash_int8(dev, cases):
 
             def kernel():
                 return flash_past_attention(q, cache.k[1], cache.v[1], length,
-                                            scale, k_scale=ks, v_scale=vs)
+                                            scale, k_scale=ks, v_scale=vs)[0]
 
             def plain():
                 q8, qs = quantize_q(q, scale)
-                return unified_causal_attention_int8(
+                return cache_attention_int8(
                     q8, qs, cache.k[1], ks, cache.v[1], vs, length,
                     torch.bfloat16,
-                )
+                )[0]
 
             err, within = _compare(kernel(), plain())
             ms = _time_ms(kernel, 10)
             dev_ms = _device_ms(kernel, ("flash_fwd_int8", "flash_merge"), 10)
             plain_ms = _time_ms(plain, 2)
-            row.update({variant: dict(err=err, ms=ms, plain_ms=plain_ms)})
+            bound_ms, bound_by = flash_bound(g, length, variant)
+            row.update({variant: dict(err=err, ms=ms, plain_ms=plain_ms,
+                                      bound_ms=bound_ms, bound_by=bound_by)})
             row["ok"] &= within
             log(f"B1 {variant} G={g} length={length} cap={cap}: "
                 f"max_abs_err={err:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}"
                 f"*|plain|) kernel {ms:.4f} ms (with the q quantize, alone "
                 f"{q_ms:.4f} ms; device time of the B1 kernels "
                 f"{dev_ms:.4f} ms) plain {plain_ms:.4f} ms, bf16 kernel "
-                f"{bf16_ms:.4f} ms (device {bf16_dev:.4f} ms) "
+                f"{bf16_ms:.4f} ms (device {bf16_dev:.4f} ms), bound "
+                f"{bound_ms:.4f} ms ({bound_by}) "
                 f"{'OK' if within else 'FAIL'}")
             del cache
         rows.append(row)
+        del k, v, q
+        torch.cuda.empty_cache()
+    return rows
+
+
+def check_flash_modes(dev, cases):
+    """B1's lse output and pure-past mode against their plain versions, on
+    the bf16, int8 and int8k caches (one layer quantized from seeded bf16
+    rows), Hq=28 / Hkv=4 / D=128: out and lse errors apart, times. A case is
+    (causal, G, length, cap); pure past writes the f32 output the
+    query-based merge takes, unified + lse the hot path's bf16 output."""
+    import torch
+
+    from quickvideo_tpu_torch.ops.attention import (
+        NEG_INF,
+        cache_attention,
+        cache_attention_int8,
+        quantize_q,
+    )
+    from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
+    from quickvideo_tpu_torch.ops.kv_cache import init_cache, stacked_append
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    scale = 128 ** -0.5
+    rows = []
+    for causal, g, length, cap in cases:
+        k = torch.randn(4, cap, 128, generator=gen, device=dev).bfloat16()
+        v = torch.randn(4, cap, 128, generator=gen, device=dev).bfloat16()
+        q = torch.randn(g, 28, 128, generator=gen, device=dev).bfloat16()
+        q = q.transpose(0, 1)
+        out_dtype = torch.bfloat16 if causal else torch.float32
+        mode = dict(causal=causal, with_lse=True, out_dtype=out_dtype)
+        name = "unified+lse" if causal else "past+lse"
+        for variant in ("bf16", "int8", "int8k"):
+            kw = {}
+            kl, vl = k, v
+            if variant != "bf16":
+                cache = init_cache(1, 4, cap, 128, device=dev,
+                                   quantized=True if variant == "int8" else "k")
+                stacked_append(cache, 0, 0, k, v)
+                kl, vl = cache.k[0], cache.v[0]
+                kw = dict(k_scale=cache.k_scale[0], v_scale=(
+                    None if cache.v_scale is None else cache.v_scale[0]))
+
+            def kernel():
+                return flash_past_attention(q, kl, vl, length, scale, **kw,
+                                            **mode)
+
+            def plain():
+                if not kw:
+                    return cache_attention(q, kl, vl, length, scale, **mode)
+                q8, qs = quantize_q(q, scale)
+                return cache_attention_int8(
+                    q8, qs, kl, kw["k_scale"], vl, kw["v_scale"], length,
+                    torch.bfloat16, **mode,
+                )
+
+            (out, lse), (ref, ref_lse) = kernel(), plain()
+            err, within = _compare(out, ref)
+            lse_err = (lse - ref_lse).abs().max().item()
+            ok = within and out.dtype == out_dtype and bool(
+                torch.isfinite(lse).all() and lse_err <= LSE_ATOL
+            )
+            if not causal and length == 0:  # nothing to see: 0 and NEG_INF
+                ok &= not out.any() and bool((lse == NEG_INF).all())
+            ms = _time_ms(kernel, 10)
+            plain_ms = _time_ms(plain, 2)
+            bound_ms, bound_by = flash_bound(
+                g, length, variant, causal, out_dtype.itemsize, with_lse=True
+            )
+            log(f"B1 {variant} {name} G={g} length={length} cap={cap}: "
+                f"out max_abs_err={err:.3e} (tol {KERNEL_ATOL} + "
+                f"{KERNEL_RTOL}*|plain|), lse max_abs_err={lse_err:.3e} (tol "
+                f"{LSE_ATOL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+                f"bound {bound_ms:.4f} ms ({bound_by}) "
+                f"{'OK' if ok else 'FAIL'}")
+            rows.append(dict(variant=variant, mode=name, g=g, length=length,
+                             err=max(err, lse_err), ms=ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by, ok=ok))
+            del kl, vl, kw
+            if variant != "bf16":
+                del cache
         del k, v, q
         torch.cuda.empty_cache()
     return rows
@@ -266,6 +448,7 @@ def check_vision(dev, cases):
     import torch
 
     from quickvideo_tpu_torch.ops.vision_attention import (
+        apply_vision_rotary,
         block_diag_attention,
         block_diag_attention_plain,
     )
@@ -291,12 +474,35 @@ def check_vision(dev, cases):
             lambda: block_diag_attention_plain(q, k, v, cos, sin, span, scale),
             3,
         )
+        # the spans as one batched SDPA call on rotated q, k (rotary applied
+        # outside the timed call; the kernel fuses it)
+        library_ms = None
+        if s_len % span == 0:
+            import torch.nn.functional as F
+
+            def spans(x):
+                return x.reshape(s_len // span, span, 16, 80).transpose(1, 2)
+
+            qs_ = spans(apply_vision_rotary(q, cos, sin))
+            ks_ = spans(apply_vision_rotary(k, cos, sin))
+            vs_ = spans(v.contiguous())
+            library_ms = _time_ms(
+                lambda: F.scaled_dot_product_attention(qs_, ks_, vs_), 20
+            )
+        # q, k, v and the rotary tables read, out written; QK and PV over
+        # each span's rows x rows
+        pairs = (s_len // span) * span * span + (s_len % span) ** 2
+        bound_ms, bound_by = bound(nbytes(q, k, v, cos, sin, got),
+                                   {"bf16": 4 * 16 * 80 * pairs})
         ok = within
         log(f"B2 span={span} S={s_len}: max_abs_err={err:.3e} "
-            f"(tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-            f"{'OK' if ok else 'FAIL'}")
+            f"(tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|) kernel {ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms sdpa "
+            f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'} bound "
+            f"{bound_ms:.4f} ms ({bound_by}) {'OK' if ok else 'FAIL'}")
         rows.append(dict(span=span, s=s_len, err=err, ms=ms,
-                         plain_ms=plain_ms, ok=ok))
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, ok=ok))
     return rows
 
 
@@ -330,14 +536,21 @@ def check_fused(dev, cases):
             ("B6", fm.dual_gemm_silu_quant, fm.dual_gemm_silu_quant_plain,
              (xq, xs, bp["wgu_p"], bp["bgu_p"]), quantized_close),
         ):
-            err, ok, why = compare(kernel(*args), plain(*args))
+            got = kernel(*args)
+            err, ok, why = compare(got, plain(*args))
             ms = _time_ms(lambda: kernel(*args), 20)
             plain_ms = _time_ms(lambda: plain(*args), 5)
+            # the s8 GEMM(s) over S x 1280 x N (N = the bias width)
+            bound_ms, bound_by = bound(
+                nbytes(args, got), {"int8": 2 * s_len * 1280 * args[3].numel()}
+            )
             log(f"{name} S={s_len}: max_abs_err={err:.3e} (rule: "
                 f"quickvideo_tpu_torch/testing.py FUSED_*) kernel {ms:.4f} ms "
-                f"plain {plain_ms:.4f} ms {'OK' if ok else 'FAIL: ' + why}")
+                f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
+                f"{'OK' if ok else 'FAIL: ' + why}")
             rows.append(dict(name=name, s=s_len, err=err, ms=ms,
-                             plain_ms=plain_ms, ok=ok))
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, ok=ok))
         del bp
     return rows
 
@@ -350,7 +563,7 @@ def make_request(cfg, tokenizer, question: str, seed: int,
                  group_frames: int = GROUP_FRAMES):
     """PrefillInputs for `n_frames` seeded-noise 420x420 yuv420 frames in
     groups of `group_frames`, with the chat template around them."""
-    from quickvideo_tpu.tokenization import build_chat_ids
+    from quickvideo_tpu_torch.tokenization import build_chat_ids
     from quickvideo_tpu_torch.prefill import PrefillInputs
 
     ps, ms = cfg.vision.patch_size, cfg.vision.spatial_merge_size
@@ -375,37 +588,90 @@ def make_request(cfg, tokenizer, question: str, seed: int,
     )
 
 
-def expected_cache_length(lvu, inputs, n_tokens) -> int:
-    from quickvideo_tpu.config import resolve_effective_top_k
+def expected_lengths(lvu, inputs, n_tokens):
+    """(cache_length, per-layer lengths) a request must end with, from the
+    config's rules: layer li of a group keeps resolve_effective_top_k of the
+    video rows that reach it (all of them where that is 0); from
+    prefill_prune_starting_layer on, a pruning layer passes only its kept
+    rows to the next (the cascade). cache_length counts each group's
+    largest keep over the layers on its full rows, as the JAX engine does.
+    The suffix (its layer-0 keep with do_top_k_for_query) and the decoded
+    tokens follow."""
+    from quickvideo_tpu_torch.config import resolve_effective_top_k
 
-    cfg = lvu.model_config
+    cfg, lc = lvu.model_config, lvu.config
     ids = np.asarray(inputs.input_ids)
     vid = np.nonzero(ids == cfg.video_token_id)[0]
     n = cfg.text.num_hidden_layers
     ms = cfg.vision.spatial_merge_size
     lens = [t * (h // ms) * (w // ms) for t, h, w in inputs.group_grids]
     lens[0] += int(vid[0])
-    kept = sum(resolve_effective_top_k(lvu.config, 0, n, g) or g for g in lens)
-    return kept + (len(ids) - int(vid[-1]) - 1) + max(0, n_tokens - 1)
+    psl = lc.prefill_prune_starting_layer
+    layers = [0] * n
+    logical = 0
+    for g in lens:
+        rows = g
+        for li in range(n):
+            k = resolve_effective_top_k(lc, li, n, rows)
+            layers[li] += k or rows
+            if isinstance(psl, int) and 0 <= psl <= li and k > 0:
+                rows = k
+        logical += max(resolve_effective_top_k(lc, li, n, g) or g
+                       for li in range(n))
+    suffix = len(ids) - int(vid[-1]) - 1
+    if lc.do_top_k_for_query:
+        suffix = resolve_effective_top_k(lc, 0, n, suffix) or suffix
+    tail = suffix + max(0, n_tokens - 1)
+    return logical + tail, [x + tail for x in layers]
+
+
+def expected_b1(lvu, inputs, n_tokens, variant):
+    """B1 launches of one request per "flash_{variant}_{mode}" key: each
+    group step of each layer in the group's mode (pure past + lse for the
+    query-based past partial, unified + lse for an attention-statistics
+    predictor, else unified); the final prefill unified, with the lse where
+    do_top_k_for_query prunes it with probabilities; each decode step
+    unified."""
+    lc = lvu.config
+    n = lvu.model_config.text.num_hidden_layers
+    group = ("past+lse" if lc.query_based else
+             "unified+lse" if lc.needs_attn_stats else "unified")
+    final = ("unified+lse" if lc.do_top_k_for_query and (
+        lc.query_based or lc.needs_attn_stats) else "unified")
+    want = {}
+    for mode, launches in ((group, len(inputs.group_grids) * n),
+                           (final, n), ("unified", (n_tokens - 1) * n)):
+        key = f"flash_{variant}_{mode}"
+        want[key] = want.get(key, 0) + launches
+    return want
+
+
+B1_VARIANTS = ("bf16", "int8", "int8k")
+B1_MODES = ("unified", "unified+lse", "past", "past+lse")
 
 
 def _reset_counters(counters):
-    from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
+    from quickvideo_tpu_torch.ops.flash_attention import reset_launch_counts
 
     for fn in counters.values():
         fn.launches = 0
-    for variant in flash_past_attention.variant_launches:
-        flash_past_attention.variant_launches[variant] = 0
+    reset_launch_counts()
 
 
 def _read_counters(counters):
-    """Each wrapper's launches, and B1's per variant ("flash_bf16",
-    "flash_int8", "flash_int8k")."""
+    """Each wrapper's launches, B1's per variant ("flash_bf16",
+    "flash_int8", "flash_int8k") and per variant and mode
+    ("flash_bf16_unified+lse", ...)."""
     from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
 
     counts = {k: fn.launches for k, fn in counters.items()}
     for variant, n in flash_past_attention.variant_launches.items():
         counts[f"flash_{variant}"] = n
+    for variant in B1_VARIANTS:
+        for mode in B1_MODES:
+            counts[f"flash_{variant}_{mode}"] = (
+                flash_past_attention.mode_launches[variant, mode]
+            )
     return counts
 
 
@@ -423,11 +689,13 @@ def _kernel_counters():
     }
 
 
-def make_lvu(dev, param_dtype, kv_cache_dtype="auto", kv_cache_capacity=None):
+def make_lvu(dev, param_dtype, kv_cache_dtype="auto", kv_cache_capacity=None,
+             params=None, **pruning):
     """LVU for qwen25-vl-7b at full width and depth, random weights from
-    seed 0, as the main path runs it ("auto" KV, which resolves to bf16 for
-    the 64-frame requests)."""
-    from quickvideo_tpu.config import LVUConfig
+    seed 0 (or `params`), as the main path runs it ("auto" KV, which
+    resolves to bf16 for the 64-frame requests); `pruning` overrides the
+    key_norms_small policy's LVUConfig fields."""
+    from quickvideo_tpu_torch.config import LVUConfig
     from quickvideo_tpu_torch.api import LVU
 
     cfg = LVUConfig(
@@ -444,8 +712,8 @@ def make_lvu(dev, param_dtype, kv_cache_dtype="auto", kv_cache_capacity=None):
         kv_cache_dtype=kv_cache_dtype,
         kv_cache_capacity=kv_cache_capacity,
         seed=0,
-    )
-    return LVU(cfg, device=dev)
+    ).replace(**pruning)
+    return LVU(cfg, params=params, device=dev)
 
 
 QUESTIONS = (
@@ -514,8 +782,8 @@ def run_main_path(dev, param_dtype="bfloat16", kv_cache_dtype="auto"):
         if param_dtype == "int8":
             exp["ln_gemm"] += n_groups * mcfg.vision.depth
             exp["ln_mlp"] += n_groups * mcfg.vision.depth
-        want_len = expected_cache_length(lvu, inputs, len(res.tokens))
-        exp[f"flash_{variant}"] = exp["flash"]
+        want_len = expected_lengths(lvu, inputs, len(res.tokens))[0]
+        exp[f"flash_{variant}"] = exp[f"flash_{variant}_unified"] = exp["flash"]
         lens_ok = (
             res.cache_length == want_len
             and all(l == want_len for l in res.layer_lengths)
@@ -580,7 +848,7 @@ def run_auto_hour_capacity(dev):
     counts = _read_counters(counters)
     n_layers = lvu.model_config.text.num_hidden_layers
     want = (len(inputs.group_grids) + len(res.tokens)) * n_layers
-    want_len = expected_cache_length(lvu, inputs, len(res.tokens))
+    want_len = expected_lengths(lvu, inputs, len(res.tokens))[0]
     counts_ok = (counts["flash_int8"] == want == counts["flash"]
                  and counts["flash_bf16"] == counts["flash_int8k"] == 0)
     len_ok = res.cache_length == want_len
@@ -611,10 +879,87 @@ def run_auto_hour_capacity(dev):
     return ok, counts
 
 
+# phase 3d: the pruning predictors and modes, one request each
+MODE_REQUESTS = (
+    ("salient_tokens, bf16 KV", dict(top_k_predict_type="salient_tokens")),
+    ("salient_tokens, int8 KV", dict(top_k_predict_type="salient_tokens",
+                                     kv_cache_dtype="int8")),
+    ("query_attention_weights, query-based",
+     dict(top_k_predict_type="query_attention_weights", query_based=True)),
+    ("key_norms_small, linear decay, cascade from layer 14",
+     dict(top_k_decay_type="linear", prefill_prune_starting_layer=14)),
+    # the int8 and int8k variants of the new B1 modes
+    ("query-based, int8 KV, exponential decay",
+     dict(top_k_predict_type="query_attention_weights", query_based=True,
+          kv_cache_dtype="int8", top_k_decay_type="exponential",
+          top_k_decay_factor=0.9)),
+    ("query-based, int8k KV, do_top_k_for_query",
+     dict(top_k_predict_type="query_attention_weights", query_based=True,
+          kv_cache_dtype="int8k", do_top_k_for_query=True)),
+)
+
+
+def run_modes(dev, params):
+    """Phase 3d: one 7B request per entry of MODE_REQUESTS on the bf16
+    weights `params`. Each must launch B1 in the modes its predictor needs
+    (expected_b1) and end with the cache lengths the config's rules give
+    per layer (expected_lengths). Returns (ok, each request's launch
+    counts)."""
+    import torch
+
+    counters = _kernel_counters()
+    ok, runs = True, []
+    for i, (what, kw) in enumerate(MODE_REQUESTS):
+        kw = dict(kw)
+        lvu = make_lvu(dev, "bfloat16", kw.pop("kv_cache_dtype", "auto"),
+                       params=params, **kw)
+        inputs = make_request(lvu.model_config, lvu.tokenizer,
+                              QUESTIONS[i % len(QUESTIONS)], seed=i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counters(counters)
+        t0 = time.perf_counter()
+        res = lvu.engine.generate(inputs, max_new_tokens=8,
+                                  eos_token_ids=[lvu.tokenizer.eos_token_id])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counters(counters)
+        runs.append(counts)
+        want_len, want_layers = expected_lengths(lvu, inputs, len(res.tokens))
+        variant = {"int8": "int8", "int8k": "int8k"}.get(
+            lvu.config.kv_cache_dtype, "bf16")
+        want = expected_b1(lvu, inputs, len(res.tokens), variant)
+        b1 = {f"flash_{v}_{m}": counts[f"flash_{v}_{m}"]
+              for v in B1_VARIANTS for m in B1_MODES}
+        counts_ok = (b1 == {k: want.get(k, 0) for k in b1}
+                     and counts["flash"] == sum(want.values())
+                     and counts["vision"] > 0)
+        lens_ok = (res.cache_length == want_len
+                   and res.layer_lengths == want_layers)
+        toks_ok = bool(len(res.tokens) >= 1 and (
+            (res.tokens >= 0) & (res.tokens < lvu.model_config.text.vocab_size)
+        ).all())
+        ok &= counts_ok and lens_ok and toks_ok
+        spans = {k: round(v, 4) for k, v in sorted(res.timings.items())}
+        log(f"[3d {what}] tokens={res.tokens.tolist()} cache_length="
+            f"{res.cache_length} (expected {want_len}), layer lengths "
+            f"{res.layer_lengths[0]}..{res.layer_lengths[-1]} "
+            f"{'as' if res.layer_lengths == want_layers else 'NOT as'} "
+            f"expected per layer; B1 launches "
+            + ", ".join(f"{k[6:]} {n}" for k, n in b1.items() if n)
+            + f" (expected {', '.join(f'{k[6:]} {n}' for k, n in want.items())}); "
+            f"wall={wall:.3f} s spans(s)={spans} peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+            f"{'OK' if counts_ok and lens_ok and toks_ok else 'FAIL'}")
+        del lvu
+        torch.cuda.empty_cache()
+    return ok, runs
+
+
 def run_video_file(lvu):
     """LVU.generate(question, video_path) through the CPU decoder, where its
     library is built (it needs FFmpeg)."""
-    from quickvideo_tpu.video import quickdecode as qd
+    from quickvideo_tpu_torch.video import quickdecode as qd
 
     if not qd.is_available():
         log("video-file phase: not run (libquickdecode.so is not built on "
@@ -665,16 +1010,16 @@ def _kind(name: str) -> str:
     return "other elementwise/reductions"
 
 
-def run_profile(dev, param_dtype, kv_cache_dtype="auto"):
-    """One warm 7B request (request 0 of the main path) under
-    torch.profiler: wall time, the sum of kernel times, the busy share (the
-    union of kernel intervals over the wall time), the spans, kernel time by
-    kind and the top kernels."""
+def run_profile(dev, param_dtype, kv_cache_dtype="auto", **pruning):
+    """One warm 7B request (request 0 of the main path, or with the
+    predictor `pruning` sets) under torch.profiler: wall time, the sum of
+    kernel times, the busy share (the union of kernel intervals over the
+    wall time), the spans, kernel time by kind and the top kernels."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    lvu = make_lvu(dev, param_dtype, kv_cache_dtype)
+    lvu = make_lvu(dev, param_dtype, kv_cache_dtype, **pruning)
     inputs = make_request(lvu.model_config, lvu.tokenizer, QUESTIONS[0],
                           seed=0)
 
@@ -709,7 +1054,8 @@ def run_profile(dev, param_dtype, kv_cache_dtype="auto"):
     by_kind = {}
     for name, (_, us) in by_name.items():
         by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + us
-    log(f"== {param_dtype} weights, {kv_cache_dtype} KV: wall {wall:.4f} s "
+    log(f"== {param_dtype} weights, {kv_cache_dtype} KV, "
+        f"{lvu.config.top_k_predict_type}: wall {wall:.4f} s "
         f"under the profiler, kernels "
         f"{total / 1e6:.4f} s, busy {busy / 1e6:.4f} s, busy share "
         f"{busy / 1e6 / wall:.3f}, {len(res.tokens)} tokens, spans(s)="
@@ -730,7 +1076,7 @@ def run_profile(dev, param_dtype, kv_cache_dtype="auto"):
 def narrow_config():
     """2 decoder layers at head_dim 128 (7 q heads / 1 kv head, the 7B's GQA
     ratio) and 2 vision blocks at head_dim 80 (block 0 window, block 1 full)."""
-    from quickvideo_tpu.models.qwen25_vl.config import (
+    from quickvideo_tpu_torch.models.qwen25_vl.config import (
         ModelConfig,
         TextConfig,
         VisionConfig,
@@ -754,11 +1100,21 @@ def narrow_config():
     )
 
 
+def _agreement(st_g, st_c):
+    """Per (group, layer): the share of the CPU run's retained indices the
+    card run retained too."""
+    return [
+        len(set(a.cpu().tolist()) & set(b.tolist())) / len(b)
+        for ig, ic in zip(st_g["retained"], st_c["retained"])
+        for a, b in zip(ig, ic) if b is not None
+    ]
+
+
 def run_card_vs_cpu(dev):
     import torch
 
-    from quickvideo_tpu.config import LVUConfig
-    from quickvideo_tpu.tokenization import load_tokenizer
+    from quickvideo_tpu_torch.config import LVUConfig
+    from quickvideo_tpu_torch.tokenization import load_tokenizer
     from quickvideo_tpu_torch.models.qwen25_vl.convert import (
         init_params,
         params_to,
@@ -774,52 +1130,63 @@ def run_card_vs_cpu(dev):
 
     tokenizer = load_tokenizer("", mcfg)
 
-    def request():  # 16 frames in 2 groups of 8
-        return make_request(mcfg, tokenizer, "What happens in this video?",
-                            seed=7, n_frames=16, group_frames=8)
+    def run(params_gpu, params_cpu, **kw):
+        """Final-prefill logits of one 16-frame request (2 groups of 8) on
+        the card (bf16 activations) and on the CPU (f32): (card logits, CPU
+        logits, rel. L2, card state, CPU state, card cache)."""
+        lvu_cfg = LVUConfig(model_name_or_path="narrow128",
+                            max_decode_tokens=8, **kw)
+        out = []
+        for params, dtype, device in ((params_gpu, torch.bfloat16, dev),
+                                      (params_cpu, torch.float32, "cpu")):
+            eng = LVUEngine(params, mcfg, lvu_cfg, dtype, device)
+            cache, st = eng.prefill(make_request(
+                mcfg, tokenizer, "What happens in this video?", seed=7,
+                n_frames=16, group_frames=8,
+            ))
+            out.append((eng.final_prefill(cache, st).float().cpu(), st, cache))
+        (lg, st_g, cache_g), (lc, st_c, _) = out
+        rel = ((lg - lc).norm() / lc.norm()).item()
+        return lg, lc, rel, st_g, st_c, cache_g
 
     ok = True
-    for top_p in (None, 0.5):
-        lvu_cfg = LVUConfig(
-            model_name_or_path="narrow128", top_p=top_p, max_decode_tokens=8
-        )
-        eg = LVUEngine(p_gpu, mcfg, lvu_cfg, torch.bfloat16, dev)
-        ec = LVUEngine(p_cpu, mcfg, lvu_cfg, torch.float32, "cpu")
-        cache_g, st_g = eg.prefill(request())
-        lg = eg.final_prefill(cache_g, st_g).float().cpu()
-        cache_c, st_c = ec.prefill(request())
-        lc = ec.final_prefill(cache_c, st_c).float()
-        rel = ((lg - lc).norm() / lc.norm()).item()
-        if top_p is None:
-            this_ok = bool(rel <= LOGITS_REL_L2 and torch.isfinite(lg).all())
-            ok &= this_ok
-            log(f"card vs CPU, top_p=1: final-prefill logits rel L2 "
-                f"{rel:.3e} (tol {LOGITS_REL_L2}), argmax card "
-                f"{int(lg.argmax())} cpu {int(lc.argmax())} "
-                f"{'OK' if this_ok else 'FAIL'}")
-        else:
-            overlaps = []
-            for gi, (ig, ic) in enumerate(zip(st_g["retained"], st_c["retained"])):
-                for li, (a, b) in enumerate(zip(ig, ic)):
-                    sa, sb = set(a.cpu().tolist()), set(b.tolist())
-                    overlaps.append(f"g{gi}l{li}={len(sa & sb) / len(sb):.3f}")
-            log(f"card vs CPU, top_p=0.5: logits rel L2 {rel:.3e} (not "
-                f"asserted); retained-set overlap {' '.join(overlaps)}")
+    lg, lc, rel, _, _, _ = run(p_gpu, p_cpu)
+    this_ok = bool(rel <= LOGITS_REL_L2 and torch.isfinite(lg).all())
+    ok &= this_ok
+    log(f"card vs CPU, top_p=1: final-prefill logits rel L2 "
+        f"{rel:.3e} (tol {LOGITS_REL_L2}), argmax card "
+        f"{int(lg.argmax())} cpu {int(lc.argmax())} "
+        f"{'OK' if this_ok else 'FAIL'}")
+    _, _, rel, st_g, st_c, _ = run(p_gpu, p_cpu, top_p=0.5)
+    agree = _agreement(st_g, st_c)
+    log(f"card vs CPU, top_p=0.5, key_norms_small: logits rel L2 {rel:.3e} "
+        f"(not asserted); retained-index agreement "
+        f"{' '.join(f'{a:.3f}' for a in agree)}")
+
+    # B1's lse (salient_tokens) and pure-past + lse (query-based) modes on
+    # the card, their plain versions on the CPU
+    for kw in (dict(top_k_predict_type="salient_tokens"),
+               dict(top_k_predict_type="query_attention_weights",
+                    query_based=True)):
+        lg, lc, rel, st_g, st_c, _ = run(p_gpu, p_cpu, top_p=0.5, **kw)
+        agree = _agreement(st_g, st_c)
+        this_ok = bool(rel <= PRUNED_LOGITS_REL_L2
+                       and torch.isfinite(lg).all()
+                       and min(agree) >= RETAINED_AGREE)
+        ok &= this_ok
+        log(f"card vs CPU, top_p=0.5, {kw['top_k_predict_type']}: "
+            f"final-prefill logits rel L2 {rel:.3e} (tol "
+            f"{PRUNED_LOGITS_REL_L2}), retained-index agreement "
+            f"{' '.join(f'{a:.3f}' for a in agree)} (each >= "
+            f"{RETAINED_AGREE}), argmax card {int(lg.argmax())} cpu "
+            f"{int(lc.argmax())} {'OK' if this_ok else 'FAIL'}")
 
     # int8 weights: the same int8 codes on both sides (quantized once on
     # the host), bf16 activations on the card, f32 on the CPU
     q = quantize_model_params(params_to(base))
-    lvu_cfg = LVUConfig(model_name_or_path="narrow128", max_decode_tokens=8,
-                        param_dtype="int8")
-    eg = LVUEngine(params_to(q, device=dev), mcfg, lvu_cfg, torch.bfloat16,
-                   dev)
-    ec = LVUEngine(params_to(q, dtype=torch.float32), mcfg, lvu_cfg,
-                   torch.float32, "cpu")
-    cache_g, st_g = eg.prefill(request())
-    lg = eg.final_prefill(cache_g, st_g).float().cpu()
-    cache_c, st_c = ec.prefill(request())
-    lc = ec.final_prefill(cache_c, st_c).float()
-    rel = ((lg - lc).norm() / lc.norm()).item()
+    lg, lc, rel, _, _, _ = run(params_to(q, device=dev),
+                               params_to(q, dtype=torch.float32),
+                               param_dtype="int8")
     this_ok = bool(rel <= INT8_LOGITS_REL_L2 and torch.isfinite(lg).all())
     ok &= this_ok
     log(f"card vs CPU, int8 weights, top_p=1: final-prefill logits rel L2 "
@@ -829,15 +1196,7 @@ def run_card_vs_cpu(dev):
 
     # int8 KV cache, bf16 weights: B1's int8 variant on the card, its
     # plain version on the CPU
-    lvu_cfg = LVUConfig(model_name_or_path="narrow128", max_decode_tokens=8,
-                        kv_cache_dtype="int8")
-    eg = LVUEngine(p_gpu, mcfg, lvu_cfg, torch.bfloat16, dev)
-    ec = LVUEngine(p_cpu, mcfg, lvu_cfg, torch.float32, "cpu")
-    cache_g, st_g = eg.prefill(request())
-    lg = eg.final_prefill(cache_g, st_g).float().cpu()
-    cache_c, st_c = ec.prefill(request())
-    lc = ec.final_prefill(cache_c, st_c).float()
-    rel = ((lg - lc).norm() / lc.norm()).item()
+    lg, lc, rel, _, _, cache_g = run(p_gpu, p_cpu, kv_cache_dtype="int8")
     this_ok = bool(rel <= INT8_KV_LOGITS_REL_L2 and torch.isfinite(lg).all()
                    and cache_g.k.dtype == cache_g.v.dtype == torch.int8)
     ok &= this_ok
@@ -846,6 +1205,12 @@ def run_card_vs_cpu(dev):
         f"{int(lg.argmax())} cpu {int(lc.argmax())} "
         f"{'OK' if this_ok else 'FAIL'}")
     return ok
+
+
+def _fused_rows(fused_rows, label):
+    """(B3/B4/B6 rows of `label`, the main path's S = 14,400 row)."""
+    rows = [r for r in fused_rows if r["name"] == label]
+    return rows, rows[0]
 
 
 def main():
@@ -881,10 +1246,14 @@ def main():
     log(f"kernels built in {time.perf_counter() - t0:.2f} s -> "
         f"{os.path.relpath(lib_path, ROOT)}")
     if args.profile:
-        for param_dtype, kv_cache_dtype in (
-            ("bfloat16", "auto"), ("int8", "auto"), ("bfloat16", "int8"),
+        for param_dtype, kv_cache_dtype, pruning in (
+            ("bfloat16", "auto", {}), ("int8", "auto", {}),
+            ("bfloat16", "int8", {}),
+            ("bfloat16", "auto", dict(top_k_predict_type="salient_tokens")),
+            ("bfloat16", "auto",
+             dict(top_k_predict_type="query_attention_weights")),
         ):
-            run_profile(dev, param_dtype, kv_cache_dtype)
+            run_profile(dev, param_dtype, kv_cache_dtype, **pruning)
         return
 
     flash_cases = [
@@ -900,11 +1269,19 @@ def main():
         (3600, 53744, 65536),  # the 1024-frame headline's last group step
         (1, 122880, 131072),   # hour-scale decode
     ])
+    mode_rows = check_flash_modes(dev, [
+        (False, 3620, 1807, 16384),  # the 7B query-based group, 20-token prompt
+        (False, 3620, 53744, 65536),  # ... at the 1024-frame headline's last step
+        (False, 20, 0, 4096),  # empty past (the query-based group 0)
+        (True, 3600, 1807, 16384),  # the hot path's group step with lse
+        (True, 3600, 53744, 65536),
+    ])
     vision_rows = check_vision(dev, [
         (64, 14400), (48, 3600), (36, 3600), (4, 3600), (900, 14400),
         (2304, 9216),
     ])
-    ok = all(r["ok"] for r in flash_rows + flash_int8_rows + vision_rows)
+    ok = all(r["ok"] for r in flash_rows + flash_int8_rows + mode_rows
+             + vision_rows)
 
     fused_rows = check_fused(dev, [14400, 250])
     ok &= all(r["ok"] for r in fused_rows)
@@ -912,9 +1289,12 @@ def main():
     lvu, main_ok, launches, logits_bf16 = run_main_path(dev)
     ok &= main_ok
     ok &= run_video_file(lvu)
+    runs = [launches]  # every main-path run's launch counts
+    modes_ok, mode_runs = run_modes(dev, lvu.params)
+    ok &= modes_ok
+    runs += mode_runs
     del lvu
     torch.cuda.empty_cache()
-    runs = [launches]  # every main-path run's launch counts
     for param_dtype, kv_dtype, what in (
         ("int8", "auto", "int8 vs bf16 weights"),
         ("bfloat16", "int8", "int8 vs bf16 KV"),
@@ -936,60 +1316,62 @@ def main():
     launches = {k: sum(r[k] for r in runs) for k in launches}
     ok &= run_card_vs_cpu(dev)
 
-    def fused_entry(name, label, line, key):
-        rows = [r for r in fused_rows if r["name"] == label]
+    def entry(name, source, line, launched, rows, row, library_ms=None):
+        """One kernel of the result line: launches on the main path, the
+        largest error over its phase-2 rows, the times and bound of `row`
+        (the main path's shape)."""
         return {
             "name": name,
             "route": "cuda",
-            "source": "quickvideo_tpu_torch/csrc/fused_vision_mlp.cu",
-            "replaces": f"quickvideo_tpu/ops/fused_vision_mlp.py:{line}",
-            "launches": launches[key],
+            "source": f"quickvideo_tpu_torch/csrc/{source}",
+            "replaces": f"quickvideo_tpu/ops/{line}",
+            "launches": launched,
             "max_abs_err": max(r["err"] for r in rows),
-            "ms": rows[0]["ms"],
-            "plain_ms": rows[0]["plain_ms"],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": library_ms,
         }
 
-    def flash_entry(variant):
-        rows = [r[variant] for r in flash_int8_rows]
-        return {
-            "name": f"flash_past_attention (B1, {variant} KV, int8-QK)",
-            "route": "cuda",
-            "source": "quickvideo_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "quickvideo_tpu/ops/flash_attention.py:38",
-            "launches": launches[f"flash_{variant}"],
-            "max_abs_err": max(r["err"] for r in rows),
-            "ms": rows[0]["ms"],
-            "plain_ms": rows[0]["plain_ms"],
-        }
-
-    kernels = [
-        {
-            "name": "flash_past_attention (B1, bf16 KV)",
-            "route": "cuda",
-            "source": "quickvideo_tpu_torch/csrc/flash_attention.cu",
-            "replaces": "quickvideo_tpu/ops/flash_attention.py:38",
-            "launches": launches["flash_bf16"],
-            "max_abs_err": max(r["err"] for r in flash_rows),
-            "ms": flash_rows[0]["ms"],
-            "plain_ms": flash_rows[0]["plain_ms"],
-        },
-        flash_entry("int8"),
-        flash_entry("int8k"),
-        {
-            "name": "block_diag_attention (B2)",
-            "route": "cuda",
-            "source": "quickvideo_tpu_torch/csrc/vision_attention.cu",
-            "replaces": "quickvideo_tpu/ops/vision_attention.py:140",
-            "launches": launches["vision"],
-            "max_abs_err": max(r["err"] for r in vision_rows),
-            "ms": vision_rows[0]["ms"],
-            "plain_ms": vision_rows[0]["plain_ms"],
-        },
-        fused_entry("ln_gemm_bias (B3)", "B3", 272, "ln_gemm"),
-        fused_entry("ln_dual_gemm_silu_quant (B4)", "B4", 162, "ln_mlp"),
+    flash = ("flash_attention.cu", "flash_attention.py:38")
+    b1_unified = {"bf16": flash_rows}
+    for variant in ("int8", "int8k"):
+        b1_unified[variant] = [r[variant] for r in flash_int8_rows]
+    kernels = []
+    for variant in B1_VARIANTS:
+        rows = b1_unified[variant]
+        kernels.append(entry(
+            f"flash_past_attention (B1, {variant} KV"
+            + (", int8-QK)" if variant != "bf16" else ")"), *flash,
+            launches[f"flash_{variant}_unified"], rows, rows[0],
+            # an explicit-mask SDPA on the same bf16 operands; no PyTorch
+            # call takes the int8 caches
+            rows[0]["library_ms"] if variant == "bf16" else None,
+        ))
+        for mode, what in (("unified+lse", "lse"),
+                           ("past+lse", "pure past + lse")):
+            rows = [r for r in mode_rows
+                    if r["variant"] == variant and r["mode"] == mode]
+            # rows[0] is the 7B group step's shape; no PyTorch call returns
+            # the lse
+            kernels.append(entry(
+                f"flash_past_attention (B1, {variant} KV, {what})", *flash,
+                launches[f"flash_{variant}_{mode}"], rows, rows[0],
+            ))
+    fused = "fused_vision_mlp.cu"
+    kernels += [
+        entry("block_diag_attention (B2)", "vision_attention.cu",
+              "vision_attention.py:140", launches["vision"], vision_rows,
+              vision_rows[0], vision_rows[0]["library_ms"]),
+        entry("ln_gemm_bias (B3)", fused, "fused_vision_mlp.py:272",
+              launches["ln_gemm"], *_fused_rows(fused_rows, "B3")),
+        entry("ln_dual_gemm_silu_quant (B4)", fused, "fused_vision_mlp.py:162",
+              launches["ln_mlp"], *_fused_rows(fused_rows, "B4")),
         # B6 has no caller on the main path (nor in the JAX package, but
         # its module's probe): 0 launches there, checked in phase 2
-        fused_entry("dual_gemm_silu_quant (B6)", "B6", 126, "mlp_pre"),
+        entry("dual_gemm_silu_quant (B6)", fused, "fused_vision_mlp.py:126",
+              launches["mlp_pre"], *_fused_rows(fused_rows, "B6")),
     ]
     if not ok:
         log("chip_smoke: FAILED (see the lines marked FAIL)")

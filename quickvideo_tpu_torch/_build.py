@@ -41,15 +41,16 @@ _F = ctypes.c_float
 # C signatures of the library's entry points (csrc/*.cu). Every pointer and
 # the stream are c_void_p: a bare Python int would be passed as a 32-bit int.
 SIGNATURES = {
-    # q, k, v, o, part_o, part_ml; strides (q_sh, q_st, k_sh, k_st, v_sh,
-    # v_st, o_sh, o_st); hq, hkv, g, length, cap, n_split; scale; stream
+    # q, k, v, o, lse, part_o, part_ml; strides (q_sh, q_st, k_sh, k_st,
+    # v_sh, v_st, o_sh, o_st, lse_sh, lse_st); hq, hkv, g, length, cap,
+    # n_split, past, with_lse, out_f32; scale; stream
     "qv_flash_attention": (
-        [_P] * 6 + [_L] * 8 + [_I] * 6 + [_F, _P]
+        [_P] * 7 + [_L] * 10 + [_I] * 9 + [_F, _P]
     ),
-    # q8, qs, k, ksc, v, vsc, o, part_o, part_ml; the same strides and ints;
-    # ks_sh, vs_sh; stream
+    # q8, qs, k, ksc, v, vsc, o, lse, part_o, part_ml; the same strides and
+    # ints; ks_sh, vs_sh; stream
     "qv_flash_attention_int8": (
-        [_P] * 9 + [_L] * 8 + [_I] * 6 + [_L] * 2 + [_P]
+        [_P] * 10 + [_L] * 10 + [_I] * 9 + [_L] * 2 + [_P]
     ),
     # q, k, v, o, cos, sin; row strides (q, k, v, o, cos/sin); s, nh, span;
     # scale; stream

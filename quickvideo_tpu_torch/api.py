@@ -21,9 +21,9 @@ from typing import List, Optional
 
 import torch
 
-from quickvideo_tpu.config import LVUConfig
-from quickvideo_tpu.models.qwen25_vl.config import get_config
-from quickvideo_tpu.tokenization import load_tokenizer
+from quickvideo_tpu_torch.config import LVUConfig
+from quickvideo_tpu_torch.models.qwen25_vl.config import get_config
+from quickvideo_tpu_torch.tokenization import load_tokenizer
 from quickvideo_tpu_torch.models import (
     ensure_builtin_engines,
     lvu_chat_model_map,

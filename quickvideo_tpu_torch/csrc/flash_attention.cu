@@ -1,11 +1,19 @@
-// Kernel B1: unified-causal GQA flash attention over one layer of the
-// stacked KV cache, for Hopper (sm_90a): bf16 cache (flash_fwd_kernel), and
-// the int8 caches on the int8-QK route (flash_fwd_int8_kernel).
+// Kernel B1: GQA flash attention over one layer of the stacked KV cache,
+// for Hopper (sm_90a): bf16 cache (flash_fwd_kernel), and the int8 caches on
+// the int8-QK route (flash_fwd_int8_kernel).
 //
 // Replaces the TPU kernel quickvideo_tpu/ops/flash_attention.py::_flash_kernel
-// (entry _flash_past_attention_impl) in its unified-causal mode: query row i
-// of a group of G rows attends cache slots [0, length + i]; the caller has
-// already appended the group's K/V at [length, length + G). Variants:
+// (entry _flash_past_attention_impl) in both its modes:
+//   unified causal  query row i of a group of G rows attends cache slots
+//                   [0, length + i]; the caller has already appended the
+//                   group's K/V at [length, length + G);
+//   pure past       every row attends [0, length) (length 0: out 0, lse
+//                   NEG_INF), the query-based mode's past partial;
+// each with or without the log-sum-exp (natural log, f32 (Hq, G) through
+// strides), and with a bf16 or f32 output. The three are template
+// parameters (kPast, kLse, OutT), so the main path's instantiation (unified,
+// no lse, bf16) compiles to the code it had before the other modes existed.
+// Variants:
 //   bf16   bf16 q, K, V (the "bfloat16" cache);
 //   int8   int8 K and V with one f32 scale per (head, token) row, int8 q
 //          with one f32 scale per (head, row) ("int8" cache, int8-QK);
@@ -67,14 +75,20 @@ constexpr int kK8Stride = kD + 16; // smem row stride of int8 K (bytes): 36
                                    // hit 8 distinct bank quads
 constexpr int kVStride = kBN + 8;  // smem row stride of V^T
 
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kNegInf = -1e30f;  // lse of a row that sees no slot
+constexpr int kPadRow = -2;        // bound of a padding row; a real row's
+                                   // bound is >= -1 (pure past, length 0)
+
 struct FlashParams {
   const __nv_bfloat16* q;
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
-  __nv_bfloat16* o;
+  void* o;           // OutT: bf16 or f32
+  float* lse;        // (hq, g) through lse_sh / lse_st, kLse only
   float* part_o;     // (n_split, hq, g, D) f32, split-K only
   float2* part_ml;   // (n_split, hq, g) (max, sum), split-K only
-  long long q_sh, q_st, k_sh, k_st, v_sh, v_st, o_sh, o_st;
+  long long q_sh, q_st, k_sh, k_st, v_sh, v_st, o_sh, o_st, lse_sh, lse_st;
   int hq, rep, g, length, cap, n_split;
   float scale_log2;
 };
@@ -83,23 +97,29 @@ struct FlashParams {
 // g+8 of its warp), the same in every variant.
 struct CtaRows {
   int head[2], pos[2];
-  int bound[2];       // last visible slot (inclusive); -1 for a padding row
-  int pos_lo;         // every row of the CTA sees at least [0, length + pos_lo]
+  int bound[2];       // last visible slot (inclusive); kPadRow for padding
+  int bound_lo;       // every real row of the CTA sees at least [0, bound_lo]
   int kend;           // nothing at or past kend is read
   int kb0, kb1;       // this split's key tiles
   bool has_pad_rows;
 };
 
+template <bool kPast>
 __device__ __forceinline__ CtaRows cta_rows(const FlashParams& p) {
   const int warp = threadIdx.x >> 5;
   const int gq = (threadIdx.x & 31) >> 2;
   const int nrows = p.g * p.rep;
   const int row0 = blockIdx.x * kBM;
   CtaRows c;
-  c.pos_lo = row0 / p.rep;
   const int pos_hi = min(row0 + kBM - 1, nrows - 1) / p.rep;
   c.has_pad_rows = row0 + kBM > nrows;
-  c.kend = min(p.length + pos_hi + 1, p.cap);
+  if constexpr (kPast) {
+    c.bound_lo = p.length - 1;
+    c.kend = min(p.length, p.cap);
+  } else {
+    c.bound_lo = p.length + row0 / p.rep;
+    c.kend = min(p.length + pos_hi + 1, p.cap);
+  }
   const int nkb = (c.kend + kBN - 1) / kBN;
   c.kb0 = 0;
   c.kb1 = nkb;
@@ -114,16 +134,29 @@ __device__ __forceinline__ CtaRows cta_rows(const FlashParams& p) {
     const bool ok = r < nrows;
     c.pos[i] = ok ? r / p.rep : 0;
     c.head[i] = blockIdx.y * p.rep + (ok ? r % p.rep : 0);
-    c.bound[i] = ok ? p.length + c.pos[i] : -1;
+    c.bound[i] = !ok ? kPadRow : kPast ? p.length - 1 : p.length + c.pos[i];
   }
   return c;
 }
 
-// causal / padding mask is needed where the tile at key0 can cross some
-// row's bound
-__device__ __forceinline__ bool tile_needs_mask(const FlashParams& p,
-                                                const CtaRows& c, int key0) {
-  return c.has_pad_rows || key0 + kBN - 1 > p.length + c.pos_lo;
+// causal / length / padding mask is needed where the tile at key0 can cross
+// some row's bound
+__device__ __forceinline__ bool tile_needs_mask(const CtaRows& c, int key0) {
+  return c.has_pad_rows || key0 + kBN - 1 > c.bound_lo;
+}
+
+// natural-log lse from the log2-space running max and the sum of p
+__device__ __forceinline__ float lse_of(float m_log2, float l) {
+  return l > 0.f ? m_log2 * kLn2 + logf(l) : kNegInf;
+}
+
+template <typename OutT>
+__device__ __forceinline__ void store_pair(OutT* dst, float a, float b) {
+  if constexpr (std::is_same_v<OutT, float>) {
+    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+  } else {
+    *reinterpret_cast<uint32_t*>(dst) = qv::pack_bf16(a, b);
+  }
 }
 
 // Online softmax over one tile of scores in log2 units: s becomes
@@ -189,8 +222,9 @@ __device__ __forceinline__ void pv_product(const float (&s)[kBN / 8][4],
   }
 }
 
-// The rows' output (unsplit), or their f32 partials and (max, sum)
+// The rows' output (unsplit) and lse, or their f32 partials and (max, sum)
 // (split-K, merged by flash_merge_kernel)
+template <bool kLse, typename OutT>
 __device__ __forceinline__ void store_rows(const FlashParams& p,
                                            const CtaRows& c,
                                            const float (&acc)[kD / 8][4],
@@ -200,15 +234,21 @@ __device__ __forceinline__ void store_rows(const FlashParams& p,
   const float l_tot[2] = {qv::warp_sum4(l_run[0]), qv::warp_sum4(l_run[1])};
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    if (c.bound[i] < 0) continue;  // padding row
+    if (c.bound[i] == kPadRow) continue;
     if (p.n_split == 1) {
       const float inv = l_tot[i] > 0.f ? 1.f / l_tot[i] : 0.f;
-      __nv_bfloat16* orow =
-          p.o + c.head[i] * p.o_sh + (long long)c.pos[i] * p.o_st;
+      OutT* orow = static_cast<OutT*>(p.o) + c.head[i] * p.o_sh +
+                   (long long)c.pos[i] * p.o_st;
 #pragma unroll
       for (int dt = 0; dt < kD / 8; ++dt) {
-        *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t4) =
-            qv::pack_bf16(acc[dt][2 * i] * inv, acc[dt][2 * i + 1] * inv);
+        store_pair(orow + dt * 8 + 2 * t4, acc[dt][2 * i] * inv,
+                   acc[dt][2 * i + 1] * inv);
+      }
+      if constexpr (kLse) {
+        if (t4 == 0) {
+          p.lse[c.head[i] * p.lse_sh + (long long)c.pos[i] * p.lse_st] =
+              lse_of(m_run[i], l_tot[i]);
+        }
       }
     } else {
       const long long prow =
@@ -229,6 +269,7 @@ __device__ __forceinline__ void store_rows(const FlashParams& p,
 // template cost the bf16 kernel three registers, which took it from 3
 // CTAs per SM to 2 and its group step from 2.72 to 3.10 ms (measured on an
 // H100).
+template <bool kPast, bool kLse, typename OutT>
 __global__ void __launch_bounds__(kThreads, 3)
 flash_fwd_kernel(FlashParams p) {
   __shared__ __align__(16) __nv_bfloat16 ks[kBN * kKStride];
@@ -237,11 +278,11 @@ flash_fwd_kernel(FlashParams p) {
   const int tid = threadIdx.x;
   const int gq = (tid & 31) >> 2;  // accumulator row within the warp's 16
   const int t4 = tid & 3;
-  const CtaRows c = cta_rows(p);
+  const CtaRows c = cta_rows<kPast>(p);
   const __nv_bfloat16* qrow[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    qrow[i] = c.bound[i] >= 0
+    qrow[i] = c.bound[i] != kPadRow
                   ? p.q + c.head[i] * p.q_sh + (long long)c.pos[i] * p.q_st
                   : nullptr;
   }
@@ -306,7 +347,7 @@ flash_fwd_kernel(FlashParams p) {
     }
 
     // scale into log2 units; mask
-    const bool need_mask = tile_needs_mask(p, c, key0);
+    const bool need_mask = tile_needs_mask(c, key0);
 #pragma unroll
     for (int nt = 0; nt < kBN / 8; ++nt) {
 #pragma unroll
@@ -322,7 +363,7 @@ flash_fwd_kernel(FlashParams p) {
     online_softmax(s, m_run, l_run, acc);
     pv_product(s, vt, acc);
   }
-  store_rows(p, c, acc, m_run, l_run);
+  store_rows<kLse, OutT>(p, c, acc, m_run, l_run);
 }
 
 // The int8-QK variants: int8 K (and V when kV8) with per-token f32 scales,
@@ -338,7 +379,7 @@ struct FlashInt8Params {
   long long ks_sh, vs_sh;
 };
 
-template <bool kV8>
+template <bool kV8, bool kPast, bool kLse, typename OutT>
 __global__ void __launch_bounds__(kThreads, 3)
 flash_fwd_int8_kernel(FlashInt8Params pi) {
   using VT = std::conditional_t<kV8, int8_t, __nv_bfloat16>;
@@ -352,12 +393,12 @@ flash_fwd_int8_kernel(FlashInt8Params pi) {
   const int gq = (tid & 31) >> 2;  // accumulator row within the warp's 16
   const int t4 = tid & 3;
   const int hk = blockIdx.y;
-  const CtaRows c = cta_rows(p);
+  const CtaRows c = cta_rows<kPast>(p);
   const int8_t* qrow[2];
   float qsc[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const bool ok = c.bound[i] >= 0;
+    const bool ok = c.bound[i] != kPadRow;
     qrow[i] = ok ? pi.q8 + c.head[i] * p.q_sh + (long long)c.pos[i] * p.q_st
                  : nullptr;
     qsc[i] = ok ? pi.qs[(long long)c.head[i] * p.g + c.pos[i]] : 0.f;
@@ -447,7 +488,7 @@ flash_fwd_int8_kernel(FlashInt8Params pi) {
     // into log2 units as (acc * qs[row]) * ks[col], the JAX kernel's order
     // (qs absorbed scale*log2 e); mask
     float s[kBN / 8][4];
-    const bool need_mask = tile_needs_mask(p, c, key0);
+    const bool need_mask = tile_needs_mask(c, key0);
 #pragma unroll
     for (int nt = 0; nt < kBN / 8; ++nt) {
 #pragma unroll
@@ -472,10 +513,11 @@ flash_fwd_int8_kernel(FlashInt8Params pi) {
     }
     pv_product(s, vt, acc);
   }
-  store_rows(p, c, acc, m_run, l_run);
+  store_rows<kLse, OutT>(p, c, acc, m_run, l_run);
 }
 
 // split-K merge: one CTA of kD threads per (head, position) row
+template <bool kLse, typename OutT>
 __global__ void __launch_bounds__(kD)
 flash_merge_kernel(FlashParams p) {
   const int row = blockIdx.x;  // head * g + pos
@@ -496,42 +538,97 @@ flash_merge_kernel(FlashParams p) {
       acc += p.part_o[prow * kD + d] * w;
     }
   }
-  p.o[head * p.o_sh + (long long)pos * p.o_st + d] =
-      __float2bfloat16(l > 0.f ? acc / l : 0.f);
+  const float o = l > 0.f ? acc / l : 0.f;
+  OutT* orow = static_cast<OutT*>(p.o) + head * p.o_sh + (long long)pos * p.o_st;
+  if constexpr (std::is_same_v<OutT, float>) {
+    orow[d] = o;
+  } else {
+    orow[d] = __float2bfloat16(o);
+  }
+  if constexpr (kLse) {
+    if (d == 0) p.lse[head * p.lse_sh + (long long)pos * p.lse_st] = lse_of(m, l);
+  }
 }
 
+template <bool kLse, typename OutT>
 cudaError_t merge_if_split(const FlashParams& p, cudaStream_t st) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.n_split == 1) return err;
-  flash_merge_kernel<<<p.hq * p.g, kD, 0, st>>>(p);
+  flash_merge_kernel<kLse, OutT><<<p.hq * p.g, kD, 0, st>>>(p);
   return cudaGetLastError();
 }
 
-}  // namespace
+// Calls f(kPast, kLse, Tag<OutT>) with the modes as compile-time constants
+// (std::bool_constant values and a type tag), so every mode is its own
+// kernel instantiation.
+template <typename T>
+struct Tag {
+  using type = T;
+};
 
-// bf16 cache: q, k, v bf16; strides in elements
-extern "C" int qv_flash_attention(
-    const void* q, const void* k, const void* v, void* o, void* part_o,
-    void* part_ml, long long q_sh, long long q_st, long long k_sh,
-    long long k_st, long long v_sh, long long v_st, long long o_sh,
-    long long o_st, int hq, int hkv, int g, int length, int cap, int n_split,
-    float scale, void* stream) {
-  FlashParams p;
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.o = static_cast<__nv_bfloat16*>(o);
+template <typename F>
+cudaError_t with_mode(int past, int lse, int out_f32, F&& f) {
+  auto by_out = [&](auto kp, auto kl) {
+    return out_f32 ? f(kp, kl, Tag<float>{}) : f(kp, kl, Tag<__nv_bfloat16>{});
+  };
+  auto by_lse = [&](auto kp) {
+    return lse ? by_out(kp, std::true_type{}) : by_out(kp, std::false_type{});
+  };
+  return past ? by_lse(std::true_type{}) : by_lse(std::false_type{});
+}
+
+void fill_common(FlashParams& p, void* o, void* lse, void* part_o,
+                 void* part_ml, long long q_sh, long long q_st, long long k_sh,
+                 long long k_st, long long v_sh, long long v_st,
+                 long long o_sh, long long o_st, long long lse_sh,
+                 long long lse_st, int hq, int hkv, int g, int length,
+                 int cap, int n_split) {
+  p.o = o;
+  p.lse = static_cast<float*>(lse);
   p.part_o = static_cast<float*>(part_o);
   p.part_ml = static_cast<float2*>(part_ml);
   p.q_sh = q_sh; p.q_st = q_st; p.k_sh = k_sh; p.k_st = k_st;
   p.v_sh = v_sh; p.v_st = v_st; p.o_sh = o_sh; p.o_st = o_st;
+  p.lse_sh = lse_sh; p.lse_st = lse_st;
   p.hq = hq; p.rep = hq / hkv; p.g = g;
   p.length = length; p.cap = cap; p.n_split = n_split;
+}
+
+}  // namespace
+
+// The arguments both entry points share, in this order: o, lse, part_o,
+// part_ml; strides in elements (q_sh, q_st, k_sh, k_st, v_sh, v_st, o_sh,
+// o_st, lse_sh, lse_st); hq, hkv, g, length, cap, n_split; past (pure-past
+// mode), with_lse, out_f32 (f32 output, else bf16).
+#define QV_FLASH_COMMON_PARAMS                                               \
+  void *o, void *lse, void *part_o, void *part_ml, long long q_sh,           \
+      long long q_st, long long k_sh, long long k_st, long long v_sh,        \
+      long long v_st, long long o_sh, long long o_st, long long lse_sh,      \
+      long long lse_st, int hq, int hkv, int g, int length, int cap,         \
+      int n_split, int past, int with_lse, int out_f32
+#define QV_FLASH_COMMON_ARGS                                                 \
+  o, lse, part_o, part_ml, q_sh, q_st, k_sh, k_st, v_sh, v_st, o_sh, o_st,   \
+      lse_sh, lse_st, hq, hkv, g, length, cap, n_split
+
+// bf16 cache: q, k, v bf16
+extern "C" int qv_flash_attention(const void* q, const void* k, const void* v,
+                                  QV_FLASH_COMMON_PARAMS, float scale,
+                                  void* stream) {
+  FlashParams p;
+  fill_common(p, QV_FLASH_COMMON_ARGS);
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
   p.scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid((g * p.rep + kBM - 1) / kBM, hkv, n_split);
-  flash_fwd_kernel<<<grid, kThreads, 0, st>>>(p);
-  return (int)merge_if_split(p, st);
+  return (int)with_mode(past, with_lse, out_f32, [&](auto kp, auto kl,
+                                                     auto ot) {
+    using OutT = typename decltype(ot)::type;
+    flash_fwd_kernel<decltype(kp)::value, decltype(kl)::value, OutT>
+        <<<grid, kThreads, 0, st>>>(p);
+    return merge_if_split<decltype(kl)::value, OutT>(p, st);
+  });
 }
 
 // int8 caches on the int8-QK route: q8 int8 with qs (hq, g) f32 contiguous
@@ -541,20 +638,11 @@ extern "C" int qv_flash_attention(
 // strides.
 extern "C" int qv_flash_attention_int8(
     const void* q8, const void* qs, const void* k, const void* ksc,
-    const void* v, const void* vsc, void* o, void* part_o, void* part_ml,
-    long long q_sh, long long q_st, long long k_sh, long long k_st,
-    long long v_sh, long long v_st, long long o_sh, long long o_st, int hq,
-    int hkv, int g, int length, int cap, int n_split, long long ks_sh,
+    const void* v, const void* vsc, QV_FLASH_COMMON_PARAMS, long long ks_sh,
     long long vs_sh, void* stream) {
   FlashInt8Params pi = {};
   FlashParams& p = pi.b;
-  p.o = static_cast<__nv_bfloat16*>(o);
-  p.part_o = static_cast<float*>(part_o);
-  p.part_ml = static_cast<float2*>(part_ml);
-  p.q_sh = q_sh; p.q_st = q_st; p.k_sh = k_sh; p.k_st = k_st;
-  p.v_sh = v_sh; p.v_st = v_st; p.o_sh = o_sh; p.o_st = o_st;
-  p.hq = hq; p.rep = hq / hkv; p.g = g;
-  p.length = length; p.cap = cap; p.n_split = n_split;
+  fill_common(p, QV_FLASH_COMMON_ARGS);
   pi.q8 = static_cast<const int8_t*>(q8);
   pi.qs = static_cast<const float*>(qs);
   pi.k8 = static_cast<const int8_t*>(k);
@@ -564,12 +652,17 @@ extern "C" int qv_flash_attention_int8(
   pi.ks_sh = ks_sh; pi.vs_sh = vs_sh;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   dim3 grid((g * p.rep + kBM - 1) / kBM, hkv, n_split);
-  if (vsc != nullptr) {
-    flash_fwd_int8_kernel<true><<<grid, kThreads, 0, st>>>(pi);
-  } else {
-    flash_fwd_int8_kernel<false><<<grid, kThreads, 0, st>>>(pi);
-  }
-  return (int)merge_if_split(p, st);
+  return (int)with_mode(past, with_lse, out_f32, [&](auto kp, auto kl,
+                                                     auto ot) {
+    using OutT = typename decltype(ot)::type;
+    constexpr bool kP = decltype(kp)::value, kL = decltype(kl)::value;
+    if (vsc != nullptr) {
+      flash_fwd_int8_kernel<true, kP, kL, OutT><<<grid, kThreads, 0, st>>>(pi);
+    } else {
+      flash_fwd_int8_kernel<false, kP, kL, OutT><<<grid, kThreads, 0, st>>>(pi);
+    }
+    return merge_if_split<kL, OutT>(p, st);
+  });
 }
 
 extern "C" const char* qv_error_string(int err) {

@@ -2,8 +2,8 @@
 
 Counterpart of quickvideo_tpu/engines/qwen25.py for the slice: video + text
 requests, greedy decode. Tokenization, the video plan and the CPU decoders
-are the JAX package's own jax-free modules (quickvideo_tpu.tokenization,
-quickvideo_tpu.video.{reader, preprocess, quickdecode}).
+are the port's copies of the JAX package's jax-free modules (tokenization.py,
+video/{reader, preprocess, quickdecode}.py).
 """
 
 from __future__ import annotations
@@ -12,8 +12,8 @@ from typing import List
 
 import numpy as np
 
-from quickvideo_tpu.tokenization import build_chat_ids_from_messages
-from quickvideo_tpu.video import reader as vreader
+from quickvideo_tpu_torch.tokenization import build_chat_ids_from_messages
+from quickvideo_tpu_torch.video import reader as vreader
 from quickvideo_tpu_torch.prefill.engine import PrefillInputs
 from quickvideo_tpu_torch.utils.timing import SpanTimer
 

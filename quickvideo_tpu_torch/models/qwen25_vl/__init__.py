@@ -1,1 +1,2 @@
-"""Qwen2.5-VL in PyTorch (configs are the JAX package's: quickvideo_tpu.models.qwen25_vl.config)."""
+"""Qwen2.5-VL in PyTorch (config.py is the port's copy of the JAX package's
+presets)."""

@@ -25,7 +25,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from quickvideo_tpu.models.qwen25_vl.config import ModelConfig
+from quickvideo_tpu_torch.models.qwen25_vl.config import ModelConfig
 from quickvideo_tpu_torch.ops.quantization import (
     col_major,
     is_quantized,

@@ -1,19 +1,34 @@
-"""Qwen2.5-VL language decoder in PyTorch: the grouped-prefill hot path.
+"""Qwen2.5-VL language decoder in PyTorch: the grouped-prefill step.
 
-Counterpart of quickvideo_tpu/models/qwen25_vl/language.py. Parameters are a
-plain dict (see convert.py): weights keep the JAX layout (in, out) and are
-applied as `x @ w`. Layers run as a Python loop; the stacked KV cache is
-updated in place (ops/kv_cache.py).
+Counterpart of quickvideo_tpu/models/qwen25_vl/language.py on one device.
+Parameters are a plain dict (see convert.py): weights keep the JAX layout
+(in, out) and are applied as `x @ w`. Layers run as a Python loop; the
+stacked KV cache is updated in place (ops/kv_cache.py).
 
-The port has ONE attention path, the JAX package's unified "hot" path
-(language.py:427-509 then :533-563): append the raw group's K/V to the cache,
-run one unified-causal attention over [past | group] (kernel B1 on CUDA, its
-plain version on CPU), o-project, select-and-compact the group's keys, and
-overwrite the raw span with the compact one. With an int8 or int8k cache the
-appends quantize and B1 runs its int8-QK variant (language.py:436-450,
-486-502, 552-563). The query-based mode, cascade,
-decay schedules, attention-statistics predictors, context parallelism and
-tensor parallelism are not ported in this slice.
+A `StepSpec` says what one step does at one layer; `layer_step` has the JAX
+package's attention branches:
+
+  hot path      (no prompt rows, attend_past) append the raw group's K/V,
+                run one unified-causal attention over [past | group] (kernel
+                B1 on CUDA, its plain version on the CPU), with the lse when
+                an attention-statistics predictor needs the group's
+                probabilities (`_group_probs_from_lse`); the JAX package's
+                `pallas_unified` route, language.py:427-509
+  query-based   (prompt_len > 0) the prompt rows ride with the group: the
+                prompt -> video scores accumulate (`_prompt_accum_scores`),
+                the in-group partial runs under the video/prompt mask (or
+                the reference-compatible one), the past partial is B1 in
+                pure-past mode with lse and f32 output, and the two merge
+                (language.py:324-392, on the 'pallas' route)
+  local only    (attend_past=False) the group attends itself alone
+                (language.py:395-403, 348-353)
+
+then the o-projection, the pruning hook (`ops/prune.py` on the group's raw
+K/V, the hidden states of its video rows, its probabilities or accumulated
+scores), the append of the kept rows over the group's slots, and the MLP.
+With an int8 or int8k cache the appends quantize and B1 runs its int8-QK
+variant. `prefill_step_unrolled` takes one spec per layer (decay schedules;
+the cascade shrinks the rows for the next layer).
 
 Every matrix product goes through ops/quantization.py, so a layer runs bf16
 or int8 weights alike (the JAX package's qdot / qdot_multi / qtake call
@@ -24,22 +39,73 @@ which the JAX package runs as a padded bucket of at least 32 rows.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
-from quickvideo_tpu.models.qwen25_vl.config import TextConfig
+from quickvideo_tpu_torch.models.qwen25_vl.config import TextConfig
 from quickvideo_tpu_torch.models.qwen25_vl.rope import apply_rotary
 from quickvideo_tpu_torch.ops import kv_cache as kv
 from quickvideo_tpu_torch.ops import prune as prune_ops
+from quickvideo_tpu_torch.ops.attention import (
+    _partial_attention,
+    grouped_attention,
+    group_probs_from_lse,
+    merge_partials,
+    past_partial_attention,
+)
 from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
+from quickvideo_tpu_torch.ops.predictors import RANDOM_PREDICTORS
 from quickvideo_tpu_torch.ops.quantization import (
     linear,
     linear_multi,
     qdot,
     qtake,
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class StepSpec:
+    """What one prefill / decode step does at one layer (the JAX package's
+    StepSpec, language.py:96-151, without the mesh and tensor-parallel
+    fields). `keep_k == 0` appends every video row."""
+
+    q_len: int  # rows entering the step (with the prompt tail if query-based)
+    keep_k: int = 0  # retained video rows (0 = keep all)
+    predict_type: str = "key_norms_small"
+    needs_probs: bool = False  # the predictor reads the group's probs
+    prompt_len: int = 0  # query-based: trailing prompt rows (never cached)
+    attend_past: bool = True  # False: adaptive_local_attention off
+    cascade: bool = False  # the kept rows alone go on to the next layer
+    ref_query_mask: bool = False  # query-based: the reference's bottom-
+    # right-aligned mask (video row i sees video keys <= i - prompt_len and
+    # a past truncated to [0, length + i - prompt_len])
+
+    @property
+    def video_len(self) -> int:
+        return self.q_len - self.prompt_len
+
+    @property
+    def append_n(self) -> int:
+        return self.keep_k if self.keep_k > 0 else self.video_len
+
+
+def layer_generator(seed_key: Optional[Sequence[int]], li: int,
+                    spec: StepSpec) -> Optional[torch.Generator]:
+    """The random predictors' generator of layer `li`: seeded from
+    (*seed_key, li), where the engine's seed_key is (seed + 1, group) as the
+    JAX engine folds its rng (prefill/engine.py:273, 329; language.py:647).
+    None where the spec draws nothing."""
+    if seed_key is None or spec.keep_k <= 0:
+        return None
+    if spec.predict_type not in RANDOM_PREDICTORS:
+        return None
+    words = [int(w) for w in seed_key] + [li]
+    seed = np.random.SeedSequence(words).generate_state(1, np.uint64)[0]
+    return torch.Generator().manual_seed(int(seed))
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -85,71 +151,175 @@ def _layer(scales: Optional[torch.Tensor], li: int):
     return None if scales is None else scales[li]
 
 
+def _prompt_accum_scores(q_prompt: torch.Tensor, k_video: torch.Tensor,
+                         cfg: TextConfig) -> torch.Tensor:
+    """Prompt -> video-key attention accumulated as the reference does:
+    softmax over the video keys only (no past, no causal mask), summed over
+    the prompt queries, averaged over query heads -> (video_len,) f32
+    (quickvideo_tpu/models/qwen25_vl/language.py:175-190)."""
+    hkv = k_video.shape[0]
+    hq, p, d = q_prompt.shape
+    qf = q_prompt.float().reshape(hkv, hq // hkv, p, d)
+    scores = torch.einsum("hrqd,hkd->hrqk", qf, k_video.float()) / (
+        cfg.head_dim ** 0.5
+    )
+    return torch.softmax(scores, dim=-1).sum(dim=2).mean(dim=(0, 1))
+
+
+def _query_based_attention(q, k_grp, v_grp, cache, li, length, spec, scale):
+    """The query-based step's attention (module docstring): in-group
+    partial merged with the past partial. Returns (Hq, q_len, D) f32."""
+    gv, ql = spec.video_len, spec.q_len
+    row = torch.arange(ql, device=q.device)[:, None]
+    col = torch.arange(gv, device=q.device)[None, :]
+    if spec.ref_query_mask:
+        cmask = col <= row - spec.prompt_len
+    else:  # video rows causal, prompt rows see the whole group
+        cmask = (col <= row) | (row >= gv)
+    pg = _partial_attention(q, k_grp, v_grp, cmask, scale)
+    if not spec.attend_past:
+        return pg.out
+    ks, vs = _layer(cache.k_scale, li), _layer(cache.v_scale, li)
+    if spec.ref_query_mask:
+        # row i sees past slot j iff j <= i + length - prompt_len: the
+        # plain masked partial over the (dequantized) valid slots
+        n = max(length, 1)
+        colp = torch.arange(n, device=q.device)[None, :]
+        pmask = colp < torch.clamp(row + length - spec.prompt_len + 1,
+                                   max=length)
+        kb, vb = cache.k[li, :, :n], cache.v[li, :, :n]
+        if ks is not None:
+            kb = kv.dequantize_kv(kb, ks[:, :n])
+        if vs is not None:
+            vb = kv.dequantize_kv(vb, vs[:, :n])
+        pp = _partial_attention(q, kb, vb, pmask, scale)
+    else:
+        pp = past_partial_attention(q, cache.k[li], cache.v[li], length,
+                                    scale, ks, vs)
+    return merge_partials(pp, pg)[0]
+
+
 def layer_step(
     lp: dict,
-    x: torch.Tensor,  # (G, C)
-    cos: torch.Tensor,  # (G, head_dim) f32
+    x: torch.Tensor,  # (q_len, C)
+    cos: torch.Tensor,  # (q_len, head_dim) f32
     sin: torch.Tensor,
     cache: kv.KVCache,
     li: int,
     cfg: TextConfig,
-    keep_k: int = 0,  # retained tokens of this group (0 = keep all)
-    predict_type: str = "key_norms_small",
+    spec: StepSpec,
     min_rows: Optional[int] = None,  # act-quant row gate (module docstring)
+    generator: Optional[torch.Generator] = None,  # random predictors
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One decoder layer over the current group. Writes the group's K/V (or
     its compact) into layer `li` of the cache at `cache.lengths[li]`; the
     caller advances the length. Returns (x_out, retained indices | None)."""
     length = cache.lengths[li]
+    scale = cfg.head_dim ** -0.5
     h = rms_norm(x, lp["ln1"], cfg.rms_norm_eps)
     q, k, v = _project_qkv(lp, h, cfg, min_rows)
     q, k = apply_rotary(q, k, cos, sin)
-    # raw group at [length, length + G) (quantized where the cache is, so
-    # the group attends its own K/V with the int8 rounding); attention over
-    # [0, length + i]
-    kv.stacked_append(cache, li, length, k, v)
-    out = flash_past_attention(
-        q, cache.k[li], cache.v[li], length, scale=cfg.head_dim ** -0.5,
-        k_scale=_layer(cache.k_scale, li), v_scale=_layer(cache.v_scale, li),
+    gv = spec.video_len
+    k_grp, v_grp = k[:, :gv], v[:, :gv]
+    accum = group_probs = None
+    appended = False
+    if spec.prompt_len > 0:
+        accum = _prompt_accum_scores(q[:, gv:], k_grp, cfg)
+        out = _query_based_attention(q, k_grp, v_grp, cache, li, length,
+                                     spec, scale)
+    elif not spec.attend_past:
+        out, group_probs = grouped_attention(
+            q, k_grp, v_grp, scale=scale, return_group_probs=spec.needs_probs
+        )
+    else:
+        # raw group at [length, length + G) (quantized where the cache is,
+        # so the group attends its own K/V with the int8 rounding);
+        # attention over [0, length + i]
+        kv.stacked_append(cache, li, length, k_grp, v_grp)
+        appended = True
+        out, lse = flash_past_attention(
+            q, cache.k[li], cache.v[li], length, scale,
+            k_scale=_layer(cache.k_scale, li),
+            v_scale=_layer(cache.v_scale, li), with_lse=spec.needs_probs,
+        )
+        if spec.needs_probs:
+            group_probs = group_probs_from_lse(q, k_grp, lse, scale)
+    ql = x.shape[0]
+    attn = out.to(x.dtype).transpose(0, 1).reshape(
+        ql, cfg.num_attention_heads * cfg.head_dim
     )
-    g = x.shape[0]
-    attn = out.transpose(0, 1).reshape(g, cfg.num_attention_heads * cfg.head_dim)
     x = x + linear(attn, lp["wo"], min_rows=min_rows)
     indices = None
-    if keep_k > 0:
+    if spec.keep_k > 0:
         # the raw rotary keys are scored; the kept raw rows are (re)quantized
-        # into the compact, which overwrites the first keep_k raw slots; the
-        # raw tail stays past the valid length, never attended
-        res = prune_ops.select_and_compact(predict_type, keep_k, k, v)
+        # into the compact, which overwrites the first keep_k slots of the
+        # group; a raw tail stays past the valid length, never attended
+        res = prune_ops.select_and_compact(
+            spec.predict_type, spec.keep_k, k_grp, v_grp, hidden=x[:gv],
+            group_probs=group_probs, accum_attn=accum, generator=generator,
+        )
         kv.stacked_append(cache, li, length, res.k_keep, res.v_keep)
         indices = res.indices
+    elif not appended:
+        kv.stacked_append(cache, li, length, k_grp, v_grp)
     x = x + swiglu_mlp(rms_norm(x, lp["ln2"], cfg.rms_norm_eps), lp, min_rows)
+    return x, indices
+
+
+def prefill_step_unrolled(
+    params: dict,
+    cache: kv.KVCache,
+    x: torch.Tensor,  # (q_len, C) input embeddings
+    cos: torch.Tensor,  # (q_len, head_dim) merged mRoPE rows of these rows
+    sin: torch.Tensor,
+    cfg: TextConfig,
+    specs: Sequence[StepSpec],  # one per layer
+    min_rows: Optional[int] = None,
+    seed_key: Optional[Sequence[int]] = None,  # random predictors' seed
+) -> Tuple[torch.Tensor, List[Optional[torch.Tensor]]]:
+    """One group through all layers, each with its own spec (keep_k may
+    change with depth). Advances layer li's length by specs[li].append_n.
+    With `cascade`, a pruning layer passes only its kept rows (and the
+    prompt rows, in query-based mode) to the next layer, with their rotary
+    rows (quickvideo_tpu/models/qwen25_vl/language.py:669-719). Returns
+    (final hidden states, per-layer retained indices)."""
+    n = len(params["layers"])
+    indices = []
+    for li, lp in enumerate(params["layers"]):
+        spec = specs[li]
+        x, idx = layer_step(
+            lp, x, cos, sin, cache, li, cfg, spec, min_rows,
+            layer_generator(seed_key, li, spec),
+        )
+        cache.lengths[li] += spec.append_n
+        indices.append(idx)
+        if idx is not None and spec.cascade and li < n - 1:
+            # the prompt rows ride along after the kept video rows
+            keep = torch.cat([
+                idx, torch.arange(spec.video_len, spec.q_len,
+                                  device=idx.device),
+            ])
+            x, cos, sin = x[keep], cos[keep], sin[keep]
     return x, indices
 
 
 def prefill_step(
     params: dict,
     cache: kv.KVCache,
-    x: torch.Tensor,  # (G, C) input embeddings
-    cos: torch.Tensor,  # (G, head_dim) merged mRoPE rows of these positions
+    x: torch.Tensor,
+    cos: torch.Tensor,
     sin: torch.Tensor,
     cfg: TextConfig,
-    keep_k: int = 0,
-    predict_type: str = "key_norms_small",
+    spec: Optional[StepSpec] = None,  # default: append all rows
     min_rows: Optional[int] = None,
+    seed_key: Optional[Sequence[int]] = None,
 ) -> Tuple[torch.Tensor, List[Optional[torch.Tensor]]]:
-    """One group through all layers. Advances every layer's cache length by
-    keep_k (or G when keep_k == 0). Returns (final hidden states (G, C),
-    per-layer retained indices)."""
-    append_n = keep_k if keep_k > 0 else x.shape[0]
-    indices = []
-    for li, lp in enumerate(params["layers"]):
-        x, idx = layer_step(
-            lp, x, cos, sin, cache, li, cfg, keep_k, predict_type, min_rows
-        )
-        cache.lengths[li] += append_n
-        indices.append(idx)
-    return x, indices
+    """`prefill_step_unrolled` with one spec for every layer."""
+    spec = spec or StepSpec(q_len=x.shape[0])
+    return prefill_step_unrolled(
+        params, cache, x, cos, sin, cfg, [spec] * len(params["layers"]),
+        min_rows, seed_key,
+    )
 
 
 def decode_step(

@@ -10,7 +10,7 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from quickvideo_tpu.models.qwen25_vl.config import ModelConfig
+from quickvideo_tpu_torch.models.qwen25_vl.config import ModelConfig
 from quickvideo_tpu_torch.models.qwen25_vl import rope
 from quickvideo_tpu_torch.models.qwen25_vl.vision import (
     build_layout,

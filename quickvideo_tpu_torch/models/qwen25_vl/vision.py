@@ -27,8 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from quickvideo_tpu.models.qwen25_vl.config import VisionConfig
-from quickvideo_tpu.video.preprocess import patch_norm_scale_bias
+from quickvideo_tpu_torch.models.qwen25_vl.config import VisionConfig
+from quickvideo_tpu_torch.video.preprocess import patch_norm_scale_bias
 from quickvideo_tpu_torch.ops.fused_vision_mlp import (
     ln_dual_gemm_silu_quant,
     ln_gemm_bias,

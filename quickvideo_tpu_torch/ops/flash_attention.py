@@ -1,32 +1,36 @@
-"""Kernel B1: unified-causal flash attention over one layer of the KV cache.
+"""Kernel B1: flash attention over one layer of the KV cache.
 
-`flash_past_attention` is the port's only language attention entry. On a
-CUDA tensor it launches the hand-written Hopper kernel
-(csrc/flash_attention.cu) and counts the launch in
-`flash_past_attention.launches` and, per variant, in
-`flash_past_attention.variant_launches` ("bf16", "int8", "int8k"); on a
-CPU tensor it runs the plain version (ops/attention.py). A CUDA tensor the
-kernel does not take (dtype, head dim, strides) raises: there is no
-fallback.
+`flash_past_attention` is the port's language attention entry. On a CUDA
+tensor it launches the hand-written Hopper kernel (csrc/flash_attention.cu)
+and counts the launch in `flash_past_attention.launches`, per variant in
+`flash_past_attention.variant_launches` ("bf16", "int8", "int8k") and per
+(variant, mode) in the Counter `flash_past_attention.mode_launches` (mode
+"unified", "unified+lse", "past" or "past+lse"); on a CPU tensor it runs
+the plain version (ops/attention.py). A CUDA tensor the kernel does not
+take (dtype, head dim, strides) raises: there is no fallback.
 
 Replaces quickvideo_tpu/ops/flash_attention.py::flash_past_attention in its
-unified-causal mode (`causal=True, layer_idx=li`): with a bf16 cache, and
-with an int8 cache (`k_scale`, and `v_scale` unless V is unquantized) on
-its default int8-QK route, where q is quantized per row first
-(ops/attention.py::quantize_q, shared with the plain version).
+two modes: unified causal (`causal=True`; the group's K/V already sit at
+[length, length + G) and row i attends [0, length + i]) and pure past
+(`causal=False`; every row attends [0, length)), with the optional
+log-sum-exp (`with_lse`) and a bf16 or f32 output (`out_dtype`). With a
+bf16 cache, and with an int8 cache (`k_scale`, and `v_scale` unless V is
+unquantized) on its default int8-QK route, where q is quantized per row
+first (ops/attention.py::quantize_q, shared with the plain version).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import collections
+from typing import Optional, Tuple
 
 import torch
 
 from quickvideo_tpu_torch import _build
 from quickvideo_tpu_torch.ops.attention import (
+    cache_attention,
+    cache_attention_int8,
     quantize_q,
-    unified_causal_attention,
-    unified_causal_attention_int8,
 )
 
 HEAD_DIM = 128  # the kernel is compiled for this head dim
@@ -81,34 +85,46 @@ def flash_past_attention(
     scale: float,
     k_scale: Optional[torch.Tensor] = None,  # (Hkv, cap) f32, int8 K
     v_scale: Optional[torch.Tensor] = None,  # (Hkv, cap) f32, int8 V
-) -> torch.Tensor:
-    """Unified causal attention: row i attends [0, length + i]. The group's
-    K/V must already sit at [length, length + G). With `k_scale` the cache
-    is int8 (K, and V when `v_scale` is given) and q runs the int8-QK route.
-    Returns (Hq, G, D) in q's dtype (on CUDA: a (G, Hq, D)-major view, so
-    `.transpose(0, 1)` is contiguous for the o-projection)."""
+    *,
+    causal: bool = True,  # unified causal; False = pure past
+    with_lse: bool = False,
+    out_dtype: Optional[torch.dtype] = None,  # q's dtype, or float32
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Attention of the group's queries over one cache layer (module
+    docstring for the modes). With `k_scale` the cache is int8 (K, and V
+    when `v_scale` is given) and q runs the int8-QK route. Returns (out
+    (Hq, G, D) in `out_dtype` (on CUDA a (G, Hq, D)-major view, so
+    `.transpose(0, 1)` is contiguous for the o-projection), lse (Hq, G) f32
+    in natural log, NEG_INF for a row that sees no slot, or None)."""
     hq, g, d = q.shape
     hkv, cap, _ = k_layer.shape
     if hq % hkv:
         raise ValueError(f"Hq={hq} is not a multiple of Hkv={hkv}")
-    if length < 0 or length + g > cap:
+    reach = length + g if causal else length
+    if length < 0 or reach > cap:
         raise ValueError(
-            f"length {length} + group {g} exceeds cache capacity {cap}"
+            f"length {length} (+ group {g} in causal mode) exceeds cache "
+            f"capacity {cap}"
         )
     if v_scale is not None and k_scale is None:
         raise ValueError("v_scale without k_scale: int8 V needs int8 K")
+    out_dtype = out_dtype or q.dtype
     quant = k_scale is not None
+    mode = dict(causal=causal, with_lse=with_lse, out_dtype=out_dtype)
     if q.device.type == "cpu":
         if quant:
             q8, qs = quantize_q(q, scale)
-            return unified_causal_attention_int8(
-                q8, qs, k_layer, k_scale, v_layer, v_scale, length, q.dtype
+            return cache_attention_int8(
+                q8, qs, k_layer, k_scale, v_layer, v_scale, length, q.dtype,
+                **mode,
             )
-        return unified_causal_attention(q, k_layer, v_layer, length, scale)
+        return cache_attention(q, k_layer, v_layer, length, scale, **mode)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     if q.dtype != torch.bfloat16:
         raise TypeError(f"flash kernel takes bf16 q, got {q.dtype}")
+    if out_dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"flash kernel writes bf16 or f32, not {out_dtype}")
     if q.shape[-1] != HEAD_DIM or q.stride(-1) != 1:
         raise ValueError(
             f"flash kernel needs head dim {HEAD_DIM} contiguous, got q "
@@ -130,10 +146,12 @@ def flash_past_attention(
         q_in = q
         if q.stride(0) % 2 or q.stride(1) % 2 or q.data_ptr() % 4:
             raise ValueError("q rows are not 4-byte aligned")
-    out = torch.empty(g, hq, d, dtype=q.dtype, device=q.device).transpose(0, 1)
+    out = torch.empty(g, hq, d, dtype=out_dtype, device=q.device).transpose(0, 1)
+    lse = (torch.empty(hq, g, dtype=torch.float32, device=q.device)
+           if with_lse else None)
     rep = hq // hkv
     ctas = -(-g * rep // 64) * hkv
-    key_blocks = -(-min(length + g, cap) // 64)
+    key_blocks = -(-min(reach, cap) // 64)
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     n_split = _split_count(ctas, key_blocks, sms)
     part_o = part_ml = None
@@ -146,13 +164,16 @@ def flash_past_attention(
         )
     lib = _build.library()
     common = (
-        q_in.stride(0), q_in.stride(1), k_layer.stride(0), k_layer.stride(1),
-        v_layer.stride(0), v_layer.stride(1), out.stride(0), out.stride(1),
-        hq, hkv, g, int(length), cap, n_split,
-    )
-    parts = (
+        out.data_ptr(),
+        lse.data_ptr() if lse is not None else None,
         part_o.data_ptr() if part_o is not None else None,
         part_ml.data_ptr() if part_ml is not None else None,
+        q_in.stride(0), q_in.stride(1), k_layer.stride(0), k_layer.stride(1),
+        v_layer.stride(0), v_layer.stride(1), out.stride(0), out.stride(1),
+        lse.stride(0) if lse is not None else 0,
+        lse.stride(1) if lse is not None else 0,
+        hq, hkv, g, int(length), cap, n_split, int(not causal),
+        int(with_lse), int(out_dtype == torch.float32),
     )
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if quant:
@@ -161,20 +182,30 @@ def flash_past_attention(
             q8.data_ptr(), qs.data_ptr(), k_layer.data_ptr(),
             k_scale.data_ptr(), v_layer.data_ptr(),
             v_scale.data_ptr() if v_scale is not None else None,
-            out.data_ptr(), *parts, *common, k_scale.stride(0),
+            *common, k_scale.stride(0),
             v_scale.stride(0) if v_scale is not None else 0, stream,
         )
     else:
         variant = "bf16"
         err = lib.qv_flash_attention(
             q.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(),
-            out.data_ptr(), *parts, *common, float(scale), stream,
+            *common, float(scale), stream,
         )
     _build.check(err, f"qv_flash_attention ({variant})")
     flash_past_attention.launches += 1
     flash_past_attention.variant_launches[variant] += 1
-    return out
+    mode = ("unified" if causal else "past") + ("+lse" if with_lse else "")
+    flash_past_attention.mode_launches[variant, mode] += 1
+    return out, lse
+
+
+def reset_launch_counts() -> None:
+    flash_past_attention.launches = 0
+    for variant in flash_past_attention.variant_launches:
+        flash_past_attention.variant_launches[variant] = 0
+    flash_past_attention.mode_launches.clear()
 
 
 flash_past_attention.launches = 0
 flash_past_attention.variant_launches = {"bf16": 0, "int8": 0, "int8k": 0}
+flash_past_attention.mode_launches = collections.Counter()

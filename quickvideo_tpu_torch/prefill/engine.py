@@ -1,9 +1,19 @@
 """Grouped-prefill engine + greedy decode loop (PyTorch).
 
-Counterpart of quickvideo_tpu/prefill/engine.py for the slice the port
-covers: per video group, vision encode -> embedding scatter -> the decoder
-stack with key-norm prune-and-append into a preallocated bf16 KV cache; then
-the question suffix as one final prefill, then greedy decode.
+Counterpart of quickvideo_tpu/prefill/engine.py on one device: per video
+group, vision encode -> embedding scatter -> the decoder stack with
+prune-and-append into a preallocated KV cache; then the question suffix as
+one final prefill, then greedy decode.
+
+Pruning runs every predictor and mode of the JAX engine: the 19 predict
+types (the random ones draw from per-group, per-layer torch generators
+seeded from `seed + 1`, the group and the layer, where the JAX engine folds
+its rng the same way); the query-based mode (the prompt rows ride with
+every group, rotary rows taken contiguously past the group, the JAX
+engine's quirk); decay schedules and the cascade (`prefill_prune_starting_
+layer`), which give each layer its own spec (`_layer_specs`); local-only
+attention (`adaptive_local_attention=False`); and `do_top_k_for_query`,
+which prunes the final prefill too.
 
 Eager PyTorch needs none of the JAX engine's shape bucketing: the final
 prefill runs the exact suffix length (causality keeps the valid rows the
@@ -23,15 +33,15 @@ int8 above 65,536 planned slots or when a bf16 cache would not fit beside
 the weights), with the card's memory.
 
 Not in this slice (each raises NotImplementedError): pipeline / context /
-tensor parallelism, image inputs, sampling,
-continuation scoring, streamed tokens (`on_tokens`), the query-based, decay
-and cascade pruning modes, predictors other than key_norms_small,
-`do_top_k_for_query`, the on-device resize and the disk frame cache.
-`attention_impl` is not read: the port has one attention path (kernel B1).
+tensor parallelism, image inputs, sampling, continuation scoring, streamed
+tokens (`on_tokens`), the on-device resize and the disk frame cache.
+`attention_impl` is not read: the port's cache attention is kernel B1 (the
+JAX package's 'pallas' route).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from dataclasses import dataclass, field
 from typing import Iterable, List, Optional, Sequence, Tuple
@@ -39,20 +49,22 @@ from typing import Iterable, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from quickvideo_tpu.config import (
+from quickvideo_tpu_torch.config import (
     LVUConfig,
     kv_quant_mode,
     resolve_auto_kv_dtype,
     resolve_effective_top_k,
 )
-from quickvideo_tpu.models.qwen25_vl.config import ModelConfig
+from quickvideo_tpu_torch.models.qwen25_vl.config import ModelConfig
 from quickvideo_tpu_torch.models.qwen25_vl import model as qmodel
 from quickvideo_tpu_torch.models.qwen25_vl import rope
 from quickvideo_tpu_torch.models.qwen25_vl.language import (
+    StepSpec,
     compute_logits,
     decode_step,
     embed_tokens,
     prefill_step,
+    prefill_step_unrolled,
 )
 from quickvideo_tpu_torch.models.qwen25_vl.vision import layout_tensors
 from quickvideo_tpu_torch.ops.fused_vision_mlp import fuse_vision_mlp_weights
@@ -96,16 +108,14 @@ class GenerationResult:
 
 
 def check_slice(lvu: LVUConfig) -> None:
-    """Raise NotImplementedError for a configuration outside the slice."""
+    """Raise TypeError for a config that is not the port's LVUConfig, and
+    NotImplementedError for a configuration outside the slice."""
+    if not isinstance(lvu, LVUConfig):
+        raise TypeError(
+            "the port takes quickvideo_tpu_torch.config.LVUConfig, got "
+            f"{type(lvu).__module__}.{type(lvu).__name__}"
+        )
     unsupported = {
-        "top_k_predict_type": lvu.top_k_predict_type != "key_norms_small",
-        "query_based": lvu.query_based,
-        "top_k_decay_type": lvu.top_k_decay_type is not None,
-        "prefill_prune_starting_layer": (
-            lvu.prefill_prune_starting_layer is not None
-        ),
-        "adaptive_local_attention=False": not lvu.adaptive_local_attention,
-        "do_top_k_for_query": lvu.do_top_k_for_query,
         "mesh (multi-device)": lvu.mesh.num_devices > 1,
         "resize_on_device": lvu.resize_on_device,
         "save_video_cache": lvu.save_video_cache,
@@ -158,6 +168,7 @@ class LVUEngine:
         )
         self._layouts = {}
         self._weight_bytes = None
+        self._final_prefills = 0  # seeds the pruned final prefill's draws
 
     def _layout_tensors(self, grid):
         if grid not in self._layouts:
@@ -175,6 +186,33 @@ class LVUEngine:
         return pixels if pixels.dtype == torch.uint8 else pixels.to(self.dtype)
 
     # -- planning --------------------------------------------------------
+
+    def _uniform(self) -> bool:
+        return (
+            self.lvu.top_k_decay_type is None
+            and self.lvu.prefill_prune_starting_layer is None
+        )
+
+    def _layer_specs(self, base: StepSpec) -> List[StepSpec]:
+        """Per-layer specs under a decay schedule or the cascade
+        (quickvideo_tpu/prefill/engine.py:581-600): layer li keeps
+        resolve_effective_top_k of the rows that reach it; from
+        `prefill_prune_starting_layer` on, a pruning layer passes only its
+        kept rows (and the prompt rows) to the next."""
+        n = self.cfg.text.num_hidden_layers
+        if self._uniform():
+            return [base] * n
+        psl = self.lvu.prefill_prune_starting_layer
+        specs, q_len = [], base.q_len
+        for li in range(n):
+            k = resolve_effective_top_k(self.lvu, li, n,
+                                        q_len - base.prompt_len)
+            cascade = isinstance(psl, int) and 0 <= psl <= li and k > 0
+            specs.append(dataclasses.replace(base, q_len=q_len, keep_k=k,
+                                             cascade=cascade))
+            if cascade and li < n - 1:
+                q_len = k + base.prompt_len
+        return specs
 
     def device_memory_bytes(self) -> int:
         """What the auto KV rule takes as device memory: QV_HBM_GB (GiB)
@@ -300,6 +338,9 @@ class LVUEngine:
 
         lang = self.params["language"]
         ids_t = torch.as_tensor(ids, device=self.device)
+        # query-based mode: the question suffix rides with every group
+        prompt_len = L - suffix_start if lvu.query_based else 0
+        n_layers = t.num_hidden_layers
         past_len = logical_len = 0
         retained = []
         pixel_iter = inputs.pixel_groups
@@ -318,22 +359,40 @@ class LVUEngine:
                     self.params, cfg, self._to_device(pixels), grid,
                     self._layout_tensors(grid),
                 )
-            keep_k = resolve_effective_top_k(
-                lvu, 0, t.num_hidden_layers, in_len
+            base = StepSpec(
+                q_len=in_len + prompt_len,
+                keep_k=resolve_effective_top_k(lvu, 0, n_layers, in_len),
+                predict_type=lvu.top_k_predict_type,
+                needs_probs=lvu.needs_attn_stats,
+                prompt_len=prompt_len,
+                attend_past=lvu.adaptive_local_attention,
+                ref_query_mask=lvu.reference_query_mask,
             )
             with timer.span("prefill"):
-                rows = slice(past_len, past_len + in_len)
-                g_ids = ids_t[rows]
+                g_ids = ids_t[past_len : past_len + in_len]
+                if prompt_len:
+                    g_ids = torch.cat([g_ids, ids_t[suffix_start:]])
                 x = qmodel.merge_vision_embeddings(
                     embed_tokens(lang, g_ids), vis, g_ids, cfg.video_token_id
                 )
-                _, idx = prefill_step(
-                    lang, cache, x, cos[rows], sin[rows], t, keep_k,
-                    lvu.top_k_predict_type,
+                # rotary rows contiguous past the group's start: in
+                # query-based mode the prompt rows take the positions of the
+                # tokens that follow the group (the JAX engine's quirk,
+                # quickvideo_tpu/prefill/engine.py:311-319)
+                rows = slice(past_len, past_len + base.q_len)
+                _, idx = prefill_step_unrolled(
+                    lang, cache, x, cos[rows], sin[rows], t,
+                    self._layer_specs(base), seed_key=(lvu.seed + 1, gi),
                 )
             retained.append(idx)
             past_len += in_len
-            logical_len += keep_k if keep_k > 0 else in_len
+            # under decay / cascade a layer that keeps all appends the whole
+            # group: the occupancy is the max over layers, as plan_capacity
+            # counts it
+            logical_len += max(
+                resolve_effective_top_k(lvu, li, n_layers, in_len) or in_len
+                for li in range(n_layers)
+            )
         if past_len != suffix_start:
             raise ValueError(
                 f"pixel groups covered {past_len} tokens, the video ends at "
@@ -352,18 +411,41 @@ class LVUEngine:
         return cache, state
 
     def final_prefill(self, cache, state, timer: Optional[SpanTimer] = None):
-        """The question suffix through all layers at its exact length
-        (appends all of it). Returns the last row's logits (V,) f32."""
+        """The question suffix through all layers at its exact length.
+        Appends all of it, or with `do_top_k_for_query` its kept rows, as
+        the JAX engine does (quickvideo_tpu/prefill/engine.py:1404-1440;
+        query predictors then score the suffix's own column sums). Sets
+        state["suffix_advance"] and state["retained_final"]. Returns the
+        last row's logits (V,) f32."""
         timer = timer or SpanTimer()
+        lvu = self.lvu
         ss, L = state["suffix_start"], state["L"]
         lang = self.params["language"]
+        n = self.cfg.text.num_hidden_layers
+        keep_k = 0
+        if lvu.do_top_k_for_query:
+            keep_k = resolve_effective_top_k(lvu, 0, n, L - ss)
         with timer.span("final_prefill"):
             x = embed_tokens(lang, state["ids_t"][ss:L])
-            hidden, _ = prefill_step(
-                lang, cache, x, state["cos"][ss:L], state["sin"][ss:L],
-                self.cfg.text, min_rows=0,
-            )
+            args = (lang, cache, x, state["cos"][ss:L], state["sin"][ss:L],
+                    self.cfg.text)
+            if keep_k > 0:
+                # exact rows, so the act-quant gate sees the real count
+                spec = StepSpec(
+                    q_len=L - ss, keep_k=keep_k,
+                    predict_type=lvu.top_k_predict_type,
+                    needs_probs=lvu.needs_attn_stats or lvu.query_based,
+                )
+                self._final_prefills += 1
+                hidden, idx = prefill_step(
+                    *args, spec, seed_key=(lvu.seed, self._final_prefills)
+                )
+            else:
+                # the JAX package's padded bucket always passes the gate
+                hidden, idx = prefill_step(*args, min_rows=0)
             logits = compute_logits(lang, hidden[-1], self.cfg.text)
+        state["suffix_advance"] = keep_k or L - ss
+        state["retained_final"] = idx
         return logits
 
     def generate(
@@ -409,8 +491,8 @@ class LVUEngine:
                     nxt = int(torch.argmax(logits))
                     tokens.append(nxt)
         t = self.cfg.text
-        suffix_len = L - state["suffix_start"]
-        cache_len = state["cache_len"] + suffix_len + max(0, len(tokens) - 1)
+        cache_len = (state["cache_len"] + state["suffix_advance"]
+                     + max(0, len(tokens) - 1))
         itemsize = torch.empty((), dtype=self.dtype).element_size()
         # bytes per (K, V) token slot: int8 stores 1 B values and one f32
         # scale per head_dim row; int8k quantizes K only

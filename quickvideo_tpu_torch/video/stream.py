@@ -2,13 +2,13 @@
 
 Counterpart of quickvideo_tpu/video/stream.py::AsyncPixelGroups: the same
 two producer threads. The decode thread pulls frame blocks from the native
-interleaved reader (shared with the JAX package: quickvideo_tpu.video.
-quickdecode); the upload thread copies each uint8 block from pinned host
-memory to the device with `non_blocking=True` on a side CUDA stream and
-records an event. The consumer (the engine's group loop) makes its own
-stream wait on that event before it touches the block, so the copy of
-group i+1 overlaps the compute of group i. On a CPU device the upload stage
-only wraps the block in a tensor.
+interleaved reader (video/quickdecode.py, the ctypes binding to the library
+built from cpp/quickdecode); the upload thread copies each uint8 block from
+pinned host memory to the device with `non_blocking=True` on a side CUDA
+stream and records an event. The consumer (the engine's group loop) makes
+its own stream wait on that event before it touches the block, so the copy
+of group i+1 overlaps the compute of group i. On a CPU device the upload
+stage only wraps the block in a tensor.
 """
 
 from __future__ import annotations
@@ -22,10 +22,10 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from quickvideo_tpu.config import LVUConfig
-from quickvideo_tpu.video import preprocess as pp
-from quickvideo_tpu.video import quickdecode as qd
-from quickvideo_tpu.video.reader import plan_from_reader
+from quickvideo_tpu_torch.config import LVUConfig
+from quickvideo_tpu_torch.video import preprocess as pp
+from quickvideo_tpu_torch.video import quickdecode as qd
+from quickvideo_tpu_torch.video.reader import plan_from_reader
 from quickvideo_tpu_torch.utils.timing import SpanTimer
 
 _SENTINEL = object()

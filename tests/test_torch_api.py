@@ -4,8 +4,8 @@ weight route."""
 import pytest
 import torch
 
-from quickvideo_tpu.config import LVUConfig
-from quickvideo_tpu.models.qwen25_vl import get_config
+from quickvideo_tpu_torch.config import LVUConfig
+from quickvideo_tpu_torch.models.qwen25_vl.config import get_config
 from quickvideo_tpu_torch.api import LVU
 from quickvideo_tpu_torch.models.qwen25_vl.convert import init_params
 

@@ -15,6 +15,11 @@ against the global row max where the kernel uses the running one). Outputs
 are bf16 (2^-7 relative spacing), so one rounding step apart plus the
 rounded weights stay within 1e-2 + 1e-2 * |plain|.
 
+B1's lse (f32, natural log): both sides take the same f32 scores (exact
+products of the bf16 or int8 operands) and differ only in summation order
+and exp2 / log rounding, ~1e-6 of an lse of magnitude <= 20; LSE_TOL leaves
+two orders of margin.
+
 B3/B4/B6 (int8): quickvideo_tpu_torch/testing.py states the rule, shared
 with chip_smoke.py.
 """
@@ -25,9 +30,10 @@ import torch
 
 from quickvideo_tpu_torch.ops import fused_vision_mlp as fm
 from quickvideo_tpu_torch.ops.attention import (
+    NEG_INF,
+    cache_attention,
+    cache_attention_int8,
     quantize_q,
-    unified_causal_attention,
-    unified_causal_attention_int8,
 )
 from quickvideo_tpu_torch.ops.kv_cache import (
     init_cache,
@@ -54,6 +60,7 @@ from quickvideo_tpu_torch.ops.vision_attention import (
 pytestmark = pytest.mark.cuda
 
 TOL = dict(atol=1e-2, rtol=1e-2)
+LSE_TOL = dict(atol=1e-4, rtol=0)
 
 
 @pytest.fixture
@@ -76,9 +83,9 @@ def test_flash_kernel_matches_plain(dev, g, length, cap):
     q = q.transpose(0, 1)  # the projection's layout: (G, Hq, D) storage
     scale = 128 ** -0.5
     before = flash_past_attention.launches
-    got = flash_past_attention(q, k_all[1], v_all[1], length, scale)
-    assert flash_past_attention.launches == before + 1
-    ref = unified_causal_attention(q, k_all[1], v_all[1], length, scale)
+    got, lse = flash_past_attention(q, k_all[1], v_all[1], length, scale)
+    assert flash_past_attention.launches == before + 1 and lse is None
+    ref, _ = cache_attention(q, k_all[1], v_all[1], length, scale)
     torch.testing.assert_close(got.float(), ref.float(), **TOL)
 
 
@@ -88,12 +95,12 @@ def test_flash_kernel_reads_only_its_layer(dev):
     k_all = torch.randn(2, 4, 1024, 128, generator=gen, device=dev).bfloat16()
     v_all = torch.randn(2, 4, 1024, 128, generator=gen, device=dev).bfloat16()
     q = torch.randn(28, 50, 128, generator=gen, device=dev).bfloat16()
-    got = flash_past_attention(q, k_all[1], v_all[1], 300, 0.1)
+    got = flash_past_attention(q, k_all[1], v_all[1], 300, 0.1)[0]
     k_all[0].fill_(float("nan"))
     v_all[0].fill_(float("nan"))
     k_all[1, :, 350:].fill_(float("nan"))
     v_all[1, :, 350:].fill_(float("nan"))
-    again = flash_past_attention(q, k_all[1], v_all[1], 300, 0.1)
+    again = flash_past_attention(q, k_all[1], v_all[1], 300, 0.1)[0]
     assert torch.equal(got, again)
 
 
@@ -142,12 +149,12 @@ def test_flash_int8_kernels_match_plain(dev, variant, g, length, cap):
     q = q[:g].transpose(0, 1)  # (G, Hq, D) storage, as the projection
     scale = 128 ** -0.5
     before = dict(flash_past_attention.variant_launches)
-    got = flash_past_attention(q, cache.k[1], cache.v[1], length, scale,
-                               **_int8_args(cache))
+    got, _ = flash_past_attention(q, cache.k[1], cache.v[1], length, scale,
+                                  **_int8_args(cache))
     assert flash_past_attention.variant_launches[variant] == before[variant] + 1
     q8, qs = quantize_q(q, scale)
     a = _int8_args(cache)
-    ref = unified_causal_attention_int8(
+    ref, _ = cache_attention_int8(
         q8, qs, cache.k[1], a["k_scale"], cache.v[1], a["v_scale"], length,
         torch.bfloat16,
     )
@@ -160,8 +167,8 @@ def test_flash_int8_kernel_reads_only_its_layer(dev, variant):
     past length + G."""
     cache, q = _int8_cache(dev, 1024, variant, 3)
     q = q[:50].transpose(0, 1)
-    got = flash_past_attention(q, cache.k[1], cache.v[1], 300, 0.1,
-                               **_int8_args(cache))
+    got, _ = flash_past_attention(q, cache.k[1], cache.v[1], 300, 0.1,
+                                  **_int8_args(cache))
     for sc in (cache.k_scale, cache.v_scale):
         if sc is not None:
             sc[0].fill_(float("nan"))
@@ -169,9 +176,87 @@ def test_flash_int8_kernel_reads_only_its_layer(dev, variant):
     cache.k[1, :, 350:].fill_(127)
     if variant == "int8k":
         cache.v[1, :, 350:].fill_(float("nan"))
-    again = flash_past_attention(q, cache.k[1], cache.v[1], 300, 0.1,
-                                 **_int8_args(cache))
+    again, _ = flash_past_attention(q, cache.k[1], cache.v[1], 300, 0.1,
+                                    **_int8_args(cache))
     assert torch.equal(got, again)
+
+
+def _mode_case(dev, variant, g, length, cap, seed):
+    """q in the projection's layout and one cache layer of `variant`, with
+    the kernel's keyword operands."""
+    if variant == "bf16":
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        k = torch.randn(4, cap, 128, generator=gen, device=dev).bfloat16()
+        v = torch.randn(4, cap, 128, generator=gen, device=dev).bfloat16()
+        q = torch.randn(g, 28, 128, generator=gen, device=dev).bfloat16()
+        return q.transpose(0, 1), k, v, {}
+    cache, q = _int8_cache(dev, cap, variant, seed)
+    return q[:g].transpose(0, 1), cache.k[1], cache.v[1], _int8_args(cache)
+
+
+def _plain(q, k, v, length, scale, kw, **mode):
+    if not kw:
+        return cache_attention(q, k, v, length, scale, **mode)
+    q8, qs = quantize_q(q, scale)
+    return cache_attention_int8(q8, qs, k, kw["k_scale"], v, kw["v_scale"],
+                                length, torch.bfloat16, **mode)
+
+
+@pytest.mark.parametrize("variant", ["bf16", "int8", "int8k"])
+@pytest.mark.parametrize(
+    "causal,g,length,cap",
+    [(False, 3620, 1807, 8192), (False, 20, 0, 4096), (False, 100, 1000, 4096),
+     (False, 1, 57344, 65536), (True, 3600, 1807, 8192), (True, 37, 3607, 8192),
+     (True, 1, 4000, 8192)],
+)
+def test_flash_lse_and_pure_past_modes_match_plain(dev, variant, causal, g,
+                                                   length, cap):
+    """B1's lse output in both modes, pure past with the f32 output the
+    query-based merge takes (unified with the bf16 output of the hot path),
+    every cache variant: out and lse against the plain version; G = 1 runs
+    split-K, so the merge kernel forms the lse there."""
+    q, k, v, kw = _mode_case(dev, variant, g, length, cap, g + length)
+    scale = 128 ** -0.5
+    out_dtype = torch.bfloat16 if causal else torch.float32
+    mode = dict(causal=causal, with_lse=True, out_dtype=out_dtype)
+    name = "past+lse" if not causal else "unified+lse"
+    before = flash_past_attention.mode_launches[variant, name]
+    got, lse = flash_past_attention(q, k, v, length, scale, **kw, **mode)
+    assert flash_past_attention.mode_launches[variant, name] == before + 1
+    ref, ref_lse = _plain(q, k, v, length, scale, kw, **mode)
+    assert got.dtype == out_dtype and lse.dtype == torch.float32
+    assert lse.shape == (28, g)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL)
+    torch.testing.assert_close(lse, ref_lse, **LSE_TOL)
+    if not causal and length == 0:
+        assert not got.any() and bool((lse == NEG_INF).all())
+
+
+@pytest.mark.parametrize("variant", ["bf16", "int8"])
+def test_flash_pure_past_reads_only_the_valid_slots(dev, variant):
+    """Pure past attends [0, length): poisoning the group's own slots and
+    everything past length changes nothing."""
+    q, k, v, kw = _mode_case(dev, variant, 50, 300, 1024, 9)
+    mode = dict(causal=False, with_lse=True, out_dtype=torch.float32)
+    got, lse = flash_past_attention(q, k, v, 300, 0.1, **kw, **mode)
+    if variant == "bf16":
+        k[:, 300:].fill_(float("nan"))
+        v[:, 300:].fill_(float("nan"))
+    else:
+        kw["k_scale"][:, 300:].fill_(float("nan"))
+        kw["v_scale"][:, 300:].fill_(float("nan"))
+    again, lse2 = flash_past_attention(q, k, v, 300, 0.1, **kw, **mode)
+    assert torch.equal(got, again) and torch.equal(lse, lse2)
+
+
+def test_flash_mode_operands_are_checked(dev):
+    q, k, v, _ = _mode_case(dev, "bf16", 8, 100, 256, 4)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        flash_past_attention(q, k, v, 0, 1.0, out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="capacity"):  # causal needs G slots
+        flash_past_attention(q, k, v, 252, 1.0)
+    out, lse = flash_past_attention(q, k, v, 256, 1.0, causal=False)
+    assert lse is None and out.dtype == torch.bfloat16
 
 
 def test_kv_and_q_quantization_on_the_card_equal_the_cpu(dev):
@@ -374,7 +459,7 @@ class _Reader:
 def test_stream_uploads_on_a_side_stream(dev):
     """Pinned host -> device copies on the side stream, handed over with an
     event: the consumer sees every frame group intact, in order."""
-    from quickvideo_tpu.config import LVUConfig
+    from quickvideo_tpu_torch.config import LVUConfig
     from quickvideo_tpu_torch.video.stream import AsyncPixelGroups
 
     cfg = LVUConfig(num_frames=24, video_group_size=8, decode_output="yuv420")

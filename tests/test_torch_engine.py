@@ -11,19 +11,25 @@ import jax
 import jax.numpy as jnp
 
 from quickvideo_tpu.api import LVU as JLVU
-from quickvideo_tpu.config import LVUConfig
+from quickvideo_tpu.config import LVUConfig as JLVUConfig
 from quickvideo_tpu.models.qwen25_vl import get_config
 from quickvideo_tpu.models.qwen25_vl import model as jmodel
 from quickvideo_tpu.prefill import LVUEngine as JEngine
 from quickvideo_tpu.prefill import PrefillInputs as JInputs
 from quickvideo_tpu.video import quickdecode as qd
 from quickvideo_tpu_torch.api import LVU as TLVU
+from quickvideo_tpu_torch.config import LVUConfig as TLVUConfig
+from quickvideo_tpu_torch.models.qwen25_vl.config import (
+    get_config as tget_config,
+)
 from quickvideo_tpu_torch.models.qwen25_vl.convert import params_from_jax
 from quickvideo_tpu_torch.prefill import LVUEngine, PrefillInputs
+from quickvideo_tpu_torch.video import quickdecode as tqd
 
 torch.set_num_threads(2)
 
 CFG = get_config("tiny")
+TCFG = tget_config("tiny")
 HW = 280  # 20 x 20 patches: ragged 4+4+2-unit windows
 
 
@@ -31,6 +37,11 @@ HW = 280  # 20 x 20 patches: ragged 4+4+2-unit windows
 def params():
     jp = jmodel.init_params(CFG, seed=0, dtype=jnp.float32)
     return jp, params_from_jax(jax.tree.map(np.asarray, jp))
+
+
+def configs(**kw):
+    """The JAX package's LVUConfig and the port's, from the same keywords."""
+    return JLVUConfig(**kw), TLVUConfig(**kw)
 
 
 def build_request(seed=1, n_pre=4, n_post=5, groups_t=(2, 2)):
@@ -60,11 +71,12 @@ def build_request(seed=1, n_pre=4, n_post=5, groups_t=(2, 2)):
 def test_greedy_tokens_identical_to_jax_engine(params, top_p):
     jp, tp = params
     ids, grid, groups, grids = build_request()
-    lvu = LVUConfig(model_name_or_path="tiny", top_p=top_p, max_decode_tokens=8)
-    ref = JEngine(jp, CFG, lvu, dtype=jnp.float32).generate(
+    jlvu, tlvu = configs(model_name_or_path="tiny", top_p=top_p,
+                         max_decode_tokens=8)
+    ref = JEngine(jp, CFG, jlvu, dtype=jnp.float32).generate(
         JInputs(ids, grid, groups, grids, 2.0), max_new_tokens=6
     )
-    got = LVUEngine(tp, CFG, lvu, dtype=torch.float32).generate(
+    got = LVUEngine(tp, TCFG, tlvu, dtype=torch.float32).generate(
         PrefillInputs(ids, grid, groups, grids, 2.0), max_new_tokens=6
     )
     np.testing.assert_array_equal(got.tokens, ref.tokens)
@@ -78,8 +90,8 @@ def test_greedy_tokens_identical_to_jax_engine(params, top_p):
 def test_eos_stops_decode(params):
     _, tp = params
     ids, grid, groups, grids = build_request()
-    eng = LVUEngine(tp, CFG, LVUConfig(model_name_or_path="tiny", top_p=0.5,
-                                       max_decode_tokens=8), torch.float32)
+    eng = LVUEngine(tp, TCFG, TLVUConfig(model_name_or_path="tiny", top_p=0.5,
+                                         max_decode_tokens=8), torch.float32)
     first = eng.generate(PrefillInputs(ids, grid, groups, grids, 2.0),
                          max_new_tokens=6).tokens
     res = eng.generate(PrefillInputs(ids, grid, groups, grids, 2.0),
@@ -129,10 +141,9 @@ class FakeInterleavedReader:
         self.closed = True
 
 
-def _fake_decode_video_batch(path, lvu):
-    """decode_video_batch over the fake reader: (frames, plan, native_hw)."""
-    from quickvideo_tpu.video.reader import plan_from_reader
-
+def _fake_decode_video_batch(plan_from_reader, path, lvu):
+    """decode_video_batch over the fake reader, planned by one package's
+    plan_from_reader: (frames, plan, native_hw)."""
     reader = FakeInterleavedReader(path)
     plan = plan_from_reader(reader, lvu)
     reader.height, reader.width = plan.resized_height, plan.resized_width
@@ -150,21 +161,29 @@ def test_lvu_generate_matches_jax_for_each_engine(params, monkeypatch,
     """LVU.generate(question, video_path) of both packages, with the native
     decoder replaced by the same fake (streamed for the interleaved
     engine, batch-decoded for the sync ones): same tokens."""
-    from quickvideo_tpu.video import reader as vreader
+    import functools
+
+    from quickvideo_tpu.video import reader as jreader
+    from quickvideo_tpu_torch.video import reader as treader
 
     jp, tp = params
-    monkeypatch.setattr(qd, "InterleavedVideoReader", FakeInterleavedReader)
-    monkeypatch.setattr(vreader, "decode_video_batch", _fake_decode_video_batch)
+    for mod in (qd, tqd):
+        monkeypatch.setattr(mod, "InterleavedVideoReader",
+                            FakeInterleavedReader)
+    for mod in (jreader, treader):
+        monkeypatch.setattr(mod, "decode_video_batch", functools.partial(
+            _fake_decode_video_batch, mod.plan_from_reader
+        ))
     monkeypatch.setenv("QV_COMPILE_CACHE", "0")
     FakeInterleavedReader.instances.clear()
-    cfg = LVUConfig(
+    jcfg, tcfg = configs(
         model_name_or_path="tiny", model_type=model_type,
         num_frames=8, video_group_size=4, top_p=0.5, max_decode_tokens=8,
         decode_output="yuv420", dtype="float32",
     )
-    jlvu = JLVU(cfg, params=jp)
+    jlvu = JLVU(jcfg, params=jp)
     ref_text = jlvu.generate("what moves?", "clip.mp4", max_new_tokens=5)
-    lvu = TLVU(cfg, params=tp, device="cpu")
+    lvu = TLVU(tcfg, params=tp, device="cpu")
     text = lvu.generate("what moves?", "clip.mp4", max_new_tokens=5)
     assert text == ref_text
     res = lvu.last_result
@@ -178,7 +197,8 @@ def test_lvu_generate_matches_jax_for_each_engine(params, monkeypatch,
 def test_out_of_slice_requests_raise(params):
     _, tp = params
     ids, grid, groups, grids = build_request()
-    eng = LVUEngine(tp, CFG, LVUConfig(model_name_or_path="tiny"), torch.float32)
+    eng = LVUEngine(tp, TCFG, TLVUConfig(model_name_or_path="tiny"),
+                    torch.float32)
     inputs = PrefillInputs(ids, grid, groups, grids, 2.0)
     with pytest.raises(NotImplementedError, match="sampled"):
         eng.generate(inputs, greedy=False)
@@ -192,13 +212,6 @@ def test_out_of_slice_requests_raise(params):
 @pytest.mark.parametrize(
     "kw",
     [
-        {"top_k_predict_type": "attention_weights"},
-        {"top_k_predict_type": "query_attention_weights"},
-        {"top_k_decay_type": "linear"},
-        {"prefill_prune_starting_layer": 2},
-        {"adaptive_local_attention": False},
-        {"do_top_k_for_query": True},
-        {"top_k_predict_type": "key_norms"},
         {"mesh": {"tp": 2}},
         {"resize_on_device": True},
         {"save_video_cache": True},
@@ -206,9 +219,9 @@ def test_out_of_slice_requests_raise(params):
 )
 def test_out_of_slice_configs_raise(params, kw):
     _, tp = params
-    cfg = LVUConfig(model_name_or_path="tiny", **kw)
+    cfg = TLVUConfig(model_name_or_path="tiny", **kw)
     with pytest.raises(NotImplementedError, match="not ported"):
-        LVUEngine(tp, CFG, cfg, torch.float32)
+        LVUEngine(tp, TCFG, cfg, torch.float32)
     with pytest.raises(NotImplementedError, match="not ported"):
         TLVU(cfg, params=tp, device="cpu")
 
@@ -271,17 +284,18 @@ def test_int8_greedy_tokens_identical_to_jax_engine(params_int8, monkeypatch,
         monkeypatch.setattr(tq, "ACT_MIN_DIM", 16)
     jqp, tqp = params_int8
     ids, grid, groups, grids = build_request()
-    lvu = LVUConfig(model_name_or_path="tiny", top_p=top_p,
-                    max_decode_tokens=8, param_dtype="int8")
+    jlvu, tlvu = configs(model_name_or_path="tiny", top_p=top_p,
+                         max_decode_tokens=8, param_dtype="int8")
     monkeypatch.setenv("QV_PALLAS_INTERPRET", "1")
-    jeng = JEngine(jax.tree.map(jnp.asarray, jqp), CFG, lvu, dtype=jnp.float32)
+    jeng = JEngine(jax.tree.map(jnp.asarray, jqp), CFG, jlvu,
+                   dtype=jnp.float32)
     ref = jeng.generate(JInputs(ids, grid, groups, grids, 2.0),
                         max_new_tokens=6)
     ref_logits = _jax_final_prefill_logits(
         jeng, JInputs(ids, grid, groups, grids, 2.0)
     )
     monkeypatch.delenv("QV_PALLAS_INTERPRET")
-    eng = LVUEngine(tqp, CFG, lvu, dtype=torch.float32)
+    eng = LVUEngine(tqp, TCFG, tlvu, dtype=torch.float32)
     got = eng.generate(PrefillInputs(ids, grid, groups, grids, 2.0),
                        max_new_tokens=6)
     np.testing.assert_array_equal(got.tokens, ref.tokens)
@@ -311,18 +325,18 @@ def test_int8_kv_greedy_tokens_identical_to_jax_engine(params, monkeypatch,
     against the port's plain versions: tokens, cache length and bytes."""
     jp, tp = params
     ids, grid, groups, grids = build_request()
-    lvu = LVUConfig(model_name_or_path="tiny", top_p=top_p,
-                    max_decode_tokens=8, kv_cache_dtype=kv_dtype,
-                    attention_impl="pallas")
+    jlvu, tlvu = configs(model_name_or_path="tiny", top_p=top_p,
+                         max_decode_tokens=8, kv_cache_dtype=kv_dtype,
+                         attention_impl="pallas")
     monkeypatch.setenv("QV_PALLAS_INTERPRET", "1")
-    jeng = JEngine(jp, CFG, lvu, dtype=jnp.float32)
+    jeng = JEngine(jp, CFG, jlvu, dtype=jnp.float32)
     ref = jeng.generate(JInputs(ids, grid, groups, grids, 2.0),
                         max_new_tokens=6)
     ref_logits = _jax_final_prefill_logits(
         jeng, JInputs(ids, grid, groups, grids, 2.0)
     )
     monkeypatch.delenv("QV_PALLAS_INTERPRET")
-    eng = LVUEngine(tp, CFG, lvu, dtype=torch.float32)
+    eng = LVUEngine(tp, TCFG, tlvu, dtype=torch.float32)
     got = eng.generate(PrefillInputs(ids, grid, groups, grids, 2.0),
                        max_new_tokens=6)
     np.testing.assert_array_equal(got.tokens, ref.tokens)
@@ -358,10 +372,10 @@ def test_auto_kv_dtype_resolves_as_the_jax_engine(params_int8, params,
     else:
         monkeypatch.setenv("QV_HBM_GB", hbm_gb)
     (jp, tp) = params_int8 if param_dtype == "int8" else params
-    lvu = LVUConfig(model_name_or_path="tiny", param_dtype=param_dtype)
-    jeng = JEngine(jax.tree.map(jnp.asarray, jp), CFG, lvu,
+    jlvu, tlvu = configs(model_name_or_path="tiny", param_dtype=param_dtype)
+    jeng = JEngine(jax.tree.map(jnp.asarray, jp), CFG, jlvu,
                    dtype=jnp.float32)
-    eng = LVUEngine(tp, CFG, lvu, dtype=torch.float32)
+    eng = LVUEngine(tp, TCFG, tlvu, dtype=torch.float32)
     want = jeng.resolve_kv_dtype(capacity)
     assert eng.resolve_kv_dtype(capacity) == want
     assert want == ("int8" if capacity > 65536 or hbm_gb == "0.00001"
@@ -377,7 +391,7 @@ def test_auto_kv_dtype_allocates_the_resolved_cache(params, monkeypatch):
     memory is too small for a bf16 cache."""
     _, tp = params
     ids, grid, groups, grids = build_request()
-    eng = LVUEngine(tp, CFG, LVUConfig(model_name_or_path="tiny"),
+    eng = LVUEngine(tp, TCFG, TLVUConfig(model_name_or_path="tiny"),
                     torch.float32)
     monkeypatch.delenv("QV_HBM_GB", raising=False)
     cache, st = eng.prefill(PrefillInputs(ids, grid, groups, grids, 2.0))
@@ -388,3 +402,12 @@ def test_auto_kv_dtype_allocates_the_resolved_cache(params, monkeypatch):
     assert st["kv_dtype"] == "int8" and cache.quantized is True
     assert cache.k.dtype == cache.v.dtype == torch.int8
     assert cache.k_scale.shape == cache.k.shape[:3] == cache.v_scale.shape
+
+
+def test_the_jax_packages_config_is_refused(params):
+    """The port takes its own LVUConfig: the JAX package's is a TypeError,
+    not a silent duck-typed run."""
+    _, tp = params
+    with pytest.raises(TypeError, match="quickvideo_tpu_torch.config"):
+        LVUEngine(tp, TCFG, JLVUConfig(model_name_or_path="tiny"),
+                  torch.float32)

@@ -1,10 +1,11 @@
-"""Kernel B1 (unified-causal flash attention) of the PyTorch port.
+"""Kernel B1 (flash attention over one cache layer) of the PyTorch port.
 
 The plain versions (the CPU path of the wrapper) are held against the JAX
 package's Pallas kernel in interpret mode, on the same numpy inputs, at the
 production head dim 128 and the 7B's GQA ratio rep = 7 (Hq=14, Hkv=2), on a
 stacked cache read at layer 1: the bf16-cache mode, and the int8 and int8k
-caches on the int8-QK route.
+caches on the int8-QK route; unified causal and pure past, with the lse
+and the f32 output.
 The CUDA kernel is held against the plain version on the card in
 test_torch_cuda.py.
 """
@@ -18,8 +19,8 @@ import jax.numpy as jnp
 
 from quickvideo_tpu.ops.flash_attention import flash_past_attention as jax_flash
 from quickvideo_tpu_torch.ops.attention import (
+    cache_attention,
     quantize_q,
-    unified_causal_attention,
 )
 from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
 
@@ -49,19 +50,23 @@ def test_plain_matches_pallas_unified_causal(g, where):
         scale=SCALE, causal=True, layer_idx=jnp.int32(1), block_q=128,
         block_k=256, interpret=True,
     ).out
-    got = flash_past_attention(
+    got, lse = flash_past_attention(
         torch.from_numpy(q), torch.from_numpy(k)[1], torch.from_numpy(v)[1],
         length, SCALE,
     )
+    assert lse is None
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL, rtol=RTOL)
 
 
 def test_cpu_wrapper_is_the_plain_version_on_a_layer_view():
     q, k, v = _inputs(5, seed=0)
     qt, kt, vt = (torch.from_numpy(a) for a in (q, k, v))
-    got = flash_past_attention(qt, kt[1], vt[1], 7, SCALE)
-    want = unified_causal_attention(qt, kt[1].clone(), vt[1].clone(), 7, SCALE)
-    assert torch.equal(got, want)
+    for mode in (dict(), dict(causal=False, with_lse=True)):
+        got = flash_past_attention(qt, kt[1], vt[1], 7, SCALE, **mode)
+        want = cache_attention(qt, kt[1].clone(), vt[1].clone(), 7, SCALE,
+                               **mode)
+        assert all(a is b is None or torch.equal(a, b)
+                   for a, b in zip(got, want))
 
 
 def test_overflowing_group_raises():
@@ -115,7 +120,7 @@ def test_int8_plain_matches_pallas_int8_qk(g, where, v_int8):
         v_scale=None if vs is None else jnp.asarray(vs[1]),
         int8_qk=True,
     ).out
-    got = flash_past_attention(
+    got, _ = flash_past_attention(
         torch.from_numpy(q), torch.from_numpy(c["k"])[1],
         torch.from_numpy(c["v"])[1], length, SCALE,
         k_scale=torch.from_numpy(c["k_scale"])[1],
@@ -152,3 +157,52 @@ def test_int8_wrapper_rejects_v_scale_without_k_scale():
             torch.from_numpy(v)[0], 0, SCALE,
             v_scale=torch.ones(HKV, CAP),
         )
+
+
+# lse: f32 on both sides from the same scores; the Pallas kernel forms it
+# as m * ln 2 + ln(l) from its log2-space max, the plain version from the
+# natural-log max: ~1e-6 of an lse of magnitude <= 20
+LSE_ATOL = 2e-5
+
+
+@pytest.mark.parametrize("cache", ["f32", "int8", "int8k"])
+@pytest.mark.parametrize("causal", [False, True], ids=["past", "unified"])
+@pytest.mark.parametrize("g", [1, 37, 300])
+@pytest.mark.parametrize("where", ["zero", "mid", "full"])
+def test_plain_lse_and_pure_past_match_pallas(cache, causal, g, where):
+    """B1's lse output in both modes (pure past with the f32 output the
+    query-based merge takes), every cache variant, against the Pallas
+    kernel in interpret mode: out and lse. Pure past over an empty cache
+    gives out 0 and lse NEG_INF, as the Pallas finalize does."""
+    full = CAP if not causal else CAP - g
+    length = {"zero": 0, "mid": 411, "full": full}[where]
+    rng = np.random.default_rng(3 * g + length + causal)
+    q = rng.standard_normal((HQ, g, D)).astype(np.float32) * 2.0
+    if cache == "f32":
+        c = {"k": _inputs(1, g + length)[1], "k_scale": None, "v_scale": None}
+        c["v"] = _inputs(1, g + length + 1)[2]
+    else:
+        c = _int8_cache(g + length + 2, v_int8=cache == "int8")
+    ks, vs = c["k_scale"], c["v_scale"]
+    ref = jax_flash(
+        jnp.asarray(q), jnp.asarray(c["k"]), jnp.asarray(c["v"]),
+        jnp.int32(length), scale=SCALE, causal=causal,
+        layer_idx=jnp.int32(1), block_q=128, block_k=256, interpret=True,
+        k_scale=None if ks is None else jnp.asarray(ks[1]),
+        v_scale=None if vs is None else jnp.asarray(vs[1]),
+        out_dtype=jnp.float32, with_lse=True,
+    )
+    got, lse = flash_past_attention(
+        torch.from_numpy(q), torch.from_numpy(c["k"])[1],
+        torch.from_numpy(c["v"])[1], length, SCALE,
+        k_scale=None if ks is None else torch.from_numpy(ks)[1],
+        v_scale=None if vs is None else torch.from_numpy(vs)[1],
+        causal=causal, with_lse=True, out_dtype=torch.float32,
+    )
+    assert got.dtype == lse.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref.out), atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref.lse),
+                               atol=LSE_ATOL, rtol=0)
+    if length == 0 and not causal:
+        assert not got.any() and bool((lse == -1e30).all())

@@ -66,7 +66,7 @@ def test_layer_by_layer_matches_jax(params, top_p):
             )
             xt, idx_t = tlang.layer_step(
                 tp["layers"][li], xt, cos_t[rows], sin_t[rows], tcache, li,
-                T, keep,
+                T, tlang.StepSpec(q_len=g, keep_k=keep),
             )
             np.testing.assert_allclose(
                 xt.numpy(), np.asarray(xj), atol=ATOL, rtol=RTOL,
@@ -285,7 +285,8 @@ def test_int8_kv_layers_match_jax_hot_route(params, monkeypatch, quant,
         jc, hj = jlang.prefill_step(jp, jc, jnp.asarray(x0), cos_j[rows],
                                     sin_j[rows], jax.random.key(0), spec)
         ht, _ = tlang.prefill_step(tp, tc, torch.from_numpy(x0), cos_t[rows],
-                                   sin_t[rows], T, keep)
+                                   sin_t[rows], T,
+                                   tlang.StepSpec(q_len=g, keep_k=keep))
         np.testing.assert_allclose(ht.numpy(), np.asarray(hj), atol=ATOL,
                                    rtol=RTOL, err_msg=f"group at {off}")
         assert tc.lengths == np.asarray(jc.length).tolist()

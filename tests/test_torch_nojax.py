@@ -1,7 +1,8 @@
-"""Process-level checks of the PyTorch port: it never imports jax, and
-chip_smoke.py refuses to report a result without a CUDA card or outside a
-checkout. Both need a fresh interpreter (tests/conftest.py imports jax into
-every test process), so they run subprocesses."""
+"""Process-level checks of the PyTorch port: neither the port nor
+chip_smoke.py imports jax or any module of the JAX package (quickvideo_tpu),
+and chip_smoke.py refuses to report a result without a CUDA card or outside
+a checkout. Each needs a fresh interpreter (tests/conftest.py imports jax
+into every test process), so they run subprocesses."""
 
 import os
 import shutil
@@ -10,15 +11,24 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-SLICE = r"""
+# the modules a run must not have imported
+FORBIDDEN = r"""
+def forbidden():
+    import sys
+    return sorted(m for m in sys.modules
+                  if m in ("jax", "quickvideo_tpu")
+                  or m.startswith(("jax.", "flax", "jaxlib", "quickvideo_tpu.")))
+"""
+
+SLICE = FORBIDDEN + r"""
 import pkgutil, sys
-assert "jax" not in sys.modules, "jax imported at interpreter start"
+assert not forbidden(), forbidden()
 import numpy as np, torch
 torch.set_num_threads(1)
 import quickvideo_tpu_torch
 for m in pkgutil.walk_packages(quickvideo_tpu_torch.__path__, "quickvideo_tpu_torch."):
     __import__(m.name)
-from quickvideo_tpu.config import LVUConfig
+from quickvideo_tpu_torch.config import LVUConfig
 from quickvideo_tpu_torch.api import LVU
 from quickvideo_tpu_torch.prefill import PrefillInputs
 lvu = LVU(LVUConfig(model_name_or_path="tiny", top_p=0.5, dtype="float32",
@@ -44,8 +54,32 @@ res8 = lvu8.engine.generate(
     max_new_tokens=3,
 )
 assert len(res8.tokens) == 3, res8.tokens
-bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "flax", "jaxlib")))
-assert not bad, bad
+# B1's lse and pure-past modes, a cascade and the local-only branch
+for kw in (dict(top_k_predict_type="salient_tokens", kv_cache_dtype="int8"),
+           dict(top_k_predict_type="query_attention_weights", query_based=True,
+                top_k_decay_type="linear", prefill_prune_starting_layer=1),
+           dict(adaptive_local_attention=False, top_k_predict_type="random")):
+    res = LVU(LVUConfig(model_name_or_path="tiny", top_p=0.5, dtype="float32",
+                        max_decode_tokens=4, **kw), device="cpu").engine.generate(
+        PrefillInputs(ids, (2, 16, 16), [frames[:2], frames[2:]],
+                      [(1, 16, 16), (1, 16, 16)], 1.0),
+        max_new_tokens=2,
+    )
+    assert len(res.tokens) == 2, (kw, res.tokens)
+assert not forbidden(), forbidden()
+print("NOJAX_OK")
+"""
+
+SMOKE = FORBIDDEN + r"""
+import sys
+sys.path.insert(0, ".")
+import chip_smoke
+from quickvideo_tpu_torch.tokenization import load_tokenizer
+cfg = chip_smoke.narrow_config()
+chip_smoke._kernel_counters()
+chip_smoke.make_request(cfg, load_tokenizer("", cfg), "q", 0, n_frames=2,
+                        group_frames=2)
+assert not forbidden(), forbidden()
 print("NOJAX_OK")
 """
 
@@ -63,6 +97,26 @@ def test_port_slice_runs_without_importing_jax():
     proc = _run(["-c", SLICE], ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NOJAX_OK" in proc.stdout
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """chip_smoke imported as a module, with the helpers that import the
+    port run; and every import statement in it, its phases' lazy ones
+    included, names jax-free modules outside the JAX package."""
+    import ast
+
+    proc = _run(["-c", SMOKE], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NOJAX_OK" in proc.stdout
+    with open(os.path.join(ROOT, "chip_smoke.py")) as f:
+        tree = ast.parse(f.read())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names]
+    names += [n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module]
+    assert any(m.startswith("quickvideo_tpu_torch") for m in names)
+    bad = [m for m in names if m.split(".")[0] in ("jax", "quickvideo_tpu")]
+    assert not bad, bad
 
 
 def _no_result(proc):

@@ -61,9 +61,3 @@ def test_tied_key_norms_select_like_jax():
         "key_norms_small", 17, torch.from_numpy(keys), torch.from_numpy(keys)
     )
     np.testing.assert_array_equal(got.indices.numpy(), np.asarray(ref.indices))
-
-
-def test_other_predictors_are_not_ported():
-    keys = torch.zeros(2, 8, 4)
-    with pytest.raises(NotImplementedError, match="key_norms_small"):
-        tprune.select_and_compact("key_norms", 4, keys, keys)
