@@ -14,8 +14,11 @@ checkout of the repository. Phases:
      same function, that call's time: B1 (bf16 cache, and its int8-QK
      variants for the int8 and int8k caches, up to the 1024-frame
      headline's last group step and hour-scale decode; its lse output and
-     pure-past mode on every cache, out and lse apart), B2, and the int8
-     vision kernels B3, B4, B6 at the 7B tower's widths;
+     pure-past mode on every cache, out and lse apart), B2, B5 (the
+     420x420 group's window buckets and frames, a 476x644 image's buckets
+     and frame, ragged column validity, a 2304-row span), and the int8
+     vision kernels B3, B4, B6 at the 7B tower's widths; a failed B3/B4/B6
+     check prints its worst rows and reruns both sides (ROADMAP C12);
   3. the main path at the full width and depth of qwen25-vl-7b (bf16
      random weights): three `generate` requests through LVU / LVUEngine on
      64 seeded 420x420 yuv420 frames, groups of 32, key_norms_small at
@@ -38,11 +41,21 @@ checkout of the repository. Phases:
      int8k KV and do_top_k_for_query): B1 launches per variant and mode,
      cache lengths per layer against the config's rules, spans, peak
      memory;
+  3e. the head-major vision route (kernel B5): the 64-frame request under
+     QV_VISION_2D=0 with bf16 and with int8 weights (B2, B3, B4 launch 0
+     times), 66 frames by default (the 1-temporal-patch last group takes
+     B5), an image alone through `LVU.chat`, and an image before the
+     video: B2/B5 launches against the JAX package's route rule, cache
+     lengths, spans, peak memory, and the rel. L2 of the QV_VISION_2D=0
+     logits against phase 3's (printed, not asserted);
   4. the same prefill on the card and (plain versions) on the CPU for a
      narrow config with production head dims, with bf16 and with int8
-     weights, with an int8 KV cache, and with salient_tokens and
-     query-based pruning: final-prefill logits agree, and the retained
-     index sets of the pruned runs.
+     weights, with an int8 KV cache, with salient_tokens and query-based
+     pruning, under QV_VISION_2D=0 with bf16 and int8 weights, and with an
+     image: final-prefill logits agree, and the retained index sets of the
+     pruned runs.
+
+QV_VISION_2D is set only around the phases that force the route.
 
 The line before the last is a JSON object with each kernel's launches,
 error and times; the last line is {"ok": true, "device": {...}}.
@@ -50,13 +63,15 @@ error and times; the last line is {"ok": true, "device": {...}}.
     python3 chip_smoke.py --profile
 
 runs phase 1, then one warm 7B request (request 0 of phase 3) with bf16
-weights, with int8 weights, with bf16 weights and an int8 KV cache, and
-with bf16 weights and salient_tokens, then query-based, pruning under
+weights, with int8 weights, with bf16 weights and an int8 KV cache, with
+bf16 weights and salient_tokens, then query-based, pruning, and with bf16
+weights on the head-major vision route (QV_VISION_2D=0) under
 torch.profiler, and prints the wall time, the busy share of the card,
 the spans, kernel time by kind and the top kernels. It prints no result
 line.
 """
 
+import contextlib
 import json
 import os
 import subprocess
@@ -123,6 +138,10 @@ PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 REQUEST_FRAMES = 64
 FRAME_HW = 420  # 30 x 30 patches: ragged 64/48/36-patch window buckets
 GROUP_FRAMES = 32
+# a 480x640 photo after smart_resize: 34 x 46 patches, window buckets of
+# 64/48/16/12 rows and one 1564-row frame, which the JAX package's tiling
+# rule sends to the head-major route (kernel B5)
+IMAGE_HW = (476, 644)
 
 
 def log(msg):
@@ -449,8 +468,8 @@ def check_vision(dev, cases):
 
     from quickvideo_tpu_torch.ops.vision_attention import (
         apply_vision_rotary,
-        block_diag_attention,
-        block_diag_attention_plain,
+        block_diag_attention_2d,
+        block_diag_attention_2d_plain,
     )
 
     gen = torch.Generator(device=dev)
@@ -464,14 +483,15 @@ def check_vision(dev, cases):
         emb = torch.cat([ang, ang], dim=-1)
         cos, sin = torch.cos(emb), torch.sin(emb)
         scale = 80 ** -0.5
-        got = block_diag_attention(q, k, v, cos, sin, span, scale)
-        ref = block_diag_attention_plain(q, k, v, cos, sin, span, scale)
+        got = block_diag_attention_2d(q, k, v, cos, sin, span, scale)
+        ref = block_diag_attention_2d_plain(q, k, v, cos, sin, span, scale)
         err, within = _compare(got, ref)
         ms = _time_ms(
-            lambda: block_diag_attention(q, k, v, cos, sin, span, scale), 20
+            lambda: block_diag_attention_2d(q, k, v, cos, sin, span, scale), 20
         )
         plain_ms = _time_ms(
-            lambda: block_diag_attention_plain(q, k, v, cos, sin, span, scale),
+            lambda: block_diag_attention_2d_plain(q, k, v, cos, sin, span,
+                                                  scale),
             3,
         )
         # the spans as one batched SDPA call on rotated q, k (rotary applied
@@ -506,6 +526,121 @@ def check_vision(dev, cases):
     return rows
 
 
+def check_b5(dev, cases):
+    """B5 at nh=16, hd=80 on strided q/k/v views of one fused projection
+    (rotary applied outside, as the head-major route does). A case is
+    (span, S, masked): masked cases give each span a ragged count of valid
+    keys (some none), as tests/test_vision_attention.py's padded windows,
+    and compare the valid rows only. The yardstick is one batched SDPA call
+    over the spans, which computes B5's function (with the validity as its
+    mask)."""
+    import torch
+    import torch.nn.functional as F
+
+    from quickvideo_tpu_torch.ops.vision_attention import (
+        block_diag_attention,
+        block_diag_attention_plain,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    scale = 80 ** -0.5
+    rows = []
+    for span, s_len, masked in cases:
+        qkv = torch.randn(s_len, 3 * 1280, generator=gen, device=dev).bfloat16()
+        q, k, v = (qkv[:, i * 1280 : (i + 1) * 1280].view(s_len, 16, 80)
+                   for i in range(3))
+        n = s_len // span
+        valid = None
+        if masked:
+            counts = torch.randint(0, span + 1, (n,), generator=gen,
+                                   device=dev)
+            counts[0], counts[-1] = 0, span  # a dead span and a full one
+            valid = (torch.arange(span, device=dev)[None, :]
+                     < counts[:, None]).reshape(-1)
+
+        def kernel():
+            return block_diag_attention(q, k, v, span, scale=scale,
+                                        valid=valid)
+
+        def plain():
+            return block_diag_attention_plain(q, k, v, span, scale, valid)
+
+        got, ref = kernel(), plain()
+        live = slice(None) if valid is None else valid
+        err, within = _compare(got[live], ref[live])
+        if masked:  # a span without a valid key is 0 in both
+            dead = ~valid.reshape(n, span).any(1).repeat_interleave(span)
+            within &= not got[dead].any() and not ref[dead].any()
+        ms = _time_ms(kernel, 20)
+        plain_ms = _time_ms(plain, 3)
+
+        def spans(x):
+            return x.reshape(n, span, 16, 80).transpose(1, 2)
+
+        qs_, ks_, vs_ = spans(q), spans(k), spans(v)
+        mask = None if valid is None else valid.reshape(n, 1, 1, span)
+        library_ms = _time_ms(lambda: F.scaled_dot_product_attention(
+            qs_, ks_, vs_, attn_mask=mask), 20)
+        # q, k, v (and the validity) read, out written; QK and PV over each
+        # row and the valid keys of its span
+        keys = (span * n * span if valid is None
+                else span * int(valid.sum().item()))
+        bound_ms, bound_by = bound(nbytes(q, k, v, got, valid),
+                                   {"bf16": 4 * 16 * 80 * keys})
+        log(f"B5 span={span} S={s_len}{' masked' if masked else ''}: "
+            f"max_abs_err={err:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}"
+            f"*|plain|{', valid rows' if masked else ''}) kernel {ms:.4f} ms "
+            f"plain {plain_ms:.4f} ms sdpa {library_ms:.4f} ms bound "
+            f"{bound_ms:.4f} ms ({bound_by}) {'OK' if within else 'FAIL'}")
+        rows.append(dict(span=span, s=s_len, masked=masked, err=err, ms=ms,
+                         plain_ms=plain_ms, library_ms=library_ms,
+                         bound_ms=bound_ms, bound_by=bound_by, ok=within))
+        del qkv, q, k, v, got, ref
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _capture_fused_failure(name, kernel, plain, args, got, ref):
+    """A B3/B4/B6 check failed (ROADMAP C12): print up to 8 differing rows,
+    kernel and plain side by side (with their row scales where the output
+    is quantized), then rerun both on the same inputs in this process and
+    say whether each is bit-identical to its first run."""
+    import torch
+
+    quantized = isinstance(got, tuple)
+    if quantized:
+        (q, s), (qr, sr) = got, ref
+        deq, deq_r = q.float() * s, qr.float() * sr
+    else:
+        deq, deq_r = got.float(), ref.float()
+    bad = torch.nonzero((deq != deq_r).any(1)).flatten()
+    # the worst rows first: by row scale (quantized outputs) or value
+    worst = (((s - sr).abs() / sr).squeeze(1) if quantized
+             else (deq - deq_r).abs().amax(1))[bad]
+    bad = bad[torch.argsort(worst, descending=True)]
+    log(f"{name} C12 capture: {bad.numel()} of {deq.shape[0]} rows differ; "
+        "the worst 8:")
+    for r in bad[:8].tolist():
+        cols = torch.nonzero(deq[r] != deq_r[r]).flatten()[:4].tolist()
+        vals = ", ".join(f"col {c}: kernel {deq[r, c].item():.6g} plain "
+                         f"{deq_r[r, c].item():.6g}" for c in cols)
+        scales = (f" scale kernel {s[r, 0].item():.9g} plain "
+                  f"{sr[r, 0].item():.9g}" if quantized else "")
+        log(f"  row {r}:{scales}; {vals}")
+
+    def same(a, b):
+        if isinstance(a, tuple):
+            return all(torch.equal(x, y) for x, y in zip(a, b))
+        return torch.equal(a, b)
+
+    again, again_ref = kernel(*args), plain(*args)
+    torch.cuda.synchronize()
+    log(f"  rerun in the same process: kernel "
+        f"{'bit-identical' if same(again, got) else 'DIFFERENT'}, plain "
+        f"{'bit-identical' if same(again_ref, ref) else 'DIFFERENT'}")
+
+
 def check_fused(dev, cases):
     """B3, B4, B6 at the 7B tower's widths (C 1280, QKV N 3840, MLP I 3420
     padded to 3456) for each row count."""
@@ -536,8 +671,10 @@ def check_fused(dev, cases):
             ("B6", fm.dual_gemm_silu_quant, fm.dual_gemm_silu_quant_plain,
              (xq, xs, bp["wgu_p"], bp["bgu_p"]), quantized_close),
         ):
-            got = kernel(*args)
-            err, ok, why = compare(got, plain(*args))
+            got, ref = kernel(*args), plain(*args)
+            err, ok, why = compare(got, ref)
+            if not ok:
+                _capture_fused_failure(name, kernel, plain, args, got, ref)
             ms = _time_ms(lambda: kernel(*args), 20)
             plain_ms = _time_ms(lambda: plain(*args), 5)
             # the s8 GEMM(s) over S x 1280 x N (N = the bias width)
@@ -558,12 +695,23 @@ def check_fused(dev, cases):
 # -- phase 3: the main path ------------------------------------------------
 
 
+def seeded_image(seed: int = 0) -> np.ndarray:
+    """An IMAGE_HW RGB uint8 photo of seeded noise: at a size smart_resize
+    keeps, so no PIL resize runs."""
+    return np.random.default_rng(seed).integers(
+        0, 256, (*IMAGE_HW, 3), dtype=np.uint8
+    )
+
+
 def make_request(cfg, tokenizer, question: str, seed: int,
                  n_frames: int = REQUEST_FRAMES,
-                 group_frames: int = GROUP_FRAMES):
+                 group_frames: int = GROUP_FRAMES, image=None):
     """PrefillInputs for `n_frames` seeded-noise 420x420 yuv420 frames in
-    groups of `group_frames`, with the chat template around them."""
-    from quickvideo_tpu_torch.tokenization import build_chat_ids
+    groups of `group_frames` (each group's grid from its own frame count),
+    with the chat template around them; `image`, an (H, W, 3) uint8 array,
+    goes before the video, prepared as LVU.chat prepares it."""
+    from quickvideo_tpu_torch.engines.qwen25 import _prepare_images
+    from quickvideo_tpu_torch.tokenization import build_chat_ids_from_messages
     from quickvideo_tpu_torch.prefill import PrefillInputs
 
     ps, ms = cfg.vision.patch_size, cfg.vision.spatial_merge_size
@@ -576,15 +724,27 @@ def make_request(cfg, tokenizer, question: str, seed: int,
     groups, grids = [], []
     for off in range(0, n_frames, group_frames):
         groups.append(frames[off : off + group_frames])
-        grids.append((group_frames // tps, gh, gw))
+        grids.append((-(-len(groups[-1]) // tps), gh, gw))
     n_vid = sum(t * (h // ms) * (w // ms) for t, h, w in grids)
-    ids = build_chat_ids(tokenizer, cfg, question, n_vid)
+    content = [{"type": "video", "video": "<seeded frames>"},
+               {"type": "text", "text": question}]
+    images = {}
+    counts = ()
+    if image is not None:
+        content.insert(0, {"type": "image", "image": image})
+        px, img_grids, counts = _prepare_images(cfg, [content[0]])
+        images = dict(image_grid_thw=img_grids, image_pixels=px)
+    ids = build_chat_ids_from_messages(
+        tokenizer, cfg, [{"role": "user", "content": content}], n_vid,
+        image_token_counts=counts,
+    )
     return PrefillInputs(
         input_ids=ids,
-        video_grid_thw=(n_frames // tps, gh, gw),
+        video_grid_thw=(sum(g[0] for g in grids), gh, gw),
         pixel_groups=groups,
         group_grids=grids,
         second_per_grid_ts=1.0,
+        **images,
     )
 
 
@@ -678,11 +838,15 @@ def _read_counters(counters):
 def _kernel_counters():
     from quickvideo_tpu_torch.ops import fused_vision_mlp as fm
     from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
-    from quickvideo_tpu_torch.ops.vision_attention import block_diag_attention
+    from quickvideo_tpu_torch.ops.vision_attention import (
+        block_diag_attention,
+        block_diag_attention_2d,
+    )
 
     return {
         "flash": flash_past_attention,
-        "vision": block_diag_attention,
+        "vision_2d": block_diag_attention_2d,  # B2
+        "vision_hm": block_diag_attention,  # B5, the head-major route
         "ln_gemm": fm.ln_gemm_bias,
         "ln_mlp": fm.ln_dual_gemm_silu_quant,
         "mlp_pre": fm.dual_gemm_silu_quant,
@@ -778,7 +942,7 @@ def run_main_path(dev, param_dtype="bfloat16", kv_cache_dtype="auto"):
     for i, (inputs, res, wall) in enumerate(results):
         n_groups = len(inputs.group_grids)
         exp["flash"] += (n_groups + 1 + len(res.tokens) - 1) * n_layers
-        exp["vision"] += n_groups * b2_per_group
+        exp["vision_2d"] += n_groups * b2_per_group
         if param_dtype == "int8":
             exp["ln_gemm"] += n_groups * mcfg.vision.depth
             exp["ln_mlp"] += n_groups * mcfg.vision.depth
@@ -806,7 +970,8 @@ def run_main_path(dev, param_dtype="bfloat16", kv_cache_dtype="auto"):
             f"wall={wall:.3f} s decode "
             f"{per_tok} spans(s)={spans} "
             f"{'OK' if lens_ok and toks_ok else 'FAIL'}")
-    counts_ok = counts == exp and counts["flash"] > 0 and counts["vision"] > 0
+    counts_ok = (counts == exp and counts["flash"] > 0
+                 and counts["vision_2d"] > 0)
     ok &= counts_ok
     log(f"[{tag}] main-path launches: "
         + ", ".join(f"{k} {counts[k]} (expected {exp[k]})" for k in counts)
@@ -933,7 +1098,7 @@ def run_modes(dev, params):
               for v in B1_VARIANTS for m in B1_MODES}
         counts_ok = (b1 == {k: want.get(k, 0) for k in b1}
                      and counts["flash"] == sum(want.values())
-                     and counts["vision"] > 0)
+                     and counts["vision_2d"] > 0)
         lens_ok = (res.cache_length == want_len
                    and res.layer_lengths == want_layers)
         toks_ok = bool(len(res.tokens) >= 1 and (
@@ -951,6 +1116,178 @@ def run_modes(dev, params):
             f"wall={wall:.3f} s spans(s)={spans} peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
             f"{'OK' if counts_ok and lens_ok and toks_ok else 'FAIL'}")
+        del lvu
+        torch.cuda.empty_cache()
+    return ok, runs
+
+
+@contextlib.contextmanager
+def vision_route(value):
+    """QV_VISION_2D set to `value` (None: unset, the default route choice)
+    for the block, restored after it."""
+    old = os.environ.get("QV_VISION_2D")
+    if value is None:
+        os.environ.pop("QV_VISION_2D", None)
+    else:
+        os.environ["QV_VISION_2D"] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("QV_VISION_2D", None)
+        else:
+            os.environ["QV_VISION_2D"] = old
+
+
+def expected_vision(cfg, grids, forced_head_major=False):
+    """(B2, B5) launches of a tower over `grids`, by the JAX package's
+    route rule (vision.py:373-388, with its tiling rule as the port copies
+    it): a block takes B2 when every span it needs tiles, else B5, once
+    per window-size bucket (window blocks) or once (full-attention
+    blocks)."""
+    from quickvideo_tpu_torch.models.qwen25_vl.model import layout_for
+    from quickvideo_tpu_torch.ops.vision_attention import kernel_applicable
+
+    b2 = b5 = 0
+    n_full = len(cfg.vision.fullatt_block_indexes)
+    n_win = cfg.vision.depth - n_full
+    for grid in grids:
+        lay = layout_for(cfg, tuple(grid))
+        s_len = lay.seq_len
+        win = ([(b - a, span) for span, a, b in lay.buckets] if lay.buckets
+               else [(s_len, lay.mw)])
+        for blocks, spans in ((n_win, win), (n_full, [(s_len, lay.frame_len)])):
+            tiles = not forced_head_major and all(
+                kernel_applicable(n, span) for n, span in spans)
+            if tiles:
+                b2 += blocks * len(spans)
+            else:
+                b5 += blocks * len(spans)
+    return b2, b5
+
+
+def _request_line(counts_ok, tag, res, counts, wall, want_len, extra=""):
+    """One phase-3e request's line: tokens, cache lengths against the
+    config's rules, launches (`counts_ok`: as expected), wall, spans, peak
+    memory; returns whether all hold."""
+    import torch
+
+    lens_ok = (res.cache_length == want_len
+               and res.layer_lengths == [want_len] * len(res.layer_lengths))
+    toks_ok = len(res.tokens) >= 1
+    spans = {k: round(v, 4) for k, v in sorted(res.timings.items())}
+    log(f"[3e {tag}] prefill_tokens={res.prefill_tokens} tokens="
+        f"{res.tokens.tolist()} cache_length={res.cache_length} (expected "
+        f"{want_len}, layers {sorted(set(res.layer_lengths))}); launches "
+        f"B1 {counts['flash']}, B2 {counts['vision_2d']}, B3 "
+        f"{counts['ln_gemm']}, B4 {counts['ln_mlp']}, B5 {counts['vision_hm']}"
+        f"{extra}; wall={wall:.3f} s spans(s)={spans} peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+        f"{'OK' if counts_ok and lens_ok and toks_ok else 'FAIL'}")
+    return counts_ok and lens_ok and toks_ok
+
+
+def run_head_major(dev, params, logits_bf16):
+    """Phase 3e: the head-major vision route (kernel B5) on the 7B at full
+    width and depth. (1) the 64-frame request under QV_VISION_2D=0 with the
+    bf16 weights `params` and with int8 weights (the engine skips the B4
+    prep there, so the MLP runs the unfused int8 chain): B2, B3, B4 launch 0
+    times; (2) 66 frames under the default route choice, whose last group
+    (2 frames, t = 1) takes B5; (3) an image alone through LVU.chat; (4) an
+    image before the 64-frame video. Returns (ok, each run's launch
+    counts)."""
+    import torch
+
+    counters = _kernel_counters()
+    ok, runs = True, []
+
+    def request(lvu, inputs):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counters(counters)
+        t0 = time.perf_counter()
+        res = lvu.engine.generate(inputs, max_new_tokens=8,
+                                  eos_token_ids=[lvu.tokenizer.eos_token_id])
+        torch.cuda.synchronize()
+        return res, _read_counters(counters), time.perf_counter() - t0
+
+    for param_dtype in ("bfloat16", "int8"):
+        with vision_route("0"):
+            lvu = make_lvu(dev, param_dtype,
+                           params=params if param_dtype == "bfloat16" else None)
+            mcfg = lvu.model_config
+            inputs = make_request(mcfg, lvu.tokenizer, QUESTIONS[0], seed=0)
+            res, counts, wall = request(lvu, inputs)
+            _, b5 = expected_vision(mcfg, inputs.group_grids, True)
+            want_len = expected_lengths(lvu, inputs, len(res.tokens))[0]
+            counts_ok = (counts["vision_hm"] == b5 and counts["vision_2d"] == 0
+                         and counts["ln_gemm"] == counts["ln_mlp"] == 0)
+            ok &= _request_line(counts_ok, 
+                f"QV_VISION_2D=0, {param_dtype} weights", res, counts, wall,
+                want_len, f" (expected B5 {b5}, B2/B3/B4 0)")
+            runs.append(counts)
+            if param_dtype == "bfloat16":
+                cache, state = lvu.engine.prefill(inputs)
+                lg = lvu.engine.final_prefill(cache, state).float().cpu()
+                del cache, state
+                rel = ((lg - logits_bf16).norm() / logits_bf16.norm()).item()
+                log(f"[3e] 7B final-prefill logits, QV_VISION_2D=0 vs the "
+                    f"default route (phase 3, bf16, same inputs): rel L2 "
+                    f"{rel:.3e} (printed, not asserted); argmax "
+                    f"{int(lg.argmax())} vs {int(logits_bf16.argmax())}")
+            del lvu
+            torch.cuda.empty_cache()
+
+    with vision_route(None):
+        lvu = make_lvu(dev, "bfloat16", params=params)
+        mcfg = lvu.model_config
+        for what, inputs in (
+            ("66 frames, default route", make_request(
+                mcfg, lvu.tokenizer, QUESTIONS[1], seed=1, n_frames=66)),
+            ("image before the 64-frame video", make_request(
+                mcfg, lvu.tokenizer, QUESTIONS[2], seed=2,
+                image=seeded_image(1))),
+        ):
+            res, counts, wall = request(lvu, inputs)
+            grids = list(inputs.group_grids) + [
+                tuple(g) for g in (inputs.image_grid_thw
+                                   if inputs.image_grid_thw is not None
+                                   else [])]
+            b2, b5 = expected_vision(mcfg, grids)
+            want_len = expected_lengths(lvu, inputs, len(res.tokens))[0]
+            counts_ok = (counts["vision_2d"], counts["vision_hm"]) == (b2, b5)
+            ok &= _request_line(counts_ok, 
+                what, res, counts, wall, want_len,
+                f" (expected B2 {b2}, B5 {b5}; group grids "
+                f"{[tuple(g) for g in inputs.group_grids]})")
+            runs.append(counts)
+
+        # an image alone, through the chat entry point
+        image = seeded_image(0)
+        messages = [{"role": "user", "content": [
+            {"type": "image", "image": image},
+            {"type": "text", "text": "What is in this photo?"},
+        ]}]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counters(counters)
+        t0 = time.perf_counter()
+        text = lvu.chat(messages, max_new_tokens=8)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _read_counters(counters)
+        res = lvu.last_result
+        ps = mcfg.vision.patch_size
+        grid = (1, IMAGE_HW[0] // ps, IMAGE_HW[1] // ps)
+        b2, b5 = expected_vision(mcfg, [grid])
+        want_len = res.prefill_tokens + len(res.tokens) - 1
+        counts_ok = ((counts["vision_2d"], counts["vision_hm"]) == (b2, b5)
+                     and isinstance(text, list))
+        ok &= _request_line(counts_ok, 
+            f"image alone via LVU.chat, {IMAGE_HW[0]}x{IMAGE_HW[1]}", res,
+            counts, wall, want_len,
+            f" (expected B2 {b2}, B5 {b5}; grid {grid})")
+        runs.append(counts)
         del lvu
         torch.cuda.empty_cache()
     return ok, runs
@@ -988,7 +1325,8 @@ KERNEL_KINDS = (
     ("flash_fwd_kernel", "B1 flash"),
     ("flash_fwd_int8_kernel", "B1 flash int8-QK"),
     ("flash_merge_kernel", "B1 split-K merge"),
-    ("vision_attn_kernel", "B2 vision attn"),
+    ("vision_attn_kernel<true", "B2 vision attn"),
+    ("vision_attn_kernel<false", "B5 vision attn (head-major)"),
     ("fused_gemm_kernel<false>", "B3 GEMM"),
     ("fused_gemm_kernel<true>", "B4/B6 GEMM"),
     ("requantize_kernel", "B4/B6 requantize"),
@@ -1010,11 +1348,18 @@ def _kind(name: str) -> str:
     return "other elementwise/reductions"
 
 
-def run_profile(dev, param_dtype, kv_cache_dtype="auto", **pruning):
+def run_profile(dev, param_dtype, kv_cache_dtype="auto", route=None,
+                **pruning):
     """One warm 7B request (request 0 of the main path, or with the
-    predictor `pruning` sets) under torch.profiler: wall time, the sum of
-    kernel times, the busy share (the union of kernel intervals over the
-    wall time), the spans, kernel time by kind and the top kernels."""
+    predictor `pruning` sets, on the vision route QV_VISION_2D=`route`)
+    under torch.profiler: wall time, the sum of kernel times, the busy
+    share (the union of kernel intervals over the wall time), the spans,
+    kernel time by kind and the top kernels."""
+    with vision_route(route):
+        _run_profile(dev, param_dtype, kv_cache_dtype, route, **pruning)
+
+
+def _run_profile(dev, param_dtype, kv_cache_dtype, route, **pruning):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1055,7 +1400,9 @@ def run_profile(dev, param_dtype, kv_cache_dtype="auto", **pruning):
     for name, (_, us) in by_name.items():
         by_kind[_kind(name)] = by_kind.get(_kind(name), 0.0) + us
     log(f"== {param_dtype} weights, {kv_cache_dtype} KV, "
-        f"{lvu.config.top_k_predict_type}: wall {wall:.4f} s "
+        f"{lvu.config.top_k_predict_type}"
+        f"{'' if route is None else f', QV_VISION_2D={route}'}: wall "
+        f"{wall:.4f} s "
         f"under the profiler, kernels "
         f"{total / 1e6:.4f} s, busy {busy / 1e6:.4f} s, busy share "
         f"{busy / 1e6 / wall:.3f}, {len(res.tokens)} tokens, spans(s)="
@@ -1130,10 +1477,11 @@ def run_card_vs_cpu(dev):
 
     tokenizer = load_tokenizer("", mcfg)
 
-    def run(params_gpu, params_cpu, **kw):
-        """Final-prefill logits of one 16-frame request (2 groups of 8) on
-        the card (bf16 activations) and on the CPU (f32): (card logits, CPU
-        logits, rel. L2, card state, CPU state, card cache)."""
+    def run(params_gpu, params_cpu, image=None, **kw):
+        """Final-prefill logits of one 16-frame request (2 groups of 8; an
+        `image` before the video) on the card (bf16 activations) and on the
+        CPU (f32): (card logits, CPU logits, rel. L2, card state, CPU state,
+        card cache)."""
         lvu_cfg = LVUConfig(model_name_or_path="narrow128",
                             max_decode_tokens=8, **kw)
         out = []
@@ -1142,7 +1490,7 @@ def run_card_vs_cpu(dev):
             eng = LVUEngine(params, mcfg, lvu_cfg, dtype, device)
             cache, st = eng.prefill(make_request(
                 mcfg, tokenizer, "What happens in this video?", seed=7,
-                n_frames=16, group_frames=8,
+                n_frames=16, group_frames=8, image=image,
             ))
             out.append((eng.final_prefill(cache, st).float().cpu(), st, cache))
         (lg, st_g, cache_g), (lc, st_c, _) = out
@@ -1204,6 +1552,31 @@ def run_card_vs_cpu(dev):
         f"{rel:.3e} (tol {INT8_KV_LOGITS_REL_L2}), argmax card "
         f"{int(lg.argmax())} cpu {int(lc.argmax())} "
         f"{'OK' if this_ok else 'FAIL'}")
+
+    # the head-major route (B5 on the card, its plain version on the CPU):
+    # forced, with bf16 and with int8 weights (the unfused MLP chain: both
+    # engines skip the B4 prep under QV_VISION_2D=0); and by default for an
+    # image before the video, whose grid the tiling rule refuses
+    from quickvideo_tpu_torch.ops.vision_attention import block_diag_attention
+
+    for what, gpu, cpu, kw, tol, route in (
+        ("QV_VISION_2D=0", p_gpu, p_cpu, {}, LOGITS_REL_L2, "0"),
+        ("QV_VISION_2D=0, int8 weights", params_to(q, device=dev),
+         params_to(q, dtype=torch.float32), dict(param_dtype="int8"),
+         INT8_LOGITS_REL_L2, "0"),
+        (f"image {IMAGE_HW[0]}x{IMAGE_HW[1]} before the video", p_gpu, p_cpu,
+         dict(image=seeded_image(3)), LOGITS_REL_L2, None),
+    ):
+        with vision_route(route):
+            before = block_diag_attention.launches
+            lg, lc, rel, _, _, _ = run(gpu, cpu, **kw)
+            b5 = block_diag_attention.launches - before
+        this_ok = bool(rel <= tol and torch.isfinite(lg).all() and b5 > 0)
+        ok &= this_ok
+        log(f"card vs CPU, {what}, top_p=1: final-prefill logits rel L2 "
+            f"{rel:.3e} (tol {tol}), B5 launches on the card {b5}, argmax "
+            f"card {int(lg.argmax())} cpu {int(lc.argmax())} "
+            f"{'OK' if this_ok else 'FAIL'}")
     return ok
 
 
@@ -1252,6 +1625,7 @@ def main():
             ("bfloat16", "auto", dict(top_k_predict_type="salient_tokens")),
             ("bfloat16", "auto",
              dict(top_k_predict_type="query_attention_weights")),
+            ("bfloat16", "auto", dict(route="0")),  # head-major, B5
         ):
             run_profile(dev, param_dtype, kv_cache_dtype, **pruning)
         return
@@ -1280,8 +1654,19 @@ def main():
         (64, 14400), (48, 3600), (36, 3600), (4, 3600), (900, 14400),
         (2304, 9216),
     ])
+    b5_rows = check_b5(dev, [
+        # the 420x420 group's window buckets and frames (S = 14,400)
+        (64, 14400, False), (48, 14400, False), (36, 14400, False),
+        (900, 14400, False),
+        # the 476x644 image's buckets (20 x 64, 4 x 48, 5 x 16, 1 x 12) and
+        # its one 1564-row frame
+        (64, 1280, False), (48, 192, False), (16, 80, False), (12, 12, False),
+        (1564, 1564, False),
+        # ragged column validity, and a span above the TPU's 1536-row cap
+        (64, 14400, True), (2304, 9216, False),
+    ])
     ok = all(r["ok"] for r in flash_rows + flash_int8_rows + mode_rows
-             + vision_rows)
+             + vision_rows + b5_rows)
 
     fused_rows = check_fused(dev, [14400, 250])
     ok &= all(r["ok"] for r in fused_rows)
@@ -1293,6 +1678,9 @@ def main():
     modes_ok, mode_runs = run_modes(dev, lvu.params)
     ok &= modes_ok
     runs += mode_runs
+    hm_ok, hm_runs = run_head_major(dev, lvu.params, logits_bf16)
+    ok &= hm_ok
+    runs += hm_runs
     del lvu
     torch.cuda.empty_cache()
     for param_dtype, kv_dtype, what in (
@@ -1361,9 +1749,14 @@ def main():
             ))
     fused = "fused_vision_mlp.cu"
     kernels += [
-        entry("block_diag_attention (B2)", "vision_attention.cu",
-              "vision_attention.py:140", launches["vision"], vision_rows,
+        entry("block_diag_attention_2d (B2)", "vision_attention.cu",
+              "vision_attention.py:140", launches["vision_2d"], vision_rows,
               vision_rows[0], vision_rows[0]["library_ms"]),
+        # B5's row: the 64-row windows at S = 14,400; batched SDPA over the
+        # spans computes its function
+        entry("block_diag_attention (B5)", "vision_attention.cu",
+              "vision_attention.py:71", launches["vision_hm"], b5_rows,
+              b5_rows[0], b5_rows[0]["library_ms"]),
         entry("ln_gemm_bias (B3)", fused, "fused_vision_mlp.py:272",
               launches["ln_gemm"], *_fused_rows(fused_rows, "B3")),
         entry("ln_dual_gemm_silu_quant (B4)", fused, "fused_vision_mlp.py:162",

@@ -57,6 +57,9 @@ SIGNATURES = {
     "qv_vision_attention": (
         [_P] * 6 + [_L] * 5 + [_I] * 3 + [_F, _P]
     ),
+    # q, k, v, o, valid (or null); row strides (q, k, v, o); s, nh, span;
+    # scale; stream
+    "qv_block_diag_attention": [_P] * 5 + [_L] * 4 + [_I] * 3 + [_F, _P],
     # x, ln_w, w, sc, b, xq, xs, out; s, c, n; eps; stream
     "qv_ln_gemm_bias": [_P] * 8 + [_I] * 3 + [_F, _P],
     # x, ln_w, w, sc, b, xq, xs, mid, amax, q, s; rows, c, np; eps; stream

@@ -1,11 +1,20 @@
-// Kernel B2: block-diagonal vision attention with fused rotary, for Hopper
-// (sm_90a).
+// Kernels B2 and B5: block-diagonal vision attention, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel quickvideo_tpu/ops/vision_attention.py::_kernel2d
+// B2 replaces the TPU kernel quickvideo_tpu/ops/vision_attention.py::_kernel2d
 // (entry block_diag_attention_2d): rotary on q and k, then
 // softmax(q k^T * scale) v restricted to contiguous spans of `span` rows
 // (64/48/36-row windows of the window blocks, or whole frames of the
 // full-attention blocks).
+//
+// B5 replaces the TPU kernel quickvideo_tpu/ops/vision_attention.py::_kernel
+// (entry block_diag_attention): the same attention on rows whose rotary was
+// applied outside (the head-major vision route), optionally with a
+// per-column validity vector: a key whose valid byte is 0 is masked out, and
+// a row whose span holds no valid key is written as 0. Both kernels are one
+// template: kRotary stages q and k rotated (B2) or with plain 16-byte copies
+// (B5); kMasked reads the validity of each staged key tile. The TPU kernel's
+// spans-per-tile packing, 1536-row span cap and 128-lane tiles were VMEM and
+// lane artifacts: here any span >= 1 that divides S is taken.
 //
 // Layout: q/k/v are (S, nh, 80) with any row stride (the three slices of
 // the fused qkv projection are passed without a copy); cos/sin are
@@ -19,16 +28,18 @@
 //    same-span mask separates them) to spans far above 1536 rows (per-frame
 //    spans at high resolution). The key loop runs an online softmax, so no
 //    span x span score tile is ever held.
-//  * Rotary is applied while q and k tiles are staged into shared memory
-//    (f32 math, rounded to bf16 for the tensor cores).
+//  * B2 applies rotary while q and k tiles are staged into shared memory
+//    (f32 math, rounded to bf16 for the tensor cores); B5 copies them.
 //  * QK^T and PV use mma.sync m16n8k16 (bf16 in, f32 accumulate); the head
-//    dim 80 is 5 k-steps of 16 and 10 n-tiles of 8.
+//    dim 80 is 5 k-steps of 16 and 10 n-tiles of 8. The softmax weights are
+//    rounded to bf16 for PV, as the TPU kernels round p to v's dtype.
 //
 // What bounds it. At the 7B window blocks (S = 14,400 rows, spans <= 64)
 // the work per row is tiny and the kernel is bound by reading q/k/v once
-// (plus the rotary tables); at the full-attention blocks (900-row spans)
-// it is tensor-core work. This first version stages every tile through
-// shared memory with plain loads and re-rotates k per query block.
+// (plus, for B2, the rotary tables); at the full-attention blocks (900-row
+// spans and more) it is tensor-core work. This first version stages every
+// tile through shared memory with plain loads and (B2) re-rotates k per
+// query block.
 #include "common.cuh"
 
 namespace {
@@ -45,8 +56,9 @@ struct VisionParams {
   const __nv_bfloat16* k;
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
-  const float* cos;
+  const float* cos;  // kRotary only
   const float* sin;
+  const uint8_t* valid;  // kMasked only: (S,) 1 = valid key
   long long q_ss, k_ss, v_ss, o_ss, cs_ss;  // row strides (elements)
   int s, span;
   float scale_log2;
@@ -79,11 +91,41 @@ __device__ __forceinline__ void stage_rotated(
   }
 }
 
+// Stage rows [row0, row0 + 64) of head h into `dst` as they are, 16 bytes
+// per copy. Rows at or past `row_end` are zero.
+__device__ __forceinline__ void stage_plain(
+    __nv_bfloat16* dst, const __nv_bfloat16* src, long long ss, int h,
+    int row0, int row_end) {
+  for (int i = threadIdx.x; i < kBM * (kHD / 8); i += kThreads) {
+    const int r = i / (kHD / 8);
+    const int c8 = (i % (kHD / 8)) * 8;
+    const int row = row0 + r;
+    uint4 x = make_uint4(0u, 0u, 0u, 0u);
+    if (row < row_end) {
+      x = *reinterpret_cast<const uint4*>(src + (long long)row * ss + h * kHD + c8);
+    }
+    *reinterpret_cast<uint4*>(&dst[r * kQStride + c8]) = x;
+  }
+}
+
+template <bool kRotary>
+__device__ __forceinline__ void stage(
+    __nv_bfloat16* dst, const __nv_bfloat16* src, long long ss, int h,
+    int row0, int row_end, const VisionParams& p) {
+  if constexpr (kRotary) {
+    stage_rotated(dst, src, ss, h, row0, row_end, p);
+  } else {
+    stage_plain(dst, src, ss, h, row0, row_end);
+  }
+}
+
+template <bool kRotary, bool kMasked>
 __global__ void __launch_bounds__(kThreads)
 vision_attn_kernel(VisionParams p) {
   __shared__ __align__(16) __nv_bfloat16 qs[kBM * kQStride];
   __shared__ __align__(16) __nv_bfloat16 ks[kBN * kQStride];
   __shared__ __align__(16) __nv_bfloat16 vt[kHD * kVStride];
+  __shared__ uint8_t kval[kMasked ? kBN : 1];  // validity of the staged keys
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -98,7 +140,7 @@ vision_attn_kernel(VisionParams p) {
   const int kstart = span_lo * p.span;
   const int kend = min((span_hi + 1) * p.span, p.s);
 
-  stage_rotated(qs, p.q, p.q_ss, h, row0, p.s, p);
+  stage<kRotary>(qs, p.q, p.q_ss, h, row0, p.s, p);
   __syncthreads();
 
   uint32_t qf[kHD / 16][4];
@@ -131,7 +173,13 @@ vision_attn_kernel(VisionParams p) {
 
   for (int key0 = kstart; key0 < kend; key0 += kBN) {
     __syncthreads();
-    stage_rotated(ks, p.k, p.k_ss, h, key0, kend, p);
+    stage<kRotary>(ks, p.k, p.k_ss, h, key0, kend, p);
+    if constexpr (kMasked) {
+      if (tid < kBN) {
+        const int key = key0 + tid;
+        kval[tid] = key < kend ? p.valid[key] : 0;
+      }
+    }
     for (int i = tid; i < kBN * (kHD / 8); i += kThreads) {
       const int r = i / (kHD / 8);
       const int c8 = (i % (kHD / 8)) * 8;
@@ -178,6 +226,9 @@ vision_attn_kernel(VisionParams p) {
           if (!row_ok[i] || key >= kend || key / p.span != row_span[i]) {
             x = -INFINITY;
           }
+        }
+        if constexpr (kMasked) {
+          if (!kval[nt * 8 + 2 * t4 + (e & 1)]) x = -INFINITY;
         }
         s[nt][e] = x;
       }
@@ -258,10 +309,38 @@ extern "C" int qv_vision_attention(
   p.o = static_cast<__nv_bfloat16*>(o);
   p.cos = static_cast<const float*>(cos);
   p.sin = static_cast<const float*>(sin);
+  p.valid = nullptr;
   p.q_ss = q_ss; p.k_ss = k_ss; p.v_ss = v_ss; p.o_ss = o_ss; p.cs_ss = cs_ss;
   p.s = s; p.span = span;
   p.scale_log2 = scale * 1.4426950408889634f;
   dim3 grid((s + kBM - 1) / kBM, nh);
-  vision_attn_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  vision_attn_kernel<true, false>
+      <<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(p);
+  return (int)cudaGetLastError();
+}
+
+// B5: q/k/v/o as for B2 (already rotated); `valid` is null (unmasked) or an
+// (S,) byte vector, 1 for a valid key.
+extern "C" int qv_block_diag_attention(
+    const void* q, const void* k, const void* v, void* o, const void* valid,
+    long long q_ss, long long k_ss, long long v_ss, long long o_ss, int s,
+    int nh, int span, float scale, void* stream) {
+  VisionParams p;
+  p.q = static_cast<const __nv_bfloat16*>(q);
+  p.k = static_cast<const __nv_bfloat16*>(k);
+  p.v = static_cast<const __nv_bfloat16*>(v);
+  p.o = static_cast<__nv_bfloat16*>(o);
+  p.cos = p.sin = nullptr;
+  p.valid = static_cast<const uint8_t*>(valid);
+  p.q_ss = q_ss; p.k_ss = k_ss; p.v_ss = v_ss; p.o_ss = o_ss; p.cs_ss = 0;
+  p.s = s; p.span = span;
+  p.scale_log2 = scale * 1.4426950408889634f;
+  dim3 grid((s + kBM - 1) / kBM, nh);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (valid) {
+    vision_attn_kernel<false, true><<<grid, kThreads, 0, st>>>(p);
+  } else {
+    vision_attn_kernel<false, false><<<grid, kThreads, 0, st>>>(p);
+  }
   return (int)cudaGetLastError();
 }

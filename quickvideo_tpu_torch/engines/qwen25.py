@@ -1,9 +1,10 @@
 """Qwen2.5-VL engines: sync (batch decode) and interleaved (overlap).
 
-Counterpart of quickvideo_tpu/engines/qwen25.py for the slice: video + text
-requests, greedy decode. Tokenization, the video plan and the CPU decoders
-are the port's copies of the JAX package's jax-free modules (tokenization.py,
-video/{reader, preprocess, quickdecode}.py).
+Counterpart of quickvideo_tpu/engines/qwen25.py for the slice: requests
+with a video, images or both, and text; greedy decode. Tokenization, the
+video plan, the image resize and the CPU decoders are the port's copies of
+the JAX package's jax-free modules (tokenization.py, video/{reader,
+preprocess, quickdecode}.py).
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ from typing import List
 import numpy as np
 
 from quickvideo_tpu_torch.tokenization import build_chat_ids_from_messages
+from quickvideo_tpu_torch.video import preprocess as pp
 from quickvideo_tpu_torch.video import reader as vreader
 from quickvideo_tpu_torch.prefill.engine import PrefillInputs
 from quickvideo_tpu_torch.utils.timing import SpanTimer
@@ -24,9 +26,11 @@ def init_lvu_model(lvu, config):
 
 
 def _question_from_messages(messages) -> tuple:
-    """(video_path, question, video_kwargs) from reference-style messages.
-    Image items are not ported yet."""
+    """(video_path, question, video_kwargs, image_items) from
+    reference-style messages. Image items keep message order (their
+    placeholder expansion and embedding scatter must line up)."""
     video_path, question, vkw = None, "", {}
+    images = []
     for m in messages:
         if m.get("role") != "user":
             continue
@@ -41,12 +45,81 @@ def _question_from_messages(messages) -> tuple:
                     k: v for k, v in item.items() if k not in ("type", "video")
                 }
             elif item.get("type") == "image":
-                raise NotImplementedError("image inputs are not ported yet")
+                images.append(item)
             elif item.get("type") == "text":
                 question = item.get("text", "")
-    if video_path is None:
-        raise NotImplementedError("requests without a video are not ported yet")
-    return video_path, question, vkw
+    return video_path, question, vkw, images
+
+
+def _load_image(obj) -> np.ndarray:
+    """Image item payload -> (H, W, 3) uint8 RGB: a numpy array (HWC or
+    CHW), or a file path (read with PIL, imported here only)."""
+    if isinstance(obj, np.ndarray):
+        a = obj
+        if a.ndim == 3 and a.shape[0] == 3 and a.shape[-1] != 3:
+            a = a.transpose(1, 2, 0)
+        if a.ndim != 3 or a.shape[-1] != 3:
+            raise ValueError(f"image array must be HWC/CHW RGB, got {a.shape}")
+        return np.ascontiguousarray(a, np.uint8)
+    from PIL import Image
+
+    with Image.open(obj) as im:
+        return np.asarray(im.convert("RGB"), np.uint8)
+
+
+def _prepare_images(model_cfg, image_items):
+    """Load and smart-resize each image to its model grid. Returns (pixels,
+    grids, token_counts): per image a (1, 3, H, W) uint8 frame (the vision
+    tower repeats it across the temporal patch), its (1, h, w) patch grid,
+    and its merged token count for the chat template."""
+    ps = model_cfg.vision.patch_size
+    ms = model_cfg.vision.spatial_merge_size
+    pixels, grids, counts = [], [], []
+    for item in image_items:
+        img = _load_image(item["image"])
+        h, w = img.shape[:2]
+        if "resized_height" in item and "resized_width" in item:
+            rh, rw = pp.smart_resize(
+                int(item["resized_height"]), int(item["resized_width"]),
+                factor=ps * ms,
+            )
+        else:
+            rh, rw = pp.smart_resize(
+                h, w, factor=ps * ms,
+                min_pixels=int(item.get("min_pixels", pp.MIN_PIXELS)),
+                max_pixels=int(item.get("max_pixels", pp.MAX_PIXELS)),
+            )
+        frame = img.transpose(2, 0, 1)[None]  # (1, 3, H, W)
+        if (rh, rw) != (h, w):
+            frame = pp.resize_frames_bicubic(frame, rh, rw)
+        grid = (1, rh // ps, rw // ps)
+        pixels.append(np.ascontiguousarray(frame, np.uint8))
+        grids.append(grid)
+        counts.append(grid[1] // ms * (grid[2] // ms))
+    return pixels, np.asarray(grids, np.int64), counts
+
+
+def _images(lvu, image_items, timer):
+    """(pixels, grids, token counts) of the request's images, or (None,
+    None, ()) without any."""
+    if not image_items:
+        return None, None, ()
+    with timer.span("processing"):
+        return _prepare_images(lvu.model_config, image_items)
+
+
+def _image_only(lvu, messages, images, timer, generation_kwargs):
+    """A request without a video: the whole sequence in one prefill."""
+    img_px, img_grids, img_counts = images
+    ids = build_chat_ids_from_messages(
+        lvu.tokenizer, lvu.model_config, messages, 0,
+        image_token_counts=img_counts,
+    )
+    inputs = PrefillInputs(
+        input_ids=ids, video_grid_thw=None, pixel_groups=[], group_grids=[],
+        image_grid_thw=img_grids, image_pixels=img_px,
+    )
+    return _generate(lvu, inputs, timer, generation_kwargs)
 
 
 def _config_with_video_kwargs(lvu, vkw: dict, generation_kwargs: dict):
@@ -83,14 +156,22 @@ def run_sync(lvu, question: str, video_path: str, **generation_kwargs):
 
 
 def chat_sync(lvu, messages, **generation_kwargs) -> List[str]:
-    """Decode every sampled frame first, then prefill group by group."""
-    video_path, _question, vkw = _question_from_messages(messages)
+    """Decode every sampled frame first, then prefill group by group. Image
+    items, alone or beside the video, ride the prefix or suffix prefill."""
+    video_path, _question, vkw, image_items = _question_from_messages(
+        messages
+    )
     cfg = _config_with_video_kwargs(lvu, vkw, generation_kwargs)
     timer = SpanTimer()
+    images = _images(lvu, image_items, timer)
+    if video_path is None:
+        return _image_only(lvu, messages, images, timer, generation_kwargs)
+    img_px, img_grids, img_counts = images
     with timer.span("frame_fetch"):
         frames, plan, native_hw = vreader.decode_video_batch(video_path, cfg)
     ids = build_chat_ids_from_messages(
-        lvu.tokenizer, lvu.model_config, messages, sum(plan.tokens_per_group)
+        lvu.tokenizer, lvu.model_config, messages,
+        sum(plan.tokens_per_group), image_token_counts=img_counts,
     )
     groups, off = [], 0
     for cnt in plan.group_frame_counts:
@@ -103,6 +184,8 @@ def chat_sync(lvu, messages, **generation_kwargs) -> List[str]:
         group_grids=plan.group_grids,
         second_per_grid_ts=plan.second_per_grid_ts,
         native_hw=native_hw,
+        image_grid_thw=img_grids,
+        image_pixels=img_px,
     )
     return _generate(lvu, inputs, timer, generation_kwargs)
 
@@ -114,18 +197,24 @@ def run_interleaved(lvu, question: str, video_path: str, **generation_kwargs):
 
 def chat_interleaved(lvu, messages, **generation_kwargs) -> List[str]:
     """Overlapped driver: native interval decode and the upload to the card
-    run ahead of the prefill loop (video/stream.py)."""
+    run ahead of the prefill loop (video/stream.py). A request without a
+    video has nothing to stream and takes the sync path."""
     from quickvideo_tpu_torch.video.stream import AsyncPixelGroups
 
-    video_path, _question, vkw = _question_from_messages(messages)
+    video_path, _question, vkw, image_items = _question_from_messages(
+        messages
+    )
+    if video_path is None:
+        return chat_sync(lvu, messages, **generation_kwargs)
     cfg = _config_with_video_kwargs(lvu, vkw, generation_kwargs)
     timer = SpanTimer()
+    img_px, img_grids, img_counts = _images(lvu, image_items, timer)
     stream = AsyncPixelGroups(video_path, cfg, device=lvu.device, timer=timer)
     try:
         plan = stream.plan
         ids = build_chat_ids_from_messages(
             lvu.tokenizer, lvu.model_config, messages,
-            sum(plan.tokens_per_group),
+            sum(plan.tokens_per_group), image_token_counts=img_counts,
         )
         inputs = PrefillInputs(
             input_ids=ids,
@@ -133,6 +222,8 @@ def chat_interleaved(lvu, messages, **generation_kwargs) -> List[str]:
             pixel_groups=iter(stream),
             group_grids=plan.group_grids,
             second_per_grid_ts=plan.second_per_grid_ts,
+            image_grid_thw=img_grids,
+            image_pixels=img_px,
         )
         return _generate(lvu, inputs, timer, generation_kwargs)
     finally:

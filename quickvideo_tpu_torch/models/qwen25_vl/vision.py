@@ -5,22 +5,34 @@ the numpy window/rotary plan copied from there (that module imports jax;
 tests pin copy == original). The forward takes the decoded frames as they
 arrive on the device (packed yuv420 or RGB uint8, or patchified floats),
 converts and patchifies on the device, runs the 32 blocks in a Python loop
-and merges. Every block's attention is kernel B2
-(ops/vision_attention.py): one call per window-size bucket in window
-blocks, one call over the frame-grouped rows in full-attention blocks.
+and merges.
+
+Each block takes one of the JAX package's two attention routes, chosen as
+vision.py:373-388 chooses them (`_use_2d`): the 2D route (kernel B2, rotary
+inside the kernel) when `QV_VISION_2D` is not "0" and the JAX package's
+tiling rule (`kernel_applicable`) takes every span the block needs, else
+the head-major route: rotary outside in the activation dtype, then kernel
+B5 (ops/vision_attention.py) once per window-size bucket, or once over the
+frame-grouped rows in full-attention blocks. B5 takes every span of the
+route, also those the JAX package sends to its XLA `_block_attention`
+(same function, same rounding points). The rule is applied on every
+device: the CPU path stands in for the JAX package's kernel route.
 
 Weights keep the JAX layout (in, out) and are applied as `x @ w`. With
-int8 weights (ops/quantization.py) a block runs kernel B3 for ln1 + QKV and
-kernel B4 for ln2 + gate/up + SwiGLU (ops/fused_vision_mlp.py, after the
-one-time `fuse_vision_mlp_weights` prep), and every other matrix product
-(patch embed, attention output, down projection, merger) is an act-quantized
-int8 product, as the JAX package's code does on its kernel backend. The
-on-device Lanczos resize is not ported.
+int8 weights (ops/quantization.py) a block on the 2D route runs kernel B3
+for ln1 + QKV; on the head-major route QKV is an act-quantized int8 product
+of the unpadded `wqkv`. The MLP runs kernel B4 for ln2 + gate/up + SwiGLU
+when the block carries the one-time `fuse_vision_mlp_weights` prep
+(`wgu_p`), else the unfused act-quantized chain (vision.py:534-540). Every
+other matrix product (patch embed, attention output, down projection,
+merger) is an act-quantized int8 product. The on-device Lanczos resize is
+not ported.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -36,10 +48,15 @@ from quickvideo_tpu_torch.ops.fused_vision_mlp import (
 from quickvideo_tpu_torch.ops.quantization import (
     is_quantized,
     linear,
+    linear_multi,
     qdot,
     qdot_pre,
 )
-from quickvideo_tpu_torch.ops.vision_attention import block_diag_attention
+from quickvideo_tpu_torch.ops.vision_attention import (
+    block_diag_attention,
+    block_diag_attention_2d,
+    kernel_applicable,
+)
 
 
 class VisionLayout(NamedTuple):
@@ -184,23 +201,55 @@ def _rms_norm(x, w, eps):
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
+def _rotate_half(x):
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([-x2, x1], dim=-1)
+
+
+def _apply_vision_rotary(x, cos, sin):
+    """x (S, nh, hd), cos/sin (S, hd): rotary in the activation dtype, as
+    the JAX package's head-major route computes it (vision.py:231-241)."""
+    c = cos.to(x.dtype)[:, None, :]
+    s = sin.to(x.dtype)[:, None, :]
+    return x * c + _rotate_half(x) * s
+
+
 def _vision_mlp(bp: dict, x: torch.Tensor, cfg: VisionConfig) -> torch.Tensor:
-    """ln2 + gated MLP. int8: kernel B4 (ln2, gate/up, silu * mul, per-row
-    requantize), then the down projection from its int8 output."""
+    """ln2 + gated MLP. int8 with the one-time prep: kernel B4 (ln2,
+    gate/up, silu * mul, per-row requantize), then the down projection from
+    its int8 output. int8 without it: the unfused act-quantized chain of
+    vision.py:534-540."""
     if "wgu_p" in bp:
         mq8, ms = ln_dual_gemm_silu_quant(
             x, bp["ln2"], bp["wgu_p"], bp["bgu_p"], cfg.rms_norm_eps
         )
         return x + (qdot_pre(mq8, ms, bp["wd_p"]).to(x.dtype) + bp["bd"])
-    if is_quantized(bp["wg"]):
-        raise ValueError(
-            "an int8 vision tower needs its one-time MLP weight prep: "
-            "ops.fused_vision_mlp.fuse_vision_mlp_weights"
-        )
     h2 = _rms_norm(x, bp["ln2"], cfg.rms_norm_eps)
+    if is_quantized(bp["wg"]):
+        g, u = linear_multi(h2, (bp["wg"], bp["wu"]))
+        mlp = F.silu(g + bp["bg"]) * (u + bp["bu"])
+        return x + (linear(mlp, bp["wd"]) + bp["bd"])
     g = h2 @ bp["wg"] + bp["bg"]
     u = h2 @ bp["wu"] + bp["bu"]
     return x + (F.silu(g) * u) @ bp["wd"] + bp["bd"]
+
+
+def _use_2d(s_len: int, layout: VisionLayout, cfg: VisionConfig,
+            full_attn: bool) -> bool:
+    """The JAX package's route choice (vision.py:374-388): the 2D route
+    unless QV_VISION_2D=0 (read at call time) or its tiling rule rejects a
+    span the block needs."""
+    spans_needed = (
+        [(s_len, layout.frame_len)] if full_attn
+        else [(s_len, layout.mw)] if layout.win_uniform
+        else [(b - a, span) for span, a, b in layout.buckets]
+    )
+    return (
+        os.environ.get("QV_VISION_2D", "1") != "0"
+        and cfg.head_dim % 2 == 0
+        and all(n > 0 and kernel_applicable(n, span)
+                for n, span in spans_needed)
+    )
 
 
 def vision_block(
@@ -215,38 +264,47 @@ def vision_block(
     s_len, c = x.shape
     nh, hd = cfg.num_heads, cfg.head_dim
     scale = hd ** -0.5
-    if is_quantized(bp["wqkv"]):
+    use2d = _use_2d(s_len, layout, cfg, full_attn)
+    if use2d and is_quantized(bp["wqkv"]):
         # kernel B3: ln1 + per-row int8 + GEMM + bias, always bf16 out
         qkv = ln_gemm_bias(
             x, bp["ln1"], bp["wqkv"], bp["bqkv"], cfg.rms_norm_eps
         )
     else:
         h = _rms_norm(x, bp["ln1"], cfg.rms_norm_eps)
-        qkv = h @ bp["wqkv"] + bp["bqkv"]  # (S, 3C)
-    # strided views of the fused projection: the kernel reads them in place
+        qkv = linear(h, bp["wqkv"]) + bp["bqkv"]  # (S, 3C)
+    # strided views of the fused projection: the kernels read them in place
     q = qkv[:, :c].view(s_len, nh, hd)
     k = qkv[:, c : 2 * c].view(s_len, nh, hd)
     v = qkv[:, 2 * c :].view(s_len, nh, hd)
     cos, sin = lt["cos"], lt["sin"]
+    if not use2d:
+        # head-major route: rotary outside, then kernel B5
+        q = _apply_vision_rotary(q, cos, sin)
+        k = _apply_vision_rotary(k, cos, sin)
+
+    def attend(q, k, v, span, rows=slice(None), out=None):
+        if use2d:  # kernel B2 rotates the rows' q and k itself
+            return block_diag_attention_2d(
+                q, k, v, cos[rows], sin[rows], span, scale, out=out
+            )
+        return block_diag_attention(q, k, v, span, scale=scale, out=out)
+
     if full_attn and layout.buckets:
         # per-frame attention: bucketed window order interleaves frames, so
         # gather rows frame by frame and scatter back
         fp = lt["frame_perm"]
-        out = block_diag_attention(
-            q[fp], k[fp], v[fp], cos[fp], sin[fp], layout.frame_len, scale
-        )[lt["frame_inv"]]
+        out = attend(q[fp], k[fp], v[fp], layout.frame_len, fp)
+        out = out[lt["frame_inv"]]
     elif full_attn:
-        out = block_diag_attention(q, k, v, cos, sin, layout.frame_len, scale)
+        out = attend(q, k, v, layout.frame_len)
     elif layout.win_uniform:
-        out = block_diag_attention(q, k, v, cos, sin, layout.mw, scale)
+        out = attend(q, k, v, layout.mw)
     else:
         # one call per window-size bucket, each writing its rows in place
-        out = torch.empty(s_len, nh, hd, dtype=qkv.dtype, device=x.device)
+        out = torch.empty(s_len, nh, hd, dtype=q.dtype, device=x.device)
         for span, a, b in layout.buckets:
-            block_diag_attention(
-                q[a:b], k[a:b], v[a:b], cos[a:b], sin[a:b], span, scale,
-                out=out[a:b],
-            )
+            attend(q[a:b], k[a:b], v[a:b], span, slice(a, b), out=out[a:b])
     x = x + (linear(out.reshape(s_len, c), bp["wo"], x.dtype) + bp["bo"])
     return _vision_mlp(bp, x, cfg)
 

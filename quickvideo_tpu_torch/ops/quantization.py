@@ -84,12 +84,21 @@ def quantize_act(x: torch.Tensor):
 
 
 def int_mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact."""
-    m = a.shape[0]
-    if a.is_cuda and m <= 16:
-        a = torch.cat([a, a.new_zeros(17 - m, a.shape[1])])
-        return torch._int_mm(a, b)[:m]
-    return torch._int_mm(a, b)
+    """(M, K) int8 @ (K, N) int8 -> (M, N) int32, exact. On CUDA,
+    `torch._int_mm` takes only M > 16 and K, N multiples of 8: fewer rows,
+    and K or N off the multiple (the vision MLP's 3420), are padded with
+    zeros, which add nothing to the sums."""
+    if not a.is_cuda:
+        return torch._int_mm(a, b)
+    (m, k), n = a.shape, b.shape[1]
+    mp, kp, np_ = max(m, 17), -(-k // 8) * 8, -(-n // 8) * 8
+    if (mp, kp) != (m, k):
+        a = torch.nn.functional.pad(a, (0, kp - k, 0, mp - m))
+    if (kp, np_) != (k, n):
+        # keep b column-major, (N, K) row-major storage
+        b = torch.nn.functional.pad(b.t(), (0, kp - k, 0, np_ - n)).t()
+    y = torch._int_mm(a, b)
+    return y if (mp, np_) == (m, n) else y[:m, :n]
 
 
 def qdot_pre(xq: torch.Tensor, xs: torch.Tensor, w: dict) -> torch.Tensor:

@@ -22,9 +22,16 @@ q = 1 steps. Cache lengths are host ints, so the group loop never waits on
 the device; the first wait is the argmax of the first token.
 
 int8 weights (`param_dtype="int8"`) run the same path: the engine preps the
-vision MLP weights for kernel B4 once, and the final prefill act-quantizes
-whatever the suffix length (the JAX package's padded bucket always passes
-its row gate).
+vision MLP weights for kernel B4 once (not under `QV_VISION_2D=0`, as the
+JAX engine skips its prep there, so the tower runs the unfused MLP chain),
+and the final prefill act-quantizes whatever the suffix length (the JAX
+package's padded bucket always passes its row gate).
+
+Images (quickvideo_tpu/prefill/engine.py:718-756): each image grid runs
+through the vision tower (the `vision` span). Images before the video
+scatter into group 0 (which absorbs the prefix), images after it into the
+final prefill and, in query-based mode, into every group's prompt rows. A
+request without a video runs its whole sequence through the final prefill.
 
 The KV cache is bf16 (the compute dtype), int8 K and V, or int8 K only
 (`kv_cache_dtype` "bfloat16" / "int8" / "int8k"); "auto" resolves per
@@ -33,8 +40,8 @@ int8 above 65,536 planned slots or when a bf16 cache would not fit beside
 the weights), with the card's memory.
 
 Not in this slice (each raises NotImplementedError): pipeline / context /
-tensor parallelism, image inputs, sampling, continuation scoring, streamed
-tokens (`on_tokens`), the on-device resize and the disk frame cache.
+tensor parallelism, sampling, continuation scoring, streamed tokens
+(`on_tokens`), the on-device resize and the disk frame cache.
 `attention_impl` is not read: the port's cache attention is kernel B1 (the
 JAX package's 'pallas' route).
 """
@@ -79,15 +86,17 @@ class PrefillInputs:
     `pixel_groups` may be a list or any iterator (streaming mode), of numpy
     arrays or tensors already on the device: per group (T, H*W*3/2) uint8
     yuv420 frames, (T, 3, H, W) uint8 RGB frames, or (S_g, patch_input_dim)
-    patchified floats."""
+    patchified floats. `image_pixels` holds one such array per image, at
+    the image's grid: a (1, 3, H, W) uint8 frame, which the tower repeats
+    across the temporal patch, or patchified floats."""
 
     input_ids: np.ndarray  # (L,) full packed sequence
-    video_grid_thw: Optional[Tuple[int, int, int]]
+    video_grid_thw: Optional[Tuple[int, int, int]]  # None without a video
     pixel_groups: Iterable
     group_grids: Sequence[Tuple[int, int, int]]  # per group (t_g, h, w)
     second_per_grid_ts: float = 1.0
     native_hw: Optional[Tuple[int, int]] = None  # on-device resize: not ported
-    image_grid_thw: Optional[np.ndarray] = None  # image inputs: not ported
+    image_grid_thw: Optional[np.ndarray] = None  # (n_img, 3) rows (1, h, w)
     image_pixels: Optional[Sequence[np.ndarray]] = None
 
 
@@ -152,9 +161,10 @@ class LVUEngine:
     ):
         check_slice(lvu_cfg)
         self.params = params
-        if "vision" in params:
+        if "vision" in params and os.environ.get("QV_VISION_2D", "1") != "0":
             # one-time weight prep of an int8 tower for kernel B4 (a float
-            # tower comes back as it is)
+            # tower comes back as it is); skipped under QV_VISION_2D=0 as the
+            # JAX engine skips it (quickvideo_tpu/prefill/engine.py:145-172)
             self.params = dict(params)
             self.params["vision"] = fuse_vision_mlp_weights(
                 params["vision"], model_cfg.vision
@@ -270,14 +280,13 @@ class LVUEngine:
         positions of group g at layer l (None when the group kept all)."""
         timer = timer or SpanTimer()
         cfg, lvu = self.cfg, self.lvu
-        if inputs.image_pixels or (
-            inputs.image_grid_thw is not None and len(inputs.image_grid_thw)
-        ):
-            raise NotImplementedError("image inputs are not ported yet")
         if inputs.native_hw is not None:
             raise NotImplementedError("on-device resize is not ported yet")
         ids = np.asarray(inputs.input_ids)
         L = len(ids)
+        img_grids = None
+        if inputs.image_grid_thw is not None and len(inputs.image_grid_thw):
+            img_grids = np.asarray(inputs.image_grid_thw).reshape(-1, 3)
         with timer.span("rope"):
             positions, delta = qmodel.rope_index_for(
                 cfg, ids,
@@ -285,6 +294,7 @@ class LVUEngine:
                     np.array([inputs.video_grid_thw])
                     if inputs.video_grid_thw is not None else None
                 ),
+                image_grid_thw=img_grids,
                 second_per_grid_ts=(
                     [inputs.second_per_grid_ts]
                     if inputs.video_grid_thw is not None else None
@@ -300,22 +310,35 @@ class LVUEngine:
 
         vid_idx = np.nonzero(ids == cfg.video_token_id)[0]
         if len(vid_idx) == 0:
-            raise ValueError(
-                "input_ids contain no video tokens "
-                f"(video_token_id={cfg.video_token_id})"
+            if img_grids is None:
+                raise ValueError(
+                    "input_ids contain no video tokens "
+                    f"(video_token_id={cfg.video_token_id}) and no images; "
+                    "grouped video prefill needs a vision placeholder span"
+                )
+            # image-only request: no video groups, the whole sequence runs
+            # through the final prefill (image scatter included)
+            suffix_start = 0
+            group_input_lens = []
+        else:
+            first_vid, last_vid = int(vid_idx[0]), int(vid_idx[-1])
+            suffix_start = last_vid + 1
+            sm = cfg.vision.spatial_merge_size
+            group_tokens = [t * (h // sm) * (w // sm)
+                            for t, h, w in inputs.group_grids]
+            if sum(group_tokens) != len(vid_idx):
+                raise ValueError(
+                    f"group grids give {sum(group_tokens)} video tokens, "
+                    f"input_ids hold {len(vid_idx)}"
+                )
+            # group 0 absorbs the pre-video prompt tokens
+            group_input_lens = list(group_tokens)
+            group_input_lens[0] += first_vid
+        img_prefix = img_suffix = None
+        if img_grids is not None:
+            img_prefix, img_suffix = self._encode_images(
+                img_grids, inputs.image_pixels, ids, suffix_start, timer
             )
-        first_vid, last_vid = int(vid_idx[0]), int(vid_idx[-1])
-        suffix_start = last_vid + 1
-        sm = cfg.vision.spatial_merge_size
-        group_tokens = [t * (h // sm) * (w // sm) for t, h, w in inputs.group_grids]
-        if sum(group_tokens) != len(vid_idx):
-            raise ValueError(
-                f"group grids give {sum(group_tokens)} video tokens, "
-                f"input_ids hold {len(vid_idx)}"
-            )
-        # group 0 absorbs the pre-video prompt tokens
-        group_input_lens = list(group_tokens)
-        group_input_lens[0] += first_vid
 
         capacity = self.plan_capacity(group_input_lens, 0, L - suffix_start)
         if lvu.kv_cache_capacity:
@@ -340,6 +363,14 @@ class LVUEngine:
         ids_t = torch.as_tensor(ids, device=self.device)
         # query-based mode: the question suffix rides with every group
         prompt_len = L - suffix_start if lvu.query_based else 0
+        # image embeddings per group: group 0 takes the prefix images; in
+        # query-based mode every group's prompt rows carry the suffix image
+        # placeholders, filled in order (group 0: prefix, then suffix)
+        img_g0, img_rest = img_prefix, None
+        if prompt_len and img_suffix is not None:
+            img_g0 = (img_suffix if img_prefix is None
+                      else torch.cat([img_prefix, img_suffix]))
+            img_rest = img_suffix
         n_layers = t.num_hidden_layers
         past_len = logical_len = 0
         retained = []
@@ -375,6 +406,11 @@ class LVUEngine:
                 x = qmodel.merge_vision_embeddings(
                     embed_tokens(lang, g_ids), vis, g_ids, cfg.video_token_id
                 )
+                img = img_g0 if gi == 0 else img_rest
+                if img is not None:
+                    x = qmodel.merge_vision_embeddings(
+                        x, img, g_ids, cfg.image_token_id
+                    )
                 # rotary rows contiguous past the group's start: in
                 # query-based mode the prompt rows take the positions of the
                 # tokens that follow the group (the JAX engine's quirk,
@@ -407,8 +443,41 @@ class LVUEngine:
             "cache_len": logical_len,
             "retained": retained,
             "kv_dtype": kv_dtype,
+            "img_suffix": img_suffix,  # scattered by the final prefill
         }
         return cache, state
+
+    def _encode_images(self, img_grids, image_pixels, ids, suffix_start,
+                       timer):
+        """Each image through the vision tower; returns the embeddings of
+        the images before `suffix_start` and of those after it (None where
+        there are none), after checking the placeholder counts
+        (quickvideo_tpu/prefill/engine.py:718-756)."""
+        cfg = self.cfg
+        pix_list = image_pixels or []
+        if len(pix_list) != len(img_grids):
+            raise ValueError(
+                f"{len(img_grids)} image grids but {len(pix_list)} "
+                "image pixel arrays"
+            )
+        with timer.span("vision"):
+            embs = []
+            for g, pix in zip(img_grids, pix_list):
+                grid = tuple(int(v) for v in g)
+                embs.append(qmodel.encode_video_group(
+                    self.params, cfg, self._to_device(pix), grid,
+                    self._layout_tensors(grid),
+                ))
+            img_embeds = torch.cat(embs)
+        n_prefix = int(np.sum(ids[:suffix_start] == cfg.image_token_id))
+        n_total = int(np.sum(ids == cfg.image_token_id))
+        if img_embeds.shape[0] != n_total:
+            raise ValueError(
+                f"image grids produce {int(img_embeds.shape[0])} tokens "
+                f"but input_ids contain {n_total} image placeholders"
+            )
+        return (img_embeds[:n_prefix] if n_prefix else None,
+                img_embeds[n_prefix:] if n_total > n_prefix else None)
 
     def final_prefill(self, cache, state, timer: Optional[SpanTimer] = None):
         """The question suffix through all layers at its exact length.
@@ -426,7 +495,12 @@ class LVUEngine:
         if lvu.do_top_k_for_query:
             keep_k = resolve_effective_top_k(lvu, 0, n, L - ss)
         with timer.span("final_prefill"):
-            x = embed_tokens(lang, state["ids_t"][ss:L])
+            ids = state["ids_t"][ss:L]
+            x = embed_tokens(lang, ids)
+            if state["img_suffix"] is not None:
+                x = qmodel.merge_vision_embeddings(
+                    x, state["img_suffix"], ids, self.cfg.image_token_id
+                )
             args = (lang, cache, x, state["cos"][ss:L], state["sin"][ss:L],
                     self.cfg.text)
             if keep_k > 0:

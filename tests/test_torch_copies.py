@@ -255,3 +255,24 @@ def test_prefill_inputs_from_frames_are_the_ports():
     )
     assert isinstance(inputs, PrefillInputs)
     assert [len(g) for g in inputs.pixel_groups] == plan.group_frame_counts
+
+
+def test_vision_tiling_rule_agrees_over_spans_and_lengths():
+    """The route choice's tiling rule (ops/vision_attention.py's copy of
+    `_spans_per_tile` and `kernel_applicable`), over the spans the 7B
+    layouts give (windows of 4-64 rows, frames up to a 1080p image's) and
+    span counts around them."""
+    from quickvideo_tpu.ops import vision_attention as jva
+    from quickvideo_tpu_torch.ops import vision_attention as tva
+
+    spans = [1, 4, 8, 12, 16, 24, 36, 48, 64, 100, 128, 900, 1024, 1280,
+             1536, 1564, 2304, 4784, 10764]
+    for span, nspan in itertools.product(spans, [1, 2, 3, 5, 7, 12, 20, 30]):
+        assert tva._spans_per_tile(nspan, span) == jva._spans_per_tile(
+            nspan, span
+        ), (span, nspan)
+        for s_len in (span * nspan, span * nspan + 4):
+            for masked in (False, True):
+                assert tva.kernel_applicable(s_len, span, masked) == (
+                    jva.kernel_applicable(s_len, span, masked)
+                ), (s_len, span, masked)

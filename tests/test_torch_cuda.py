@@ -54,6 +54,8 @@ from quickvideo_tpu_torch.testing import (
 from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
 from quickvideo_tpu_torch.ops.vision_attention import (
     block_diag_attention,
+    block_diag_attention_2d,
+    block_diag_attention_2d_plain,
     block_diag_attention_plain,
 )
 
@@ -309,10 +311,10 @@ def test_vision_kernel_matches_plain(dev, span, s):
     ang = torch.rand(s, 40, generator=gen, device=dev) * 6.28
     emb = torch.cat([ang, ang], dim=-1)
     cos, sin = torch.cos(emb), torch.sin(emb)
-    before = block_diag_attention.launches
-    got = block_diag_attention(q, k, v, cos, sin, span, 80 ** -0.5)
-    assert block_diag_attention.launches == before + 1
-    ref = block_diag_attention_plain(q, k, v, cos, sin, span, 80 ** -0.5)
+    before = block_diag_attention_2d.launches
+    got = block_diag_attention_2d(q, k, v, cos, sin, span, 80 ** -0.5)
+    assert block_diag_attention_2d.launches == before + 1
+    ref = block_diag_attention_2d_plain(q, k, v, cos, sin, span, 80 ** -0.5)
     torch.testing.assert_close(got.float(), ref.float(), **TOL)
 
 
@@ -320,10 +322,86 @@ def test_vision_wrapper_rejects_what_the_kernel_does_not_take(dev):
     x = torch.zeros(64, 2, 80, device=dev)
     cs = torch.zeros(64, 80, device=dev)
     with pytest.raises(TypeError):
-        block_diag_attention(x, x, x, cs, cs, 64, 1.0)
+        block_diag_attention_2d(x, x, x, cs, cs, 64, 1.0)
     xb = torch.zeros(64, 2, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
-        block_diag_attention(xb, xb, xb, cs[:, :64], cs[:, :64], 64, 1.0)
+        block_diag_attention_2d(xb, xb, xb, cs[:, :64], cs[:, :64], 64, 1.0)
+
+
+def _b5_inputs(dev, s, seed):
+    """q, k, v as strided (S, 16, 80) views of one fused projection."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn(s, 3 * 1280, generator=gen, device=dev).bfloat16()
+    return [qkv[:, i * 1280 : (i + 1) * 1280].view(s, 16, 80)
+            for i in range(3)]
+
+
+@pytest.mark.parametrize(
+    "span,s", [(64, 14400), (48, 3600), (36, 3600), (12, 1560), (4, 512),
+               (1, 128), (900, 3600), (1564, 1564), (2304, 4608)]
+)
+def test_b5_kernel_matches_plain(dev, span, s):
+    q, k, v = _b5_inputs(dev, s, span)
+    before = block_diag_attention.launches
+    got = block_diag_attention(q, k, v, span, scale=80 ** -0.5)
+    assert block_diag_attention.launches == before + 1
+    ref = block_diag_attention_plain(q, k, v, span, 80 ** -0.5)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL)
+
+
+def test_b5_masked_kernel_matches_plain_on_valid_rows(dev):
+    """Ragged validity, as tests/test_vision_attention.py's masked case:
+    spans of 64 rows whose first n rows are valid, one span wholly invalid
+    (its rows are 0 in both)."""
+    span, n = 64, 40
+    q, k, v = _b5_inputs(dev, span * n, 7)
+    counts = torch.arange(n, device=dev) % (span + 1)
+    valid = (torch.arange(span, device=dev)[None, :]
+             < counts[:, None]).reshape(-1)
+    got = block_diag_attention(q, k, v, span, scale=80 ** -0.5, valid=valid)
+    ref = block_diag_attention_plain(q, k, v, span, 80 ** -0.5, valid)
+    torch.testing.assert_close(got[valid].float(), ref[valid].float(), **TOL)
+    dead = (counts == 0).repeat_interleave(span)
+    assert dead.any() and not got[dead].any() and not ref[dead].any()
+
+
+def test_b5_writes_in_place_and_counts_each_launch(dev):
+    q, k, v = _b5_inputs(dev, 64 * 2 + 12 * 5, 3)
+    out = torch.full_like(q.contiguous(), float("nan"))
+    before = block_diag_attention.launches
+    for span, a, b in ((64, 0, 128), (12, 128, 188)):
+        block_diag_attention(q[a:b], k[a:b], v[a:b], span,
+                             scale=80 ** -0.5, out=out[a:b])
+    assert block_diag_attention.launches == before + 2
+    for span, a, b in ((64, 0, 128), (12, 128, 188)):
+        ref = block_diag_attention_plain(q[a:b], k[a:b], v[a:b], span,
+                                         80 ** -0.5)
+        torch.testing.assert_close(out[a:b].float(), ref.float(), **TOL)
+
+
+def test_b5_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    before = block_diag_attention.launches
+    x = torch.zeros(64, 2, 80, device=dev)
+    with pytest.raises(TypeError):  # f32
+        block_diag_attention(x, x, x, 64, scale=1.0)
+    xb = torch.zeros(64, 2, 64, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):  # head dim 64
+        block_diag_attention(xb, xb, xb, 64, scale=1.0)
+    flat = torch.zeros(64 * 160 + 4, device=dev, dtype=torch.bfloat16)
+    off = flat[4:].view(64, 2, 80)  # rows 8 bytes off 16-byte alignment
+    with pytest.raises(ValueError, match="aligned"):
+        block_diag_attention(off, off, off, 64, scale=1.0)
+    xc = torch.zeros(64, 2, 80, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="on"):  # k on the CPU
+        block_diag_attention(x.bfloat16(), xc, x.bfloat16(), 64, scale=1.0)
+    with pytest.raises(ValueError, match="valid"):  # valid of another length
+        block_diag_attention(x.bfloat16(), x.bfloat16(), x.bfloat16(), 64,
+                             scale=1.0, valid=torch.ones(32, dtype=torch.bool,
+                                                         device=dev))
+    with pytest.raises(ValueError, match="multiple"):
+        block_diag_attention(x.bfloat16(), x.bfloat16(), x.bfloat16(), 48,
+                             scale=1.0)
+    assert block_diag_attention.launches == before
 
 
 def assert_quantized_close(got, ref):
@@ -420,6 +498,21 @@ def test_int8_products_on_the_card(dev, rows):
     on_card = qdot(x, w, min_rows=0)
     on_cpu = qdot(x.cpu(), {k: v.cpu() for k, v in w.items()}, min_rows=0)
     torch.testing.assert_close(on_card.cpu(), on_cpu, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("k,n", [(1280, 3420), (3420, 1280), (20, 12)])
+def test_int8_products_off_the_multiple_of_8(dev, k, n):
+    """The vision MLP's unfused int8 chain (the head-major route without
+    the B4 prep) multiplies by 3420-wide weights, which torch._int_mm
+    takes only as multiples of 8: int_mm pads with zeros, exactly."""
+    gen = torch.Generator(device=dev).manual_seed(k)
+    a = torch.randint(-127, 128, (40, k), generator=gen, device=dev,
+                      dtype=torch.int8)
+    w = quantize_weight(torch.randn(k, n, generator=gen, device=dev))
+    got = int_mm(a, w["q8"])
+    assert got.shape == (40, n)
+    ref = a.cpu().long() @ w["q8"].cpu().long()
+    assert torch.equal(got.cpu().long(), ref)
 
 
 class _Reader:

@@ -204,9 +204,6 @@ def test_out_of_slice_requests_raise(params):
         eng.generate(inputs, greedy=False)
     with pytest.raises(NotImplementedError, match="streamed"):
         eng.generate(inputs, on_tokens=print)
-    inputs.image_grid_thw = np.array([[1, 4, 4]])
-    with pytest.raises(NotImplementedError, match="image"):
-        eng.generate(inputs)
 
 
 @pytest.mark.parametrize(

@@ -1,5 +1,6 @@
-"""Process-level checks of the PyTorch port: neither the port nor
-chip_smoke.py imports jax or any module of the JAX package (quickvideo_tpu),
+"""Process-level checks of the PyTorch port: neither the port (its video,
+int8, pruning-mode and image requests) nor chip_smoke.py imports jax or any
+module of the JAX package (quickvideo_tpu),
 and chip_smoke.py refuses to report a result without a CUDA card or outside
 a checkout. Each needs a fresh interpreter (tests/conftest.py imports jax
 into every test process), so they run subprocesses."""
@@ -66,6 +67,26 @@ for kw in (dict(top_k_predict_type="salient_tokens", kv_cache_dtype="int8"),
         max_new_tokens=2,
     )
     assert len(res.tokens) == 2, (kw, res.tokens)
+# images: LVU.chat with an image alone, then an image before the video on
+# the head-major vision route (kernel B5's plain version)
+img = rng.integers(0, 256, (140, 140, 3), dtype=np.uint8)
+out = lvu.chat([{"role": "user", "content": [
+    {"type": "image", "image": img}, {"type": "text", "text": "What is it?"},
+]}], max_new_tokens=2)
+assert isinstance(out, list) and len(lvu.last_result.tokens) == 2
+import os
+os.environ["QV_VISION_2D"] = "0"
+img_ids = np.concatenate([[cfg.vision_start_token_id],
+                          np.full(25, cfg.image_token_id),
+                          [cfg.vision_end_token_id]]).astype(np.int64)
+res = lvu.engine.generate(
+    PrefillInputs(np.concatenate([img_ids, ids]), (2, 16, 16),
+                  [frames[:2], frames[2:]], [(1, 16, 16), (1, 16, 16)], 1.0,
+                  image_grid_thw=np.array([(1, 10, 10)]),
+                  image_pixels=[img.transpose(2, 0, 1)[None]]),
+    max_new_tokens=2,
+)
+assert len(res.tokens) == 2, res.tokens
 assert not forbidden(), forbidden()
 print("NOJAX_OK")
 """

@@ -171,13 +171,145 @@ def test_int8_tower_matches_jax_interpret(monkeypatch, hw):
     assert rel <= INT8_REL_L2, rel
 
 
-def test_int8_tower_needs_the_mlp_prep():
+def _int8_trees(vc):
+    """The tiny tower's int8 weights: (JAX tree, port tree), same codes."""
+    from quickvideo_tpu.ops import quantization as jq
+
+    jp = jmodel.init_params(CFG, seed=0, dtype=jnp.float32)["vision"]
+    jv = jax.tree.map(np.asarray, jq.quantize_vision_params(jp))
+    return jv, params_from_jax({"vision": jv})["vision"]
+
+
+def _frames(hw, seed):
+    return np.random.default_rng(seed).integers(
+        0, 256, (4, hw * hw * 3 // 2), dtype=np.uint8
+    )
+
+
+def _jax_tower(monkeypatch, jv, pixels, grid):
+    """The JAX tower on its kernel route (QV_PALLAS_INTERPRET=1): the
+    Pallas kernels in interpret mode, XLA where its tiling rule refuses."""
+    monkeypatch.setenv("QV_PALLAS_INTERPRET", "1")
+    jax.clear_caches()
+    try:
+        return np.asarray(jmodel.encode_video_group(
+            {"vision": jax.tree.map(jnp.asarray, jv)}, CFG,
+            jnp.asarray(pixels), grid,
+        ))
+    finally:
+        monkeypatch.delenv("QV_PALLAS_INTERPRET")
+        jax.clear_caches()
+
+
+def test_int8_tower_needs_the_mlp_prep(monkeypatch):
+    """The tower no longer needs the B4 prep: an int8 tower without it
+    (no `wgu_p`) runs the unfused act-quantized MLP chain
+    (vision.py:534-540), as the JAX tower does without its prep, and
+    matches it within the int8 tower tolerance (gates lowered as above)."""
+    from quickvideo_tpu.ops import quantization as jq
     from quickvideo_tpu_torch.ops import quantization as tq
 
-    p = tq.quantize_vision_params(init_params(CFG, seed=0)["vision"])
-    frames = np.zeros((2, 224 * 224 * 3 // 2), np.uint8)
-    with pytest.raises(ValueError, match="fuse_vision_mlp_weights"):
-        tmodel.encode_video_group(
-            {"vision": p}, CFG, torch.from_numpy(frames), (1, 16, 16)
-        )
+    monkeypatch.setattr(jq, "_ACT_MIN_DIM", 16)
+    monkeypatch.setattr(tq, "ACT_MIN_DIM", 16)
+    jv, tp = _int8_trees(CFG.vision)
+    assert not any("wgu_p" in bp for bp in tp["blocks"])
+    frames = _frames(224, 4)
+    grid = (2, 16, 16)
+    ref = _jax_tower(monkeypatch, jv, frames, grid)
+    got = tmodel.encode_video_group(
+        {"vision": tp}, CFG, torch.from_numpy(frames), grid
+    ).numpy()
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    rel = np.linalg.norm(got - ref) / np.linalg.norm(ref)
+    assert rel <= INT8_REL_L2, rel
 
+
+def _count_attention_calls(monkeypatch):
+    """Counts of the port's plain B2 and B5 calls (the CPU path)."""
+    from quickvideo_tpu_torch.ops import vision_attention as tva
+
+    calls = {"b2": 0, "b5": 0}
+    for key, name in (("b2", "block_diag_attention_2d_plain"),
+                      ("b5", "block_diag_attention_plain")):
+        fn = getattr(tva, name)
+
+        def spy(*a, _fn=fn, _key=key, **k):
+            calls[_key] += 1
+            return _fn(*a, **k)
+
+        monkeypatch.setattr(tva, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("hw", [280, 224])  # ragged (10 units) / uniform (8)
+def test_head_major_tower_matches_jax(params, monkeypatch, hw):
+    """QV_VISION_2D=0 in both packages: rotary outside in the activation
+    dtype, B5 per bucket and per frame (the JAX tower: B5 in interpret mode
+    where its tiling rule takes the span, XLA elsewhere)."""
+    jp, tp = params
+    monkeypatch.setenv("QV_VISION_2D", "0")
+    frames = _frames(hw, hw)
+    grid = (2, hw // 14, hw // 14)
+    calls = _count_attention_calls(monkeypatch)
+    ref = _jax_tower(monkeypatch, jp["vision"], frames, grid)
+    got = tmodel.encode_video_group(tp, CFG, torch.from_numpy(frames), grid)
+    layout = tmodel.layout_for(CFG, grid)
+    n_full = len(CFG.vision.fullatt_block_indexes)
+    per_window_block = len(layout.buckets) or 1
+    assert calls == {"b2": 0, "b5": n_full + (CFG.vision.depth - n_full)
+                     * per_window_block}
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=RTOL)
+
+
+def test_default_env_takes_the_head_major_route_where_the_jax_tower_does(
+    params, monkeypatch,
+):
+    """Default environment, an image's grid (1, 10, 10): windows of 64, 16
+    and 4 rows and one 100-row frame. The JAX tiling rule takes the 64- and
+    16-row buckets but not the 4-row one nor the frame, so every block goes
+    head-major there, and in the port: B5 runs, B2 does not."""
+    from quickvideo_tpu.ops import vision_attention as jva
+
+    jp, tp = params
+    monkeypatch.delenv("QV_VISION_2D", raising=False)
+    grid = (1, 10, 10)
+    layout = tmodel.layout_for(CFG, grid)
+    assert [span for span, _, _ in layout.buckets] == [64, 16, 4]
+    assert [jva.kernel_applicable(b - a, span)
+            for span, a, b in layout.buckets] == [True, True, False]
+    assert not jva.kernel_applicable(100, 100)
+    frame = np.random.default_rng(8).integers(
+        0, 256, (1, 3, 140, 140), dtype=np.uint8
+    )
+    calls = _count_attention_calls(monkeypatch)
+    ref = _jax_tower(monkeypatch, jp["vision"], frame, grid)
+    got = tmodel.encode_video_group(tp, CFG, torch.from_numpy(frame), grid)
+    n_full = len(CFG.vision.fullatt_block_indexes)
+    assert calls == {"b2": 0, "b5": n_full + 3 * (CFG.vision.depth - n_full)}
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.parametrize("hw", [280, 224])
+def test_int8_head_major_tower_matches_jax(monkeypatch, hw):
+    """int8 weights under QV_VISION_2D=0 in both packages: no B3 and, as
+    both engines skip the MLP prep there, no B4; QKV, attention output and
+    the MLP chain as int8 products (gates lowered as above)."""
+    from quickvideo_tpu.ops import quantization as jq
+    from quickvideo_tpu_torch.ops import fused_vision_mlp as tfm
+    from quickvideo_tpu_torch.ops import quantization as tq
+
+    monkeypatch.setattr(jq, "_ACT_MIN_DIM", 16)
+    monkeypatch.setattr(tq, "ACT_MIN_DIM", 16)
+    monkeypatch.setenv("QV_VISION_2D", "0")
+    for name in ("ln_gemm_bias", "ln_dual_gemm_silu_quant"):
+        monkeypatch.setattr(tfm, name + "_plain", None)  # must not run
+    jv, tp = _int8_trees(CFG.vision)
+    frames = _frames(hw, hw + 1)
+    grid = (2, hw // 14, hw // 14)
+    ref = _jax_tower(monkeypatch, jv, frames, grid)
+    got = tmodel.encode_video_group(
+        {"vision": tp}, CFG, torch.from_numpy(frames), grid
+    ).numpy()
+    assert got.shape == ref.shape and np.isfinite(got).all()
+    rel = np.linalg.norm(got - ref) / np.linalg.norm(ref)
+    assert rel <= INT8_REL_L2, rel

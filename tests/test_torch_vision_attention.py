@@ -1,10 +1,15 @@
-"""Kernel B2 (block-diagonal vision attention, fused rotary) of the port.
+"""Kernels B2 (block-diagonal vision attention, fused rotary) and B5
+(the same, rotary outside, optional column validity) of the port.
 
-The plain version is held against the JAX package's Pallas kernel
+B2's plain version is held against the JAX package's Pallas kernel
 `block_diag_attention_2d` in interpret mode at head dim 80. The JAX kernel
 takes heads padded to 128 lanes; the test pads q/k/v and cos/sin on the way
-in and drops the pad lanes on the way out.
-The CUDA kernel is held against the plain version on the card in
+in and drops the pad lanes on the way out. B5's plain version is held
+against the JAX package's `block_diag_attention` in interpret mode, and,
+for spans its tiling rule rejects, against its XLA `_block_attention`, at
+the JAX package's own tolerance (tests/test_vision_attention.py: 2e-5, f32
+on both sides).
+The CUDA kernels are held against the plain versions on the card in
 test_torch_cuda.py.
 """
 
@@ -14,10 +19,14 @@ import torch
 
 import jax.numpy as jnp
 
-from quickvideo_tpu.ops.vision_attention import block_diag_attention_2d
+from quickvideo_tpu.models.qwen25_vl import vision as jvision
+from quickvideo_tpu.ops import vision_attention as jva
 from quickvideo_tpu_torch.ops.vision_attention import (
     block_diag_attention,
+    block_diag_attention_2d,
+    block_diag_attention_2d_plain,
     block_diag_attention_plain,
+    kernel_applicable,
 )
 
 torch.set_num_threads(2)
@@ -45,7 +54,7 @@ def _pad_heads(x):  # (S, nh, 80) -> (S, nh*128), pad lanes zero
 
 def _pallas(q, k, v, cos, sin, span):
     pad = ((0, 0), (0, DP - HD))
-    out = block_diag_attention_2d(
+    out = jva.block_diag_attention_2d(
         _pad_heads(q), _pad_heads(k), _pad_heads(v), span, scale=SCALE,
         nh=NH, dp=DP, cos=jnp.asarray(np.pad(cos, pad)),
         sin=jnp.asarray(np.pad(sin, pad)), rot_half=HD // 2, interpret=True,
@@ -60,7 +69,7 @@ def _pallas(q, k, v, cos, sin, span):
 def test_plain_matches_pallas_2d(span, nspan):
     q, k, v, cos, sin = _inputs(span * nspan, seed=span)
     ref = _pallas(q, k, v, cos, sin, span)
-    got = block_diag_attention_plain(
+    got = block_diag_attention_2d_plain(
         *(torch.from_numpy(a) for a in (q, k, v, cos, sin)), span, SCALE
     )
     np.testing.assert_allclose(got.numpy(), ref, atol=ATOL, rtol=RTOL)
@@ -73,7 +82,8 @@ def test_bucketed_calls_write_their_rows_in_place():
     t = [torch.from_numpy(a) for a in (q, k, v, cos, sin)]
     out = torch.full((q.shape[0], NH, HD), float("nan"))
     for span, a, b in ((64, 0, 128), (36, 128, 272)):
-        block_diag_attention(*(x[a:b] for x in t), span, SCALE, out=out[a:b])
+        block_diag_attention_2d(*(x[a:b] for x in t), span, SCALE,
+                                out=out[a:b])
     for span, a, b in ((64, 0, 128), (36, 128, 272)):
         ref = _pallas(q[a:b], k[a:b], v[a:b], cos[a:b], sin[a:b], span)
         np.testing.assert_allclose(out[a:b].numpy(), ref, atol=ATOL, rtol=RTOL)
@@ -82,4 +92,97 @@ def test_bucketed_calls_write_their_rows_in_place():
 def test_span_must_divide_sequence():
     q, k, v, cos, sin = (torch.from_numpy(a) for a in _inputs(100, seed=0))
     with pytest.raises(ValueError, match="span"):
-        block_diag_attention(q, k, v, cos, sin, 64, SCALE)
+        block_diag_attention_2d(q, k, v, cos, sin, 64, SCALE)
+
+
+# -- B5 ------------------------------------------------------------------------
+
+B5_NH, B5_HD = 4, 16  # the JAX package's own test shapes
+
+
+def _b5_inputs(s, seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((s, B5_NH, B5_HD)).astype(np.float32)
+            for _ in range(3)]
+
+
+def _b5_plain(q, k, v, span, valid=None):
+    return block_diag_attention_plain(
+        *(torch.from_numpy(a) for a in (q, k, v)), span, B5_HD ** -0.5,
+        None if valid is None else torch.from_numpy(valid),
+    ).numpy()
+
+
+@pytest.mark.parametrize("span,nspan", [(8, 12), (24, 4), (96, 2), (128, 1)])
+def test_b5_plain_matches_pallas(span, nspan):
+    q, k, v = _b5_inputs(span * nspan, seed=span)
+    assert kernel_applicable(span * nspan, span)
+    ref = jva.block_diag_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), span, scale=B5_HD ** -0.5,
+        interpret=True,
+    )
+    got = _b5_plain(q, k, v, span)
+    np.testing.assert_allclose(got, np.asarray(ref), atol=ATOL, rtol=RTOL)
+
+
+def test_b5_masked_plain_matches_pallas_on_valid_rows():
+    """tests/test_vision_attention.py's padded-window case: ragged validity
+    in 128-row spans; rows of invalid slots are dead and not compared."""
+    nw, mw = 6, 128
+    q, k, v = _b5_inputs(nw * mw, seed=5)
+    valid = np.ones((nw, mw), bool)
+    valid[1, 100:] = False
+    valid[4, 7:] = False
+    valid = valid.reshape(-1)
+    ref = jva.block_diag_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), mw, scale=B5_HD ** -0.5,
+        valid=jnp.asarray(valid), interpret=True,
+    )
+    got = _b5_plain(q, k, v, mw, valid)
+    np.testing.assert_allclose(got[valid], np.asarray(ref)[valid],
+                               atol=ATOL, rtol=RTOL)
+
+
+def test_b5_plain_zeroes_rows_whose_span_has_no_valid_key():
+    q, k, v = _b5_inputs(3 * 16, seed=6)
+    valid = np.ones(48, bool)
+    valid[16:32] = False
+    got = _b5_plain(q, k, v, 16, valid)
+    assert not got[16:32].any() and got[:16].all()
+    np.testing.assert_allclose(got[32:], _b5_plain(q[32:], k[32:], v[32:], 16),
+                               atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("span,nspan", [(36, 3), (4, 5), (2304, 1)])
+def test_b5_plain_matches_xla_where_the_tiling_rule_refuses(span, nspan):
+    """Spans the JAX package sends to its XLA `_block_attention` (an odd
+    span count of 4 or 36 rows, a span above 1536 rows): B5 takes them."""
+    s = span * nspan
+    assert not kernel_applicable(s, span)
+    assert not jva.kernel_applicable(s, span)
+    q, k, v = _b5_inputs(s, seed=span)
+    ref = jvision._block_attention(
+        *(jnp.asarray(a).reshape(nspan, span, B5_NH, B5_HD)
+          for a in (q, k, v)), None, B5_HD ** -0.5,
+    ).reshape(s, B5_NH, B5_HD)
+    got = _b5_plain(q, k, v, span)
+    np.testing.assert_allclose(got, np.asarray(ref), atol=ATOL, rtol=RTOL)
+
+
+def test_b5_rejects_a_span_that_does_not_divide_the_sequence():
+    q = torch.zeros(100, B5_NH, B5_HD)
+    with pytest.raises(ValueError, match="not a multiple"):
+        block_diag_attention(q, q, q, 64, scale=1.0)
+
+
+def test_b5_writes_bucket_rows_in_place():
+    q, k, v = _b5_inputs(64 * 2 + 12 * 3, seed=9)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    out = torch.full(t[0].shape, float("nan"))
+    for span, a, b in ((64, 0, 128), (12, 128, 164)):
+        block_diag_attention(*(x[a:b] for x in t), span,
+                             scale=B5_HD ** -0.5, out=out[a:b])
+        np.testing.assert_allclose(
+            out[a:b].numpy(), _b5_plain(q[a:b], k[a:b], v[a:b], span),
+            atol=0, rtol=0,
+        )
