@@ -14,11 +14,15 @@ checkout of the repository. Phases:
      same function, that call's time: B1 (bf16 cache, and its int8-QK
      variants for the int8 and int8k caches, up to the 1024-frame
      headline's last group step and hour-scale decode; its lse output and
-     pure-past mode on every cache, out and lse apart), B2, B5 (the
-     420x420 group's window buckets and frames, a 476x644 image's buckets
-     and frame, ragged column validity, a 2304-row span), and the int8
-     vision kernels B3, B4, B6 at the 7B tower's widths; a failed B3/B4/B6
-     check prints its worst rows and reruns both sides (ROADMAP C12);
+     pure-past mode on every cache, out and lse apart; one SDPA call at
+     the headline's last group step, 53,744 slots, pure past and unified
+     causal), B2 and B5 (short-span kernel up to 64-row spans, wgmma
+     long-span kernel above; the 420x420 group's window buckets and
+     frames, a 476x644 image's buckets and frame, ragged column validity,
+     a 2304-row span), the vision rotary pass, the registers, spills and
+     shared memory of each vision kernel, and the int8 vision kernels B3,
+     B4, B6 at the 7B tower's widths; a failed B3/B4/B6 check prints its
+     worst rows and reruns both sides (ROADMAP C12);
   3. the main path at the full width and depth of qwen25-vl-7b (bf16
      random weights): three `generate` requests through LVU / LVUEngine on
      64 seeded 420x420 yuv420 frames, groups of 32, key_norms_small at
@@ -463,13 +467,19 @@ def check_flash_modes(dev, cases):
 
 
 def check_vision(dev, cases):
-    """B2 at nh=16, hd=80 on strided q/k/v views of one fused projection."""
+    """B2 at nh=16, hd=80 on strided q/k/v views of one fused projection,
+    bf16 rotary tables (the tower casts them once per forward). Spans above
+    SHORT_SPAN run the rotary pass, then the long-span kernel: one rotary
+    launch per B2 call there, none on shorter spans (each row is rotated
+    once per call); q and k are left as they were."""
     import torch
 
     from quickvideo_tpu_torch.ops.vision_attention import (
+        SHORT_SPAN,
         apply_vision_rotary,
         block_diag_attention_2d,
         block_diag_attention_2d_plain,
+        vision_rotary,
     )
 
     gen = torch.Generator(device=dev)
@@ -481,11 +491,17 @@ def check_vision(dev, cases):
                    for i in range(3))
         ang = torch.rand(s_len, 40, generator=gen, device=dev) * 6.28
         emb = torch.cat([ang, ang], dim=-1)
-        cos, sin = torch.cos(emb), torch.sin(emb)
+        cos, sin = torch.cos(emb).bfloat16(), torch.sin(emb).bfloat16()
         scale = 80 ** -0.5
+        before = qkv.clone()
+        rot0 = vision_rotary.launches
         got = block_diag_attention_2d(q, k, v, cos, sin, span, scale)
+        rot_launches = vision_rotary.launches - rot0
         ref = block_diag_attention_2d_plain(q, k, v, cos, sin, span, scale)
         err, within = _compare(got, ref)
+        within &= bool(torch.equal(qkv, before))
+        within &= rot_launches == int(span > SHORT_SPAN)
+        del before
         ms = _time_ms(
             lambda: block_diag_attention_2d(q, k, v, cos, sin, span, scale), 20
         )
@@ -515,14 +531,126 @@ def check_vision(dev, cases):
         bound_ms, bound_by = bound(nbytes(q, k, v, cos, sin, got),
                                    {"bf16": 4 * 16 * 80 * pairs})
         ok = within
-        log(f"B2 span={span} S={s_len}: max_abs_err={err:.3e} "
-            f"(tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|) kernel {ms:.4f} ms "
+        log(f"B2 span={span} S={s_len} ({'long' if span > SHORT_SPAN else 'short'}"
+            f"-span kernel, {rot_launches} rotary launch): max_abs_err="
+            f"{err:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|; inputs "
+            f"unmodified) kernel {ms:.4f} ms "
             f"plain {plain_ms:.4f} ms sdpa "
             f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'} bound "
             f"{bound_ms:.4f} ms ({bound_by}) {'OK' if ok else 'FAIL'}")
         rows.append(dict(span=span, s=s_len, err=err, ms=ms,
                          plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=bound_ms, bound_by=bound_by, ok=ok))
+    return rows
+
+
+def check_rotary(dev, s_len):
+    """The rotary pass at nh=16, hd=80 on strided q/k views of one fused
+    projection, bf16 tables: kernel against its plain version (the same
+    rounding points, so equal bit for bit is expected; held to the kernel
+    tolerance), q and k left unmodified; time, plain time, bytes bound (q,
+    k and the tables read, the rotated q and k written)."""
+    import torch
+
+    from quickvideo_tpu_torch.ops.vision_attention import (
+        vision_rotary,
+        vision_rotary_plain,
+    )
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    qkv = torch.randn(s_len, 3 * 1280, generator=gen, device=dev).bfloat16()
+    q, k = (qkv[:, i * 1280 : (i + 1) * 1280].view(s_len, 16, 80)
+            for i in range(2))
+    ang = torch.rand(s_len, 40, generator=gen, device=dev) * 6.28
+    emb = torch.cat([ang, ang], dim=-1)
+    cos, sin = torch.cos(emb).bfloat16(), torch.sin(emb).bfloat16()
+    before = qkv.clone()
+    got, ref = vision_rotary(q, k, cos, sin), vision_rotary_plain(q, k, cos, sin)
+    err_q, ok_q = _compare(got[0], ref[0])
+    err_k, ok_k = _compare(got[1], ref[1])
+    equal = bool(torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1]))
+    ok = ok_q and ok_k and bool(torch.equal(qkv, before))
+    ms = _time_ms(lambda: vision_rotary(q, k, cos, sin), 20)
+    plain_ms = _time_ms(lambda: vision_rotary_plain(q, k, cos, sin), 5)
+    bound_ms, bound_by = bound(nbytes(q, k, cos, sin, got), {})
+    log(f"rotary pass S={s_len}: max_abs_err={max(err_q, err_k):.3e} (tol "
+        f"{KERNEL_ATOL} + {KERNEL_RTOL}*|plain|; bit-equal {equal}; inputs "
+        f"unmodified) kernel {ms:.4f} ms plain {plain_ms:.4f} ms bound "
+        f"{bound_ms:.4f} ms ({bound_by}) {'OK' if ok else 'FAIL'}")
+    del qkv, before, got, ref
+    return dict(s=s_len, err=max(err_q, err_k), ms=ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, ok=ok)
+
+
+VISION_KERNEL_NAMES = (
+    "vision_rotary_kernel", "short_span_kernel<rotary> (B2)",
+    "short_span_kernel (B5)", "short_span_kernel<masked> (B5)",
+    "long_span_kernel (B2, B5)", "long_span_kernel<masked> (B5)",
+)
+
+
+def vision_kernel_info():
+    """Registers, spilled (local) bytes and shared memory of each vision
+    kernel, from cudaFuncGetAttributes (csrc/vision_attention.cu's
+    qv_vision_kernel_info). Returns whether every query succeeded."""
+    import ctypes
+
+    from quickvideo_tpu_torch import _build
+
+    lib = _build.library()
+    ok = True
+    for i, name in enumerate(VISION_KERNEL_NAMES):
+        vals = [ctypes.c_int() for _ in range(4)]
+        err = lib.qv_vision_kernel_info(i, *(ctypes.byref(v) for v in vals))
+        ok &= err == 0
+        regs, local, smem, dyn = (v.value for v in vals)
+        log(f"{name}: {regs} registers, {local} B spilled (local), {smem} B "
+            f"static + {dyn} B dynamic shared memory"
+            f"{'' if err == 0 else f' FAIL (CUDA error {err})'}")
+    return ok
+
+
+def check_b1_headline_sdpa(dev, g=3600, length=53744, cap=65536):
+    """B1 (bf16) against one SDPA call at the 1024-frame headline's last
+    group step: pure past (G rows over `length` slots, no mask) and unified
+    causal (G rows over length + G slots, the mask aligned to the lower
+    right, `causal_lower_right`). The 4 kv heads are expanded to the 28
+    query heads outside the timed call. Timed for comparison only."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention.bias import causal_lower_right
+
+    from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    k = torch.randn(4, cap, 128, generator=gen, device=dev).bfloat16()
+    v = torch.randn(4, cap, 128, generator=gen, device=dev).bfloat16()
+    q = torch.randn(g, 28, 128, generator=gen, device=dev).bfloat16()
+    q = q.transpose(0, 1)
+    scale = 128 ** -0.5
+    rows = []
+    for causal in (False, True):
+        n = length + g if causal else length
+        qb = q.contiguous()[None]
+        kb = k[:, :n].repeat_interleave(7, dim=0)[None]
+        vb = v[:, :n].repeat_interleave(7, dim=0)[None]
+        mask = causal_lower_right(g, n) if causal else None
+        sdpa = _time_ms(lambda: F.scaled_dot_product_attention(
+            qb, kb, vb, attn_mask=mask, scale=scale), 5)
+        ms = _time_ms(lambda: flash_past_attention(
+            q, k, v, length, scale, causal=causal), 5)
+        bound_ms, bound_by = flash_bound(g, length, causal=causal)
+        what = "unified causal" if causal else "pure past"
+        log(f"B1 bf16 {what} G={g} length={length}: kernel {ms:.4f} ms, "
+            f"one SDPA call {sdpa:.4f} ms (x{ms / sdpa:.2f}), bound "
+            f"{bound_ms:.4f} ms ({bound_by})")
+        rows.append(dict(causal=causal, ms=ms, library_ms=sdpa,
+                         bound_ms=bound_ms))
+        del kb, vb
+    del k, v, q
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -841,12 +969,14 @@ def _kernel_counters():
     from quickvideo_tpu_torch.ops.vision_attention import (
         block_diag_attention,
         block_diag_attention_2d,
+        vision_rotary,
     )
 
     return {
         "flash": flash_past_attention,
         "vision_2d": block_diag_attention_2d,  # B2
         "vision_hm": block_diag_attention,  # B5, the head-major route
+        "rotary": vision_rotary,  # the rotary pass
         "ln_gemm": fm.ln_gemm_bias,
         "ln_mlp": fm.ln_dual_gemm_silu_quant,
         "mlp_pre": fm.dual_gemm_silu_quant,
@@ -943,6 +1073,7 @@ def run_main_path(dev, param_dtype="bfloat16", kv_cache_dtype="auto"):
         n_groups = len(inputs.group_grids)
         exp["flash"] += (n_groups + 1 + len(res.tokens) - 1) * n_layers
         exp["vision_2d"] += n_groups * b2_per_group
+        exp["rotary"] += expected_vision(mcfg, inputs.group_grids)[2]
         if param_dtype == "int8":
             exp["ln_gemm"] += n_groups * mcfg.vision.depth
             exp["ln_mlp"] += n_groups * mcfg.vision.depth
@@ -1140,15 +1271,19 @@ def vision_route(value):
 
 
 def expected_vision(cfg, grids, forced_head_major=False):
-    """(B2, B5) launches of a tower over `grids`, by the JAX package's
-    route rule (vision.py:373-388, with its tiling rule as the port copies
-    it): a block takes B2 when every span it needs tiles, else B5, once
-    per window-size bucket (window blocks) or once (full-attention
-    blocks)."""
+    """(B2, B5, rotary pass) launches of a tower over `grids`, by the JAX
+    package's route rule (vision.py:373-388, with its tiling rule as the
+    port copies it): a block takes B2 when every span it needs tiles, else
+    B5, once per window-size bucket (window blocks) or once (full-attention
+    blocks). The rotary pass runs once per head-major block and once per
+    B2 call on a span above SHORT_SPAN."""
     from quickvideo_tpu_torch.models.qwen25_vl.model import layout_for
-    from quickvideo_tpu_torch.ops.vision_attention import kernel_applicable
+    from quickvideo_tpu_torch.ops.vision_attention import (
+        SHORT_SPAN,
+        kernel_applicable,
+    )
 
-    b2 = b5 = 0
+    b2 = b5 = rot = 0
     n_full = len(cfg.vision.fullatt_block_indexes)
     n_win = cfg.vision.depth - n_full
     for grid in grids:
@@ -1161,9 +1296,11 @@ def expected_vision(cfg, grids, forced_head_major=False):
                 kernel_applicable(n, span) for n, span in spans)
             if tiles:
                 b2 += blocks * len(spans)
+                rot += blocks * sum(span > SHORT_SPAN for _, span in spans)
             else:
                 b5 += blocks * len(spans)
-    return b2, b5
+                rot += blocks
+    return b2, b5, rot
 
 
 def _request_line(counts_ok, tag, res, counts, wall, want_len, extra=""):
@@ -1181,7 +1318,7 @@ def _request_line(counts_ok, tag, res, counts, wall, want_len, extra=""):
         f"{want_len}, layers {sorted(set(res.layer_lengths))}); launches "
         f"B1 {counts['flash']}, B2 {counts['vision_2d']}, B3 "
         f"{counts['ln_gemm']}, B4 {counts['ln_mlp']}, B5 {counts['vision_hm']}"
-        f"{extra}; wall={wall:.3f} s spans(s)={spans} peak device memory "
+        f", rotary pass {counts['rotary']}{extra}; wall={wall:.3f} s spans(s)={spans} peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
         f"{'OK' if counts_ok and lens_ok and toks_ok else 'FAIL'}")
     return counts_ok and lens_ok and toks_ok
@@ -1218,13 +1355,14 @@ def run_head_major(dev, params, logits_bf16):
             mcfg = lvu.model_config
             inputs = make_request(mcfg, lvu.tokenizer, QUESTIONS[0], seed=0)
             res, counts, wall = request(lvu, inputs)
-            _, b5 = expected_vision(mcfg, inputs.group_grids, True)
+            _, b5, rot = expected_vision(mcfg, inputs.group_grids, True)
             want_len = expected_lengths(lvu, inputs, len(res.tokens))[0]
             counts_ok = (counts["vision_hm"] == b5 and counts["vision_2d"] == 0
+                         and counts["rotary"] == rot
                          and counts["ln_gemm"] == counts["ln_mlp"] == 0)
-            ok &= _request_line(counts_ok, 
+            ok &= _request_line(counts_ok,
                 f"QV_VISION_2D=0, {param_dtype} weights", res, counts, wall,
-                want_len, f" (expected B5 {b5}, B2/B3/B4 0)")
+                want_len, f" (expected B5 {b5}, rotary {rot}, B2/B3/B4 0)")
             runs.append(counts)
             if param_dtype == "bfloat16":
                 cache, state = lvu.engine.prefill(inputs)
@@ -1253,12 +1391,13 @@ def run_head_major(dev, params, logits_bf16):
                 tuple(g) for g in (inputs.image_grid_thw
                                    if inputs.image_grid_thw is not None
                                    else [])]
-            b2, b5 = expected_vision(mcfg, grids)
+            b2, b5, rot = expected_vision(mcfg, grids)
             want_len = expected_lengths(lvu, inputs, len(res.tokens))[0]
-            counts_ok = (counts["vision_2d"], counts["vision_hm"]) == (b2, b5)
-            ok &= _request_line(counts_ok, 
+            counts_ok = (counts["vision_2d"], counts["vision_hm"],
+                         counts["rotary"]) == (b2, b5, rot)
+            ok &= _request_line(counts_ok,
                 what, res, counts, wall, want_len,
-                f" (expected B2 {b2}, B5 {b5}; group grids "
+                f" (expected B2 {b2}, B5 {b5}, rotary {rot}; group grids "
                 f"{[tuple(g) for g in inputs.group_grids]})")
             runs.append(counts)
 
@@ -1279,14 +1418,15 @@ def run_head_major(dev, params, logits_bf16):
         res = lvu.last_result
         ps = mcfg.vision.patch_size
         grid = (1, IMAGE_HW[0] // ps, IMAGE_HW[1] // ps)
-        b2, b5 = expected_vision(mcfg, [grid])
+        b2, b5, rot = expected_vision(mcfg, [grid])
         want_len = res.prefill_tokens + len(res.tokens) - 1
-        counts_ok = ((counts["vision_2d"], counts["vision_hm"]) == (b2, b5)
+        counts_ok = ((counts["vision_2d"], counts["vision_hm"],
+                      counts["rotary"]) == (b2, b5, rot)
                      and isinstance(text, list))
-        ok &= _request_line(counts_ok, 
+        ok &= _request_line(counts_ok,
             f"image alone via LVU.chat, {IMAGE_HW[0]}x{IMAGE_HW[1]}", res,
             counts, wall, want_len,
-            f" (expected B2 {b2}, B5 {b5}; grid {grid})")
+            f" (expected B2 {b2}, B5 {b5}, rotary {rot}; grid {grid})")
         runs.append(counts)
         del lvu
         torch.cuda.empty_cache()
@@ -1325,8 +1465,10 @@ KERNEL_KINDS = (
     ("flash_fwd_kernel", "B1 flash"),
     ("flash_fwd_int8_kernel", "B1 flash int8-QK"),
     ("flash_merge_kernel", "B1 split-K merge"),
-    ("vision_attn_kernel<true", "B2 vision attn"),
-    ("vision_attn_kernel<false", "B5 vision attn (head-major)"),
+    ("short_span_kernel<true", "B2 short-span (rotary inside)"),
+    ("short_span_kernel<false", "B5 short-span (head-major)"),
+    ("long_span_kernel", "B2/B5 long-span (wgmma)"),
+    ("vision_rotary_kernel", "vision rotary pass"),
     ("fused_gemm_kernel<false>", "B3 GEMM"),
     ("fused_gemm_kernel<true>", "B4/B6 GEMM"),
     ("requantize_kernel", "B4/B6 requantize"),
@@ -1650,6 +1792,7 @@ def main():
         (True, 3600, 1807, 16384),  # the hot path's group step with lse
         (True, 3600, 53744, 65536),
     ])
+    check_b1_headline_sdpa(dev)
     vision_rows = check_vision(dev, [
         (64, 14400), (48, 3600), (36, 3600), (4, 3600), (900, 14400),
         (2304, 9216),
@@ -1665,8 +1808,10 @@ def main():
         # ragged column validity, and a span above the TPU's 1536-row cap
         (64, 14400, True), (2304, 9216, False),
     ])
+    rotary_row = check_rotary(dev, 14400)
     ok = all(r["ok"] for r in flash_rows + flash_int8_rows + mode_rows
-             + vision_rows + b5_rows)
+             + vision_rows + b5_rows + [rotary_row])
+    ok &= vision_kernel_info()
 
     fused_rows = check_fused(dev, [14400, 250])
     ok &= all(r["ok"] for r in fused_rows)
@@ -1757,6 +1902,11 @@ def main():
         entry("block_diag_attention (B5)", "vision_attention.cu",
               "vision_attention.py:71", launches["vision_hm"], b5_rows,
               b5_rows[0], b5_rows[0]["library_ms"]),
+        # the rotary of _kernel2d (vision_attention.py:165-168) and of the
+        # head-major route, as one pass; no PyTorch call computes it
+        entry("vision_rotary (rotary pass of B2 and the head-major route)",
+              "vision_attention.cu", "vision_attention.py:165",
+              launches["rotary"], [rotary_row], rotary_row),
         entry("ln_gemm_bias (B3)", fused, "fused_vision_mlp.py:272",
               launches["ln_gemm"], *_fused_rows(fused_rows, "B3")),
         entry("ln_dual_gemm_silu_quant (B4)", fused, "fused_vision_mlp.py:162",

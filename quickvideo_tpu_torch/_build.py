@@ -52,14 +52,19 @@ SIGNATURES = {
     "qv_flash_attention_int8": (
         [_P] * 10 + [_L] * 10 + [_I] * 9 + [_L] * 2 + [_P]
     ),
-    # q, k, v, o, cos, sin; row strides (q, k, v, o, cos/sin); s, nh, span;
-    # scale; stream
+    # q, k, v, o, cos, sin (bf16 tables); row strides (q, k, v, o,
+    # cos/sin); s, nh, span (<= 64); scale; stream
     "qv_vision_attention": (
         [_P] * 6 + [_L] * 5 + [_I] * 3 + [_F, _P]
     ),
     # q, k, v, o, valid (or null); row strides (q, k, v, o); s, nh, span;
     # scale; stream
     "qv_block_diag_attention": [_P] * 5 + [_L] * 4 + [_I] * 3 + [_F, _P],
+    # q, k, cos, sin, q out, k out; row strides (q, k, cos/sin, q out,
+    # k out); s, nh; stream
+    "qv_vision_rotary": [_P] * 6 + [_L] * 5 + [_I] * 2 + [_P],
+    # kernel index; out: registers, local bytes, static and dynamic smem
+    "qv_vision_kernel_info": [_I] + [_P] * 4,
     # x, ln_w, w, sc, b, xq, xs, out; s, c, n; eps; stream
     "qv_ln_gemm_bias": [_P] * 8 + [_I] * 3 + [_F, _P],
     # x, ln_w, w, sc, b, xq, xs, mid, amax, q, s; rows, c, np; eps; stream

@@ -11,22 +11,25 @@ Each block takes one of the JAX package's two attention routes, chosen as
 vision.py:373-388 chooses them (`_use_2d`): the 2D route (kernel B2, rotary
 inside the kernel) when `QV_VISION_2D` is not "0" and the JAX package's
 tiling rule (`kernel_applicable`) takes every span the block needs, else
-the head-major route: rotary outside in the activation dtype, then kernel
-B5 (ops/vision_attention.py) once per window-size bucket, or once over the
-frame-grouped rows in full-attention blocks. B5 takes every span of the
+the head-major route: the rotary pass (`vision_rotary`, in the activation
+dtype), then kernel B5 (ops/vision_attention.py) once per window-size
+bucket, or once over the frame-grouped rows in full-attention blocks. The
+rotary tables are cast to the activation dtype once per forward, as the
+JAX package casts them before either route rotates. B5 takes every span of the
 route, also those the JAX package sends to its XLA `_block_attention`
 (same function, same rounding points). The rule is applied on every
 device: the CPU path stands in for the JAX package's kernel route.
 
 Weights keep the JAX layout (in, out) and are applied as `x @ w`. With
-int8 weights (ops/quantization.py) a block on the 2D route runs kernel B3
-for ln1 + QKV; on the head-major route QKV is an act-quantized int8 product
-of the unpadded `wqkv`. The MLP runs kernel B4 for ln2 + gate/up + SwiGLU
-when the block carries the one-time `fuse_vision_mlp_weights` prep
-(`wgu_p`), else the unfused act-quantized chain (vision.py:534-540). Every
-other matrix product (patch embed, attention output, down projection,
-merger) is an act-quantized int8 product. The on-device Lanczos resize is
-not ported.
+int8 weights (ops/quantization.py) the tower follows the JAX package's
+`qdot_vision` default (QV_INT8_ACT_VISION=0): only the MLP quantizes its
+activations. A block on the 2D route runs kernel B3 for ln1 + QKV (act-
+quantized, as the JAX package's fused QKV); the MLP runs kernel B4 for
+ln2 + gate/up + SwiGLU when the block carries the one-time
+`fuse_vision_mlp_weights` prep (`wgu_p`), else the unfused act-quantized
+chain (vision.py:534-540). Every other product (the head-major route's
+QKV, the attention output, the patch embed, the merger) is weight-only
+(`act_quant=False`). The on-device Lanczos resize is not ported.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from quickvideo_tpu_torch.ops.vision_attention import (
     block_diag_attention,
     block_diag_attention_2d,
     kernel_applicable,
+    vision_rotary,
 )
 
 
@@ -201,19 +205,6 @@ def _rms_norm(x, w, eps):
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
-def _rotate_half(x):
-    x1, x2 = x.chunk(2, dim=-1)
-    return torch.cat([-x2, x1], dim=-1)
-
-
-def _apply_vision_rotary(x, cos, sin):
-    """x (S, nh, hd), cos/sin (S, hd): rotary in the activation dtype, as
-    the JAX package's head-major route computes it (vision.py:231-241)."""
-    c = cos.to(x.dtype)[:, None, :]
-    s = sin.to(x.dtype)[:, None, :]
-    return x * c + _rotate_half(x) * s
-
-
 def _vision_mlp(bp: dict, x: torch.Tensor, cfg: VisionConfig) -> torch.Tensor:
     """ln2 + gated MLP. int8 with the one-time prep: kernel B4 (ln2,
     gate/up, silu * mul, per-row requantize), then the down projection from
@@ -272,16 +263,16 @@ def vision_block(
         )
     else:
         h = _rms_norm(x, bp["ln1"], cfg.rms_norm_eps)
-        qkv = linear(h, bp["wqkv"]) + bp["bqkv"]  # (S, 3C)
+        qkv = linear(h, bp["wqkv"], act_quant=False) + bp["bqkv"]  # (S, 3C)
     # strided views of the fused projection: the kernels read them in place
     q = qkv[:, :c].view(s_len, nh, hd)
     k = qkv[:, c : 2 * c].view(s_len, nh, hd)
     v = qkv[:, 2 * c :].view(s_len, nh, hd)
     cos, sin = lt["cos"], lt["sin"]
     if not use2d:
-        # head-major route: rotary outside, then kernel B5
-        q = _apply_vision_rotary(q, cos, sin)
-        k = _apply_vision_rotary(k, cos, sin)
+        # head-major route: the rotary pass (its plain version,
+        # apply_vision_rotary, on the CPU), then kernel B5
+        q, k = vision_rotary(q, k, cos, sin)
 
     def attend(q, k, v, span, rows=slice(None), out=None):
         if use2d:  # kernel B2 rotates the rows' q and k itself
@@ -305,7 +296,8 @@ def vision_block(
         out = torch.empty(s_len, nh, hd, dtype=q.dtype, device=x.device)
         for span, a, b in layout.buckets:
             attend(q[a:b], k[a:b], v[a:b], span, slice(a, b), out=out[a:b])
-    x = x + (linear(out.reshape(s_len, c), bp["wo"], x.dtype) + bp["bo"])
+    x = x + (linear(out.reshape(s_len, c), bp["wo"], x.dtype,
+                    act_quant=False) + bp["bo"])
     return _vision_mlp(bp, x, cfg)
 
 
@@ -376,8 +368,10 @@ def vision_forward(
         pixels = pixels.float() * torch.as_tensor(
             scale, device=pixels.device
         ) + torch.as_tensor(bias, device=pixels.device)
-    x = linear(pixels.to(pdtype), params["patch_embed"])
+    x = linear(pixels.to(pdtype), params["patch_embed"], act_quant=False)
     x = x[lt["perm"]]
+    # the rotary tables in the activation dtype, once for all blocks
+    lt = dict(lt, cos=lt["cos"].to(x.dtype), sin=lt["sin"].to(x.dtype))
     full = set(cfg.fullatt_block_indexes)
     for bi, bp in enumerate(params["blocks"]):
         x = vision_block(bp, x, lt, layout, cfg, full_attn=bi in full)
@@ -387,7 +381,7 @@ def vision_forward(
     xm = _rms_norm(x, mp["ln_q"], cfg.rms_norm_eps)
     xm = xm.reshape(-1, cfg.spatial_merge_unit * cfg.hidden_size)
     # f32 product, f32 bias and GELU, as vision.py:709-710 of the JAX package
-    h1 = qdot(xm, mp["w1"]) + mp["b1"].float()
+    h1 = qdot(xm, mp["w1"], act_quant=False) + mp["b1"].float()
     h1 = F.gelu(h1).to(x.dtype)
-    out = linear(h1, mp["w2"]) + mp["b2"]
+    out = linear(h1, mp["w2"], act_quant=False) + mp["b2"]
     return out[lt["inv_perm_units"]]

@@ -14,7 +14,9 @@ its second operand, and so do kernels B3/B4/B6 (ops/fused_vision_mlp.py).
 
 Activation quantization runs on every `qdot` / `qdot_multi` whose input has
 at least ACT_MIN_DIM columns and ACT_MIN_ROWS rows; smaller products are
-weight-only (`x @ q8 * sc` with f32 accumulation). Both gates are module
+weight-only (`x @ q8 * sc` with f32 accumulation), and so is a product
+called with `act_quant=False` (the vision tower's, but its MLP: the JAX
+package's `qdot_vision` default). Both gates are module
 constants read at call time, so a test can lower them. A caller that
 stands for the JAX package's padded bucket (the final prefill, whose
 bucket always has at least 32 rows) passes `min_rows=0`.
@@ -126,12 +128,14 @@ def _act_gate(x: torch.Tensor, min_rows: Optional[int]) -> bool:
     return x.ndim >= 2 and x.shape[-1] >= ACT_MIN_DIM and x.shape[-2] >= rows
 
 
-def qdot(x: torch.Tensor, w, *, min_rows: Optional[int] = None) -> torch.Tensor:
+def qdot(x: torch.Tensor, w, *, min_rows: Optional[int] = None,
+         act_quant: bool = True) -> torch.Tensor:
     """x @ w with f32 accumulation, returned in f32; `w` may be quantized.
-    Quantized: per-row act-quant when the gates pass, else weight-only."""
+    Quantized: per-row act-quant when `act_quant` and the gates pass, else
+    weight-only."""
     if not is_quantized(w):
         return mm_f32(x, w)
-    if _act_gate(x, min_rows):
+    if act_quant and _act_gate(x, min_rows):
         return qdot_pre(*quantize_act(x), w)
     return mm_f32(x, w["q8"]) * w["sc"]
 
@@ -147,14 +151,15 @@ def qdot_multi(x: torch.Tensor, ws: Sequence, *,
 
 
 def linear(x: torch.Tensor, w, dtype=None, *,
-           min_rows: Optional[int] = None) -> torch.Tensor:
+           min_rows: Optional[int] = None,
+           act_quant: bool = True) -> torch.Tensor:
     """`qdot(x, w)` cast to `dtype` (default x's), the JAX package's
     `qdot(x, w).astype(dtype)`. With a float weight of that dtype this is
     one `x @ w`: the same f32 accumulation, rounded once."""
     dtype = dtype or x.dtype
     if not is_quantized(w) and x.dtype == w.dtype == dtype:
         return x @ w
-    return qdot(x, w, min_rows=min_rows).to(dtype)
+    return qdot(x, w, min_rows=min_rows, act_quant=act_quant).to(dtype)
 
 
 def linear_multi(x: torch.Tensor, ws: Sequence, dtype=None, *,

@@ -1,25 +1,40 @@
-"""Kernels B2 and B5: block-diagonal vision attention.
+"""Kernels B2 and B5: block-diagonal vision attention, and the vision
+rotary pass.
 
 The vision tower attends within contiguous equal spans of rows (windows in
 the window blocks, frames in the full-attention blocks). Two entries, named
 as the JAX package's:
 
-- `block_diag_attention_2d` (B2) applies rotary to q and k inside the
-  kernel. Replaces quickvideo_tpu/ops/vision_attention.py::_kernel2d
-  (entry block_diag_attention_2d).
+- `block_diag_attention_2d` (B2) applies rotary to q and k inside.
+  Replaces quickvideo_tpu/ops/vision_attention.py::_kernel2d (entry
+  block_diag_attention_2d).
 - `block_diag_attention` (B5) takes q and k already rotated (the head-major
   route of the tower), with an optional per-column validity vector.
   Replaces quickvideo_tpu/ops/vision_attention.py::_kernel (entry
   block_diag_attention).
 
-On a CUDA tensor each launches its hand-written Hopper kernel
-(csrc/vision_attention.cu, one template for both) and counts the launch in
-its `.launches`; on a CPU tensor it runs its plain version
-(`block_diag_attention_2d_plain`, `block_diag_attention_plain`). A CUDA
-tensor the kernel does not take raises: there is no fallback. The layout is
-the natural one, q/k/v (S, nh, hd) with any row stride and cos/sin (S, hd):
-the TPU kernels' 128-lane head padding and (nh, S, hd) transposes do not
-carry over.
+and the rotary pass `vision_rotary`, which rotates q and k once into new
+tensors (the head-major route's rotary, and B2's on spans above
+SHORT_SPAN rows).
+
+Rotary follows the JAX package's rounding points: cos/sin are cast to the
+activation dtype, each product is rounded to it, then their sum
+(`apply_vision_rotary`; in bf16 bit-equal to the JAX package's
+`_apply_vision_rotary` on the CPU, which rounds after every operation).
+B2's plain version is the rotary's plain version followed by B5's, so one
+plain core, at the JAX kernel's rounding points, serves both kernels.
+
+On a CUDA tensor each entry launches its hand-written Hopper kernel
+(csrc/vision_attention.cu) and counts the launch in its `.launches`; on a
+CPU tensor it runs its plain version (`block_diag_attention_2d_plain`,
+`block_diag_attention_plain`, `vision_rotary_plain`). A CUDA tensor the
+kernel does not take raises: there is no fallback. The kernel is chosen by
+span and nothing else: spans of at most SHORT_SPAN rows run the short-span
+kernel (B2 rotates inside it, each row once), longer spans the wgmma
+long-span kernel (B2 runs the rotary pass into a scratch buffer first).
+No entry writes to its inputs. The layout is the natural one, q/k/v (S, nh,
+hd) with any row stride and cos/sin (S, hd): the TPU kernels' 128-lane
+head padding and (nh, S, hd) transposes do not carry over.
 
 `kernel_applicable` is the JAX package's tiling rule (copied; the tests pin
 the copy). It decides only which route the tower takes, as in the JAX
@@ -83,20 +98,83 @@ def _check_rows(q: torch.Tensor, named) -> None:
             raise ValueError(f"{name} rows are not 16-byte aligned")
 
 
-# -- B2: rotary inside ---------------------------------------------------------
+def _check_tables(q: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
+    """cos/sin cast to q's dtype (the JAX package's rounding point; a no-op
+    when they already are); raise unless they are (S, 80) rows of one
+    layout, 16-byte aligned, on q's device."""
+    s_len = q.shape[0]
+    cos, sin = cos.to(q.dtype), sin.to(q.dtype)
+    for name, t in (("cos", cos), ("sin", sin)):
+        if t.shape != (s_len, HEAD_DIM) or t.stride(1) != 1:
+            raise ValueError(f"{name} must be (S, {HEAD_DIM}) rows")
+        if t.stride() != cos.stride():
+            raise ValueError("cos and sin must share one row layout")
+        if t.device != q.device:
+            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+        if t.stride(0) % 8 or t.data_ptr() % 16:
+            raise ValueError(f"{name} rows are not 16-byte aligned")
+    return cos, sin
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+# -- the rotary pass -------------------------------------------------------------
 
 
 def apply_vision_rotary(
     x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 ) -> torch.Tensor:
-    """x (S, nh, hd) -> x*cos + rotate_half(x)*sin, in f32, cast back to
-    x's dtype. cos/sin: (S, hd). B2's rotary (the kernel rotates its staged
-    tiles in f32)."""
-    xf = x.float()
-    x1, x2 = xf.chunk(2, dim=-1)
-    rot = torch.cat([-x2, x1], dim=-1)
-    out = xf * cos[:, None, :].float() + rot * sin[:, None, :].float()
-    return out.to(x.dtype)
+    """x (S, nh, hd) -> x*cos + rotate_half(x)*sin in x's dtype, cos/sin
+    (S, hd) cast to it first: the JAX package's `_apply_vision_rotary`
+    (vision.py:231-241) at its rounding points (each product, then the
+    sum, rounded to x's dtype, as eager PyTorch and XLA both round)."""
+    c = cos.to(x.dtype)[:, None, :]
+    s = sin.to(x.dtype)[:, None, :]
+    x1, x2 = x.chunk(2, dim=-1)
+    return x * c + torch.cat([-x2, x1], dim=-1) * s
+
+
+def vision_rotary_plain(q, k, cos, sin):
+    """(rotary(q), rotary(k)): the rotary pass's plain version."""
+    return apply_vision_rotary(q, cos, sin), apply_vision_rotary(k, cos, sin)
+
+
+def vision_rotary(
+    q: torch.Tensor,  # (S, nh, hd), last dim contiguous, any row stride
+    k: torch.Tensor,
+    cos: torch.Tensor,  # (S, hd)
+    sin: torch.Tensor,
+):
+    """q and k rotated once, into new (S, nh, hd) tensors (q and k are not
+    written). Returns (q_rotated, k_rotated)."""
+    if q.device.type == "cpu":
+        return vision_rotary_plain(q, k, cos, sin)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    _check_rows(q, (("q", q), ("k", k)))
+    cos, sin = _check_tables(q, cos, sin)
+    s_len, nh, hd = q.shape
+    out = torch.empty(2, s_len, nh, hd, dtype=q.dtype, device=q.device)
+    if s_len == 0:
+        return out[0], out[1]
+    err = _build.library().qv_vision_rotary(
+        q.data_ptr(), k.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(), q.stride(0), k.stride(0),
+        cos.stride(0), out.stride(1), out.stride(1), s_len, nh, _stream(q),
+    )
+    _build.check(err, "qv_vision_rotary")
+    vision_rotary.launches += 1
+    return out[0], out[1]
+
+
+vision_rotary.launches = 0
+
+
+# -- B2: rotary inside ---------------------------------------------------------
+
+SHORT_SPAN = 64  # spans up to this many rows run the short-span kernel
 
 
 def block_diag_attention_2d_plain(
@@ -108,34 +186,26 @@ def block_diag_attention_2d_plain(
     span: int,
     scale: float,
 ) -> torch.Tensor:
-    """Rotary on q and k (rounded to the input dtype, as the kernel rounds
-    its staged tiles), then f32 attention within each contiguous `span`.
-    Returns (S, nh, hd) in q's dtype."""
-    s_len, nh, hd = q.shape
-    qr = apply_vision_rotary(q, cos, sin).float()
-    kr = apply_vision_rotary(k, cos, sin).float()
-    n = s_len // span
-    qb = qr.reshape(n, span, nh, hd)
-    kb = kr.reshape(n, span, nh, hd)
-    vb = v.float().reshape(n, span, nh, hd)
-    sc = torch.einsum("blhd,bmhd->bhlm", qb, kb) * scale
-    p = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bhlm,bmhd->blhd", p, vb)
-    return out.reshape(s_len, nh, hd).to(q.dtype)
+    """The rotary pass's plain version on q and k, then B5's plain version:
+    the JAX kernel's rotary (tables in the activation dtype) and attention
+    rounding points. Returns (S, nh, hd) in q's dtype."""
+    qr, kr = vision_rotary_plain(q, k, cos, sin)
+    return block_diag_attention_plain(qr, kr, v, span, scale)
 
 
 def block_diag_attention_2d(
     q: torch.Tensor,  # (S, nh, hd), last dim contiguous, any row stride
     k: torch.Tensor,
     v: torch.Tensor,
-    cos: torch.Tensor,  # (S, hd) f32
+    cos: torch.Tensor,  # (S, hd), cast to q's dtype
     sin: torch.Tensor,
     span: int,
     scale: float,
     out: Optional[torch.Tensor] = None,  # (S, nh, hd) to write into
 ) -> torch.Tensor:
     """Block-diagonal attention over contiguous equal `span`s with rotary
-    applied to q and k inside. Returns `out` (allocated when None)."""
+    applied to q and k, each row once. Returns `out` (allocated when
+    None)."""
     s_len, nh, hd = q.shape
     if span <= 0 or s_len % span:
         raise ValueError(f"sequence {s_len} is not a multiple of span {span}")
@@ -148,22 +218,26 @@ def block_diag_attention_2d(
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     _check_rows(q, (("q", q), ("k", k), ("v", v), ("out", out)))
-    for name, t in (("cos", cos), ("sin", sin)):
-        if t.dtype != torch.float32 or t.shape != (s_len, HEAD_DIM):
-            raise ValueError(f"{name} must be (S, {HEAD_DIM}) f32")
-        if t.stride() != cos.stride() or t.stride(1) != 1:
-            raise ValueError("cos and sin must share one row-major layout")
-        if t.device != q.device:
-            raise ValueError(f"{name} on {t.device}, q on {q.device}")
+    cos, sin = _check_tables(q, cos, sin)
+    if s_len == 0:
+        return out
     lib = _build.library()
-    err = lib.qv_vision_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        cos.data_ptr(), sin.data_ptr(),
-        q.stride(0), k.stride(0), v.stride(0), out.stride(0), cos.stride(0),
-        s_len, nh, span, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(err, "qv_vision_attention")
+    if span <= SHORT_SPAN:
+        err = lib.qv_vision_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            cos.data_ptr(), sin.data_ptr(),
+            q.stride(0), k.stride(0), v.stride(0), out.stride(0),
+            cos.stride(0), s_len, nh, span, float(scale), _stream(q),
+        )
+        _build.check(err, "qv_vision_attention")
+    else:
+        qr, kr = vision_rotary(q, k, cos, sin)
+        err = lib.qv_block_diag_attention(
+            qr.data_ptr(), kr.data_ptr(), v.data_ptr(), out.data_ptr(), None,
+            qr.stride(0), kr.stride(0), v.stride(0), out.stride(0),
+            s_len, nh, span, float(scale), _stream(q),
+        )
+        _build.check(err, "qv_block_diag_attention")
     block_diag_attention_2d.launches += 1
     return out
 
@@ -219,7 +293,9 @@ def block_diag_attention(
     out: Optional[torch.Tensor] = None,  # (S, nh, hd) to write into
 ) -> torch.Tensor:
     """Block-diagonal attention over contiguous equal `span`s, q and k
-    already rotated. Returns `out` (allocated when None) in q's dtype."""
+    already rotated. Returns `out` (allocated when None) in q's dtype. The
+    C entry runs the short-span kernel up to SHORT_SPAN rows, else the
+    long-span one."""
     s_len, nh, hd = q.shape
     if span <= 0 or s_len % span:
         raise ValueError(f"seq {s_len} not a multiple of span {span}")
@@ -238,12 +314,12 @@ def block_diag_attention(
             raise ValueError(f"valid must be ({s_len},) bool on {q.device}")
         valid = valid.contiguous()
         valid_ptr = valid.data_ptr()
-    lib = _build.library()
-    err = lib.qv_block_diag_attention(
+    if s_len == 0:
+        return out
+    err = _build.library().qv_block_diag_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), valid_ptr,
         q.stride(0), k.stride(0), v.stride(0), out.stride(0),
-        s_len, nh, span, float(scale),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        s_len, nh, span, float(scale), _stream(q),
     )
     _build.check(err, "qv_block_diag_attention")
     block_diag_attention.launches += 1

@@ -53,10 +53,13 @@ from quickvideo_tpu_torch.testing import (
 )
 from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
 from quickvideo_tpu_torch.ops.vision_attention import (
+    SHORT_SPAN,
+    apply_vision_rotary,
     block_diag_attention,
     block_diag_attention_2d,
     block_diag_attention_2d_plain,
     block_diag_attention_plain,
+    vision_rotary,
 )
 
 pytestmark = pytest.mark.cuda
@@ -299,26 +302,48 @@ def test_flash_int8_wrapper_rejects_what_the_kernel_does_not_take(dev):
         flash_past_attention(q.float(), k, v, 0, 1.0, k_scale=ks, v_scale=vs)
 
 
-@pytest.mark.parametrize(
-    "span,s", [(64, 14400), (48, 3600), (36, 3600), (4, 512), (900, 3600),
-               (2304, 4608)]
-)
-def test_vision_kernel_matches_plain(dev, span, s):
-    gen = torch.Generator(device=dev).manual_seed(span)
+# the main path's spans: window buckets of 4-64 rows (short-span kernel),
+# frames of 900 and 1564 rows and 2304-row spans (long-span kernel)
+VISION_CASES = [(4, 512), (12, 1560), (16, 1024), (36, 3600), (48, 3600),
+                (64, 14400), (900, 3600), (1564, 1564), (2304, 4608)]
+
+
+def _qkv_views(dev, s, seed):
+    """q, k, v as strided (S, 16, 80) views of one fused projection, and
+    the projection itself."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     qkv = torch.randn(s, 3 * 1280, generator=gen, device=dev).bfloat16()
-    q, k, v = (qkv[:, i * 1280 : (i + 1) * 1280].view(s, 16, 80)
-               for i in range(3))
+    return qkv, [qkv[:, i * 1280 : (i + 1) * 1280].view(s, 16, 80)
+                 for i in range(3)]
+
+
+def _tables(dev, s, seed):
+    """bf16 rotary tables (the tower casts them once per forward)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
     ang = torch.rand(s, 40, generator=gen, device=dev) * 6.28
     emb = torch.cat([ang, ang], dim=-1)
-    cos, sin = torch.cos(emb), torch.sin(emb)
-    before = block_diag_attention_2d.launches
+    return torch.cos(emb).bfloat16(), torch.sin(emb).bfloat16()
+
+
+@pytest.mark.parametrize("span,s", VISION_CASES)
+def test_vision_kernel_matches_plain(dev, span, s):
+    """B2: one launch per call; above SHORT_SPAN rows one rotary pass too
+    (each row rotated once), none below; q/k/v left as they were."""
+    qkv, (q, k, v) = _qkv_views(dev, s, span)
+    cos, sin = _tables(dev, s, span)
+    before = qkv.clone()
+    launches = block_diag_attention_2d.launches
+    rot = vision_rotary.launches
     got = block_diag_attention_2d(q, k, v, cos, sin, span, 80 ** -0.5)
-    assert block_diag_attention_2d.launches == before + 1
+    assert block_diag_attention_2d.launches == launches + 1
+    assert vision_rotary.launches == rot + int(span > SHORT_SPAN)
     ref = block_diag_attention_2d_plain(q, k, v, cos, sin, span, 80 ** -0.5)
     torch.testing.assert_close(got.float(), ref.float(), **TOL)
+    assert torch.equal(qkv, before)
 
 
 def test_vision_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    before = block_diag_attention_2d.launches
     x = torch.zeros(64, 2, 80, device=dev)
     cs = torch.zeros(64, 80, device=dev)
     with pytest.raises(TypeError):
@@ -326,20 +351,72 @@ def test_vision_wrapper_rejects_what_the_kernel_does_not_take(dev):
     xb = torch.zeros(64, 2, 64, device=dev, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         block_diag_attention_2d(xb, xb, xb, cs[:, :64], cs[:, :64], 64, 1.0)
+    x = x.bfloat16()
+    with pytest.raises(ValueError, match="cos"):  # a table of 32 rows
+        block_diag_attention_2d(x, x, x, cs[:32], cs[:32], 32, 1.0)
+    flat = torch.zeros(64 * 80 + 4, device=dev, dtype=torch.bfloat16)
+    off = flat[4:].view(64, 80)  # table rows 8 bytes off 16-byte alignment
+    with pytest.raises(ValueError, match="aligned"):
+        block_diag_attention_2d(x, x, x, off, off, 64, 1.0)
+    assert block_diag_attention_2d.launches == before
+
+
+@pytest.mark.parametrize("span,s", [(64, 256), (900, 1800)])
+def test_b2_writes_in_place_and_counts_each_launch(dev, span, s):
+    """`out=` slices (the bucket loop's) written in place, one launch per
+    call, on a short and a long span."""
+    _, (q, k, v) = _qkv_views(dev, s + 36 * 5, 8)
+    cos, sin = _tables(dev, s + 36 * 5, 8)
+    out = torch.full_like(q.contiguous(), float("nan"))
+    before = block_diag_attention_2d.launches
+    cuts = ((span, 0, s), (36, s, s + 180))
+    for sp, a, b in cuts:
+        block_diag_attention_2d(q[a:b], k[a:b], v[a:b], cos[a:b], sin[a:b],
+                                sp, 80 ** -0.5, out=out[a:b])
+    assert block_diag_attention_2d.launches == before + 2
+    for sp, a, b in cuts:
+        ref = block_diag_attention_2d_plain(q[a:b], k[a:b], v[a:b], cos[a:b],
+                                            sin[a:b], sp, 80 ** -0.5)
+        torch.testing.assert_close(out[a:b].float(), ref.float(), **TOL)
+
+
+def test_rotary_pass_matches_plain_and_leaves_its_inputs(dev):
+    """The rotary pass against `apply_vision_rotary` (the same rounding
+    points: bit for bit) on strided views; one launch; q, k unmodified."""
+    qkv, (q, k, _) = _qkv_views(dev, 1800, 9)
+    cos, sin = _tables(dev, 1800, 9)
+    before = qkv.clone()
+    launches = vision_rotary.launches
+    qr, kr = vision_rotary(q, k, cos, sin)
+    assert vision_rotary.launches == launches + 1
+    assert torch.equal(qkv, before)
+    assert torch.equal(qr, apply_vision_rotary(q, cos, sin))
+    assert torch.equal(kr, apply_vision_rotary(k, cos, sin))
+    # f32 tables are cast to the activation dtype first, as the JAX route
+    qr32, _ = vision_rotary(q, k, cos.float(), sin.float())
+    assert torch.equal(qr32, qr)
+
+
+def test_rotary_pass_rejects_what_the_kernel_does_not_take(dev):
+    before = vision_rotary.launches
+    x = torch.zeros(64, 2, 80, device=dev)
+    cs = torch.zeros(64, 80, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(TypeError):  # f32 rows
+        vision_rotary(x, x, cs, cs)
+    xb = x.bfloat16()
+    with pytest.raises(ValueError, match="cos"):
+        vision_rotary(xb, xb, cs[:, :64], cs[:, :64])
+    with pytest.raises(ValueError, match="on"):  # k on the CPU
+        vision_rotary(xb, xb.cpu(), cs, cs)
+    assert vision_rotary.launches == before
 
 
 def _b5_inputs(dev, s, seed):
     """q, k, v as strided (S, 16, 80) views of one fused projection."""
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    qkv = torch.randn(s, 3 * 1280, generator=gen, device=dev).bfloat16()
-    return [qkv[:, i * 1280 : (i + 1) * 1280].view(s, 16, 80)
-            for i in range(3)]
+    return _qkv_views(dev, s, seed)[1]
 
 
-@pytest.mark.parametrize(
-    "span,s", [(64, 14400), (48, 3600), (36, 3600), (12, 1560), (4, 512),
-               (1, 128), (900, 3600), (1564, 1564), (2304, 4608)]
-)
+@pytest.mark.parametrize("span,s", VISION_CASES + [(1, 128)])
 def test_b5_kernel_matches_plain(dev, span, s):
     q, k, v = _b5_inputs(dev, s, span)
     before = block_diag_attention.launches
@@ -349,13 +426,13 @@ def test_b5_kernel_matches_plain(dev, span, s):
     torch.testing.assert_close(got.float(), ref.float(), **TOL)
 
 
-def test_b5_masked_kernel_matches_plain_on_valid_rows(dev):
-    """Ragged validity, as tests/test_vision_attention.py's masked case:
-    spans of 64 rows whose first n rows are valid, one span wholly invalid
-    (its rows are 0 in both)."""
-    span, n = 64, 40
+@pytest.mark.parametrize("span,n", [(64, 40), (36, 20), (900, 5)])
+def test_b5_masked_kernel_matches_plain_on_valid_rows(dev, span, n):
+    """Ragged validity, as tests/test_vision_attention.py's masked case,
+    on the short- and the long-span kernel: spans whose first c rows are
+    valid, one span wholly invalid (its rows are 0 in both)."""
     q, k, v = _b5_inputs(dev, span * n, 7)
-    counts = torch.arange(n, device=dev) % (span + 1)
+    counts = (torch.arange(n, device=dev) * (span // 7 + 1)) % (span + 1)
     valid = (torch.arange(span, device=dev)[None, :]
              < counts[:, None]).reshape(-1)
     got = block_diag_attention(q, k, v, span, scale=80 ** -0.5, valid=valid)
@@ -366,14 +443,15 @@ def test_b5_masked_kernel_matches_plain_on_valid_rows(dev):
 
 
 def test_b5_writes_in_place_and_counts_each_launch(dev):
-    q, k, v = _b5_inputs(dev, 64 * 2 + 12 * 5, 3)
+    q, k, v = _b5_inputs(dev, 64 * 2 + 12 * 5 + 900, 3)
     out = torch.full_like(q.contiguous(), float("nan"))
     before = block_diag_attention.launches
-    for span, a, b in ((64, 0, 128), (12, 128, 188)):
+    cuts = ((64, 0, 128), (12, 128, 188), (900, 188, 1088))
+    for span, a, b in cuts:
         block_diag_attention(q[a:b], k[a:b], v[a:b], span,
                              scale=80 ** -0.5, out=out[a:b])
-    assert block_diag_attention.launches == before + 2
-    for span, a, b in ((64, 0, 128), (12, 128, 188)):
+    assert block_diag_attention.launches == before + 3
+    for span, a, b in cuts:
         ref = block_diag_attention_plain(q[a:b], k[a:b], v[a:b], span,
                                          80 ** -0.5)
         torch.testing.assert_close(out[a:b].float(), ref.float(), **TOL)

@@ -9,6 +9,9 @@ against the JAX package's `block_diag_attention` in interpret mode, and,
 for spans its tiling rule rejects, against its XLA `_block_attention`, at
 the JAX package's own tolerance (tests/test_vision_attention.py: 2e-5, f32
 on both sides).
+In bf16, B2's plain version and the rotary's plain version are held
+against the JAX package at its rounding points (C14): tables cast to bf16,
+each rotary product and the sum rounded to bf16.
 The CUDA kernels are held against the plain versions on the card in
 test_torch_cuda.py.
 """
@@ -22,11 +25,13 @@ import jax.numpy as jnp
 from quickvideo_tpu.models.qwen25_vl import vision as jvision
 from quickvideo_tpu.ops import vision_attention as jva
 from quickvideo_tpu_torch.ops.vision_attention import (
+    apply_vision_rotary,
     block_diag_attention,
     block_diag_attention_2d,
     block_diag_attention_2d_plain,
     block_diag_attention_plain,
     kernel_applicable,
+    vision_rotary,
 )
 
 torch.set_num_threads(2)
@@ -87,6 +92,81 @@ def test_bucketed_calls_write_their_rows_in_place():
     for span, a, b in ((64, 0, 128), (36, 128, 272)):
         ref = _pallas(q[a:b], k[a:b], v[a:b], cos[a:b], sin[a:b], span)
         np.testing.assert_allclose(out[a:b].numpy(), ref, atol=ATOL, rtol=RTOL)
+
+
+def _bf16_step(x):
+    """The spacing of bf16 numbers at |x| (floored at 2^-10)."""
+    mag = np.maximum(np.abs(x), 2.0 ** -10)
+    return 2.0 ** (np.floor(np.log2(mag)) - 7)
+
+
+@pytest.mark.parametrize(
+    "span,nspan", [(64, 4), (48, 3), (36, 4), (16, 8), (100, 2)],
+)
+def test_plain_matches_pallas_2d_in_bf16(span, nspan):
+    """C14: bf16 q/k/v, the tables cast to bf16 as the JAX 2D route casts
+    them (vision.py:415-416), JAX kernel in interpret mode. The plain
+    version rotates at the JAX rounding points, then attends at the JAX
+    kernel's; only f32 summation order differs, which moves an element to
+    a neighbouring bf16 value now and then: at most 0.1% of the elements
+    differ (measured 0-0.05%), each by at most 4 bf16 steps (measured 3).
+    The former f32 rotary from f32 tables differed in ~66% of them."""
+    q, k, v, cos, sin = _inputs(span * nspan, seed=span)
+    pad = ((0, 0), (0, DP - HD))
+
+    def padded(x):
+        return _pad_heads(x).astype(jnp.bfloat16)
+
+    def table(t):
+        return jnp.asarray(np.pad(t, pad)).astype(jnp.bfloat16)
+
+    ref = jva.block_diag_attention_2d(
+        padded(q), padded(k), padded(v), span, scale=SCALE, nh=NH, dp=DP,
+        cos=table(cos), sin=table(sin), rot_half=HD // 2, interpret=True,
+    )
+    ref = np.asarray(ref.astype(jnp.float32)).reshape(-1, NH, DP)[:, :, :HD]
+    got = block_diag_attention_2d_plain(
+        *(torch.from_numpy(a).bfloat16() for a in (q, k, v)),
+        torch.from_numpy(cos), torch.from_numpy(sin), span, SCALE,
+    ).float().numpy()
+    diff = np.abs(got - ref)
+    assert (diff != 0).mean() <= 1e-3
+    assert (diff <= 4 * _bf16_step(ref)).all()
+
+
+def test_rotary_plain_is_bit_equal_to_jax_in_bf16():
+    """The rotary's plain version (`apply_vision_rotary`, the pass's
+    `vision_rotary` on the CPU) against the JAX package's
+    `_apply_vision_rotary` in bf16: bit for bit (both round each product,
+    then the sum, to bf16)."""
+    q, k, _, cos, sin = _inputs(256, seed=11)
+    qb, kb = (torch.from_numpy(a).bfloat16() for a in (q, k))
+    ct, st = torch.from_numpy(cos), torch.from_numpy(sin)
+    for x, xb in ((q, qb), (k, kb)):
+        ref = np.asarray(jvision._apply_vision_rotary(
+            jnp.asarray(x).astype(jnp.bfloat16), jnp.asarray(cos),
+            jnp.asarray(sin),
+        ).astype(jnp.float32))
+        got = apply_vision_rotary(xb, ct, st).float().numpy()
+        np.testing.assert_array_equal(got, ref)
+    q0, k0 = qb.clone(), kb.clone()
+    qr, kr = vision_rotary(qb, kb, ct, st)
+    assert torch.equal(qb, q0) and torch.equal(kb, k0)  # inputs untouched
+    assert torch.equal(qr, apply_vision_rotary(qb, ct, st))
+    assert torch.equal(kr, apply_vision_rotary(kb, ct, st))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_2d_is_the_rotary_then_the_b5_core(dtype):
+    """One plain core serves both kernels: B2's plain version equals the
+    rotary pass's plain version followed by B5's, bit for bit."""
+    q, k, v, cos, sin = (torch.from_numpy(a) for a in _inputs(36 * 4, seed=4))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    qr, kr = vision_rotary(q, k, cos, sin)
+    assert torch.equal(
+        block_diag_attention_2d_plain(q, k, v, cos, sin, 36, SCALE),
+        block_diag_attention_plain(qr, kr, v, 36, SCALE),
+    )
 
 
 def test_span_must_divide_sequence():
