@@ -11,12 +11,14 @@ checkout of the repository. Phases:
   2. each kernel against its plain PyTorch version on the card, at the
      production head dims and the main path's shapes, with times, the
      bound (the card's peaks) and, where one PyTorch call computes the
-     same function, that call's time: B1 (bf16 cache, and its int8-QK
-     variants for the int8 and int8k caches, up to the 1024-frame
-     headline's last group step and hour-scale decode; its lse output and
-     pure-past mode on every cache, out and lse apart; one SDPA call at
-     the headline's last group step, 53,744 slots, pure past and unified
-     causal), B2 and B5 (short-span kernel up to 64-row spans, wgmma
+     same function, that call's time: B1 (bf16 cache on its prefill
+     kernel and its small-G kernel by shape, and its int8-QK variants for
+     the int8 and int8k caches, up to the 1024-frame headline's last group
+     step and hour-scale decode; its lse output and pure-past mode on
+     every cache, out and lse apart; one SDPA call at the headline's last
+     group step, 53,744 slots, pure past and unified causal; the
+     registers, spills and shared memory of every B1 instantiation), B2
+     and B5 (short-span kernel up to 64-row spans, wgmma
      long-span kernel above; the 420x420 group's window buckets and
      frames, a 476x644 image's buckets and frame, ragged column validity,
      a 2304-row span), the vision rotary pass, the registers, spills and
@@ -26,7 +28,9 @@ checkout of the repository. Phases:
   3. the main path at the full width and depth of qwen25-vl-7b (bf16
      random weights): three `generate` requests through LVU / LVUEngine on
      64 seeded 420x420 yuv420 frames, groups of 32, key_norms_small at
-     top_p=0.5; launch counts, cache lengths and per-span timings;
+     top_p=0.5; launch counts (B1's per kernel: every group step on the
+     prefill kernel, every decode step on the small-G one), cache lengths
+     and per-span timings;
      then, only where the CPU decoder library is built, one request through
      `LVU.generate(question, video_path)` on an encoded clip;
   3b. the same three requests with int8 weights (param_dtype="int8"): B1-B4
@@ -42,7 +46,8 @@ checkout of the repository. Phases:
   3d. one 7B request per entry of MODE_REQUESTS on the bf16 weights of
      phase 3 (salient_tokens with bf16 and int8 KV, query-based, a linear
      decay with the cascade, query-based with int8 KV and a decay and with
-     int8k KV and do_top_k_for_query): B1 launches per variant and mode,
+     int8k KV and do_top_k_for_query): B1 launches per variant, mode and
+     kernel,
      cache lengths per layer against the config's rules, spans, peak
      memory;
   3e. the head-major vision route (kernel B5): the 64-frame request under
@@ -73,6 +78,13 @@ weights on the head-major vision route (QV_VISION_2D=0) under
 torch.profiler, and prints the wall time, the busy share of the card,
 the spans, kernel time by kind and the top kernels. It prints no result
 line.
+
+    python3 chip_smoke.py --compare-b1
+
+runs phase 1, then times B1's bf16 prefill kernel against its small-G
+kernel at the main path's prefill shapes (in turns, both held against the
+plain version) and prints every B1 instantiation's registers and spills.
+It prints no result line.
 """
 
 import contextlib
@@ -271,11 +283,19 @@ def _compare(got, ref):
 
 
 def check_flash(dev, cases):
-    """B1 on a 2-layer stacked cache, layer 1, Hq=28 / Hkv=4 / D=128."""
+    """B1 on a 2-layer stacked cache, layer 1, Hq=28 / Hkv=4 / D=128; each
+    row names the kernel _plan picked for its shape. The explicit-mask SDPA
+    yardstick is skipped where its mask would exceed 5e7 elements (the
+    headline's last step: check_b1_headline_sdpa times SDPA there)."""
     import torch
 
     from quickvideo_tpu_torch.ops.attention import cache_attention
-    from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
+    from quickvideo_tpu_torch.ops.flash_attention import (
+        _plan,
+        flash_past_attention,
+    )
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -297,14 +317,17 @@ def check_flash(dev, cases):
         plain_ms = _time_ms(
             lambda: cache_attention(q, k_all[1], v_all[1], length, scale), 3
         )
-        library_ms = sdpa_ms(q, k_all[1], v_all[1], length)
+        library_ms = (sdpa_ms(q, k_all[1], v_all[1], length)
+                      if g * (length + g) <= 5e7 else None)
         bound_ms, bound_by = flash_bound(g, length)
+        kernel = _plan(g, 28, 4, length, cap, True, sms).kernel
         ok = within
-        log(f"B1 G={g} length={length} cap={cap}: max_abs_err={err:.3e} "
-            f"(tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|) kernel {ms:.4f} ms "
-            f"plain {plain_ms:.4f} ms sdpa {library_ms:.4f} ms bound "
+        log(f"B1 {kernel} G={g} length={length} cap={cap}: max_abs_err="
+            f"{err:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|) kernel "
+            f"{ms:.4f} ms plain {plain_ms:.4f} ms sdpa "
+            f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'} bound "
             f"{bound_ms:.4f} ms ({bound_by}) {'OK' if ok else 'FAIL'}")
-        rows.append(dict(g=g, length=length, err=err, ms=ms,
+        rows.append(dict(g=g, length=length, kernel=kernel, err=err, ms=ms,
                          plain_ms=plain_ms, library_ms=library_ms,
                          bound_ms=bound_ms, bound_by=bound_by, ok=ok))
         del k_all, v_all
@@ -340,7 +363,8 @@ def check_flash_int8(dev, cases):
             return flash_past_attention(q, k, v, length, scale)[0]
 
         bf16_ms = _time_ms(bf16, 10)
-        bf16_dev = _device_ms(bf16, ("flash_fwd_kernel", "flash_merge"), 10)
+        bf16_dev = _device_ms(bf16, ("flash_fwd_kernel", "flash_prefill",
+                                     "flash_merge"), 10)
         q_ms = _time_ms(lambda: quantize_q(q, scale), 10)
         row = dict(g=g, length=length, bf16_ms=bf16_ms, q_ms=q_ms, ok=True)
         for variant, mode in (("int8", True), ("int8k", "k")):
@@ -611,6 +635,38 @@ def vision_kernel_info():
     return ok
 
 
+# qv_flash_kernel_info's families, 8 modes each (the merge kernel: 4)
+FLASH_KERNEL_FAMILIES = ("flash_fwd_kernel (small-G)",
+                         "flash_prefill_kernel", "flash_fwd_int8_kernel<int8>",
+                         "flash_fwd_int8_kernel<int8k>", "flash_merge_kernel")
+
+
+def flash_kernel_info():
+    """Registers, spilled (local) bytes and shared memory of every B1
+    instantiation, from cudaFuncGetAttributes (csrc/flash_attention.cu's
+    qv_flash_kernel_info; the prefill kernel's registers are its launch
+    count, before setmaxnreg moves them to the consumers). Returns whether
+    every query succeeded."""
+    import ctypes
+
+    from quickvideo_tpu_torch import _build
+
+    lib = _build.library()
+    ok = True
+    for which in range(36):
+        family, m = divmod(which, 8)
+        mode = (("past" if m & 4 else "unified") + ("+lse" if m & 2 else "")
+                + (", f32 out" if m & 1 else ", bf16 out"))
+        vals = [ctypes.c_int() for _ in range(4)]
+        err = lib.qv_flash_kernel_info(which, *(ctypes.byref(v) for v in vals))
+        ok &= err == 0
+        regs, local, smem, dyn = (v.value for v in vals)
+        log(f"{FLASH_KERNEL_FAMILIES[family]} [{mode}]: {regs} registers, "
+            f"{local} B spilled (local), {smem} B static + {dyn} B dynamic "
+            f"shared memory{'' if err == 0 else f' FAIL (CUDA error {err})'}")
+    return ok
+
+
 def check_b1_headline_sdpa(dev, g=3600, length=53744, cap=65536):
     """B1 (bf16) against one SDPA call at the 1024-frame headline's last
     group step: pure past (G rows over `length` slots, no mask) and unified
@@ -876,15 +932,12 @@ def make_request(cfg, tokenizer, question: str, seed: int,
     )
 
 
-def expected_lengths(lvu, inputs, n_tokens):
-    """(cache_length, per-layer lengths) a request must end with, from the
-    config's rules: layer li of a group keeps resolve_effective_top_k of the
-    video rows that reach it (all of them where that is 0); from
+def group_layer_rows(lvu, inputs):
+    """Per group, the video rows that reach each layer's group step, from
+    the config's rules: layer li keeps resolve_effective_top_k of the rows
+    that reach it (all of them where that is 0); from
     prefill_prune_starting_layer on, a pruning layer passes only its kept
-    rows to the next (the cascade). cache_length counts each group's
-    largest keep over the layers on its full rows, as the JAX engine does.
-    The suffix (its layer-0 keep with do_top_k_for_query) and the decoded
-    tokens follow."""
+    rows to the next (the cascade). Group 0's rows include the prefix."""
     from quickvideo_tpu_torch.config import resolve_effective_top_k
 
     cfg, lc = lvu.model_config, lvu.config
@@ -895,15 +948,37 @@ def expected_lengths(lvu, inputs, n_tokens):
     lens = [t * (h // ms) * (w // ms) for t, h, w in inputs.group_grids]
     lens[0] += int(vid[0])
     psl = lc.prefill_prune_starting_layer
-    layers = [0] * n
-    logical = 0
-    for g in lens:
-        rows = g
+    out = []
+    for rows in lens:
+        per_layer = []
         for li in range(n):
+            per_layer.append(rows)
             k = resolve_effective_top_k(lc, li, n, rows)
-            layers[li] += k or rows
             if isinstance(psl, int) and 0 <= psl <= li and k > 0:
                 rows = k
+        out.append(per_layer)
+    return out
+
+
+def expected_lengths(lvu, inputs, n_tokens):
+    """(cache_length, per-layer lengths) a request must end with, from the
+    config's rules: layer li of a group keeps resolve_effective_top_k of the
+    video rows that reach it (group_layer_rows). cache_length counts each
+    group's largest keep over the layers on its full rows, as the JAX
+    engine does. The suffix (its layer-0 keep with do_top_k_for_query) and
+    the decoded tokens follow."""
+    from quickvideo_tpu_torch.config import resolve_effective_top_k
+
+    cfg, lc = lvu.model_config, lvu.config
+    ids = np.asarray(inputs.input_ids)
+    vid = np.nonzero(ids == cfg.video_token_id)[0]
+    n = cfg.text.num_hidden_layers
+    layers = [0] * n
+    logical = 0
+    for per_layer in group_layer_rows(lvu, inputs):
+        for li, rows in enumerate(per_layer):
+            layers[li] += resolve_effective_top_k(lc, li, n, rows) or rows
+        g = per_layer[0]
         logical += max(resolve_effective_top_k(lc, li, n, g) or g
                        for li in range(n))
     suffix = len(ids) - int(vid[-1]) - 1
@@ -946,15 +1021,50 @@ def _reset_counters(counters):
     reset_launch_counts()
 
 
+B1_KERNELS = ("bf16_prefill", "bf16_small", "int8")
+
+
+def expected_kernels(lvu, inputs, n_tokens, variant):
+    """B1 launches of one request per "flash_kernel_{name}" key: on a bf16
+    cache each group step and the final prefill (its exact suffix length)
+    by _plan's row-tile rule at the rows that reach the layer
+    (group_layer_rows; a query-based step's prompt rows only add to them),
+    every decode step (G = 1) on the small-G kernel; on an int8 cache
+    every launch on the int8 kernel."""
+    from quickvideo_tpu_torch.ops.flash_attention import PREFILL_ROWS
+
+    t = lvu.model_config.text
+    n = t.num_hidden_layers
+    want = dict.fromkeys((f"flash_kernel_{k}" for k in B1_KERNELS), 0)
+    if variant != "bf16":
+        want["flash_kernel_int8"] = (len(inputs.group_grids) + n_tokens) * n
+        return want
+    ids = np.asarray(inputs.input_ids)
+    vid = np.nonzero(ids == lvu.model_config.video_token_id)[0]
+    rep = t.num_attention_heads // t.num_key_value_heads
+    suffix = len(ids) - int(vid[-1]) - 1
+    steps = [g for per_layer in group_layer_rows(lvu, inputs)
+             for g in per_layer] + [suffix] * n
+    for g in steps:
+        kernel = "bf16_prefill" if g * rep >= PREFILL_ROWS else "bf16_small"
+        want[f"flash_kernel_{kernel}"] += 1
+    want["flash_kernel_bf16_small"] += (n_tokens - 1) * n
+    return want
+
+
 def _read_counters(counters):
     """Each wrapper's launches, B1's per variant ("flash_bf16",
-    "flash_int8", "flash_int8k") and per variant and mode
-    ("flash_bf16_unified+lse", ...)."""
+    "flash_int8", "flash_int8k"), per variant and mode
+    ("flash_bf16_unified+lse", ...) and per kernel
+    ("flash_kernel_bf16_prefill", ...)."""
     from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
 
     counts = {k: fn.launches for k, fn in counters.items()}
     for variant, n in flash_past_attention.variant_launches.items():
         counts[f"flash_{variant}"] = n
+    for kernel in B1_KERNELS:
+        counts[f"flash_kernel_{kernel}"] = (
+            flash_past_attention.kernel_launches[kernel])
     for variant in B1_VARIANTS:
         for mode in B1_MODES:
             counts[f"flash_{variant}_{mode}"] = (
@@ -1079,6 +1189,9 @@ def run_main_path(dev, param_dtype="bfloat16", kv_cache_dtype="auto"):
             exp["ln_mlp"] += n_groups * mcfg.vision.depth
         want_len = expected_lengths(lvu, inputs, len(res.tokens))[0]
         exp[f"flash_{variant}"] = exp[f"flash_{variant}_unified"] = exp["flash"]
+        for k, n in expected_kernels(lvu, inputs, len(res.tokens),
+                                     variant).items():
+            exp[k] += n
         lens_ok = (
             res.cache_length == want_len
             and all(l == want_len for l in res.layer_lengths)
@@ -1227,7 +1340,10 @@ def run_modes(dev, params):
         want = expected_b1(lvu, inputs, len(res.tokens), variant)
         b1 = {f"flash_{v}_{m}": counts[f"flash_{v}_{m}"]
               for v in B1_VARIANTS for m in B1_MODES}
+        want_k = expected_kernels(lvu, inputs, len(res.tokens), variant)
+        kern = {k: counts[k] for k in want_k}
         counts_ok = (b1 == {k: want.get(k, 0) for k in b1}
+                     and kern == want_k
                      and counts["flash"] == sum(want.values())
                      and counts["vision_2d"] > 0)
         lens_ok = (res.cache_length == want_len
@@ -1244,6 +1360,9 @@ def run_modes(dev, params):
             f"expected per layer; B1 launches "
             + ", ".join(f"{k[6:]} {n}" for k, n in b1.items() if n)
             + f" (expected {', '.join(f'{k[6:]} {n}' for k, n in want.items())}); "
+            f"kernels " + ", ".join(f"{k[13:]} {n}" for k, n in kern.items())
+            + f" (expected "
+            + ", ".join(f"{k[13:]} {n}" for k, n in want_k.items()) + "); "
             f"wall={wall:.3f} s spans(s)={spans} peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
             f"{'OK' if counts_ok and lens_ok and toks_ok else 'FAIL'}")
@@ -1462,7 +1581,8 @@ def run_video_file(lvu):
 
 # kernel name fragment -> kind, first match wins
 KERNEL_KINDS = (
-    ("flash_fwd_kernel", "B1 flash"),
+    ("flash_prefill_kernel", "B1 flash prefill (wgmma)"),
+    ("flash_fwd_kernel", "B1 flash small-G"),
     ("flash_fwd_int8_kernel", "B1 flash int8-QK"),
     ("flash_merge_kernel", "B1 split-K merge"),
     ("short_span_kernel<true", "B2 short-span (rotary inside)"),
@@ -1557,6 +1677,106 @@ def _run_profile(dev, param_dtype, kv_cache_dtype, route, **pruning):
         log(f"  {us / 1e3:10.2f} ms  n={n:6d}  {name[:100]}")
     del lvu
     torch.cuda.empty_cache()
+
+
+# -- --compare-b1: the bf16 prefill kernel against the small-G kernel -------
+
+# (causal, G, length, cap): the 64-frame group step, its lse and
+# query-based pure-past + lse modes, the headline's last step in both
+# modes, the final prefill over 3607 and over 57,344 slots (split-K), a
+# ragged 100-row group and an empty past
+B1_COMPARE_SHAPES = (
+    (True, 3600, 1807, 16384, False), (True, 3600, 1807, 16384, True),
+    (False, 3620, 1807, 16384, True), (True, 3600, 53744, 65536, False),
+    (False, 3600, 53744, 65536, False), (True, 37, 3607, 8192, False),
+    (True, 37, 57344, 65536, False), (True, 100, 1000, 4096, False),
+    (True, 3600, 0, 8192, False),
+)
+
+
+@contextlib.contextmanager
+def small_g_only():
+    """Every bf16 B1 launch on the small-G kernel (its row-tile rule lifted
+    out of reach), for timing the two kernels at one shape."""
+    from quickvideo_tpu_torch.ops import flash_attention as fa
+
+    old = fa.PREFILL_ROWS
+    fa.PREFILL_ROWS = 1 << 30
+    try:
+        yield
+    finally:
+        fa.PREFILL_ROWS = old
+
+
+def compare_b1(dev):
+    """Each B1_COMPARE_SHAPES entry (with lse: pure past writes f32, as the
+    query-based merge takes it) on the prefill kernel and on the small-G
+    kernel, timed in turns (small, prefill, prefill, small; CUDA events, 10
+    calls each after a warm-up), beside the bound; then each kernel's
+    device time per call (torch.profiler, the B1 kernels and the split-K
+    merge alone: the call's time is the host's at small shapes); both
+    against the plain version. Returns whether every output agreed."""
+    import torch
+
+    from quickvideo_tpu_torch.ops.attention import cache_attention
+    from quickvideo_tpu_torch.ops.flash_attention import (
+        _plan,
+        flash_past_attention,
+    )
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    ok = True
+    for causal, g, length, cap, lse in B1_COMPARE_SHAPES:
+        k = torch.randn(4, cap, 128, generator=gen, device=dev).bfloat16()
+        v = torch.randn(4, cap, 128, generator=gen, device=dev).bfloat16()
+        q = torch.randn(g, 28, 128, generator=gen, device=dev).bfloat16()
+        q = q.transpose(0, 1)
+        scale = 128 ** -0.5
+        out_dtype = torch.bfloat16 if causal else torch.float32
+        mode = dict(causal=causal, with_lse=lse, out_dtype=out_dtype)
+
+        def run():
+            return flash_past_attention(q, k, v, length, scale, **mode)
+
+        ref, ref_lse = cache_attention(q, k, v, length, scale, **mode)
+        errs, times = {}, {"small": [], "prefill": []}
+        for which in ("small", "prefill", "prefill", "small"):
+            ctx = small_g_only() if which == "small" else contextlib.nullcontext()
+            with ctx:
+                out, out_lse = run()
+                err, within = _compare(out, ref)
+                if lse:
+                    err = max(err, (out_lse - ref_lse).abs().max().item())
+                errs[which] = err
+                ok &= within
+                times[which].append(_time_ms(run, 10))
+        dev_ms = {}
+        for which, names in (("small", ("flash_fwd_kernel", "flash_merge")),
+                             ("prefill", ("flash_prefill", "flash_merge"))):
+            ctx = small_g_only() if which == "small" else contextlib.nullcontext()
+            with ctx:
+                dev_ms[which] = _device_ms(run, names, 10)
+        plan = _plan(g, 28, 4, length, cap, causal, sms)
+        bound_ms, bound_by = flash_bound(g, length, causal=causal,
+                                         out_bytes=out_dtype.itemsize,
+                                         with_lse=lse)
+        small, pre = (sum(times[w]) / 2 for w in ("small", "prefill"))
+        log(f"B1 compare {'unified' if causal else 'past'}"
+            f"{'+lse' if lse else ''} G={g} length={length} cap={cap} "
+            f"(plan {plan.kernel}, split {plan.n_split}): prefill kernel "
+            f"{pre:.4f} ms ({' / '.join(f'{t:.4f}' for t in times['prefill'])}"
+            f"), small-G {small:.4f} ms "
+            f"({' / '.join(f'{t:.4f}' for t in times['small'])}), x"
+            f"{small / pre:.2f}; bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{100 * bound_ms / pre:.1f}% of it; device time prefill "
+            f"{dev_ms['prefill']:.4f} ms, small-G {dev_ms['small']:.4f} ms "
+            f"(x{dev_ms['small'] / dev_ms['prefill']:.2f}); max_abs_err "
+            f"prefill {errs['prefill']:.3e} small {errs['small']:.3e}")
+        del k, v, q, ref, ref_lse
+        torch.cuda.empty_cache()
+    return ok
 
 
 # -- phase 4: card vs CPU ----------------------------------------------------
@@ -1740,6 +1960,11 @@ def main():
              "bf16 weights, int8 weights and an int8 KV cache "
              "(torch.profiler) and print where the device time goes",
     )
+    ap.add_argument(
+        "--compare-b1", action="store_true",
+        help="instead of the smoke test, time B1's bf16 prefill kernel "
+             "against its small-G kernel at the main path's shapes",
+    )
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit(
@@ -1771,6 +1996,10 @@ def main():
         ):
             run_profile(dev, param_dtype, kv_cache_dtype, **pruning)
         return
+    if args.compare_b1:
+        ok = compare_b1(dev) and flash_kernel_info()
+        log(f"compare-b1: {'OK' if ok else 'FAIL'}")
+        return
 
     flash_cases = [
         (3600, 1807, 16384),  # group 2 step of the 7B main path
@@ -1780,9 +2009,10 @@ def main():
         (37, 3607, 8192),     # final prefill: not a tile multiple
         (100, 1000, 4096),    # length + G ends mid-tile
     ]
-    flash_rows = check_flash(dev, flash_cases)
+    headline = (3600, 53744, 65536)  # the 1024-frame headline's last step
+    flash_rows = check_flash(dev, flash_cases + [headline])
     flash_int8_rows = check_flash_int8(dev, flash_cases + [
-        (3600, 53744, 65536),  # the 1024-frame headline's last group step
+        headline,
         (1, 122880, 131072),   # hour-scale decode
     ])
     mode_rows = check_flash_modes(dev, [
@@ -1812,6 +2042,7 @@ def main():
     ok = all(r["ok"] for r in flash_rows + flash_int8_rows + mode_rows
              + vision_rows + b5_rows + [rotary_row])
     ok &= vision_kernel_info()
+    ok &= flash_kernel_info()
 
     fused_rows = check_fused(dev, [14400, 250])
     ok &= all(r["ok"] for r in fused_rows)
@@ -1868,20 +2099,28 @@ def main():
         }
 
     flash = ("flash_attention.cu", "flash_attention.py:38")
-    b1_unified = {"bf16": flash_rows}
-    for variant in ("int8", "int8k"):
-        b1_unified[variant] = [r[variant] for r in flash_int8_rows]
+    # bf16: the prefill kernel at the 64-frame group step, the small-G
+    # kernel at decode over 57,344 slots; each with the explicit-mask SDPA
+    # on the same operands at its shape
     kernels = []
-    for variant in B1_VARIANTS:
-        rows = b1_unified[variant]
+    for kernel, what, shape in (
+        ("bf16_prefill", "prefill kernel, wgmma", (3600, 1807)),
+        ("bf16_small", "small-G kernel", (1, 57344)),
+    ):
+        rows = [r for r in flash_rows if r["kernel"] == kernel]
+        row = next(r for r in rows if (r["g"], r["length"]) == shape)
         kernels.append(entry(
-            f"flash_past_attention (B1, {variant} KV"
-            + (", int8-QK)" if variant != "bf16" else ")"), *flash,
-            launches[f"flash_{variant}_unified"], rows, rows[0],
-            # an explicit-mask SDPA on the same bf16 operands; no PyTorch
-            # call takes the int8 caches
-            rows[0]["library_ms"] if variant == "bf16" else None,
+            f"flash_past_attention (B1, bf16 KV, {what})", *flash,
+            launches[f"flash_kernel_{kernel}"], rows, row, row["library_ms"],
         ))
+    for variant in B1_VARIANTS:
+        if variant != "bf16":
+            rows = [r[variant] for r in flash_int8_rows]
+            # no PyTorch call takes the int8 caches
+            kernels.append(entry(
+                f"flash_past_attention (B1, {variant} KV, int8-QK)", *flash,
+                launches[f"flash_{variant}_unified"], rows, rows[0],
+            ))
         for mode, what in (("unified+lse", "lse"),
                            ("past+lse", "pure past + lse")):
             rows = [r for r in mode_rows

@@ -47,6 +47,10 @@ SIGNATURES = {
     "qv_flash_attention": (
         [_P] * 7 + [_L] * 10 + [_I] * 9 + [_F, _P]
     ),
+    # the prefill kernel: as qv_flash_attention
+    "qv_flash_prefill": [_P] * 7 + [_L] * 10 + [_I] * 9 + [_F, _P],
+    # kernel index; out: registers, local bytes, static and dynamic smem
+    "qv_flash_kernel_info": [_I] + [_P] * 4,
     # q8, qs, k, ksc, v, vsc, o, lse, part_o, part_ml; the same strides and
     # ints; ks_sh, vs_sh; stream
     "qv_flash_attention_int8": (

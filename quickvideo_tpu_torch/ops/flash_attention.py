@@ -1,13 +1,21 @@
 """Kernel B1: flash attention over one layer of the KV cache.
 
 `flash_past_attention` is the port's language attention entry. On a CUDA
-tensor it launches the hand-written Hopper kernel (csrc/flash_attention.cu)
+tensor it launches a hand-written Hopper kernel (csrc/flash_attention.cu)
 and counts the launch in `flash_past_attention.launches`, per variant in
-`flash_past_attention.variant_launches` ("bf16", "int8", "int8k") and per
+`flash_past_attention.variant_launches` ("bf16", "int8", "int8k"), per
 (variant, mode) in the Counter `flash_past_attention.mode_launches` (mode
-"unified", "unified+lse", "past" or "past+lse"); on a CPU tensor it runs
+"unified", "unified+lse", "past" or "past+lse") and per kernel in the
+Counter `flash_past_attention.kernel_launches`; on a CPU tensor it runs
 the plain version (ops/attention.py). A CUDA tensor the kernel does not
 take (dtype, head dim, strides) raises: there is no fallback.
+
+Kernels, by shape alone (`_plan`): a bf16 cache with at least one full
+row tile of packed rows (G * rep >= PREFILL_ROWS: the group steps, a long
+final prefill) runs "bf16_prefill" (wgmma on a TMA ring of K/V tiles,
+192 packed rows per CTA); smaller G (decode, a short final prefill,
+query-based group 0) "bf16_small" (mma.sync, 64 rows); the int8 caches
+"int8".
 
 Replaces quickvideo_tpu/ops/flash_attention.py::flash_past_attention in its
 two modes: unified causal (`causal=True`; the group's K/V already sit at
@@ -22,7 +30,7 @@ first (ops/attention.py::quantize_q, shared with the plain version).
 from __future__ import annotations
 
 import collections
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -33,16 +41,62 @@ from quickvideo_tpu_torch.ops.attention import (
     quantize_q,
 )
 
-HEAD_DIM = 128  # the kernel is compiled for this head dim
+HEAD_DIM = 128  # the kernels are compiled for this head dim
+KEY_TILE = 64  # keys per tile, every kernel
+SMALL_ROWS = 64  # packed rows per CTA: small-G and int8 kernels (3 per SM)
+PREFILL_ROWS = 192  # packed rows per CTA: the prefill kernel (1 per SM)
+MIN_SPLIT_TILES = 4  # key tiles a split keeps at least
 
 
-def _split_count(ctas: int, key_blocks: int, sms: int) -> int:
-    """Key-range splits per CTA: enough CTAs for two waves on the card,
-    but at least 4 key tiles per split. 1 (no split) at prefill shapes."""
-    if ctas >= sms:
-        return 1
-    want = -(-2 * sms // ctas)
-    return max(1, min(want, key_blocks // 4))
+class Plan(NamedTuple):
+    """One launch: the kernel, its packed rows per CTA, its grid (as the C
+    entry point launches it) and the key-range splits per CTA."""
+
+    kernel: str  # "bf16_prefill", "bf16_small" or "int8"
+    rows: int
+    grid: Tuple[int, int, int]
+    n_split: int
+
+
+def _plan(g: int, hq: int, hkv: int, length: int, cap: int, causal: bool,
+          sms: int, variant: str = "bf16") -> Plan:
+    """The kernel for this shape, its grid and its split-K. The prefill
+    kernel (one CTA per SM) splits when its CTAs do not fill the SMs, the
+    64-row kernels (three per SM) when theirs do not make two waves; a
+    split keeps at least MIN_SPLIT_TILES key tiles."""
+    rows = g * (hq // hkv)
+    key_tiles = -(-min(length + g if causal else length, cap) // KEY_TILE)
+    prefill = variant == "bf16" and rows >= PREFILL_ROWS
+    tile = PREFILL_ROWS if prefill else SMALL_ROWS
+    blocks = -(-rows // tile)
+    ctas = blocks * hkv
+    fill = sms if prefill else 2 * sms
+    n_split = 1
+    if ctas < sms:
+        n_split = max(1, min(-(-fill // ctas), key_tiles // MIN_SPLIT_TILES))
+    if prefill:
+        return Plan("bf16_prefill", tile, (hkv, blocks, n_split), n_split)
+    kernel = "bf16_small" if variant == "bf16" else "int8"
+    return Plan(kernel, tile, (blocks, hkv, n_split), n_split)
+
+
+def cta_key_tiles(plan: Plan, g: int, rep: int, length: int, cap: int,
+                  causal: bool, block: int, split: int) -> Tuple[int, int]:
+    """Key tiles [kb0, kb1) of the CTA at grid index `block` along the row
+    blocks and `split` along the splits, as the kernels compute them: the
+    CTA's keys end at min(length + its last position + 1, cap) (pure past:
+    min(length, cap)). The prefill kernel takes its row blocks in reverse,
+    so that in unified mode the longest key ranges start first."""
+    rows = g * rep
+    blocks = -(-rows // plan.rows)
+    rb = blocks - 1 - block if plan.kernel == "bf16_prefill" else block
+    row0 = rb * plan.rows
+    pos_hi = (min(row0 + plan.rows, rows) - 1) // rep
+    kend = min(length + pos_hi + 1, cap) if causal else min(length, cap)
+    nkb = -(-kend // KEY_TILE)
+    chunk = -(-nkb // plan.n_split)
+    kb0 = min(nkb, split * chunk)
+    return kb0, min(nkb, kb0 + chunk)
 
 
 def _check_rows(name: str, t: torch.Tensor, dtype, dev) -> None:
@@ -146,14 +200,17 @@ def flash_past_attention(
         q_in = q
         if q.stride(0) % 2 or q.stride(1) % 2 or q.data_ptr() % 4:
             raise ValueError("q rows are not 4-byte aligned")
+    variant = ("int8" if v_scale is not None else "int8k") if quant else "bf16"
+    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+    plan = _plan(g, hq, hkv, length, cap, causal, sms, variant)
+    n_split = plan.n_split
+    if plan.kernel == "bf16_prefill" and (
+            q.stride(0) % 8 or q.stride(1) % 8 or q.data_ptr() % 16):
+        raise ValueError("q rows are not 16-byte aligned (the prefill "
+                         "kernel stages them with 16-byte copies)")
     out = torch.empty(g, hq, d, dtype=out_dtype, device=q.device).transpose(0, 1)
     lse = (torch.empty(hq, g, dtype=torch.float32, device=q.device)
            if with_lse else None)
-    rep = hq // hkv
-    ctas = -(-g * rep // 64) * hkv
-    key_blocks = -(-min(reach, cap) // 64)
-    sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-    n_split = _split_count(ctas, key_blocks, sms)
     part_o = part_ml = None
     if n_split > 1:
         part_o = torch.empty(
@@ -177,7 +234,6 @@ def flash_past_attention(
     )
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if quant:
-        variant = "int8" if v_scale is not None else "int8k"
         err = lib.qv_flash_attention_int8(
             q8.data_ptr(), qs.data_ptr(), k_layer.data_ptr(),
             k_scale.data_ptr(), v_layer.data_ptr(),
@@ -186,13 +242,15 @@ def flash_past_attention(
             v_scale.stride(0) if v_scale is not None else 0, stream,
         )
     else:
-        variant = "bf16"
-        err = lib.qv_flash_attention(
+        entry = (lib.qv_flash_prefill if plan.kernel == "bf16_prefill"
+                 else lib.qv_flash_attention)
+        err = entry(
             q.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(),
             *common, float(scale), stream,
         )
-    _build.check(err, f"qv_flash_attention ({variant})")
+    _build.check(err, f"qv_flash_attention ({variant}, {plan.kernel})")
     flash_past_attention.launches += 1
+    flash_past_attention.kernel_launches[plan.kernel] += 1
     flash_past_attention.variant_launches[variant] += 1
     mode = ("unified" if causal else "past") + ("+lse" if with_lse else "")
     flash_past_attention.mode_launches[variant, mode] += 1
@@ -204,8 +262,10 @@ def reset_launch_counts() -> None:
     for variant in flash_past_attention.variant_launches:
         flash_past_attention.variant_launches[variant] = 0
     flash_past_attention.mode_launches.clear()
+    flash_past_attention.kernel_launches.clear()
 
 
 flash_past_attention.launches = 0
 flash_past_attention.variant_launches = {"bf16": 0, "int8": 0, "int8k": 0}
 flash_past_attention.mode_launches = collections.Counter()
+flash_past_attention.kernel_launches = collections.Counter()

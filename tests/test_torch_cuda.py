@@ -24,6 +24,8 @@ B3/B4/B6 (int8): quickvideo_tpu_torch/testing.py states the rule, shared
 with chip_smoke.py.
 """
 
+import collections
+
 import numpy as np
 import pytest
 import torch
@@ -51,7 +53,10 @@ from quickvideo_tpu_torch.testing import (
     fused_block,
     quantized_close,
 )
-from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
+from quickvideo_tpu_torch.ops.flash_attention import (
+    _plan,
+    flash_past_attention,
+)
 from quickvideo_tpu_torch.ops.vision_attention import (
     SHORT_SPAN,
     apply_vision_rotary,
@@ -75,10 +80,28 @@ def dev():
     return torch.device("cuda", 0)
 
 
+def _launch(dev, g, length, cap, *, causal=True, variant="bf16", **kw):
+    """One B1 call with its launch counted: (out, lse) and the kernel it
+    ran, which must be the one _plan names for the shape."""
+    before = collections.Counter(flash_past_attention.kernel_launches)
+    out = flash_past_attention(*kw.pop("args"), causal=causal, **kw)
+    ran = flash_past_attention.kernel_launches - before
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    want = _plan(g, 28, 4, length, cap, causal, sms, variant).kernel
+    assert ran == collections.Counter({want: 1}), (ran, want)
+    return out, want
+
+
+# decode (split-K), the final prefill (37, not a tile multiple; over the
+# headline's 57,344 slots it splits the prefill kernel), G * rep below one
+# prefill row tile (19) and ragged above it (100, 3599), length 0, a causal
+# diagonal across key-tile edges (1000 + 100), the 64-frame group step and
+# the 1024-frame headline's last one
 @pytest.mark.parametrize(
     "g,length,cap",
-    [(1, 4000, 8192), (1, 57344, 65536), (37, 3607, 8192), (600, 0, 4096),
-     (3600, 1807, 8192)],
+    [(1, 4000, 8192), (1, 57344, 65536), (37, 3607, 8192),
+     (37, 57344, 65536), (19, 1000, 4096), (100, 1000, 4096), (600, 0, 4096),
+     (3599, 1807, 8192), (3600, 1807, 8192), (3600, 53744, 65536)],
 )
 def test_flash_kernel_matches_plain(dev, g, length, cap):
     gen = torch.Generator(device=dev).manual_seed(g)
@@ -88,24 +111,29 @@ def test_flash_kernel_matches_plain(dev, g, length, cap):
     q = q.transpose(0, 1)  # the projection's layout: (G, Hq, D) storage
     scale = 128 ** -0.5
     before = flash_past_attention.launches
-    got, lse = flash_past_attention(q, k_all[1], v_all[1], length, scale)
+    (got, lse), _ = _launch(dev, g, length, cap,
+                            args=(q, k_all[1], v_all[1], length, scale))
     assert flash_past_attention.launches == before + 1 and lse is None
     ref, _ = cache_attention(q, k_all[1], v_all[1], length, scale)
     torch.testing.assert_close(got.float(), ref.float(), **TOL)
 
 
-def test_flash_kernel_reads_only_its_layer(dev):
+@pytest.mark.parametrize("g,kernel", [(20, "bf16_small"),
+                                      (50, "bf16_prefill")])
+def test_flash_kernel_reads_only_its_layer(dev, g, kernel):
     """Garbage in the other layer and past length + G must not leak in."""
     gen = torch.Generator(device=dev).manual_seed(1)
     k_all = torch.randn(2, 4, 1024, 128, generator=gen, device=dev).bfloat16()
     v_all = torch.randn(2, 4, 1024, 128, generator=gen, device=dev).bfloat16()
-    q = torch.randn(28, 50, 128, generator=gen, device=dev).bfloat16()
-    got = flash_past_attention(q, k_all[1], v_all[1], 300, 0.1)[0]
+    q = torch.randn(28, g, 128, generator=gen, device=dev).bfloat16()
+    args = (q, k_all[1], v_all[1], 300, 0.1)
+    (got, _), ran = _launch(dev, g, 300, 1024, args=args)
+    assert ran == kernel
     k_all[0].fill_(float("nan"))
     v_all[0].fill_(float("nan"))
-    k_all[1, :, 350:].fill_(float("nan"))
-    v_all[1, :, 350:].fill_(float("nan"))
-    again = flash_past_attention(q, k_all[1], v_all[1], 300, 0.1)[0]
+    k_all[1, :, 300 + g:].fill_(float("nan"))
+    v_all[1, :, 300 + g:].fill_(float("nan"))
+    again = flash_past_attention(*args)[0]
     assert torch.equal(got, again)
 
 
@@ -210,23 +238,28 @@ def _plain(q, k, v, length, scale, kw, **mode):
 @pytest.mark.parametrize("variant", ["bf16", "int8", "int8k"])
 @pytest.mark.parametrize(
     "causal,g,length,cap",
-    [(False, 3620, 1807, 8192), (False, 20, 0, 4096), (False, 100, 1000, 4096),
-     (False, 1, 57344, 65536), (True, 3600, 1807, 8192), (True, 37, 3607, 8192),
-     (True, 1, 4000, 8192)],
+    [(False, 3620, 1807, 8192), (False, 20, 0, 4096), (False, 100, 0, 4096),
+     (False, 100, 1000, 4096), (False, 1, 57344, 65536),
+     (True, 3600, 1807, 8192), (True, 37, 3607, 8192),
+     (True, 37, 57344, 65536), (True, 600, 0, 4096), (True, 1, 4000, 8192)],
 )
 def test_flash_lse_and_pure_past_modes_match_plain(dev, variant, causal, g,
                                                    length, cap):
     """B1's lse output in both modes, pure past with the f32 output the
     query-based merge takes (unified with the bf16 output of the hot path),
-    every cache variant: out and lse against the plain version; G = 1 runs
-    split-K, so the merge kernel forms the lse there."""
+    every cache variant: out and lse against the plain version; G = 1 and
+    G = 37 over 57,344 slots run split-K, so the merge kernel forms the lse
+    there. Pure past over an empty cache: out 0, lse NEG_INF, on either bf16
+    kernel (G = 20 small, G = 100 prefill)."""
     q, k, v, kw = _mode_case(dev, variant, g, length, cap, g + length)
     scale = 128 ** -0.5
     out_dtype = torch.bfloat16 if causal else torch.float32
     mode = dict(causal=causal, with_lse=True, out_dtype=out_dtype)
     name = "past+lse" if not causal else "unified+lse"
     before = flash_past_attention.mode_launches[variant, name]
-    got, lse = flash_past_attention(q, k, v, length, scale, **kw, **mode)
+    (got, lse), _ = _launch(dev, g, length, cap, causal=causal,
+                            variant=variant, args=(q, k, v, length, scale),
+                            **kw, with_lse=True, out_dtype=out_dtype)
     assert flash_past_attention.mode_launches[variant, name] == before + 1
     ref, ref_lse = _plain(q, k, v, length, scale, kw, **mode)
     assert got.dtype == out_dtype and lse.dtype == torch.float32
@@ -237,13 +270,17 @@ def test_flash_lse_and_pure_past_modes_match_plain(dev, variant, causal, g,
         assert not got.any() and bool((lse == NEG_INF).all())
 
 
-@pytest.mark.parametrize("variant", ["bf16", "int8"])
-def test_flash_pure_past_reads_only_the_valid_slots(dev, variant):
+@pytest.mark.parametrize("variant,g", [("bf16", 20), ("bf16", 50),
+                                       ("int8", 50)])
+def test_flash_pure_past_reads_only_the_valid_slots(dev, variant, g):
     """Pure past attends [0, length): poisoning the group's own slots and
-    everything past length changes nothing."""
-    q, k, v, kw = _mode_case(dev, variant, 50, 300, 1024, 9)
+    everything past length changes nothing (bf16: the small-G kernel at G
+    = 20, the prefill kernel at G = 50)."""
+    q, k, v, kw = _mode_case(dev, variant, g, 300, 1024, 9)
     mode = dict(causal=False, with_lse=True, out_dtype=torch.float32)
-    got, lse = flash_past_attention(q, k, v, 300, 0.1, **kw, **mode)
+    (got, lse), _ = _launch(dev, g, 300, 1024, causal=False, variant=variant,
+                            args=(q, k, v, 300, 0.1), **kw, with_lse=True,
+                            out_dtype=torch.float32)
     if variant == "bf16":
         k[:, 300:].fill_(float("nan"))
         v[:, 300:].fill_(float("nan"))
