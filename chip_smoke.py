@@ -11,10 +11,11 @@ checkout of the repository. Phases:
   2. each kernel against its plain PyTorch version on the card, at the
      production head dims and the main path's shapes, with times, the
      bound (the card's peaks) and, where one PyTorch call computes the
-     same function, that call's time: B1 (bf16 cache on its prefill
-     kernel and its small-G kernel by shape, and its int8-QK variants for
-     the int8 and int8k caches, up to the 1024-frame headline's last group
-     step and hour-scale decode; its lse output and pure-past mode on
+     same function, that call's time: B1 (each cache on its prefill
+     kernel, bf16 or int8-QK, or the decode kernel by shape, timed on the
+     device, up to the 1024-frame headline's last group step and
+     hour-scale decode, with SDPA's device time at decode; its lse
+     output and pure-past mode on
      every cache, out and lse apart; one SDPA call at the headline's last
      group step, 53,744 slots, pure past and unified causal; the
      registers, spills and shared memory of every B1 instantiation), B2
@@ -29,7 +30,7 @@ checkout of the repository. Phases:
      random weights): three `generate` requests through LVU / LVUEngine on
      64 seeded 420x420 yuv420 frames, groups of 32, key_norms_small at
      top_p=0.5; launch counts (B1's per kernel: every group step on the
-     prefill kernel, every decode step on the small-G one), cache lengths
+     prefill kernel, every decode step on the decode one), cache lengths
      and per-span timings;
      then, only where the CPU decoder library is built, one request through
      `LVU.generate(question, video_path)` on an encoded clip;
@@ -79,12 +80,15 @@ torch.profiler, and prints the wall time, the busy share of the card,
 the spans, kernel time by kind and the top kernels. It prints no result
 line.
 
-    python3 chip_smoke.py --compare-b1
+    python3 chip_smoke.py --compare-b1 [--root DIR]
 
-runs phase 1, then times B1's bf16 prefill kernel against its small-G
-kernel at the main path's prefill shapes (in turns, both held against the
-plain version) and prints every B1 instantiation's registers and spills.
-It prints no result line.
+runs phase 1, then prints B1's device time, bound share and error
+against the plain version at the main path's decode and int8 prefill
+shapes (SDPA's device time at decode, the split-K merge's part) and
+every B1 instantiation's registers and spills.
+With --root it times the package of another checkout, such as an
+unpacked older commit, for a before-and-after in one call. It prints no
+result line.
 """
 
 import contextlib
@@ -143,6 +147,9 @@ RETAINED_AGREE = 0.9
 # summation order and exp2 / log rounding, ~1e-6 of an lse of magnitude
 # <= 20; two orders of margin
 LSE_ATOL = 1e-4
+# B1's kernels in a profile: the decode and prefill kernels and the split-K
+# merge (and, on an older tree, its small-G and int8-QK kernels)
+B1_NAMES = ("flash_",)
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense, at 700 W):
 # a kernel's bound is the larger of its bytes (each input read once, each
@@ -230,10 +237,12 @@ def flash_bound(g, length, variant="bf16", causal=True, out_bytes=2,
     return bound(moved, ops)
 
 
-def sdpa_ms(q, k, v, length, causal=True, reps=5):
+def sdpa_ms(q, k, v, length, causal=True, reps=5, device=False):
     """One PyTorch call computing B1's output on bf16 operands:
     scaled_dot_product_attention with an explicit mask and enable_gqa
-    (timed for comparison only; the port never calls it)."""
+    (timed for comparison only; the port never calls it). device=True:
+    the device time of all the call's kernels (torch.profiler), else CUDA
+    events around the calls."""
     import torch
     import torch.nn.functional as F
 
@@ -243,29 +252,41 @@ def sdpa_ms(q, k, v, length, causal=True, reps=5):
     cols = torch.arange(n, device=q.device)[None, :]
     mask = cols <= rows + length if causal else cols < length
     qb, kb, vb = q[None], k[None, :, :n], v[None, :, :n]
-    return _time_ms(lambda: F.scaled_dot_product_attention(
-        qb, kb, vb, attn_mask=mask, enable_gqa=True), reps)
+
+    def call():
+        return F.scaled_dot_product_attention(qb, kb, vb, attn_mask=mask,
+                                              enable_gqa=True)
+
+    return _device_ms(call, ("",), reps) if device else _time_ms(call, reps)
 
 
-def _device_ms(fn, names, reps: int) -> float:
+def _device_ms(fn, names, reps: int, tries: int = 3) -> float:
     """Device time per call of fn of the kernels whose names hold one of
     `names`, from torch.profiler: the kernels alone, without the host's
-    launch gaps that _time_ms sees when a call is host-bound."""
+    launch gaps that _time_ms sees when a call is host-bound. The
+    profiler's device trace can come back without those kernels (fewer
+    than one per call); it is then taken again, and after `tries` such traces the calls are timed
+    by CUDA events instead (_time_ms), with a line saying so."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()  # warm-up
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA
-             and any(n in e.name for n in names))
-    return us / 1e3 / reps
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == DeviceType.CUDA
+              and any(n in e.name for n in names)]
+        if len(us) >= reps and sum(us) > 0:  # each call launches one or more
+            return sum(us) / 1e3 / reps
+    log(f"torch.profiler recorded no device kernel named {names} in "
+        f"{tries} traces: timed by CUDA events around the calls instead")
+    return _time_ms(fn, reps)
 
 
 # -- phase 2: kernels vs plain --------------------------------------------
@@ -284,9 +305,11 @@ def _compare(got, ref):
 
 def check_flash(dev, cases):
     """B1 on a 2-layer stacked cache, layer 1, Hq=28 / Hkv=4 / D=128; each
-    row names the kernel _plan picked for its shape. The explicit-mask SDPA
-    yardstick is skipped where its mask would exceed 5e7 elements (the
-    headline's last step: check_b1_headline_sdpa times SDPA there)."""
+    row names the kernel _plan picked for its shape. Its time is the B1
+    kernels' device time (torch.profiler; host-timed beside it). The
+    explicit-mask SDPA yardstick is skipped where its mask would exceed
+    5e7 elements (the headline's last step: check_b1_headline_sdpa times
+    SDPA there); below 64 rows it is also timed on the device."""
     import torch
 
     from quickvideo_tpu_torch.ops.attention import cache_attention
@@ -310,25 +333,36 @@ def check_flash(dev, cases):
         got, _ = flash_past_attention(q, k_all[1], v_all[1], length, scale)
         ref, _ = cache_attention(q, k_all[1], v_all[1], length, scale)
         err, within = _compare(got, ref)
-        ms = _time_ms(
-            lambda: flash_past_attention(q, k_all[1], v_all[1], length, scale),
-            20,
-        )
+
+        def kernel():
+            return flash_past_attention(q, k_all[1], v_all[1], length, scale)
+
+        host_ms = _time_ms(kernel, 20)
+        ms = _device_ms(kernel, B1_NAMES, 20)
         plain_ms = _time_ms(
             lambda: cache_attention(q, k_all[1], v_all[1], length, scale), 3
         )
         library_ms = (sdpa_ms(q, k_all[1], v_all[1], length)
                       if g * (length + g) <= 5e7 else None)
+        # at decode the host sets a call's pace: SDPA by device time too
+        library_dev = (sdpa_ms(q, k_all[1], v_all[1], length, device=True)
+                       if g < 64 else None)
         bound_ms, bound_by = flash_bound(g, length)
         kernel = _plan(g, 28, 4, length, cap, True, sms).kernel
         ok = within
         log(f"B1 {kernel} G={g} length={length} cap={cap}: max_abs_err="
             f"{err:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|) kernel "
-            f"{ms:.4f} ms plain {plain_ms:.4f} ms sdpa "
-            f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'} bound "
-            f"{bound_ms:.4f} ms ({bound_by}) {'OK' if ok else 'FAIL'}")
+            f"device {ms:.4f} ms (host-timed {host_ms:.4f} ms) plain "
+            f"{plain_ms:.4f} ms sdpa "
+            f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}"
+            + ("" if library_dev is None else
+               f" (device {library_dev:.4f} ms, kernel x"
+               f"{ms / library_dev:.2f})")
+            + f" bound {bound_ms:.4f} ms ({bound_by}, "
+            f"{100 * bound_ms / ms:.0f}% of it) {'OK' if ok else 'FAIL'}")
         rows.append(dict(g=g, length=length, kernel=kernel, err=err, ms=ms,
-                         plain_ms=plain_ms, library_ms=library_ms,
+                         host_ms=host_ms, plain_ms=plain_ms,
+                         library_ms=library_ms, library_dev_ms=library_dev,
                          bound_ms=bound_ms, bound_by=bound_by, ok=ok))
         del k_all, v_all
     return rows
@@ -340,15 +374,22 @@ def check_flash_int8(dev, cases):
     quantized from seeded bf16 rows, layer 1, Hq=28 / Hkv=4 / D=128; and
     the bf16 kernel's time at the same shape (bf16 cache of the same rows).
     Both plain versions round the PV operand (p, or p * vs) to bf16 as the
-    kernels do, so B1's bf16 tolerance holds."""
+    kernels do, so B1's bf16 tolerance holds. A row's time is the B1
+    kernels' device time: the q quantize runs outside the kernel, as in the
+    JAX package, and is timed apart."""
     import torch
 
     from quickvideo_tpu_torch.ops.attention import (
         cache_attention_int8,
         quantize_q,
     )
-    from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
+    from quickvideo_tpu_torch.ops.flash_attention import (
+        _plan,
+        flash_past_attention,
+    )
     from quickvideo_tpu_torch.ops.kv_cache import init_cache, stacked_append
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
@@ -363,8 +404,7 @@ def check_flash_int8(dev, cases):
             return flash_past_attention(q, k, v, length, scale)[0]
 
         bf16_ms = _time_ms(bf16, 10)
-        bf16_dev = _device_ms(bf16, ("flash_fwd_kernel", "flash_prefill",
-                                     "flash_merge"), 10)
+        bf16_dev = _device_ms(bf16, B1_NAMES, 10)
         q_ms = _time_ms(lambda: quantize_q(q, scale), 10)
         row = dict(g=g, length=length, bf16_ms=bf16_ms, q_ms=q_ms, ok=True)
         for variant, mode in (("int8", True), ("int8k", "k")):
@@ -385,20 +425,22 @@ def check_flash_int8(dev, cases):
                 )[0]
 
             err, within = _compare(kernel(), plain())
-            ms = _time_ms(kernel, 10)
-            dev_ms = _device_ms(kernel, ("flash_fwd_int8", "flash_merge"), 10)
+            host_ms = _time_ms(kernel, 10)
+            ms = _device_ms(kernel, B1_NAMES, 10)
             plain_ms = _time_ms(plain, 2)
             bound_ms, bound_by = flash_bound(g, length, variant)
-            row.update({variant: dict(err=err, ms=ms, plain_ms=plain_ms,
+            kname = _plan(g, 28, 4, length, cap, True, sms, variant).kernel
+            row.update({variant: dict(err=err, ms=ms, host_ms=host_ms,
+                                      plain_ms=plain_ms, kernel=kname,
                                       bound_ms=bound_ms, bound_by=bound_by)})
             row["ok"] &= within
-            log(f"B1 {variant} G={g} length={length} cap={cap}: "
+            log(f"B1 {variant} ({kname}) G={g} length={length} cap={cap}: "
                 f"max_abs_err={err:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}"
-                f"*|plain|) kernel {ms:.4f} ms (with the q quantize, alone "
-                f"{q_ms:.4f} ms; device time of the B1 kernels "
-                f"{dev_ms:.4f} ms) plain {plain_ms:.4f} ms, bf16 kernel "
-                f"{bf16_ms:.4f} ms (device {bf16_dev:.4f} ms), bound "
-                f"{bound_ms:.4f} ms ({bound_by}) "
+                f"*|plain|) kernel device {ms:.4f} ms, {100 * bound_ms / ms:.0f}"
+                f"% of the bound (host-timed with the q quantize {host_ms:.4f}"
+                f" ms; the quantize alone {q_ms:.4f} ms) plain "
+                f"{plain_ms:.4f} ms, bf16 kernel {bf16_ms:.4f} ms (device "
+                f"{bf16_dev:.4f} ms), bound {bound_ms:.4f} ms ({bound_by}) "
                 f"{'OK' if within else 'FAIL'}")
             del cache
         rows.append(row)
@@ -410,9 +452,10 @@ def check_flash_int8(dev, cases):
 def check_flash_modes(dev, cases):
     """B1's lse output and pure-past mode against their plain versions, on
     the bf16, int8 and int8k caches (one layer quantized from seeded bf16
-    rows), Hq=28 / Hkv=4 / D=128: out and lse errors apart, times. A case is
-    (causal, G, length, cap); pure past writes the f32 output the
-    query-based merge takes, unified + lse the hot path's bf16 output."""
+    rows), Hq=28 / Hkv=4 / D=128: out and lse errors apart, B1 device
+    times. A case is (causal, G, length, cap); pure past writes the f32
+    output the query-based merge takes, unified + lse the hot path's bf16
+    output."""
     import torch
 
     from quickvideo_tpu_torch.ops.attention import (
@@ -468,7 +511,8 @@ def check_flash_modes(dev, cases):
             )
             if not causal and length == 0:  # nothing to see: 0 and NEG_INF
                 ok &= not out.any() and bool((lse == NEG_INF).all())
-            ms = _time_ms(kernel, 10)
+            host_ms = _time_ms(kernel, 10)
+            ms = _device_ms(kernel, B1_NAMES, 10)
             plain_ms = _time_ms(plain, 2)
             bound_ms, bound_by = flash_bound(
                 g, length, variant, causal, out_dtype.itemsize, with_lse=True
@@ -476,12 +520,14 @@ def check_flash_modes(dev, cases):
             log(f"B1 {variant} {name} G={g} length={length} cap={cap}: "
                 f"out max_abs_err={err:.3e} (tol {KERNEL_ATOL} + "
                 f"{KERNEL_RTOL}*|plain|), lse max_abs_err={lse_err:.3e} (tol "
-                f"{LSE_ATOL}) kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-                f"bound {bound_ms:.4f} ms ({bound_by}) "
-                f"{'OK' if ok else 'FAIL'}")
+                f"{LSE_ATOL}) kernel device {ms:.4f} ms (host-timed "
+                f"{host_ms:.4f} ms) plain {plain_ms:.4f} ms "
+                f"bound {bound_ms:.4f} ms ({bound_by}, "
+                f"{100 * bound_ms / ms:.0f}% of it) {'OK' if ok else 'FAIL'}")
             rows.append(dict(variant=variant, mode=name, g=g, length=length,
-                             err=max(err, lse_err), ms=ms, plain_ms=plain_ms,
-                             bound_ms=bound_ms, bound_by=bound_by, ok=ok))
+                             err=max(err, lse_err), ms=ms, host_ms=host_ms,
+                             plain_ms=plain_ms, bound_ms=bound_ms,
+                             bound_by=bound_by, ok=ok))
             del kl, vl, kw
             if variant != "bf16":
                 del cache
@@ -636,34 +682,39 @@ def vision_kernel_info():
 
 
 # qv_flash_kernel_info's families, 8 modes each (the merge kernel: 4)
-FLASH_KERNEL_FAMILIES = ("flash_fwd_kernel (small-G)",
-                         "flash_prefill_kernel", "flash_fwd_int8_kernel<int8>",
-                         "flash_fwd_int8_kernel<int8k>", "flash_merge_kernel")
+FLASH_KERNEL_FAMILIES = (
+    "flash_decode_kernel<bf16>", "flash_decode_kernel<int8>",
+    "flash_decode_kernel<int8k>", "flash_prefill_kernel<bf16>",
+    "flash_prefill_kernel<int8>", "flash_prefill_kernel<int8k>",
+    "flash_merge_kernel",
+)
 
 
 def flash_kernel_info():
     """Registers, spilled (local) bytes and shared memory of every B1
     instantiation, from cudaFuncGetAttributes (csrc/flash_attention.cu's
-    qv_flash_kernel_info; the prefill kernel's registers are its launch
+    qv_flash_kernel_info; the prefill kernels' registers are their launch
     count, before setmaxnreg moves them to the consumers). Returns whether
-    every query succeeded."""
+    every query succeeded and no instantiation spills."""
     import ctypes
 
     from quickvideo_tpu_torch import _build
 
     lib = _build.library()
     ok = True
-    for which in range(36):
+    for which in range(8 * len(FLASH_KERNEL_FAMILIES) - 4):
         family, m = divmod(which, 8)
         mode = (("past" if m & 4 else "unified") + ("+lse" if m & 2 else "")
                 + (", f32 out" if m & 1 else ", bf16 out"))
         vals = [ctypes.c_int() for _ in range(4)]
         err = lib.qv_flash_kernel_info(which, *(ctypes.byref(v) for v in vals))
-        ok &= err == 0
         regs, local, smem, dyn = (v.value for v in vals)
+        ok &= err == 0 and local == 0
+        why = (f" FAIL (CUDA error {err})" if err else
+               " FAIL (spills)" if local else "")
         log(f"{FLASH_KERNEL_FAMILIES[family]} [{mode}]: {regs} registers, "
             f"{local} B spilled (local), {smem} B static + {dyn} B dynamic "
-            f"shared memory{'' if err == 0 else f' FAIL (CUDA error {err})'}")
+            f"shared memory{why}")
     return ok
 
 
@@ -1021,24 +1072,22 @@ def _reset_counters(counters):
     reset_launch_counts()
 
 
-B1_KERNELS = ("bf16_prefill", "bf16_small", "int8")
+B1_KERNELS = ("bf16_prefill", "int8_prefill", "decode")
 
 
 def expected_kernels(lvu, inputs, n_tokens, variant):
-    """B1 launches of one request per "flash_kernel_{name}" key: on a bf16
-    cache each group step and the final prefill (its exact suffix length)
-    by _plan's row-tile rule at the rows that reach the layer
-    (group_layer_rows; a query-based step's prompt rows only add to them),
-    every decode step (G = 1) on the small-G kernel; on an int8 cache
-    every launch on the int8 kernel."""
+    """B1 launches of one request per "flash_kernel_{name}" key: each group
+    step and the final prefill (its exact suffix length) by _plan's
+    row-tile rule at the rows that reach the layer (group_layer_rows; a
+    query-based step's prompt rows only add to them) on the prefill kernel
+    of the cache's variant or the decode kernel, and every decode step (G =
+    1) on the decode kernel."""
     from quickvideo_tpu_torch.ops.flash_attention import PREFILL_ROWS
 
     t = lvu.model_config.text
     n = t.num_hidden_layers
     want = dict.fromkeys((f"flash_kernel_{k}" for k in B1_KERNELS), 0)
-    if variant != "bf16":
-        want["flash_kernel_int8"] = (len(inputs.group_grids) + n_tokens) * n
-        return want
+    prefill = "bf16_prefill" if variant == "bf16" else "int8_prefill"
     ids = np.asarray(inputs.input_ids)
     vid = np.nonzero(ids == lvu.model_config.video_token_id)[0]
     rep = t.num_attention_heads // t.num_key_value_heads
@@ -1046,9 +1095,9 @@ def expected_kernels(lvu, inputs, n_tokens, variant):
     steps = [g for per_layer in group_layer_rows(lvu, inputs)
              for g in per_layer] + [suffix] * n
     for g in steps:
-        kernel = "bf16_prefill" if g * rep >= PREFILL_ROWS else "bf16_small"
+        kernel = prefill if g * rep >= PREFILL_ROWS else "decode"
         want[f"flash_kernel_{kernel}"] += 1
-    want["flash_kernel_bf16_small"] += (n_tokens - 1) * n
+    want["flash_kernel_decode"] += (n_tokens - 1) * n
     return want
 
 
@@ -1581,9 +1630,9 @@ def run_video_file(lvu):
 
 # kernel name fragment -> kind, first match wins
 KERNEL_KINDS = (
-    ("flash_prefill_kernel", "B1 flash prefill (wgmma)"),
-    ("flash_fwd_kernel", "B1 flash small-G"),
-    ("flash_fwd_int8_kernel", "B1 flash int8-QK"),
+    ("flash_prefill_kernel<0", "B1 flash prefill, bf16 (wgmma)"),
+    ("flash_prefill_kernel", "B1 flash prefill, int8-QK (wgmma)"),
+    ("flash_decode_kernel", "B1 flash decode"),
     ("flash_merge_kernel", "B1 split-K merge"),
     ("short_span_kernel<true", "B2 short-span (rotary inside)"),
     ("short_span_kernel<false", "B5 short-span (head-major)"),
@@ -1679,102 +1728,107 @@ def _run_profile(dev, param_dtype, kv_cache_dtype, route, **pruning):
     torch.cuda.empty_cache()
 
 
-# -- --compare-b1: the bf16 prefill kernel against the small-G kernel -------
+# -- --compare-b1: B1's device times at the main path's shapes --------------
 
-# (causal, G, length, cap): the 64-frame group step, its lse and
-# query-based pure-past + lse modes, the headline's last step in both
-# modes, the final prefill over 3607 and over 57,344 slots (split-K), a
-# ragged 100-row group and an empty past
-B1_COMPARE_SHAPES = (
-    (True, 3600, 1807, 16384, False), (True, 3600, 1807, 16384, True),
-    (False, 3620, 1807, 16384, True), (True, 3600, 53744, 65536, False),
-    (False, 3600, 53744, 65536, False), (True, 37, 3607, 8192, False),
-    (True, 37, 57344, 65536, False), (True, 100, 1000, 4096, False),
-    (True, 3600, 0, 8192, False),
+# (variant, causal, with_lse, G, length, cap): decode over 4,000, 57,344 and
+# 122,880 slots; 20 rows over a past (pure past + lse: the query-based
+# group 0's shape); the 64-frame group step in every mode; the headline's
+# last step; the bf16 prefill kernel at both steps for reference
+B1_COMPARE_SHAPES = tuple(
+    [(v, True, False, 1, n, cap) for v in ("bf16", "int8", "int8k")
+     for n, cap in ((4000, 8192), (57344, 65536), (122880, 131072))]
+    + [(v, False, True, 20, 1807, 4096) for v in ("bf16", "int8", "int8k")]
+    + [(v, c, lse, g, n, cap) for v in ("int8", "int8k")
+       for c, lse, g, n, cap in (
+           (True, False, 3600, 1807, 16384), (True, True, 3600, 1807, 16384),
+           (False, True, 3620, 1807, 16384), (True, False, 3600, 53744, 65536),
+           (False, False, 3600, 53744, 65536),
+           (True, True, 3600, 53744, 65536),
+           (False, True, 3600, 53744, 65536))]
+    + [("bf16", True, False, 3600, 1807, 16384),
+       ("bf16", True, False, 3600, 53744, 65536),
+       ("bf16", False, False, 3600, 53744, 65536)]
 )
 
 
-@contextlib.contextmanager
-def small_g_only():
-    """Every bf16 B1 launch on the small-G kernel (its row-tile rule lifted
-    out of reach), for timing the two kernels at one shape."""
-    from quickvideo_tpu_torch.ops import flash_attention as fa
-
-    old = fa.PREFILL_ROWS
-    fa.PREFILL_ROWS = 1 << 30
-    try:
-        yield
-    finally:
-        fa.PREFILL_ROWS = old
-
-
-def compare_b1(dev):
-    """Each B1_COMPARE_SHAPES entry (with lse: pure past writes f32, as the
-    query-based merge takes it) on the prefill kernel and on the small-G
-    kernel, timed in turns (small, prefill, prefill, small; CUDA events, 10
-    calls each after a warm-up), beside the bound; then each kernel's
-    device time per call (torch.profiler, the B1 kernels and the split-K
-    merge alone: the call's time is the host's at small shapes); both
-    against the plain version. Returns whether every output agreed."""
+def compare_b1(dev, tree):
+    """Each B1_COMPARE_SHAPES entry through flash_past_attention of the
+    package imported from `tree` (this checkout, or an older one): the B1
+    kernels' device time per call (torch.profiler, 10 calls after a
+    warm-up; the q quantize of the int8 caches runs outside them and is
+    not counted), the bound and its share, the error against the plain
+    version; at decode also SDPA's device time; where the call splits its
+    key range, the split-K merge's part. Returns whether every output
+    agreed."""
     import torch
 
-    from quickvideo_tpu_torch.ops.attention import cache_attention
-    from quickvideo_tpu_torch.ops.flash_attention import (
-        _plan,
-        flash_past_attention,
+    from quickvideo_tpu_torch.ops import flash_attention as fa
+    from quickvideo_tpu_torch.ops.attention import (
+        cache_attention,
+        cache_attention_int8,
+        quantize_q,
     )
+    from quickvideo_tpu_torch.ops.kv_cache import init_cache, stacked_append
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     gen = torch.Generator(device=dev)
     gen.manual_seed(8)
+    scale = 128 ** -0.5
     ok = True
-    for causal, g, length, cap, lse in B1_COMPARE_SHAPES:
+    for variant, causal, lse, g, length, cap in B1_COMPARE_SHAPES:
         k = torch.randn(4, cap, 128, generator=gen, device=dev).bfloat16()
         v = torch.randn(4, cap, 128, generator=gen, device=dev).bfloat16()
         q = torch.randn(g, 28, 128, generator=gen, device=dev).bfloat16()
         q = q.transpose(0, 1)
-        scale = 128 ** -0.5
         out_dtype = torch.bfloat16 if causal else torch.float32
         mode = dict(causal=causal, with_lse=lse, out_dtype=out_dtype)
+        kw, kl, vl = {}, k, v
+        if variant != "bf16":
+            cache = init_cache(1, 4, cap, 128, device=dev,
+                               quantized=True if variant == "int8" else "k")
+            stacked_append(cache, 0, 0, k, v)
+            kl, vl = cache.k[0], cache.v[0]
+            kw = dict(k_scale=cache.k_scale[0], v_scale=(
+                None if cache.v_scale is None else cache.v_scale[0]))
 
         def run():
-            return flash_past_attention(q, k, v, length, scale, **mode)
+            return fa.flash_past_attention(q, kl, vl, length, scale, **kw,
+                                           **mode)
 
-        ref, ref_lse = cache_attention(q, k, v, length, scale, **mode)
-        errs, times = {}, {"small": [], "prefill": []}
-        for which in ("small", "prefill", "prefill", "small"):
-            ctx = small_g_only() if which == "small" else contextlib.nullcontext()
-            with ctx:
-                out, out_lse = run()
-                err, within = _compare(out, ref)
-                if lse:
-                    err = max(err, (out_lse - ref_lse).abs().max().item())
-                errs[which] = err
-                ok &= within
-                times[which].append(_time_ms(run, 10))
-        dev_ms = {}
-        for which, names in (("small", ("flash_fwd_kernel", "flash_merge")),
-                             ("prefill", ("flash_prefill", "flash_merge"))):
-            ctx = small_g_only() if which == "small" else contextlib.nullcontext()
-            with ctx:
-                dev_ms[which] = _device_ms(run, names, 10)
-        plan = _plan(g, 28, 4, length, cap, causal, sms)
-        bound_ms, bound_by = flash_bound(g, length, causal=causal,
-                                         out_bytes=out_dtype.itemsize,
-                                         with_lse=lse)
-        small, pre = (sum(times[w]) / 2 for w in ("small", "prefill"))
-        log(f"B1 compare {'unified' if causal else 'past'}"
-            f"{'+lse' if lse else ''} G={g} length={length} cap={cap} "
-            f"(plan {plan.kernel}, split {plan.n_split}): prefill kernel "
-            f"{pre:.4f} ms ({' / '.join(f'{t:.4f}' for t in times['prefill'])}"
-            f"), small-G {small:.4f} ms "
-            f"({' / '.join(f'{t:.4f}' for t in times['small'])}), x"
-            f"{small / pre:.2f}; bound {bound_ms:.4f} ms ({bound_by}), "
-            f"{100 * bound_ms / pre:.1f}% of it; device time prefill "
-            f"{dev_ms['prefill']:.4f} ms, small-G {dev_ms['small']:.4f} ms "
-            f"(x{dev_ms['small'] / dev_ms['prefill']:.2f}); max_abs_err "
-            f"prefill {errs['prefill']:.3e} small {errs['small']:.3e}")
-        del k, v, q, ref, ref_lse
+        if kw:
+            q8, qs = quantize_q(q, scale)
+            ref, ref_lse = cache_attention_int8(
+                q8, qs, kl, kw["k_scale"], vl, kw["v_scale"], length,
+                torch.bfloat16, **mode)
+        else:
+            ref, ref_lse = cache_attention(q, kl, vl, length, scale, **mode)
+        out, out_lse = run()
+        err, within = _compare(out, ref)
+        if lse:
+            err = max(err, (out_lse - ref_lse).abs().max().item())
+            within &= bool((out_lse - ref_lse).abs().max() <= LSE_ATOL)
+        ok &= within
+        del ref, ref_lse
+        ms = _device_ms(run, B1_NAMES, 10)
+        plan = fa._plan(g, 28, 4, length, cap, causal, sms, variant)
+        bound_ms, bound_by = flash_bound(g, length, variant, causal,
+                                         out_dtype.itemsize, with_lse=lse)
+        extra = ""
+        if g == 1 and variant == "bf16":
+            sdpa = sdpa_ms(q, k, v, length, device=True, reps=10)
+            extra += f"; SDPA device {sdpa:.4f} ms (kernel x{ms / sdpa:.2f})"
+        if plan.n_split > 1:  # the split-K merge's share
+            merge = _device_ms(run, ("flash_merge",), 10)
+            extra += f"; split-K merge {merge:.4f} ms of it"
+        mname = ("unified" if causal else "past") + ("+lse" if lse else "")
+        log(f"B1 compare [{tree}] {variant} {mname} G={g} length={length} "
+            f"cap={cap} (plan {plan.kernel}, split {plan.n_split}): device "
+            f"{ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{100 * bound_ms / ms:.1f}% of it{extra}; max_abs_err {err:.3e} "
+            f"{'OK' if within else 'FAIL'}")
+        del k, v, q, kl, vl, kw
+        if variant != "bf16":
+            del cache
         torch.cuda.empty_cache()
     return ok
 
@@ -1962,10 +2016,19 @@ def main():
     )
     ap.add_argument(
         "--compare-b1", action="store_true",
-        help="instead of the smoke test, time B1's bf16 prefill kernel "
-             "against its small-G kernel at the main path's shapes",
+        help="instead of the smoke test, print B1's device times at the "
+             "main path's shapes (decode, int8 and int8k prefill)",
+    )
+    ap.add_argument(
+        "--root", default=ROOT,
+        help="with --compare-b1: the checkout whose quickvideo_tpu_torch "
+             "to time (default: this one), e.g. an unpacked older commit",
     )
     args = ap.parse_args()
+    if args.root != ROOT:
+        if not args.compare_b1:
+            ap.error("--root goes with --compare-b1")
+        sys.path.insert(0, os.path.abspath(args.root))
     if not torch.cuda.is_available():
         raise SystemExit(
             "chip_smoke.py: torch.cuda.is_available() is False; this smoke "
@@ -1997,7 +2060,9 @@ def main():
             run_profile(dev, param_dtype, kv_cache_dtype, **pruning)
         return
     if args.compare_b1:
-        ok = compare_b1(dev) and flash_kernel_info()
+        ok = compare_b1(dev, os.path.relpath(args.root, ROOT))
+        if args.root == ROOT:
+            ok &= flash_kernel_info()
         log(f"compare-b1: {'OK' if ok else 'FAIL'}")
         return
 
@@ -2008,6 +2073,8 @@ def main():
         (1, 57344, 65536),    # decode at the 1024-frame headline's occupancy
         (37, 3607, 8192),     # final prefill: not a tile multiple
         (100, 1000, 4096),    # length + G ends mid-tile
+        (27, 1000, 4096),     # 189 packed rows: the decode kernel's largest
+        (28, 1000, 4096),     # 196 packed rows: one prefill row tile
     ]
     headline = (3600, 53744, 65536)  # the 1024-frame headline's last step
     flash_rows = check_flash(dev, flash_cases + [headline])
@@ -2019,6 +2086,7 @@ def main():
         (False, 3620, 1807, 16384),  # the 7B query-based group, 20-token prompt
         (False, 3620, 53744, 65536),  # ... at the 1024-frame headline's last step
         (False, 20, 0, 4096),  # empty past (the query-based group 0)
+        (False, 20, 1807, 4096),  # 20 rows over a past (the decode kernel)
         (True, 3600, 1807, 16384),  # the hot path's group step with lse
         (True, 3600, 53744, 65536),
     ])
@@ -2099,24 +2167,35 @@ def main():
         }
 
     flash = ("flash_attention.cu", "flash_attention.py:38")
-    # bf16: the prefill kernel at the 64-frame group step, the small-G
-    # kernel at decode over 57,344 slots; each with the explicit-mask SDPA
-    # on the same operands at its shape
+    # B1's kernels by their device times: the bf16 prefill kernel at the
+    # 64-frame group step (explicit-mask SDPA beside it, host-timed), the
+    # int8-QK prefill kernel there (no PyTorch call takes an int8 cache),
+    # the decode kernel at G = 1 over 57,344 slots (SDPA's device time)
     kernels = []
-    for kernel, what, shape in (
-        ("bf16_prefill", "prefill kernel, wgmma", (3600, 1807)),
-        ("bf16_small", "small-G kernel", (1, 57344)),
-    ):
-        rows = [r for r in flash_rows if r["kernel"] == kernel]
-        row = next(r for r in rows if (r["g"], r["length"]) == shape)
-        kernels.append(entry(
-            f"flash_past_attention (B1, bf16 KV, {what})", *flash,
-            launches[f"flash_kernel_{kernel}"], rows, row, row["library_ms"],
-        ))
+    rows = [r for r in flash_rows if r["kernel"] == "bf16_prefill"]
+    row = next(r for r in rows if (r["g"], r["length"]) == (3600, 1807))
+    kernels.append(entry(
+        "flash_past_attention (B1, bf16 KV, prefill kernel, wgmma)", *flash,
+        launches["flash_kernel_bf16_prefill"], rows, row, row["library_ms"],
+    ))
+    rows = [r[v] for r in flash_int8_rows for v in ("int8", "int8k")
+            if r[v]["kernel"] == "int8_prefill"]
+    kernels.append(entry(
+        "flash_past_attention (B1, int8 / int8k KV, int8-QK prefill kernel, "
+        "wgmma)", *flash, launches["flash_kernel_int8_prefill"], rows,
+        flash_int8_rows[0]["int8"],
+    ))
+    rows = ([r for r in flash_rows if r["kernel"] == "decode"]
+            + [r[v] for r in flash_int8_rows for v in ("int8", "int8k")
+               if r[v]["kernel"] == "decode"])
+    row = next(r for r in flash_rows if (r["g"], r["length"]) == (1, 57344))
+    kernels.append(entry(
+        "flash_past_attention (B1, every cache, decode kernel)", *flash,
+        launches["flash_kernel_decode"], rows, row, row["library_dev_ms"],
+    ))
     for variant in B1_VARIANTS:
         if variant != "bf16":
             rows = [r[variant] for r in flash_int8_rows]
-            # no PyTorch call takes the int8 caches
             kernels.append(entry(
                 f"flash_past_attention (B1, {variant} KV, int8-QK)", *flash,
                 launches[f"flash_{variant}_unified"], rows, rows[0],

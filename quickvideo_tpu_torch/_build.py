@@ -41,21 +41,15 @@ _F = ctypes.c_float
 # C signatures of the library's entry points (csrc/*.cu). Every pointer and
 # the stream are c_void_p: a bare Python int would be passed as a 32-bit int.
 SIGNATURES = {
-    # q, k, v, o, lse, part_o, part_ml; strides (q_sh, q_st, k_sh, k_st,
-    # v_sh, v_st, o_sh, o_st, lse_sh, lse_st); hq, hkv, g, length, cap,
-    # n_split, past, with_lse, out_f32; scale; stream
-    "qv_flash_attention": (
-        [_P] * 7 + [_L] * 10 + [_I] * 9 + [_F, _P]
-    ),
-    # the prefill kernel: as qv_flash_attention
-    "qv_flash_prefill": [_P] * 7 + [_L] * 10 + [_I] * 9 + [_F, _P],
+    # B1's prefill kernels: q, qs, k, ksc, v, vsc, o, lse, part_o,
+    # part_ml; strides (q_sh, q_st, k_sh, k_st, v_sh, v_st, o_sh, o_st,
+    # lse_sh, lse_st, ks_sh, vs_sh); hq, hkv, g, length, cap, n_split,
+    # past, with_lse, out_f32; scale; stream
+    "qv_flash_prefill": [_P] * 10 + [_L] * 12 + [_I] * 9 + [_F, _P],
+    # B1's decode kernel: as qv_flash_prefill
+    "qv_flash_decode": [_P] * 10 + [_L] * 12 + [_I] * 9 + [_F, _P],
     # kernel index; out: registers, local bytes, static and dynamic smem
     "qv_flash_kernel_info": [_I] + [_P] * 4,
-    # q8, qs, k, ksc, v, vsc, o, lse, part_o, part_ml; the same strides and
-    # ints; ks_sh, vs_sh; stream
-    "qv_flash_attention_int8": (
-        [_P] * 10 + [_L] * 10 + [_I] * 9 + [_L] * 2 + [_P]
-    ),
     # q, k, v, o, cos, sin (bf16 tables); row strides (q, k, v, o,
     # cos/sin); s, nh, span (<= 64); scale; stream
     "qv_vision_attention": (

@@ -1,7 +1,7 @@
 // Shared device helpers for the Hopper kernels of quickvideo_tpu_torch.
 //
 // The warp-level tensor-core primitive is mma.sync m16n8k16 with bf16
-// operands and f32 accumulators (the small-G B1 kernel, the short-span
+// operands and f32 accumulators (the B1 decode kernel, the short-span
 // vision kernel). Fragment layout, with g = lane / 4 and t = lane % 4:
 //   A (16x16, row-major): a0 = A[g][2t..2t+1],   a1 = A[g+8][2t..2t+1],
 //                         a2 = A[g][2t+8..+9],   a3 = A[g+8][2t+8..+9]
@@ -74,6 +74,26 @@ __device__ __forceinline__ float warp_sum4(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   x += __shfl_xor_sync(0xffffffffu, x, 2);
   return x;
+}
+
+// four 8x8 b16 matrices from shared memory; lane l gives the address of row
+// l % 8 of matrix l / 8, and receives in r[i] matrix i's row lane / 4,
+// elements 2 (lane % 4) and 2 (lane % 4) + 1 (the mma.sync fragment layout)
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
+}
+
+// the same, transposed: r[i] holds matrix i's elements (2 (lane % 4), lane
+// / 4) and (2 (lane % 4) + 1, lane / 4), the lower index in the low half
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(static_cast<uint32_t>(__cvta_generic_to_shared(p))));
 }
 
 // -- Hopper (sm_90a): async copies and wgmma --------------------------------

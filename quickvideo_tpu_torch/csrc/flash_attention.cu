@@ -1,12 +1,11 @@
 // Kernel B1: GQA flash attention over one layer of the stacked KV cache,
-// for Hopper (sm_90a). Three kernels:
-//   flash_prefill_kernel    bf16 cache, prefill shapes (G * rep >= 192
-//                           packed rows: the group steps, the final prefill
-//                           of a long question);
-//   flash_fwd_kernel        bf16 cache, small G (decode at G = 1, a short
-//                           final prefill or query-based group 0);
-//   flash_fwd_int8_kernel   the int8 caches on the int8-QK route, every G.
-// ops/flash_attention.py::_plan picks by shape (and variant) alone.
+// for Hopper (sm_90a). Two kernels, each for every cache variant:
+//   flash_prefill_kernel  prefill shapes (G * rep >= 192 packed rows: the
+//                         group steps, the final prefill of a long
+//                         question); tensor-core bound;
+//   flash_decode_kernel   the rest (decode at G = 1, a short final prefill,
+//                         query-based group 0); bound by the bytes of K/V.
+// ops/flash_attention.py::_plan picks by shape alone.
 //
 // Each replaces the TPU kernel
 // quickvideo_tpu/ops/flash_attention.py::_flash_kernel (entry
@@ -19,58 +18,54 @@
 // each with or without the log-sum-exp (natural log, f32 (Hq, G) through
 // strides), and with a bf16 or f32 output. The three are template
 // parameters (kPast, kLse, OutT), so every mode is its own instantiation.
-// Variants:
+// Variants (template parameter kVar):
 //   bf16   bf16 q, K, V (the "bfloat16" cache);
 //   int8   int8 K and V with one f32 scale per (head, token) row, int8 q
 //          with one f32 scale per (head, row) ("int8" cache, int8-QK);
 //   int8k  int8 K with scales, bf16 V, int8 q ("int8k" cache, int8-QK).
+// The int8-QK arithmetic is the JAX kernel's: QK^T exact in s32, then
+// s = (float(acc) * qs[row]) * ks[col] (qs absorbed scale * log2 e), the
+// denominator sums the f32 p, and the PV operand is p * vs[col] (int8) or
+// p, rounded to bf16, against V codes converted to bf16 exactly.
 //
-// Operands: q (Hq, G, 128) and the layer view k/v (Hkv, cap, 128) are passed
-// as pointers with strides, so the layer view k_all[li] is never copied. The
-// output is written through strides as well ((G, Hq, 128) storage lets the
+// Operands: q (Hq, G, 128) is read through strides; the layer views k/v
+// (Hkv, cap, 128) and their (Hkv, cap) scales are read by TMA through
+// tensor maps that end at the call's reach (length + G, or length in pure
+// past), so the box's out-of-bounds fill gives zeros past it: nothing past
+// the valid prefix and the group is loaded, and NaN there cannot reach P V.
+// The output is written through strides ((G, Hq, 128) storage lets the
 // o-projection read it without a transpose).
 //
-// Common to all three.
+// Common to both:
 //  * GQA packing: a CTA serves one kv head and a block of "packed rows",
 //    packed row r = (position r / rep, query head kv*rep + r % rep). The rep
 //    (= 7 on the 7B) query heads that share a kv head read each K/V tile from
 //    shared memory once. rep need not be a power of two.
-//  * Keys in tiles of 64. Online softmax in f32, in log2 units (bf16: scores
-//    scaled by scale*log2 e); the denominator sums the f32 p; P is rounded
-//    to bf16 for the PV product.
-//  * A CTA's keys stop at min(length + its last position + 1, cap). Tiles
-//    wholly below every row's bound skip the mask.
+//  * Keys in tiles of 64, staged in a ring of slots that one producer thread
+//    keeps full by TMA (full / empty mbarriers): no CTA-wide barrier stands
+//    between the load of tile t + 1 and the use of tile t. Online softmax in
+//    f32, in log2 units; P is rounded to bf16 for the PV product.
+//  * A CTA's keys stop at min(length + its last position + 1, cap). Row
+//    blocks run in reverse (the longest key ranges first in unified mode).
+//    Tiles wholly below every row's bound skip the mask.
 //  * Split-K: when the CTAs do not fill the card, a third grid axis splits
 //    each CTA's key range; the splits write f32 partials plus (max, sum) per
-//    row and flash_merge_kernel merges them (every variant).
+//    row, merged by flash_merge_kernel (a second launch: measured on an H100
+//    it beat a merge inside the decode kernel by the split that finishes
+//    last, whose one CTA read every split's partial alone).
 //
-// The small-G and int8 kernels: 4 warps x 16 packed rows per CTA, K/V tiles
-// staged by plain loads between barriers (V transposed by scalar stores),
-// mma.sync m16n8k16 for both products (int8-QK: QK^T on m16n8k32, exact s32,
-// then s = (float(acc) * qs[row]) * ks[col], the JAX kernel's order; qs
-// absorbed scale*log2 e; the tile's key scales staged in shared memory;
-// int8 V codes converted to bf16 exactly while staging, p * vs[col] formed
-// before the bf16 packing, as `pv = p * vs` in the JAX kernel).
-//
-// The prefill kernel (below: one producer warpgroup on a TMA ring of K/V
-// tiles, three consumer warpgroups of 64 rows on wgmma).
-//
-// What bounds them. Prefill is tensor-core work: 4 * 128 flops per
-// attended (query head, slot) pair, about 2.9 ms at 989 TFLOP/s for the
-// 1024-frame headline's last group step (G = 3600 over 53,744 slots). The
-// bytes are small beside it if each K/V tile is read once per kv head, but
-// a CTA of 64 packed rows (the small-G kernel's) reads its head's whole
-// prefix again: 394 row blocks x 27.5 MB per kv head at that step, ~43 GB
-// from L2 or device memory per call, against a bound that counts 110 MB.
-// That, the loads and products taking turns, and mma.sync instead of wgmma
-// held the 64-row kernel at 7-8% of the operations bound (measured on an
-// H100). The prefill kernel shares each K/V tile among 192 packed rows
-// (three times fewer re-reads), keeps the loads in flight on TMA while the
-// consumers compute, and runs both products on wgmma with the previous
-// tile's P V overlapping this tile's softmax. Decode (G = 1) is bound by
-// the K/V bytes of the layer: the small-G kernel reads each tile once per kv
-// head and split-K spreads the read over the SMs. An int8 cache reads 128 +
-// 4 bytes per K or V row instead of 256.
+// What bounds them. Prefill is tensor-core work: 4 * 128 flops per attended
+// (query head, slot) pair, about 2.9 ms at 989 TFLOP/s for the 1024-frame
+// headline's last group step (G = 3600 over 53,744 slots). The prefill
+// kernel shares each K/V tile among 192 packed rows (three consumer
+// warpgroups of 64 rows on wgmma), so a kv head's prefix is read G * rep /
+// 192 times, not G * rep / 64. Decode (G = 1) is bound by the bytes of the
+// layer's K/V (and scales): 117 MB per call over 57,344 bf16 slots, 35 us at
+// 3.35 TB/s. The decode kernel sizes its rows to the packed rows (one m16
+// row tile: 7 real rows at G = 1), lets its four warps split each tile's
+// keys, and keeps a deep ring of tiles in flight on every SM (one CTA per
+// SM, six to twelve slots); an int8 cache reads 128 + 4 bytes per K or V
+// row instead of 256.
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up
 #include <dlfcn.h>
 #include <limits.h>
@@ -82,86 +77,27 @@
 
 namespace {
 
-constexpr int kD = 128;            // head dim
-constexpr int kBM = 64;            // packed rows per CTA of the small-G and
-                                   // int8 kernels (4 warps x 16)
-constexpr int kBN = 64;            // keys per tile
-constexpr int kThreads = 128;
-constexpr int kKStride = kD + 8;   // smem row stride of K (bank-conflict pad)
-constexpr int kK8Stride = kD + 16; // smem row stride of int8 K (bytes): 36
-                                   // words, so the 8 rows of a fragment load
-                                   // hit 8 distinct bank quads
-constexpr int kVStride = kBN + 8;  // smem row stride of V^T
+constexpr int kD = 128;   // head dim
+constexpr int kBN = 64;   // keys per tile
+constexpr int kBox = 64 * 128;  // bytes of one 64-row x 128-byte TMA box
+constexpr int kTile = 2 * kBox; // a 64-row x 128-column bf16 tile: two boxes
+
+constexpr int kBf16 = 0, kInt8 = 1, kInt8k = 2;  // cache variants
 
 constexpr float kLn2 = 0.6931471805599453f;
 constexpr float kNegInf = -1e30f;  // lse of a row that sees no slot
-constexpr int kPadRow = -2;        // bound of a padding row; a real row's
-                                   // bound is >= -1 (pure past, length 0)
 
 struct FlashParams {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
+  const void* q;     // bf16 rows, or int8 codes on the int8-QK route
+  const float* qs;   // int8-QK: (hq, g) per-row q scales, contiguous
   void* o;           // OutT: bf16 or f32
   float* lse;        // (hq, g) through lse_sh / lse_st, kLse only
   float* part_o;     // (n_split, hq, g, D) f32, split-K only
   float2* part_ml;   // (n_split, hq, g) (max, sum), split-K only
-  long long q_sh, q_st, k_sh, k_st, v_sh, v_st, o_sh, o_st, lse_sh, lse_st;
+  long long q_sh, q_st, o_sh, o_st, lse_sh, lse_st;
   int hq, rep, g, length, cap, n_split;
   float scale_log2;
 };
-
-// The CTA's key range and this thread's two rows (accumulator rows g and
-// g+8 of its warp), the same in every variant.
-struct CtaRows {
-  int head[2], pos[2];
-  int bound[2];       // last visible slot (inclusive); kPadRow for padding
-  int bound_lo;       // every real row of the CTA sees at least [0, bound_lo]
-  int kend;           // nothing at or past kend is read
-  int kb0, kb1;       // this split's key tiles
-  bool has_pad_rows;
-};
-
-template <bool kPast>
-__device__ __forceinline__ CtaRows cta_rows(const FlashParams& p) {
-  const int warp = threadIdx.x >> 5;
-  const int gq = (threadIdx.x & 31) >> 2;
-  const int nrows = p.g * p.rep;
-  const int row0 = blockIdx.x * kBM;
-  CtaRows c;
-  const int pos_hi = min(row0 + kBM - 1, nrows - 1) / p.rep;
-  c.has_pad_rows = row0 + kBM > nrows;
-  if constexpr (kPast) {
-    c.bound_lo = p.length - 1;
-    c.kend = min(p.length, p.cap);
-  } else {
-    c.bound_lo = p.length + row0 / p.rep;
-    c.kend = min(p.length + pos_hi + 1, p.cap);
-  }
-  const int nkb = (c.kend + kBN - 1) / kBN;
-  c.kb0 = 0;
-  c.kb1 = nkb;
-  if (p.n_split > 1) {
-    const int chunk = (nkb + p.n_split - 1) / p.n_split;
-    c.kb0 = min(nkb, (int)blockIdx.z * chunk);
-    c.kb1 = min(nkb, c.kb0 + chunk);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int r = row0 + warp * 16 + gq + 8 * i;
-    const bool ok = r < nrows;
-    c.pos[i] = ok ? r / p.rep : 0;
-    c.head[i] = blockIdx.y * p.rep + (ok ? r % p.rep : 0);
-    c.bound[i] = !ok ? kPadRow : kPast ? p.length - 1 : p.length + c.pos[i];
-  }
-  return c;
-}
-
-// causal / length / padding mask is needed where the tile at key0 can cross
-// some row's bound
-__device__ __forceinline__ bool tile_needs_mask(const CtaRows& c, int key0) {
-  return c.has_pad_rows || key0 + kBN - 1 > c.bound_lo;
-}
 
 // natural-log lse from the log2-space running max and the sum of p
 __device__ __forceinline__ float lse_of(float m_log2, float l) {
@@ -169,400 +105,63 @@ __device__ __forceinline__ float lse_of(float m_log2, float l) {
 }
 
 template <typename OutT>
-__device__ __forceinline__ void store_pair(OutT* dst, float a, float b) {
+__device__ __forceinline__ void store_one(OutT* dst, float x) {
   if constexpr (std::is_same_v<OutT, float>) {
-    *reinterpret_cast<float2*>(dst) = make_float2(a, b);
+    *dst = x;
   } else {
-    *reinterpret_cast<uint32_t*>(dst) = qv::pack_bf16(a, b);
+    *dst = __float2bfloat16(x);
   }
 }
 
-// Online softmax over one tile of scores in log2 units: s becomes
-// p = exp2(s - m) (f32), and m_run, l_run (per-thread partial row sums of
-// the f32 p) and acc are brought up to date.
-__device__ __forceinline__ void online_softmax(float (&s)[kBN / 8][4],
-                                               float (&m_run)[2],
-                                               float (&l_run)[2],
-                                               float (&acc)[kD / 8][4]) {
-  float m_use[2], alpha[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float mx = -INFINITY;
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-      mx = fmaxf(mx, fmaxf(s[nt][2 * i], s[nt][2 * i + 1]));
-    }
-    mx = qv::warp_max4(mx);
-    const float m_new = fmaxf(m_run[i], mx);
-    m_use[i] = m_new == -INFINITY ? 0.f : m_new;  // fully masked so far
-    alpha[i] = exp2f(m_run[i] - m_use[i]);
-    m_run[i] = m_new;
-  }
-  float rs[2] = {0.f, 0.f};
-#pragma unroll
-  for (int nt = 0; nt < kBN / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float pe = exp2f(s[nt][e] - m_use[e >> 1]);
-      s[nt][e] = pe;
-      rs[e >> 1] += pe;
-    }
-  }
-  l_run[0] = l_run[0] * alpha[0] + rs[0];
-  l_run[1] = l_run[1] * alpha[1] + rs[1];
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) {
-    acc[dt][0] *= alpha[0];
-    acc[dt][1] *= alpha[0];
-    acc[dt][2] *= alpha[1];
-    acc[dt][3] *= alpha[1];
-  }
-}
+// split-K merge: one CTA per (head, position) row, kMergeWays groups of
+// kD threads, group j taking splits j, j + kMergeWays, ... (independent
+// loads). The row's max m over the splits' maxima first; then column d of
+// each group's partials weighted by 2^(m_z - m), and the weighted sums;
+// the groups' sums added in a fixed order. lse from both.
+constexpr int kMergeWays = 4;
 
-// O += P V against the transposed bf16 V tile: the score accumulators of
-// key tiles 2kk, 2kk+1 are exactly the A fragment of a 16-key chunk
-__device__ __forceinline__ void pv_product(const float (&s)[kBN / 8][4],
-                                           const __nv_bfloat16* vt,
-                                           float (&acc)[kD / 8][4]) {
-  const int gq = (threadIdx.x & 31) >> 2;
-  const int t4 = threadIdx.x & 3;
-#pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
-    const uint32_t a0 = qv::pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-    const uint32_t a1 = qv::pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-    const uint32_t a2 = qv::pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-    const uint32_t a3 = qv::pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-    for (int dt = 0; dt < kD / 8; ++dt) {
-      const __nv_bfloat16* vp = &vt[(dt * 8 + gq) * kVStride + kk * 16 + 2 * t4];
-      qv::mma_bf16_16816(acc[dt], a0, a1, a2, a3, qv::ld32(vp), qv::ld32(vp + 8));
-    }
-  }
-}
-
-// The rows' output (unsplit) and lse, or their f32 partials and (max, sum)
-// (split-K, merged by flash_merge_kernel)
 template <bool kLse, typename OutT>
-__device__ __forceinline__ void store_rows(const FlashParams& p,
-                                           const CtaRows& c,
-                                           const float (&acc)[kD / 8][4],
-                                           const float (&m_run)[2],
-                                           const float (&l_run)[2]) {
-  const int t4 = threadIdx.x & 3;
-  const float l_tot[2] = {qv::warp_sum4(l_run[0]), qv::warp_sum4(l_run[1])};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (c.bound[i] == kPadRow) continue;
-    if (p.n_split == 1) {
-      const float inv = l_tot[i] > 0.f ? 1.f / l_tot[i] : 0.f;
-      OutT* orow = static_cast<OutT*>(p.o) + c.head[i] * p.o_sh +
-                   (long long)c.pos[i] * p.o_st;
-#pragma unroll
-      for (int dt = 0; dt < kD / 8; ++dt) {
-        store_pair(orow + dt * 8 + 2 * t4, acc[dt][2 * i] * inv,
-                   acc[dt][2 * i + 1] * inv);
-      }
-      if constexpr (kLse) {
-        if (t4 == 0) {
-          p.lse[c.head[i] * p.lse_sh + (long long)c.pos[i] * p.lse_st] =
-              lse_of(m_run[i], l_tot[i]);
-        }
-      }
-    } else {
-      const long long prow =
-          ((long long)blockIdx.z * p.hq + c.head[i]) * p.g + c.pos[i];
-      float* orow = p.part_o + prow * kD;
-#pragma unroll
-      for (int dt = 0; dt < kD / 8; ++dt) {
-        *reinterpret_cast<float2*>(orow + dt * 8 + 2 * t4) =
-            make_float2(acc[dt][2 * i], acc[dt][2 * i + 1]);
-      }
-      if (t4 == 0) p.part_ml[prow] = make_float2(m_run[i], l_tot[i]);
-    }
-  }
-}
-
-// Both kernels are capped at 168 registers, for 3 CTAs per SM. The int8
-// variants are a kernel of their own because folding both into one
-// template cost the bf16 kernel three registers, which took it from 3
-// CTAs per SM to 2 and its group step from 2.72 to 3.10 ms (measured on an
-// H100).
-template <bool kPast, bool kLse, typename OutT>
-__global__ void __launch_bounds__(kThreads, 3)
-flash_fwd_kernel(FlashParams p) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kBN * kKStride];
-  __shared__ __align__(16) __nv_bfloat16 vt[kD * kVStride];
-
-  const int tid = threadIdx.x;
-  const int gq = (tid & 31) >> 2;  // accumulator row within the warp's 16
-  const int t4 = tid & 3;
-  const CtaRows c = cta_rows<kPast>(p);
-  const __nv_bfloat16* qrow[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    qrow[i] = c.bound[i] != kPadRow
-                  ? p.q + c.head[i] * p.q_sh + (long long)c.pos[i] * p.q_st
-                  : nullptr;
-  }
-
-  // Q fragments stay in registers for the whole key loop
-  uint32_t qf[kD / 16][4];
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const int col = kk * 16 + 2 * t4;
-    qf[kk][0] = qrow[0] ? qv::ld32(qrow[0] + col) : 0u;
-    qf[kk][1] = qrow[1] ? qv::ld32(qrow[1] + col) : 0u;
-    qf[kk][2] = qrow[0] ? qv::ld32(qrow[0] + col + 8) : 0u;
-    qf[kk][3] = qrow[1] ? qv::ld32(qrow[1] + col + 8) : 0u;
-  }
-
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) {
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  }
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-
-  const __nv_bfloat16* kbase = p.k + blockIdx.y * p.k_sh;
-  const __nv_bfloat16* vbase = p.v + blockIdx.y * p.v_sh;
-
-  for (int kb = c.kb0; kb < c.kb1; ++kb) {
-    const int key0 = kb * kBN;
-    __syncthreads();  // previous tile fully consumed
-    // K tile row-major, V tile transposed; rows past kend are zero
-    for (int i = tid; i < kBN * (kD / 8); i += kThreads) {
-      const int r = i / (kD / 8);
-      const int c8 = (i % (kD / 8)) * 8;
-      const int key = key0 + r;
-      uint4 kv4 = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv4 = make_uint4(0u, 0u, 0u, 0u);
-      if (key < c.kend) {
-        kv4 = *reinterpret_cast<const uint4*>(kbase + key * p.k_st + c8);
-        vv4 = *reinterpret_cast<const uint4*>(vbase + key * p.v_st + c8);
-      }
-      *reinterpret_cast<uint4*>(&ks[r * kKStride + c8]) = kv4;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv4);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vt[(c8 + j) * kVStride + r] = ve[j];
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys
-    float s[kBN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-      s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < kBN / 8; ++nt) {
-        const __nv_bfloat16* kp = &ks[(nt * 8 + gq) * kKStride + kk * 16 + 2 * t4];
-        qv::mma_bf16_16816(s[nt], qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3],
-                           qv::ld32(kp), qv::ld32(kp + 8));
-      }
-    }
-
-    // scale into log2 units; mask
-    const bool need_mask = tile_needs_mask(c, key0);
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[nt][e] * p.scale_log2;
-        if (need_mask) {
-          const int key = key0 + nt * 8 + 2 * t4 + (e & 1);
-          if (key > c.bound[e >> 1]) x = -INFINITY;
-        }
-        s[nt][e] = x;
-      }
-    }
-    online_softmax(s, m_run, l_run, acc);
-    pv_product(s, vt, acc);
-  }
-  store_rows<kLse, OutT>(p, c, acc, m_run, l_run);
-}
-
-// The int8-QK variants: int8 K (and V when kV8) with per-token f32 scales,
-// int8 q with per-row f32 scales.
-struct FlashInt8Params {
-  FlashParams b;     // strides, sizes, output, split-K partials
-  const int8_t* q8;  // (hq, g, D) codes through b.q_sh / b.q_st
-  const float* qs;   // (hq, g) contiguous; absorbed scale*log2 e
-  const int8_t* k8;  // layer's K codes through b.k_sh / b.k_st
-  const void* v;     // layer's V: int8 codes (kV8) or bf16
-  const float* ksc;  // layer's (hkv, cap) K scales, stride 1 along cap
-  const float* vsc;  // the same for V (kV8 only)
-  long long ks_sh, vs_sh;
-};
-
-template <bool kV8, bool kPast, bool kLse, typename OutT>
-__global__ void __launch_bounds__(kThreads, 3)
-flash_fwd_int8_kernel(FlashInt8Params pi) {
-  using VT = std::conditional_t<kV8, int8_t, __nv_bfloat16>;
-  const FlashParams& p = pi.b;
-  __shared__ __align__(16) int8_t ks[kBN * kK8Stride];
-  __shared__ __align__(16) __nv_bfloat16 vt[kD * kVStride];
-  __shared__ float ksc_s[kBN];
-  __shared__ float vsc_s[kBN];
-
-  const int tid = threadIdx.x;
-  const int gq = (tid & 31) >> 2;  // accumulator row within the warp's 16
-  const int t4 = tid & 3;
-  const int hk = blockIdx.y;
-  const CtaRows c = cta_rows<kPast>(p);
-  const int8_t* qrow[2];
-  float qsc[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool ok = c.bound[i] != kPadRow;
-    qrow[i] = ok ? pi.q8 + c.head[i] * p.q_sh + (long long)c.pos[i] * p.q_st
-                 : nullptr;
-    qsc[i] = ok ? pi.qs[(long long)c.head[i] * p.g + c.pos[i]] : 0.f;
-  }
-
-  // int8 Q fragments stay in registers: 4 k-steps of 32 columns
-  uint32_t qf[kD / 32][4];
-#pragma unroll
-  for (int kk = 0; kk < kD / 32; ++kk) {
-    const int col = kk * 32 + 4 * t4;
-    qf[kk][0] = qrow[0] ? qv::ld32(qrow[0] + col) : 0u;
-    qf[kk][1] = qrow[1] ? qv::ld32(qrow[1] + col) : 0u;
-    qf[kk][2] = qrow[0] ? qv::ld32(qrow[0] + col + 16) : 0u;
-    qf[kk][3] = qrow[1] ? qv::ld32(qrow[1] + col + 16) : 0u;
-  }
-
-  float acc[kD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) {
-    acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.f;
-  }
-  float m_run[2] = {-INFINITY, -INFINITY};
-  float l_run[2] = {0.f, 0.f};
-
-  const int8_t* kbase = pi.k8 + hk * p.k_sh;
-  const VT* vbase = static_cast<const VT*>(pi.v) + hk * p.v_sh;
-
-  for (int kb = c.kb0; kb < c.kb1; ++kb) {
-    const int key0 = kb * kBN;
-    __syncthreads();  // previous tile fully consumed
-    // K codes row-major with the tile's scales; V transposed (int8 codes
-    // converted to bf16, exactly); rows past kend are zero, as are their
-    // scales
-    for (int i = tid; i < kBN * (kD / 16); i += kThreads) {
-      const int r = i / (kD / 16);
-      const int c16 = (i % (kD / 16)) * 16;
-      const int key = key0 + r;
-      uint4 kv4 = make_uint4(0u, 0u, 0u, 0u);
-      if (key < c.kend) {
-        kv4 = *reinterpret_cast<const uint4*>(kbase + key * p.k_st + c16);
-      }
-      *reinterpret_cast<uint4*>(&ks[r * kK8Stride + c16]) = kv4;
-    }
-    if (tid < kBN) {
-      const int key = key0 + tid;
-      ksc_s[tid] = key < c.kend ? pi.ksc[hk * pi.ks_sh + key] : 0.f;
-      if constexpr (kV8) {
-        vsc_s[tid] = key < c.kend ? pi.vsc[hk * pi.vs_sh + key] : 0.f;
-      }
-    }
-    constexpr int kVPer = 16 / sizeof(VT);  // V elements per 16-byte load
-    for (int i = tid; i < kBN * (kD / kVPer); i += kThreads) {
-      const int r = i / (kD / kVPer);
-      const int col = (i % (kD / kVPer)) * kVPer;
-      const int key = key0 + r;
-      uint4 vv4 = make_uint4(0u, 0u, 0u, 0u);
-      if (key < c.kend) {
-        vv4 = *reinterpret_cast<const uint4*>(vbase + key * p.v_st + col);
-      }
-      const VT* ve = reinterpret_cast<const VT*>(&vv4);
-#pragma unroll
-      for (int j = 0; j < kVPer; ++j) {
-        if constexpr (kV8) {
-          vt[(col + j) * kVStride + r] = __float2bfloat16_rn((float)ve[j]);
-        } else {
-          vt[(col + j) * kVStride + r] = ve[j];
-        }
-      }
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys: exact s32 products
-    int si[kBN / 8][4];
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-      si[nt][0] = si[nt][1] = si[nt][2] = si[nt][3] = 0;
-    }
-#pragma unroll
-    for (int kk = 0; kk < kD / 32; ++kk) {
-#pragma unroll
-      for (int nt = 0; nt < kBN / 8; ++nt) {
-        const int8_t* kp = &ks[(nt * 8 + gq) * kK8Stride + kk * 32 + 4 * t4];
-        qv::mma_s8_16832(si[nt], qf[kk], qv::ld32(kp), qv::ld32(kp + 16));
-      }
-    }
-
-    // into log2 units as (acc * qs[row]) * ks[col], the JAX kernel's order
-    // (qs absorbed scale*log2 e); mask
-    float s[kBN / 8][4];
-    const bool need_mask = tile_needs_mask(c, key0);
-#pragma unroll
-    for (int nt = 0; nt < kBN / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = ((float)si[nt][e] * qsc[e >> 1]) *
-                  ksc_s[nt * 8 + 2 * t4 + (e & 1)];
-        if (need_mask) {
-          const int key = key0 + nt * 8 + 2 * t4 + (e & 1);
-          if (key > c.bound[e >> 1]) x = -INFINITY;
-        }
-        s[nt][e] = x;
-      }
-    }
-    online_softmax(s, m_run, l_run, acc);
-    // the int8 variant scales p's columns by the V scales (pv = p * vs)
-    if constexpr (kV8) {
-#pragma unroll
-      for (int nt = 0; nt < kBN / 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] *= vsc_s[nt * 8 + 2 * t4 + (e & 1)];
-      }
-    }
-    pv_product(s, vt, acc);
-  }
-  store_rows<kLse, OutT>(p, c, acc, m_run, l_run);
-}
-
-// split-K merge: one CTA of kD threads per (head, position) row
-template <bool kLse, typename OutT>
-__global__ void __launch_bounds__(kD)
+__global__ void __launch_bounds__(kD * kMergeWays)
 flash_merge_kernel(FlashParams p) {
+  __shared__ float red[kMergeWays];
+  __shared__ float part[kMergeWays][kD + 1];  // [group][column], sum last
   const int row = blockIdx.x;  // head * g + pos
-  const int head = row / p.g;
-  const int pos = row % p.g;
-  const int d = threadIdx.x;
+  const int d = threadIdx.x % kD, j = threadIdx.x / kD;
+  const long long zst = (long long)p.hq * p.g;
   float m = -INFINITY;
-  for (int z = 0; z < p.n_split; ++z) {
-    m = fmaxf(m, p.part_ml[(long long)z * p.hq * p.g + row].x);
+  for (int z = j; z < p.n_split; z += kMergeWays) {
+    m = fmaxf(m, p.part_ml[z * zst + row].x);
   }
+  if (d == 0) red[j] = m;
+  __syncthreads();
+  m = red[0];
+#pragma unroll
+  for (int i = 1; i < kMergeWays; ++i) m = fmaxf(m, red[i]);
   float l = 0.f, acc = 0.f;
   if (m != -INFINITY) {
-    for (int z = 0; z < p.n_split; ++z) {
-      const long long prow = (long long)z * p.hq * p.g + row;
+#pragma unroll 4
+    for (int z = j; z < p.n_split; z += kMergeWays) {
+      const long long prow = z * zst + row;
       const float2 ml = p.part_ml[prow];
       const float w = exp2f(ml.x - m);
       l += ml.y * w;
       acc += p.part_o[prow * kD + d] * w;
     }
   }
-  const float o = l > 0.f ? acc / l : 0.f;
-  OutT* orow = static_cast<OutT*>(p.o) + head * p.o_sh + (long long)pos * p.o_st;
-  if constexpr (std::is_same_v<OutT, float>) {
-    orow[d] = o;
-  } else {
-    orow[d] = __float2bfloat16(o);
+  part[j][d] = acc;
+  if (d == 0) part[j][kD] = l;
+  __syncthreads();
+  if (j != 0) return;
+  acc = part[0][d];
+  l = part[0][kD];
+#pragma unroll
+  for (int i = 1; i < kMergeWays; ++i) {
+    acc += part[i][d];
+    l += part[i][kD];
   }
+  const int head = row / p.g, pos = row % p.g;
+  OutT* orow = static_cast<OutT*>(p.o) + head * p.o_sh + (long long)pos * p.o_st;
+  store_one(orow + d, l > 0.f ? acc / l : 0.f);
   if constexpr (kLse) {
     if (d == 0) p.lse[head * p.lse_sh + (long long)pos * p.lse_st] = lse_of(m, l);
   }
@@ -572,7 +171,7 @@ template <bool kLse, typename OutT>
 cudaError_t merge_if_split(const FlashParams& p, cudaStream_t st) {
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || p.n_split == 1) return err;
-  flash_merge_kernel<kLse, OutT><<<p.hq * p.g, kD, 0, st>>>(p);
+  flash_merge_kernel<kLse, OutT><<<p.hq * p.g, kD * kMergeWays, 0, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -595,39 +194,518 @@ cudaError_t with_mode(int past, int lse, int out_f32, F&& f) {
   return past ? by_lse(std::true_type{}) : by_lse(std::false_type{});
 }
 
+// -- Hopper primitives: TMA, mbarriers, the 128-byte swizzle ------------------
+
+using qv::smem_u32;
+
+// byte offset of 16-byte chunk c of row r of a tile: the layout TMA writes
+// under CU_TENSOR_MAP_SWIZZLE_128B into 1024-byte-aligned boxes of 128-byte
+// rows (the chunk index XOR the row's index within its 8-row, 1024-byte
+// atom); chunks 8.. lie in the next box
+__device__ __forceinline__ int sw128(int r, int c) {
+  return (c >> 3) * kBox + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+// one arrival that also expects `bytes` of TMA transactions
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// spin until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// TMA: box (c0, c1, c2) of a 3D `map` into shared memory, completing on bar
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2,
+                                         uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// TMA: box (c0, c1) of a 2D `map` (the scales) into shared memory
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
+// the K (and V) tile of key0 into a ring slot: bf16 rows as two 64-column
+// boxes, int8 rows as one 128-byte box
+template <bool kByte>
+__device__ __forceinline__ void load_rows(unsigned char* dst,
+                                          const CUtensorMap* map, int key0,
+                                          int hk, uint64_t* bar) {
+  tma_load(dst, map, 0, key0, hk, bar);
+  if constexpr (!kByte) tma_load(dst + kBox, map, 64, key0, hk, bar);
+}
+
+// named barrier `id` over `n` threads
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
+
+// Byte k of xb = x ^ 0x80808080 (four int8 codes, each + 128) as the f32
+// value of code k, exactly: 0x4B0000XX is 2^23 + XX. A byte permute and an
+// FADD, where a cast would take an I2F (quarter rate on this card).
+__device__ __forceinline__ float s8_byte(uint32_t xb, int k) {
+  return __int_as_float(__byte_perm(xb, 0x4B000000u, 0x7540 | k)) - 8388736.f;
+}
+
+// two int8 codes, bytes e and e + 2 of x, as one bf16 pair (exact)
+__device__ __forceinline__ uint32_t s8pair_bf16(uint32_t x, int e) {
+  const uint32_t xb = x ^ 0x80808080u;
+  return qv::pack_bf16(s8_byte(xb, e), s8_byte(xb, e + 2));
+}
+
+// This CTA's kv head, first packed row and key tiles [kb0, kb1), for row
+// blocks of kRows. Row blocks run in reverse (blockIdx.y 0 takes the last
+// block): in unified mode the longest key ranges start first. Mirrored by
+// ops/flash_attention.py::cta_key_tiles.
+struct B1Cta {
+  int hk, row0, kb0, kb1;
+};
+
+template <bool kPast, int kRows>
+__device__ __forceinline__ B1Cta b1_cta(const FlashParams& p) {
+  const int nrows = p.g * p.rep;
+  const int nrb = (nrows + kRows - 1) / kRows;
+  B1Cta c;
+  c.hk = blockIdx.x;
+  c.row0 = (nrb - 1 - (int)blockIdx.y) * kRows;
+  const int pos_hi = (min(c.row0 + kRows, nrows) - 1) / p.rep;
+  const int kend = kPast ? min(p.length, p.cap)
+                         : min(p.length + pos_hi + 1, p.cap);
+  const int nkb = (kend + kBN - 1) / kBN;
+  const int chunk = (nkb + p.n_split - 1) / p.n_split;
+  c.kb0 = min(nkb, (int)blockIdx.z * chunk);
+  c.kb1 = min(nkb, c.kb0 + chunk);
+  return c;
+}
+
+// -- the decode kernel ---------------------------------------------------------
+//
+// One CTA: one kv head, one m16 tile of packed rows (7 real rows at G = 1 on
+// the 7B) and one split of the key range; four consumer warps and one
+// producer warp. The producer's first lane keeps a ring of kStages K/V
+// tiles (and their scales, about 200 KB) full by TMA. Each consumer warp takes 16 keys of
+// every tile: S = Q K^T on mma.sync (bf16 m16n8k16, or s8 m16n8k32 with exact
+// s32 sums), K fragments by ldmatrix from the swizzled tile; the online
+// softmax over its keys; O += P V with V read where it lies by
+// ldmatrix.trans (int8 codes: each 32-bit lane value holds two keys x two
+// columns; they become bf16 pairs in registers, exactly, and the output
+// columns of the two mma tiles they feed interleave). Nothing but the
+// tile's mbarriers orders the warps. At the end the four warps' (max, sum,
+// O) combine through shared memory in a fixed order, and the CTA writes its
+// rows, or its split's partial for flash_merge_kernel.
+constexpr int kDRows = 16;        // packed rows per CTA
+constexpr int kDWarps = 4;        // consumer warps
+constexpr int kDThreads = 32 * (kDWarps + 1);
+
+template <int kVar>
+struct DecodeRing {
+  static constexpr int kKBytes = kVar == kBf16 ? kTile : kBox;
+  static constexpr int kVBytes = kVar == kInt8 ? kBox : kTile;
+  static constexpr int kScaleBytes =
+      kVar == kBf16 ? 0 : (kVar == kInt8 ? 2 : 1) * kBN * 4;
+  static constexpr int kTx = kKBytes + kVBytes + kScaleBytes;  // per tile
+  static constexpr int kStage = (kTx + 1023) / 1024 * 1024;
+  // about 200 KB of ring, one CTA per SM: faster at decode on an H100 than
+  // half the depth at two CTAs per SM, or a third at three
+  static constexpr int kStages = kVar == kBf16 ? 6 : kVar == kInt8 ? 12 : 8;
+  static constexpr int kSmem = kStages * kStage + 2 * kStages * 8 + 1024;
+};
+
+template <int kVar, bool kPast, bool kLse, typename OutT>
+__global__ void __launch_bounds__(kDThreads, 1)
+flash_decode_kernel(const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tks,
+                    const __grid_constant__ CUtensorMap tvs,
+                    const FlashParams p) {
+  using R = DecodeRing<kVar>;
+  constexpr int S = R::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + S * R::kStage);
+  uint64_t* empty = full + S;
+  const B1Cta c = b1_cta<kPast, kDRows>(p);
+  const int n = c.kb1 - c.kb0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kDWarps);  // lane 0 of every consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kDWarps) {  // the producer
+    if (lane == 0) {
+      for (int t = 0; t < n; ++t) {
+        const int st = t % S;
+        if (t >= S) mbar_wait(&empty[st], (t / S - 1) & 1);
+        mbar_expect_tx(&full[st], R::kTx);
+        const int key0 = (c.kb0 + t) * kBN;
+        unsigned char* slot = smem + st * R::kStage;
+        load_rows<kVar != kBf16>(slot, &tk, key0, c.hk, &full[st]);
+        load_rows<kVar == kInt8>(slot + R::kKBytes, &tv, key0, c.hk, &full[st]);
+        if constexpr (kVar != kBf16) {
+          unsigned char* sc = slot + R::kKBytes + R::kVBytes;
+          tma_load_2d(sc, &tks, key0, c.hk, &full[st]);
+          if constexpr (kVar == kInt8) {
+            tma_load_2d(sc + kBN * 4, &tvs, key0, c.hk, &full[st]);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  const int g = lane >> 2, t4 = lane & 3;
+  const int nrows = p.g * p.rep;
+  // this thread's rows g and g + 8 of the CTA's 16: their last visible
+  // slots (padding rows see everything and are never stored) and q scales
+  int bound[2], head[2], pos[2];
+  float qsc[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int pr = c.row0 + g + 8 * i;
+    const bool ok = pr < nrows;
+    head[i] = c.hk * p.rep + (ok ? pr % p.rep : 0);
+    pos[i] = ok ? pr / p.rep : 0;
+    bound[i] = !ok ? INT_MAX : kPast ? p.length - 1 : p.length + pos[i];
+    if constexpr (kVar != kBf16) {
+      if (ok) qsc[i] = p.qs[head[i] * p.g + pos[i]];
+    }
+  }
+  const int bound_lo = kPast ? p.length - 1 : p.length + c.row0 / p.rep;
+
+  // Q fragments stay in registers for the whole key loop: 8 k-steps of 16
+  // bf16 columns, or 4 of 32 int8 columns
+  constexpr int kQSteps = kVar == kBf16 ? kD / 16 : kD / 32;
+  constexpr int kQBytes = kVar == kBf16 ? 2 : 1;
+  uint32_t qf[kQSteps][4];
+  {
+    const unsigned char* qrow[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      qrow[i] = c.row0 + g + 8 * i < nrows
+                    ? static_cast<const unsigned char*>(p.q) +
+                          (head[i] * p.q_sh + (long long)pos[i] * p.q_st) *
+                              kQBytes
+                    : nullptr;
+    }
+#pragma unroll
+    for (int kk = 0; kk < kQSteps; ++kk) {
+      const int b = kk * 32 + 4 * t4;  // byte of the step's first column
+      qf[kk][0] = qrow[0] ? qv::ld32(qrow[0] + b) : 0u;
+      qf[kk][1] = qrow[1] ? qv::ld32(qrow[1] + b) : 0u;
+      qf[kk][2] = qrow[0] ? qv::ld32(qrow[0] + b + 16) : 0u;
+      qf[kk][3] = qrow[1] ? qv::ld32(qrow[1] + b + 16) : 0u;
+    }
+  }
+
+  float o[kD / 8][4];
+#pragma unroll
+  for (int dt = 0; dt < kD / 8; ++dt) {
+    o[dt][0] = o[dt][1] = o[dt][2] = o[dt][3] = 0.f;
+  }
+  float m_run[2] = {-INFINITY, -INFINITY};
+  float l_run[2] = {0.f, 0.f};
+  const int kw = 16 * warp;  // this warp's keys within each tile
+  // ldmatrix rows of this lane: K (matrices key block x chunk parity), V
+  // (matrices chunk parity x key block)
+  const int k_row = kw + (lane >> 4) * 8 + (lane & 7), k_par = (lane >> 3) & 1;
+  const int v_row = kw + ((lane >> 3) & 1) * 8 + (lane & 7), v_par = lane >> 4;
+
+  for (int t = 0; t < n; ++t) {
+    const int st = t % S;
+    mbar_wait(&full[st], (t / S) & 1);
+    const unsigned char* kt = smem + st * R::kStage;
+    const unsigned char* vt = kt + R::kKBytes;
+    const float* ksc = reinterpret_cast<const float*>(vt + R::kVBytes);
+    const int key0 = (c.kb0 + t) * kBN + kw;
+
+    // S = Q K^T over this warp's 16 keys: n8 tiles j = 0, 1
+    float s[2][4];
+    if constexpr (kVar == kBf16) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kQSteps; ++kk) {
+        uint32_t b[4];
+        qv::ldsm_x4(b, kt + sw128(k_row, 2 * kk + k_par));
+        qv::mma_bf16_16816(s[0], qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3],
+                           b[0], b[1]);
+        qv::mma_bf16_16816(s[1], qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3],
+                           b[2], b[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= p.scale_log2;
+      }
+    } else {
+      int si[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kQSteps; ++kk) {
+        uint32_t b[4];
+        qv::ldsm_x4(b, kt + sw128(k_row, 2 * kk + k_par));
+        qv::mma_s8_16832(si[0], qf[kk], b[0], b[1]);
+        qv::mma_s8_16832(si[1], qf[kk], b[2], b[3]);
+      }
+      // log2 units as (acc * qs[row]) * ks[col], the JAX kernel's order
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 ks2 =
+            *reinterpret_cast<const float2*>(ksc + kw + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[j][e] = (static_cast<float>(si[j][e]) * qsc[e >> 1]) *
+                    ((e & 1) ? ks2.y : ks2.x);
+        }
+      }
+    }
+    if (key0 + 15 > bound_lo) {  // some row's bound falls in these keys
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (key0 + 8 * j + 2 * t4 + (e & 1) > bound[e >> 1]) s[j][e] = -INFINITY;
+        }
+      }
+    }
+
+    // online softmax over the 16 keys: s becomes p = 2^(s - m) in f32
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float mx = qv::warp_max4(fmaxf(fmaxf(s[0][2 * i], s[0][2 * i + 1]),
+                                           fmaxf(s[1][2 * i], s[1][2 * i + 1])));
+      const float m_new = fmaxf(m_run[i], mx);
+      const float m_use = m_new == -INFINITY ? 0.f : m_new;  // all masked
+      alpha[i] = exp2f(m_run[i] - m_use);
+      m_run[i] = m_new;
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        s[j][2 * i] = exp2f(s[j][2 * i] - m_use);
+        s[j][2 * i + 1] = exp2f(s[j][2 * i + 1] - m_use);
+        rs += s[j][2 * i] + s[j][2 * i + 1];
+      }
+      l_run[i] = l_run[i] * alpha[i] + rs;
+    }
+#pragma unroll
+    for (int dt = 0; dt < kD / 8; ++dt) {
+      o[dt][0] *= alpha[0];
+      o[dt][1] *= alpha[0];
+      o[dt][2] *= alpha[1];
+      o[dt][3] *= alpha[1];
+    }
+    if constexpr (kVar == kInt8) {  // pv = p * vs, before the bf16 packing
+      const float* vsc = ksc + kBN;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const float2 vs2 =
+            *reinterpret_cast<const float2*>(vsc + kw + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] *= (e & 1) ? vs2.y : vs2.x;
+      }
+    }
+
+    // O += P V: the score accumulators of n8 tiles 0, 1 are the A fragment
+    const uint32_t a0 = qv::pack_bf16(s[0][0], s[0][1]);
+    const uint32_t a1 = qv::pack_bf16(s[0][2], s[0][3]);
+    const uint32_t a2 = qv::pack_bf16(s[1][0], s[1][1]);
+    const uint32_t a3 = qv::pack_bf16(s[1][2], s[1][3]);
+    if constexpr (kVar != kInt8) {
+      // bf16 V: chunk pair (2cc, 2cc + 1) feeds n8 tiles 2cc, 2cc + 1
+#pragma unroll
+      for (int cc = 0; cc < kD / 16; ++cc) {
+        uint32_t b[4];
+        qv::ldsm_x4_t(b, vt + sw128(v_row, 2 * cc + v_par));
+        qv::mma_bf16_16816(o[2 * cc], a0, a1, a2, a3, b[0], b[1]);
+        qv::mma_bf16_16816(o[2 * cc + 1], a0, a1, a2, a3, b[2], b[3]);
+      }
+    } else {
+      // int8 V: a 16-byte chunk c holds 16 columns; read as b16, lane value
+      // b (keys 2 t4, 2 t4 + 1 x columns 2 g, 2 g + 1) gives the even column
+      // 2 g to n8 tile 2c and the odd one to tile 2c + 1
+#pragma unroll
+      for (int cc = 0; cc < kD / 32; ++cc) {
+        uint32_t b[4];
+        qv::ldsm_x4_t(b, vt + sw128(v_row, 2 * cc + v_par));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            qv::mma_bf16_16816(o[4 * cc + 2 * h + e], a0, a1, a2, a3,
+                               s8pair_bf16(b[2 * h], e),
+                               s8pair_bf16(b[2 * h + 1], e));
+          }
+        }
+      }
+    }
+    // the slot's generic-proxy reads (ldmatrix, the scales) ordered before
+    // the async-proxy TMA that refills it: without this fence the refill
+    // overtook a slow warp's V reads (measured on an H100)
+    qv::fence_proxy_async();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[st]);
+  }
+
+  // Combine the four warps' states through shared memory (the ring is free
+  // once every consumer warp is past its loop): per row the common max M,
+  // each warp's O scaled by 2^(m_w - M) into its own buffer, summed in warp
+  // order (a fixed order: the same inputs give the same bits).
+  constexpr int kCThreads = 32 * kDWarps;
+  bar_sync(1, kCThreads);
+  float* ow = reinterpret_cast<float*>(smem);     // [warp][row][kD]
+  float* ml = ow + kDWarps * kDRows * kD;         // [warp][row] (m, l)
+  float l_tot[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l_tot[i] = qv::warp_sum4(l_run[i]);
+    if (t4 == 0) {
+      ml[2 * (warp * kDRows + g + 8 * i)] = m_run[i];
+      ml[2 * (warp * kDRows + g + 8 * i) + 1] = l_tot[i];
+    }
+  }
+  bar_sync(1, kCThreads);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = g + 8 * i;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kDWarps; ++w) mx = fmaxf(mx, ml[2 * (w * kDRows + r)]);
+    const float f = mx == -INFINITY ? 0.f : exp2f(m_run[i] - mx);
+    float* orow = ow + (warp * kDRows + r) * kD;
+#pragma unroll
+    for (int dt = 0; dt < kD / 8; ++dt) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        // int8 V interleaves the columns of n8 tiles 2c and 2c + 1
+        const int col = kVar == kInt8
+                            ? 16 * (dt >> 1) + 4 * t4 + 2 * e + (dt & 1)
+                            : 8 * dt + 2 * t4 + e;
+        orow[col] = o[dt][2 * i + e] * f;
+      }
+    }
+  }
+  bar_sync(1, kCThreads);
+
+  const int d = threadIdx.x;  // one output column per thread
+  const bool split = p.n_split > 1;
+  for (int r = 0; r < kDRows; ++r) {
+    const int pr = c.row0 + r;
+    if (pr >= nrows) break;
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kDWarps; ++w) mx = fmaxf(mx, ml[2 * (w * kDRows + r)]);
+    float l = 0.f, acc = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDWarps; ++w) {
+      const float mw = ml[2 * (w * kDRows + r)];
+      l += mx == -INFINITY ? 0.f : ml[2 * (w * kDRows + r) + 1] * exp2f(mw - mx);
+      acc += ow[(w * kDRows + r) * kD + d];
+    }
+    const int hd = c.hk * p.rep + pr % p.rep, ps = pr / p.rep;
+    if (!split) {
+      const float inv = l > 0.f ? 1.f / l : 0.f;
+      store_one(static_cast<OutT*>(p.o) + hd * p.o_sh + (long long)ps * p.o_st + d,
+                acc * inv);
+      if constexpr (kLse) {
+        if (d == 0) p.lse[hd * p.lse_sh + (long long)ps * p.lse_st] = lse_of(mx, l);
+      }
+    } else {
+      const long long prow = ((long long)blockIdx.z * p.hq + hd) * p.g + ps;
+      p.part_o[prow * kD + d] = acc;
+      if (d == 0) p.part_ml[prow] = make_float2(mx, l);
+    }
+  }
+}
+
 // -- the prefill kernel --------------------------------------------------------
 //
 // One CTA: one kv head, kPRows packed rows (kPWG consumer warpgroups of 64
 // rows each) and one producer warpgroup. The producer's first thread keeps
 // the K/V ring full with TMA (a 3D tensor map over the layer view: head dim,
-// slot, kv head; 64-slot x 64-column boxes under the 128-byte swizzle, two
-// per 128-wide row, zeros past the map's slot count); the consumers stage
+// slot, kv head; 64-slot boxes of 128-byte rows under the 128-byte swizzle,
+// two per bf16 row, one per int8 row; zeros past the map's slot count; the
+// tile's f32 scales by a 2D map on the same barrier); the consumers stage
 // their Q rows once by cp.async into the same swizzled layout, then per key
-// tile issue S = Q K^T (wgmma m64n64k16 x 8, both operands K-major from
-// shared memory) and O += P V (m64n128k16 x 4, P from registers, V read
-// MN-major through the transpose bit), the previous tile's P V running
-// while they do this tile's softmax. setmaxnreg moves the producer's
+// tile issue S = Q K^T (bf16: wgmma m64n64k16 x 8; int8-QK: s8 m64n64k32 x
+// 4 with exact s32 sums; both operands K-major from shared memory) and O +=
+// P V (m64n128k16 x 4, P from registers, V read MN-major through the
+// transpose bit), the previous tile's P V running while they do this tile's
+// softmax. With int8 V, the producer warpgroup's other three warps convert
+// each landed tile of codes into a bf16 slot of the same swizzled layout
+// (exact) and signal it on a third barrier. setmaxnreg moves the producer's
 // registers to the consumers.
 constexpr int kPWG = 3;                      // consumer warpgroups
 constexpr int kPRows = 64 * kPWG;            // packed rows per CTA
 constexpr int kPStages = 4;                  // K/V ring slots
 constexpr int kPThreads = 128 * (kPWG + 1);  // + the producer warpgroup
-constexpr int kConsumerRegs = 160;           // 128 * (3 * 160 + 24) <= 64K
-constexpr int kProducerRegs = 24;
-constexpr int kBox = 64 * 128;  // bytes of one 64-row x 64-column bf16 box
-constexpr int kTile = 2 * kBox; // a 64-row x 128-column tile: two boxes
-// Q tiles, K and V rings, full and empty barriers, alignment slack
-constexpr int kPrefillSmem =
-    (kPWG + 2 * kPStages) * kTile + 2 * kPStages * 8 + 1024;
 
-using qv::smem_u32;
-
-// byte offset of 16-byte chunk c (0..15) of row r of a tile: the layout TMA
-// writes under CU_TENSOR_MAP_SWIZZLE_128B into a 1024-byte-aligned box (the
-// chunk index XOR the row's index within its 8-row, 1024-byte atom)
-__device__ __forceinline__ int sw128(int r, int c) {
-  return (c >> 3) * kBox + r * 128 + (((c & 7) ^ (r & 7)) << 4);
-}
+template <int kVar>
+struct PrefillSmem {
+  static constexpr int kKBytes = kVar == kBf16 ? kTile : kBox;  // K slot
+  static constexpr int kRawBytes = kVar == kInt8 ? kBox : 0;    // V codes
+  static constexpr int kScaleBytes = kVar == kBf16 ? 0 : 2 * kBN * 4;
+  static constexpr int kTx = kKBytes + (kVar == kInt8 ? kBox : kTile) +
+                             (kVar == kBf16 ? 0 : kVar == kInt8 ? 2 : 1) * kBN * 4;
+  // Q tiles (also the output's staging), K, V (bf16), V codes, scales,
+  // full / empty / converted barriers, alignment slack
+  static constexpr int kBytes =
+      kPWG * kTile + kPStages * (kKBytes + kTile + kRawBytes + kScaleBytes) +
+      3 * kPStages * 8 + 1024;
+  // 128 * (3 * consumers + producer) <= 65,536; int8 V's converters keep
+  // more registers
+  static constexpr int kConsumerRegs = kVar == kInt8 ? 152 : 160;
+  static constexpr int kProducerRegs = kVar == kInt8 ? 40 : 24;
+};
 
 // wgmma descriptor of a 128-byte-swizzled operand (layout type 1): 8-row
 // groups 1024 bytes apart (SBO); LBO is the distance between 64-column
@@ -668,83 +746,35 @@ __device__ __forceinline__ void wgmma_m64n128k16_rs(
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// one arrival that also expects `bytes` of TMA transactions
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
+// D (64 x 64, s32) = A (64 x 32, s8) B (32 x 64, s8) + (scale_d ? D : 0); A
+// and B K-major in shared memory; exact
+__device__ __forceinline__ void wgmma_m64n64k32_s8(
+    uint32_t (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
   asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// spin until the barrier's phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// TMA: box (c0, c1, c2) of `map` into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
+template <int N>
+__device__ __forceinline__ void reg_fence_u(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
 }
 
 // the 128 threads of consumer warpgroup wg (named barriers 1..kPWG)
-__device__ __forceinline__ void wg_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
-}
-
-// This CTA's kv head, first packed row and key tiles [kb0, kb1). Row
-// blocks run in reverse (blockIdx.y 0 takes the last block): in unified
-// mode the longest key ranges start first. Mirrored by
-// ops/flash_attention.py::cta_key_tiles.
-struct PrefillCta {
-  int hk, row0, kb0, kb1;
-};
-
-template <bool kPast>
-__device__ __forceinline__ PrefillCta prefill_cta(const FlashParams& p) {
-  const int nrows = p.g * p.rep;
-  const int nrb = (nrows + kPRows - 1) / kPRows;
-  PrefillCta c;
-  c.hk = blockIdx.x;
-  c.row0 = (nrb - 1 - (int)blockIdx.y) * kPRows;
-  const int pos_hi = (min(c.row0 + kPRows, nrows) - 1) / p.rep;
-  const int kend = kPast ? min(p.length, p.cap)
-                         : min(p.length + pos_hi + 1, p.cap);
-  const int nkb = (kend + kBN - 1) / kBN;
-  const int chunk = (nkb + p.n_split - 1) / p.n_split;
-  c.kb0 = min(nkb, (int)blockIdx.z * chunk);
-  c.kb1 = min(nkb, c.kb0 + chunk);
-  return c;
-}
+__device__ __forceinline__ void wg_sync(int wg) { bar_sync(wg + 1, 128); }
 
 // The warpgroup's 64 output rows through its Q tile (free once its products
 // are done): registers -> swizzled shared memory -> 16-byte row chunks into
@@ -753,7 +783,7 @@ __device__ __forceinline__ PrefillCta prefill_cta(const FlashParams& p) {
 // Padding rows are not written.
 template <typename T>
 __device__ __forceinline__ void store_out(const FlashParams& p,
-                                          const PrefillCta& c, int wg,
+                                          const B1Cta& c, int wg,
                                           unsigned char* stage,
                                           const float (&o)[64],
                                           const float (&scl)[2], bool split) {
@@ -801,54 +831,99 @@ __device__ __forceinline__ void store_out(const FlashParams& p,
   }
 }
 
-template <bool kPast, bool kLse, typename OutT>
+template <int kVar, bool kPast, bool kLse, typename OutT>
 __global__ void __launch_bounds__(kPThreads, 1)
 flash_prefill_kernel(const __grid_constant__ CUtensorMap tk,
                      const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tks,
+                     const __grid_constant__ CUtensorMap tvs,
                      const FlashParams p) {
+  using L = PrefillSmem<kVar>;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem =
-      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
-  unsigned char* qs = smem;                   // [kPWG] Q tiles
-  unsigned char* ks = qs + kPWG * kTile;      // [kPStages] K tiles
-  unsigned char* vs = ks + kPStages * kTile;  // [kPStages] V tiles
-  uint64_t* full = reinterpret_cast<uint64_t*>(vs + kPStages * kTile);
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* qs = smem;                          // [kPWG] Q tiles
+  unsigned char* ks = qs + kPWG * kTile;             // [kPStages] K tiles
+  unsigned char* vs = ks + kPStages * L::kKBytes;    // [kPStages] bf16 V
+  unsigned char* vraw = vs + kPStages * kTile;       // [kPStages] V codes
+  unsigned char* scs = vraw + kPStages * L::kRawBytes;  // [kPStages] scales
+  uint64_t* full = reinterpret_cast<uint64_t*>(scs + kPStages * L::kScaleBytes);
   uint64_t* empty = full + kPStages;
+  uint64_t* vready = empty + kPStages;  // int8 V: the bf16 slot is written
   const int wg = threadIdx.x >> 7;
-  const PrefillCta c = prefill_cta<kPast>(p);
+  const B1Cta c = b1_cta<kPast, kPRows>(p);
   const int n = c.kb1 - c.kb0;
   if (threadIdx.x == 0) {
 #pragma unroll
     for (int s = 0; s < kPStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 4 * kPWG);  // lane 0 of every consumer warp
+      if constexpr (kVar == kInt8) mbar_init(&vready[s], 3);  // converters
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
-  if (wg == kPWG) {  // the producer
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
-    if (threadIdx.x == kPWG * 128) {
+  if (wg == kPWG) {  // the producer warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(L::kProducerRegs));
+    const int pw = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+    if (pw == 0 && lane == 0) {
       for (int t = 0; t < n; ++t) {
         const int st = t % kPStages;
         // the slot's previous tile released by every consumer warp
         if (t >= kPStages) mbar_wait(&empty[st], (t / kPStages - 1) & 1);
-        mbar_expect_tx(&full[st], 2 * kTile);
+        mbar_expect_tx(&full[st], L::kTx);
         const int key0 = (c.kb0 + t) * kBN;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          tma_load(ks + st * kTile + h * kBox, &tk, 64 * h, key0, c.hk,
-                   &full[st]);
-          tma_load(vs + st * kTile + h * kBox, &tv, 64 * h, key0, c.hk,
-                   &full[st]);
+        load_rows<kVar != kBf16>(ks + st * L::kKBytes, &tk, key0, c.hk,
+                                 &full[st]);
+        if constexpr (kVar == kInt8) {
+          load_rows<true>(vraw + st * kBox, &tv, key0, c.hk, &full[st]);
+        } else {
+          load_rows<false>(vs + st * kTile, &tv, key0, c.hk, &full[st]);
         }
+        if constexpr (kVar != kBf16) {
+          unsigned char* sc = scs + st * L::kScaleBytes;
+          tma_load_2d(sc, &tks, key0, c.hk, &full[st]);
+          if constexpr (kVar == kInt8) {
+            tma_load_2d(sc + kBN * 4, &tvs, key0, c.hk, &full[st]);
+          }
+        }
+      }
+    }
+    if constexpr (kVar == kInt8) {
+      if (pw == 0) return;
+      // warps 1-3: each landed tile of V codes (64 rows x 8 chunks of 16)
+      // into the bf16 slot, 16 codes -> two 16-byte chunks, exactly
+      const int ct = threadIdx.x - kPWG * 128 - 32;  // 0..95
+      for (int t = 0; t < n; ++t) {
+        const int st = t % kPStages;
+        mbar_wait(&full[st], (t / kPStages) & 1);
+        const unsigned char* raw = vraw + st * kBox;
+        unsigned char* dst = vs + st * kTile;
+        for (int i = ct; i < 64 * 8; i += 96) {
+          const int r = i >> 3, ch = i & 7;
+          const uint4 x = *reinterpret_cast<const uint4*>(raw + sw128(r, ch));
+          const uint32_t w[4] = {x.x, x.y, x.z, x.w};
+          uint32_t b[8];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const uint32_t xb = w[j] ^ 0x80808080u;
+            b[2 * j] = qv::pack_bf16(s8_byte(xb, 0), s8_byte(xb, 1));
+            b[2 * j + 1] = qv::pack_bf16(s8_byte(xb, 2), s8_byte(xb, 3));
+          }
+          *reinterpret_cast<uint4*>(dst + sw128(r, 2 * ch)) =
+              make_uint4(b[0], b[1], b[2], b[3]);
+          *reinterpret_cast<uint4*>(dst + sw128(r, 2 * ch + 1)) =
+              make_uint4(b[4], b[5], b[6], b[7]);
+        }
+        qv::fence_proxy_async();  // visible to the consumers' wgmma
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&vready[st]);
       }
     }
     return;
   }
 
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(L::kConsumerRegs));
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
   const int nrows = p.g * p.rep;
@@ -856,14 +931,18 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tk,
   unsigned char* qw = qs + wg * kTile;
 
   // this warpgroup's Q rows, once (packed rows are not one TMA box);
-  // padding rows are zeros
-  for (int i = tid; i < 64 * 16; i += 128) {
-    const int r = i >> 4, ch = i & 15;
+  // padding rows are zeros. bf16: 16 chunks per row over two boxes; int8
+  // codes: 8 chunks, one box
+  constexpr int kQChunks = kVar == kBf16 ? 16 : 8;
+  for (int i = tid; i < 64 * kQChunks; i += 128) {
+    const int r = i / kQChunks, ch = i % kQChunks;
     const bool ok = wrow0 + r < nrows;
     const int pr = ok ? wrow0 + r : 0;
-    const __nv_bfloat16* src = p.q +
-                               (c.hk * p.rep + pr % p.rep) * p.q_sh +
-                               (long long)(pr / p.rep) * p.q_st + ch * 8;
+    const unsigned char* src =
+        static_cast<const unsigned char*>(p.q) +
+        ((c.hk * p.rep + pr % p.rep) * p.q_sh + (long long)(pr / p.rep) * p.q_st) *
+            (kVar == kBf16 ? 2 : 1) +
+        ch * 16;
     qv::cp_async16(qw + sw128(r, ch), src, ok);
   }
   qv::cp_async_commit();
@@ -874,12 +953,16 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tk,
   // this thread's rows' last visible slots; padding rows see everything
   // (they are never stored), so only real rows' bounds decide the mask
   int bound[2];
+  float qsc[2] = {0.f, 0.f};
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int pr = wrow0 + 16 * warp + g + 8 * i;
     bound[i] = pr >= nrows ? INT_MAX
                : kPast     ? p.length - 1
                            : p.length + pr / p.rep;
+    if constexpr (kVar != kBf16) {
+      if (pr < nrows) qsc[i] = p.qs[(c.hk * p.rep + pr % p.rep) * p.g + pr / p.rep];
+    }
   }
   const int bound_lo = wrow0 >= nrows ? INT_MAX
                        : kPast        ? p.length - 1
@@ -892,26 +975,60 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tk,
   float l_run[2] = {0.f, 0.f};
   float alpha[2];
   float s[32];
+  uint32_t si[32];           // int8-QK: the s32 scores
   uint32_t pa[kBN / 16][4];  // P of the previous tile: the A operand of P V
   const uint64_t qdesc = sw128_desc(qw, 16);
 
-  // S = Q K_t^T: 8 k-steps of 16 columns, 32 bytes apart within a box
+  // S = Q K_t^T. bf16: 8 k-steps of 16 columns, 32 bytes apart within a
+  // box; int8: 4 k-steps of 32 codes, 32 bytes apart in the one box
   auto issue_s = [&](int t) {
     const int st = t % kPStages;
     mbar_wait(&full[st], (t / kPStages) & 1);
-    const uint64_t kdesc = sw128_desc(ks + st * kTile, 16);
-    qv::reg_fence(s);
-    qv::wgmma_fence();
+    const uint64_t kdesc = sw128_desc(ks + st * L::kKBytes, 16);
+    if constexpr (kVar == kBf16) {
+      qv::reg_fence(s);
+      qv::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      const uint64_t off = (kk >> 2) * (kBox >> 4) + (kk & 3) * 2;
-      qv::wgmma_m64n64k16_ss(s, qdesc + off, kdesc + off, kk > 0);
+      for (int kk = 0; kk < kD / 16; ++kk) {
+        const uint64_t off = (kk >> 2) * (kBox >> 4) + (kk & 3) * 2;
+        qv::wgmma_m64n64k16_ss(s, qdesc + off, kdesc + off, kk > 0);
+      }
+    } else {
+      reg_fence_u(si);
+      qv::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 32; ++kk) {
+        wgmma_m64n64k32_s8(si, qdesc + kk * 2, kdesc + kk * 2, kk > 0);
+      }
     }
     qv::wgmma_commit();
   };
+  // after S_t's wait: int8-QK scores into log2 units as (acc * qs[row]) *
+  // ks[col], the JAX kernel's order
+  auto scale_s = [&](int t) {
+    if constexpr (kVar != kBf16) {
+      reg_fence_u(si);
+      const float* ksc =
+          reinterpret_cast<const float*>(scs + (t % kPStages) * L::kScaleBytes);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 k2 = *reinterpret_cast<const float2*>(ksc + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[4 * j + e] =
+              (static_cast<float>(static_cast<int>(si[4 * j + e])) *
+               qsc[e >> 1]) * ((e & 1) ? k2.y : k2.x);
+        }
+      }
+    } else {
+      qv::reg_fence(s);
+    }
+  };
   // O += P V_t: keys [16kk, 16kk + 16) are rows 16kk.. of both V boxes
   auto issue_pv = [&](int t) {
-    const uint64_t vdesc = sw128_desc(vs + (t % kPStages) * kTile, kBox);
+    const int st = t % kPStages;
+    if constexpr (kVar == kInt8) mbar_wait(&vready[st], (t / kPStages) & 1);
+    const uint64_t vdesc = sw128_desc(vs + st * kTile, kBox);
     qv::reg_fence(o);
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
@@ -919,10 +1036,10 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tk,
     }
     qv::wgmma_commit();
   };
-  // softmax of S_t in place (s becomes P_t, unrounded), in log2 units:
-  // scale_log2 > 0 commutes with the max and goes into one FFMA per score;
-  // alpha rescales the running sums. Only tiles that cross some real row's
-  // bound are masked.
+  // softmax of S_t in place (s becomes P_t, unrounded), in log2 units
+  // (bf16: scale_log2 > 0 commutes with the max and goes into one FFMA per
+  // score); alpha rescales the running sums. Only tiles that cross some
+  // real row's bound are masked.
   auto softmax = [&](int t) {
     const int key0 = (c.kb0 + t) * kBN;
     if (key0 + kBN - 1 > bound_lo) {
@@ -938,10 +1055,10 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tk,
       mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
     }
     float m_use[2];
+    const float sc = kVar == kBf16 ? p.scale_log2 : 1.f;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float m_new =
-          fmaxf(m_run[i], qv::warp_max4(mx[i]) * p.scale_log2);
+      const float m_new = fmaxf(m_run[i], qv::warp_max4(mx[i]) * sc);
       m_use[i] = m_new == -INFINITY ? 0.f : m_new;  // fully masked so far
       alpha[i] = qv::ex2(m_run[i] - m_use[i]);
       m_run[i] = m_new;
@@ -949,12 +1066,25 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tk,
     }
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      const float pe = qv::ex2(fmaf(s[i], p.scale_log2, -m_use[(i >> 1) & 1]));
+      const float pe = kVar == kBf16
+                           ? qv::ex2(fmaf(s[i], sc, -m_use[(i >> 1) & 1]))
+                           : qv::ex2(s[i] - m_use[(i >> 1) & 1]);
       s[i] = pe;
       l_run[(i >> 1) & 1] += pe;
     }
   };
-  auto pack_p = [&]() {
+  // P_t into bf16 A fragments; int8 V: p * vs[col] first (pv = p * vs)
+  auto pack_p = [&](int t) {
+    if constexpr (kVar == kInt8) {
+      const float* vsc = reinterpret_cast<const float*>(
+                             scs + (t % kPStages) * L::kScaleBytes) + kBN;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 v2 = *reinterpret_cast<const float2*>(vsc + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[4 * j + e] *= (e & 1) ? v2.y : v2.x;
+      }
+    }
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk) {
       pa[kk][0] = qv::pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
@@ -971,21 +1101,24 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tk,
   if (n > 0) {
     issue_s(0);
     qv::wgmma_wait<0>();
-    qv::reg_fence(s);
+    scale_s(0);
     softmax(0);
-    pack_p();
+    pack_p(0);
     for (int t = 1; t < n; ++t) {
       issue_s(t);
       issue_pv(t - 1);
       qv::wgmma_wait<1>();  // S_t done; P_{t-1} V_{t-1} may still run
-      qv::reg_fence(s);
+      scale_s(t);
       softmax(t);
       qv::wgmma_wait<0>();  // P_{t-1} V_{t-1} is in O; pa and the slot free
       qv::reg_fence(o);
+      // int8-QK: the slot's scales were read by generic loads; ordered
+      // before the TMA that refills it
+      if constexpr (kVar != kBf16) qv::fence_proxy_async();
       if (lane == 0) mbar_arrive(&empty[(t - 1) % kPStages]);
 #pragma unroll
       for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
-      pack_p();
+      pack_p(t);
     }
     qv::wgmma_fence();
     issue_pv(n - 1);
@@ -1019,11 +1152,23 @@ flash_prefill_kernel(const __grid_constant__ CUtensorMap tk,
 }
 
 // dynamic shared memory above 48 KB, opted into once per instantiation
-template <bool kPast, bool kLse, typename OutT>
+template <typename K>
+cudaError_t smem_once(K kernel, int bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+template <int kVar, bool kPast, bool kLse, typename OutT>
 cudaError_t prefill_smem_once() {
-  static cudaError_t err = cudaFuncSetAttribute(
-      flash_prefill_kernel<kPast, kLse, OutT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, kPrefillSmem);
+  static cudaError_t err = smem_once(flash_prefill_kernel<kVar, kPast, kLse, OutT>,
+                                     PrefillSmem<kVar>::kBytes);
+  return err;
+}
+
+template <int kVar, bool kPast, bool kLse, typename OutT>
+cudaError_t decode_smem_once() {
+  static cudaError_t err = smem_once(flash_decode_kernel<kVar, kPast, kLse, OutT>,
+                                     DecodeRing<kVar>::kSmem);
   return err;
 }
 
@@ -1047,173 +1192,208 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of one layer view (hkv, cap, kD) with strides st (slot)
-// and sh (head), in elements: dims (kD, slots, hkv), boxes of 64 columns x
-// kBN slots x 1 head, 128-byte swizzle. Slots at or past `slots` (the
-// call's reach) read as zeros, so nothing past the valid prefix and the
-// group is loaded.
-cudaError_t layer_map(CUtensorMap* map, const void* base, long long st,
-                      long long sh, int slots, int hkv) {
+// The tensor map of one layer view (hkv, cap, kD) of bf16 (bytes = 2) or
+// int8 (bytes = 1) rows with strides st (slot) and sh (head), in elements:
+// dims (kD, slots, hkv), boxes of 128 bytes x kBN slots x 1 head, 128-byte
+// swizzle. Slots at or past `slots` (the call's reach) read as zeros, so
+// nothing past the valid prefix and the group is loaded.
+cudaError_t layer_map(CUtensorMap* map, const void* base, int bytes,
+                      long long st, long long sh, int slots, int hkv) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
   const cuuint64_t dims[3] = {kD, (cuuint64_t)std::max(slots, 1), (cuuint64_t)hkv};
-  const cuuint64_t strides[2] = {(cuuint64_t)st * 2, (cuuint64_t)sh * 2};
-  const cuuint32_t box[3] = {64, kBN, 1};
+  const cuuint64_t strides[2] = {(cuuint64_t)st * bytes, (cuuint64_t)sh * bytes};
+  const cuuint32_t box[3] = {(cuuint32_t)(128 / bytes), kBN, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+      map, bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+      3, const_cast<void*>(base), dims, strides, box, elem,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// The tensor map of a layer's (hkv, cap) f32 scales with head stride sh
+// (elements): dims (slots, hkv), boxes of kBN slots; zeros past `slots`
+cudaError_t scale_map(CUtensorMap* map, const void* base, long long sh,
+                      int slots, int hkv) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorSharedObjectSymbolNotFound;
+  const cuuint64_t dims[2] = {(cuuint64_t)std::max(slots, 1), (cuuint64_t)hkv};
+  const cuuint64_t strides[1] = {(cuuint64_t)sh * 4};
+  const cuuint32_t box[2] = {kBN, 1};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(base), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+      CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-void fill_common(FlashParams& p, void* o, void* lse, void* part_o,
-                 void* part_ml, long long q_sh, long long q_st, long long k_sh,
-                 long long k_st, long long v_sh, long long v_st,
-                 long long o_sh, long long o_st, long long lse_sh,
-                 long long lse_st, int hq, int hkv, int g, int length,
-                 int cap, int n_split) {
-  p.o = o;
-  p.lse = static_cast<float*>(lse);
-  p.part_o = static_cast<float*>(part_o);
-  p.part_ml = static_cast<float2*>(part_ml);
-  p.q_sh = q_sh; p.q_st = q_st; p.k_sh = k_sh; p.k_st = k_st;
-  p.v_sh = v_sh; p.v_st = v_st; p.o_sh = o_sh; p.o_st = o_st;
-  p.lse_sh = lse_sh; p.lse_st = lse_st;
-  p.hq = hq; p.rep = hq / hkv; p.g = g;
-  p.length = length; p.cap = cap; p.n_split = n_split;
+// The four maps of one call: K, V and (int8-QK) their scales. A map that
+// the variant does not read is a copy of K's (a valid kernel argument).
+struct LayerMaps {
+  CUtensorMap k, v, ks, vs;
+};
+
+cudaError_t layer_maps(LayerMaps* m, int var, const void* k, const void* ksc,
+                       const void* v, const void* vsc, long long k_sh,
+                       long long k_st, long long v_sh, long long v_st,
+                       long long ks_sh, long long vs_sh, int slots, int hkv) {
+  cudaError_t err =
+      layer_map(&m->k, k, var == kBf16 ? 2 : 1, k_st, k_sh, slots, hkv);
+  if (err == cudaSuccess) {
+    err = layer_map(&m->v, v, var == kInt8 ? 1 : 2, v_st, v_sh, slots, hkv);
+  }
+  m->ks = m->vs = m->k;
+  if (err == cudaSuccess && var != kBf16) {
+    err = scale_map(&m->ks, ksc, ks_sh, slots, hkv);
+  }
+  if (err == cudaSuccess && var == kInt8) {
+    err = scale_map(&m->vs, vsc, vs_sh, slots, hkv);
+  }
+  return err;
+}
+
+// Calls f(std::integral_constant<int, kVar>) for the call's variant
+template <typename F>
+cudaError_t with_variant(int var, F&& f) {
+  switch (var) {
+    case kBf16: return f(std::integral_constant<int, kBf16>{});
+    case kInt8: return f(std::integral_constant<int, kInt8>{});
+    default: return f(std::integral_constant<int, kInt8k>{});
+  }
 }
 
 }  // namespace
 
-// The arguments both entry points share, in this order: o, lse, part_o,
-// part_ml; strides in elements (q_sh, q_st, k_sh, k_st, v_sh, v_st, o_sh,
-// o_st, lse_sh, lse_st); hq, hkv, g, length, cap, n_split; past (pure-past
-// mode), with_lse, out_f32 (f32 output, else bf16).
-#define QV_FLASH_COMMON_PARAMS                                               \
-  void *o, void *lse, void *part_o, void *part_ml, long long q_sh,           \
-      long long q_st, long long k_sh, long long k_st, long long v_sh,        \
-      long long v_st, long long o_sh, long long o_st, long long lse_sh,      \
-      long long lse_st, int hq, int hkv, int g, int length, int cap,         \
-      int n_split, int past, int with_lse, int out_f32
-#define QV_FLASH_COMMON_ARGS                                                 \
-  o, lse, part_o, part_ml, q_sh, q_st, k_sh, k_st, v_sh, v_st, o_sh, o_st,   \
-      lse_sh, lse_st, hq, hkv, g, length, cap, n_split
+// The arguments the entry points share, in this order: q (bf16, or int8
+// codes), qs ((hq, g) f32 contiguous, int8-QK only, absorbed scale * log2
+// e), k, ksc (k's (hkv, cap) f32 scales, int8 K only), v, vsc (int8 V
+// only); o, lse, part_o, part_ml; strides in elements (q_sh, q_st, k_sh,
+// k_st, v_sh, v_st, o_sh, o_st, lse_sh, lse_st, ks_sh, vs_sh); hq, hkv, g,
+// length, cap, n_split; past (pure-past mode), with_lse, out_f32 (f32
+// output, else bf16); scale (bf16 only). The variant follows from the
+// pointers: qs null is the bf16 cache, vsc null with qs int8k, else int8.
+// q rows, K/V rows and scale rows 16-byte aligned (TMA, cp.async).
+#define QV_FLASH_PARAMS                                                      \
+  const void *q, const void *qs, const void *k, const void *ksc,             \
+      const void *v, const void *vsc, void *o, void *lse, void *part_o,      \
+      void *part_ml, long long q_sh, long long q_st, long long k_sh,         \
+      long long k_st, long long v_sh, long long v_st, long long o_sh,        \
+      long long o_st, long long lse_sh, long long lse_st, long long ks_sh,   \
+      long long vs_sh, int hq, int hkv, int g, int length, int cap,          \
+      int n_split, int past, int with_lse, int out_f32, float scale
 
-// bf16 cache: q, k, v bf16
-extern "C" int qv_flash_attention(const void* q, const void* k, const void* v,
-                                  QV_FLASH_COMMON_PARAMS, float scale,
-                                  void* stream) {
-  FlashParams p;
-  fill_common(p, QV_FLASH_COMMON_ARGS);
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
-  p.scale_log2 = scale * 1.4426950408889634f;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((g * p.rep + kBM - 1) / kBM, hkv, n_split);
-  return (int)with_mode(past, with_lse, out_f32, [&](auto kp, auto kl,
-                                                     auto ot) {
-    using OutT = typename decltype(ot)::type;
-    flash_fwd_kernel<decltype(kp)::value, decltype(kl)::value, OutT>
-        <<<grid, kThreads, 0, st>>>(p);
-    return merge_if_split<decltype(kl)::value, OutT>(p, st);
-  });
+namespace {
+
+int variant_of(const void* qs, const void* vsc) {
+  return qs == nullptr ? kBf16 : vsc == nullptr ? kInt8k : kInt8;
 }
 
-// bf16 cache, prefill shapes (G * rep >= the prefill kernel's 192 rows; the
-// wrapper's _plan picks): arguments as qv_flash_attention; q rows 16-byte
-// aligned. Row blocks of kPRows on grid (hkv, blocks, n_split).
-extern "C" int qv_flash_prefill(const void* q, const void* k, const void* v,
-                                QV_FLASH_COMMON_PARAMS, float scale,
-                                void* stream) {
-  FlashParams p;
-  fill_common(p, QV_FLASH_COMMON_ARGS);
-  p.q = static_cast<const __nv_bfloat16*>(q);
-  p.k = static_cast<const __nv_bfloat16*>(k);
-  p.v = static_cast<const __nv_bfloat16*>(v);
+FlashParams params_of(const void* q, const void* qs, void* o, void* lse,
+                      void* part_o, void* part_ml, long long q_sh,
+                      long long q_st, long long o_sh, long long o_st,
+                      long long lse_sh, long long lse_st, int hq, int hkv,
+                      int g, int length, int cap, int n_split, float scale) {
+  FlashParams p = {};
+  p.q = q;
+  p.qs = static_cast<const float*>(qs);
+  p.o = o;
+  p.lse = static_cast<float*>(lse);
+  p.part_o = static_cast<float*>(part_o);
+  p.part_ml = static_cast<float2*>(part_ml);
+  p.q_sh = q_sh; p.q_st = q_st; p.o_sh = o_sh; p.o_st = o_st;
+  p.lse_sh = lse_sh; p.lse_st = lse_st;
+  p.hq = hq; p.rep = hq / hkv; p.g = g;
+  p.length = length; p.cap = cap; p.n_split = n_split;
   p.scale_log2 = scale * 1.4426950408889634f;
-  const int slots = std::min(past ? length : length + g, cap);
-  CUtensorMap tk, tv;
-  cudaError_t err = layer_map(&tk, k, k_st, k_sh, slots, hkv);
-  if (err == cudaSuccess) err = layer_map(&tv, v, v_st, v_sh, slots, hkv);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return p;
+}
+
+}  // namespace
+
+#define QV_FLASH_SETUP                                                        \
+  FlashParams p = params_of(q, qs, o, lse, part_o, part_ml, q_sh, q_st, o_sh, \
+                            o_st, lse_sh, lse_st, hq, hkv, g, length, cap,    \
+                            n_split, scale);                                  \
+  const int var = variant_of(qs, vsc);                                        \
+  LayerMaps maps;                                                             \
+  cudaError_t err = layer_maps(&maps, var, k, ksc, v, vsc, k_sh, k_st, v_sh,  \
+                               v_st, ks_sh, vs_sh,                            \
+                               std::min(past ? length : length + g, cap),     \
+                               hkv);                                          \
+  if (err != cudaSuccess) return (int)err;                                    \
+  cudaStream_t st = static_cast<cudaStream_t>(stream)
+
+// Prefill shapes (G * rep >= the prefill kernel's 192 rows; the wrapper's
+// _plan picks): row blocks of kPRows on grid (hkv, blocks, n_split); the
+// split-K partials merged by flash_merge_kernel.
+extern "C" int qv_flash_prefill(QV_FLASH_PARAMS, void* stream) {
+  QV_FLASH_SETUP;
   dim3 grid(hkv, (g * p.rep + kPRows - 1) / kPRows, n_split);
-  return (int)with_mode(past, with_lse, out_f32, [&](auto kp, auto kl,
-                                                     auto ot) {
-    using OutT = typename decltype(ot)::type;
-    constexpr bool kP = decltype(kp)::value, kL = decltype(kl)::value;
-    const cudaError_t e = prefill_smem_once<kP, kL, OutT>();
-    if (e != cudaSuccess) return e;
-    flash_prefill_kernel<kP, kL, OutT>
-        <<<grid, kPThreads, kPrefillSmem, st>>>(tk, tv, p);
-    return merge_if_split<kL, OutT>(p, st);
+  return (int)with_variant(var, [&](auto kv) {
+    return with_mode(past, with_lse, out_f32, [&](auto kp, auto kl, auto ot) {
+      using OutT = typename decltype(ot)::type;
+      constexpr int kV = decltype(kv)::value;
+      constexpr bool kP = decltype(kp)::value, kL = decltype(kl)::value;
+      const cudaError_t e = prefill_smem_once<kV, kP, kL, OutT>();
+      if (e != cudaSuccess) return e;
+      flash_prefill_kernel<kV, kP, kL, OutT>
+          <<<grid, kPThreads, PrefillSmem<kV>::kBytes, st>>>(
+              maps.k, maps.v, maps.ks, maps.vs, p);
+      return merge_if_split<kL, OutT>(p, st);
+    });
   });
 }
 
-// int8 caches on the int8-QK route: q8 int8 with qs (hq, g) f32 contiguous
-// (qs absorbed scale*log2 e); k int8 with its layer's (hkv, cap) scales
-// ksc; v int8 with vsc (the "int8" cache), or bf16 with vsc == nullptr
-// ("int8k"). Strides in elements; ks_sh / vs_sh are the scales' head
-// strides.
-extern "C" int qv_flash_attention_int8(
-    const void* q8, const void* qs, const void* k, const void* ksc,
-    const void* v, const void* vsc, QV_FLASH_COMMON_PARAMS, long long ks_sh,
-    long long vs_sh, void* stream) {
-  FlashInt8Params pi = {};
-  FlashParams& p = pi.b;
-  fill_common(p, QV_FLASH_COMMON_ARGS);
-  pi.q8 = static_cast<const int8_t*>(q8);
-  pi.qs = static_cast<const float*>(qs);
-  pi.k8 = static_cast<const int8_t*>(k);
-  pi.v = v;
-  pi.ksc = static_cast<const float*>(ksc);
-  pi.vsc = static_cast<const float*>(vsc);
-  pi.ks_sh = ks_sh; pi.vs_sh = vs_sh;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  dim3 grid((g * p.rep + kBM - 1) / kBM, hkv, n_split);
-  return (int)with_mode(past, with_lse, out_f32, [&](auto kp, auto kl,
-                                                     auto ot) {
-    using OutT = typename decltype(ot)::type;
-    constexpr bool kP = decltype(kp)::value, kL = decltype(kl)::value;
-    if (vsc != nullptr) {
-      flash_fwd_int8_kernel<true, kP, kL, OutT><<<grid, kThreads, 0, st>>>(pi);
-    } else {
-      flash_fwd_int8_kernel<false, kP, kL, OutT><<<grid, kThreads, 0, st>>>(pi);
-    }
-    return merge_if_split<kL, OutT>(p, st);
+// The other shapes: row blocks of kDRows on grid (hkv, blocks, n_split);
+// the split-K partials merged by flash_merge_kernel.
+extern "C" int qv_flash_decode(QV_FLASH_PARAMS, void* stream) {
+  QV_FLASH_SETUP;
+  dim3 grid(hkv, (g * p.rep + kDRows - 1) / kDRows, n_split);
+  return (int)with_variant(var, [&](auto kv) {
+    return with_mode(past, with_lse, out_f32, [&](auto kp, auto kl, auto ot) {
+      using OutT = typename decltype(ot)::type;
+      constexpr int kV = decltype(kv)::value;
+      constexpr bool kP = decltype(kp)::value, kL = decltype(kl)::value;
+      const cudaError_t e = decode_smem_once<kV, kP, kL, OutT>();
+      if (e != cudaSuccess) return e;
+      flash_decode_kernel<kV, kP, kL, OutT>
+          <<<grid, kDThreads, DecodeRing<kV>::kSmem, st>>>(
+              maps.k, maps.v, maps.ks, maps.vs, p);
+      return merge_if_split<kL, OutT>(p, st);
+    });
   });
 }
 
 // Registers, local (spill) bytes, static and dynamic shared memory of B1's
-// kernels, by index: 8 * family + mode, family 0 the small-G kernel, 1 the
-// prefill kernel, 2 int8, 3 int8k, 4 the split-K merge (modes 0-3); mode
-// bits 4 pure past, 2 lse, 1 f32 output. Returns a CUDA error.
+// kernels, by index: 8 * family + mode, family 0-2 the decode kernel (bf16,
+// int8, int8k), 3-5 the prefill kernel (bf16, int8, int8k), 6 the split-K
+// merge (modes 0-3); mode bits 4 pure past, 2 lse, 1 f32 output. Returns a
+// CUDA error.
 extern "C" int qv_flash_kernel_info(int which, int* regs, int* local_bytes,
                                     int* static_smem, int* dynamic_smem) {
-  if (which < 0 || which >= 36) return (int)cudaErrorInvalidValue;
+  if (which < 0 || which >= 52) return (int)cudaErrorInvalidValue;
   const int family = which / 8, m = which % 8;
   cudaFuncAttributes a;
   int dyn = 0;
-  const cudaError_t err = with_mode(m & 4, m & 2, m & 1, [&](auto kp, auto kl,
-                                                            auto ot) {
-    using OutT = typename decltype(ot)::type;
-    constexpr bool kP = decltype(kp)::value, kL = decltype(kl)::value;
-    switch (family) {
-      case 0: return cudaFuncGetAttributes(&a, flash_fwd_kernel<kP, kL, OutT>);
-      case 1:
-        dyn = kPrefillSmem;
-        return cudaFuncGetAttributes(&a, flash_prefill_kernel<kP, kL, OutT>);
-      case 2:
-        return cudaFuncGetAttributes(&a,
-                                     flash_fwd_int8_kernel<true, kP, kL, OutT>);
-      case 3:
-        return cudaFuncGetAttributes(
-            &a, flash_fwd_int8_kernel<false, kP, kL, OutT>);
-      default: return cudaFuncGetAttributes(&a, flash_merge_kernel<kL, OutT>);
-    }
+  const cudaError_t err = with_variant(family % 3, [&](auto kv) {
+    return with_mode(m & 4, m & 2, m & 1, [&](auto kp, auto kl, auto ot) {
+      using OutT = typename decltype(ot)::type;
+      constexpr int kV = decltype(kv)::value;
+      constexpr bool kP = decltype(kp)::value, kL = decltype(kl)::value;
+      if (family < 3) {
+        dyn = DecodeRing<kV>::kSmem;
+        return cudaFuncGetAttributes(&a, flash_decode_kernel<kV, kP, kL, OutT>);
+      }
+      if (family < 6) {
+        dyn = PrefillSmem<kV>::kBytes;
+        return cudaFuncGetAttributes(&a, flash_prefill_kernel<kV, kP, kL, OutT>);
+      }
+      return cudaFuncGetAttributes(&a, flash_merge_kernel<kL, OutT>);
+    });
   });
   if (err != cudaSuccess) return (int)err;
   *regs = a.numRegs;

@@ -77,24 +77,9 @@ constexpr int kHD = 80;
 constexpr int kChunks = kHD / 8;          // 16-byte chunks per head row
 constexpr int kHalfChunks = kChunks / 2;  // rotate_half pairs chunk j, j + 5
 
-// -- PTX helpers (common.cuh has the cp.async and wgmma ones) -------------
+// -- PTX helpers (common.cuh has the ldmatrix, cp.async and wgmma ones) ----
 
 using namespace qv;
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p)));
-}
 
 // D (64 x 80, f32) += A (64 x 16, registers) B (16 x 80, MN-major in shared
 // memory: the transpose bit)

@@ -10,12 +10,13 @@ Counter `flash_past_attention.kernel_launches`; on a CPU tensor it runs
 the plain version (ops/attention.py). A CUDA tensor the kernel does not
 take (dtype, head dim, strides) raises: there is no fallback.
 
-Kernels, by shape alone (`_plan`): a bf16 cache with at least one full
-row tile of packed rows (G * rep >= PREFILL_ROWS: the group steps, a long
-final prefill) runs "bf16_prefill" (wgmma on a TMA ring of K/V tiles,
+Kernels, by shape alone (`_plan`), each for every cache: at least one
+full row tile of packed rows (G * rep >= PREFILL_ROWS: the group steps, a
+long final prefill) runs "bf16_prefill" on a bf16 cache and
+"int8_prefill" on an int8 / int8k one (wgmma on a TMA ring of K/V tiles,
 192 packed rows per CTA); smaller G (decode, a short final prefill,
-query-based group 0) "bf16_small" (mma.sync, 64 rows); the int8 caches
-"int8".
+query-based group 0) "decode" (rows in one m16 tile per CTA, a deep TMA
+ring per SM). Split-K partials are merged by a second launch.
 
 Replaces quickvideo_tpu/ops/flash_attention.py::flash_past_attention in its
 two modes: unified causal (`causal=True`; the group's K/V already sit at
@@ -43,16 +44,17 @@ from quickvideo_tpu_torch.ops.attention import (
 
 HEAD_DIM = 128  # the kernels are compiled for this head dim
 KEY_TILE = 64  # keys per tile, every kernel
-SMALL_ROWS = 64  # packed rows per CTA: small-G and int8 kernels (3 per SM)
-PREFILL_ROWS = 192  # packed rows per CTA: the prefill kernel (1 per SM)
+DECODE_ROWS = 16  # packed rows per CTA: the decode kernel (one m16 tile)
+PREFILL_ROWS = 192  # packed rows per CTA: the prefill kernels
+# every kernel runs one CTA per SM (the decode kernel's ring is ~200 KB)
 MIN_SPLIT_TILES = 4  # key tiles a split keeps at least
 
 
 class Plan(NamedTuple):
-    """One launch: the kernel, its packed rows per CTA, its grid (as the C
-    entry point launches it) and the key-range splits per CTA."""
+    """One launch: the kernel, its packed rows per CTA, its grid (kv heads,
+    row blocks, splits) and the key-range splits per CTA."""
 
-    kernel: str  # "bf16_prefill", "bf16_small" or "int8"
+    kernel: str  # "bf16_prefill", "int8_prefill" or "decode"
     rows: int
     grid: Tuple[int, int, int]
     n_split: int
@@ -60,24 +62,22 @@ class Plan(NamedTuple):
 
 def _plan(g: int, hq: int, hkv: int, length: int, cap: int, causal: bool,
           sms: int, variant: str = "bf16") -> Plan:
-    """The kernel for this shape, its grid and its split-K. The prefill
-    kernel (one CTA per SM) splits when its CTAs do not fill the SMs, the
-    64-row kernels (three per SM) when theirs do not make two waves; a
-    split keeps at least MIN_SPLIT_TILES key tiles."""
+    """The kernel for this shape, its grid and its split-K: a kernel splits
+    its key range when its CTAs (one per SM) do not fill the SMs; a split
+    keeps at least MIN_SPLIT_TILES key tiles."""
     rows = g * (hq // hkv)
     key_tiles = -(-min(length + g if causal else length, cap) // KEY_TILE)
-    prefill = variant == "bf16" and rows >= PREFILL_ROWS
-    tile = PREFILL_ROWS if prefill else SMALL_ROWS
+    if rows >= PREFILL_ROWS:
+        kernel = "bf16_prefill" if variant == "bf16" else "int8_prefill"
+        tile = PREFILL_ROWS
+    else:
+        kernel, tile = "decode", DECODE_ROWS
     blocks = -(-rows // tile)
     ctas = blocks * hkv
-    fill = sms if prefill else 2 * sms
     n_split = 1
     if ctas < sms:
-        n_split = max(1, min(-(-fill // ctas), key_tiles // MIN_SPLIT_TILES))
-    if prefill:
-        return Plan("bf16_prefill", tile, (hkv, blocks, n_split), n_split)
-    kernel = "bf16_small" if variant == "bf16" else "int8"
-    return Plan(kernel, tile, (blocks, hkv, n_split), n_split)
+        n_split = max(1, min(-(-sms // ctas), key_tiles // MIN_SPLIT_TILES))
+    return Plan(kernel, tile, (hkv, blocks, n_split), n_split)
 
 
 def cta_key_tiles(plan: Plan, g: int, rep: int, length: int, cap: int,
@@ -85,12 +85,11 @@ def cta_key_tiles(plan: Plan, g: int, rep: int, length: int, cap: int,
     """Key tiles [kb0, kb1) of the CTA at grid index `block` along the row
     blocks and `split` along the splits, as the kernels compute them: the
     CTA's keys end at min(length + its last position + 1, cap) (pure past:
-    min(length, cap)). The prefill kernel takes its row blocks in reverse,
-    so that in unified mode the longest key ranges start first."""
+    min(length, cap)). Row blocks run in reverse, so that in unified mode
+    the longest key ranges start first."""
     rows = g * rep
     blocks = -(-rows // plan.rows)
-    rb = blocks - 1 - block if plan.kernel == "bf16_prefill" else block
-    row0 = rb * plan.rows
+    row0 = (blocks - 1 - block) * plan.rows
     pos_hi = (min(row0 + plan.rows, rows) - 1) // rep
     kend = min(length + pos_hi + 1, cap) if causal else min(length, cap)
     nkb = -(-kend // KEY_TILE)
@@ -117,7 +116,8 @@ def _check_rows(name: str, t: torch.Tensor, dtype, dev) -> None:
 
 
 def _check_scales(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
-    """(Hkv, cap) f32 per-token scales of a layer, stride 1 along cap."""
+    """(Hkv, cap) f32 per-token scales of a layer, stride 1 along cap,
+    16-byte aligned rows (the kernels load them by TMA)."""
     if t.dtype != torch.float32:
         raise TypeError(f"flash kernel takes f32 {name}, got {t.dtype}")
     if t.device != like.device:
@@ -127,8 +127,8 @@ def _check_scales(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
             f"{name} must be (Hkv, cap) = {tuple(like.shape[:2])} with "
             f"stride 1 along cap, got {tuple(t.shape)} strides {t.stride()}"
         )
-    if t.data_ptr() % 4:
-        raise ValueError(f"{name} is not 4-byte aligned")
+    if t.stride(0) % 4 or t.data_ptr() % 16:
+        raise ValueError(f"{name} rows are not 16-byte aligned (TMA)")
 
 
 def flash_past_attention(
@@ -193,7 +193,7 @@ def flash_past_attention(
             _check_scales("v_scale", v_scale, v_layer)
         q8, qs = quantize_q(q, scale)
         qs = qs.contiguous()
-        q_in = q8  # 4-byte fragment loads of int8 rows
+        q_in = q8  # 4-byte fragment loads of int8 rows (decode)
         if q8.stride(0) % 4 or q8.stride(1) % 4 or q8.data_ptr() % 4:
             raise ValueError("int8 q rows are not 4-byte aligned")
     else:
@@ -204,8 +204,10 @@ def flash_past_attention(
     sms = torch.cuda.get_device_properties(q.device).multi_processor_count
     plan = _plan(g, hq, hkv, length, cap, causal, sms, variant)
     n_split = plan.n_split
-    if plan.kernel == "bf16_prefill" and (
-            q.stride(0) % 8 or q.stride(1) % 8 or q.data_ptr() % 16):
+    prefill = plan.kernel != "decode"
+    step = 16 // q_in.element_size()
+    if prefill and (q_in.stride(0) % step or q_in.stride(1) % step
+                    or q_in.data_ptr() % 16):
         raise ValueError("q rows are not 16-byte aligned (the prefill "
                          "kernel stages them with 16-byte copies)")
     out = torch.empty(g, hq, d, dtype=out_dtype, device=q.device).transpose(0, 1)
@@ -220,7 +222,11 @@ def flash_past_attention(
             n_split, hq, g, 2, dtype=torch.float32, device=q.device
         )
     lib = _build.library()
-    common = (
+    args = (
+        q_in.data_ptr(), qs.data_ptr() if quant else None,
+        k_layer.data_ptr(), k_scale.data_ptr() if quant else None,
+        v_layer.data_ptr(),
+        v_scale.data_ptr() if v_scale is not None else None,
         out.data_ptr(),
         lse.data_ptr() if lse is not None else None,
         part_o.data_ptr() if part_o is not None else None,
@@ -229,26 +235,15 @@ def flash_past_attention(
         v_layer.stride(0), v_layer.stride(1), out.stride(0), out.stride(1),
         lse.stride(0) if lse is not None else 0,
         lse.stride(1) if lse is not None else 0,
+        k_scale.stride(0) if quant else 0,
+        v_scale.stride(0) if v_scale is not None else 0,
         hq, hkv, g, int(length), cap, n_split, int(not causal),
-        int(with_lse), int(out_dtype == torch.float32),
+        int(with_lse), int(out_dtype == torch.float32), float(scale),
     )
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    if quant:
-        err = lib.qv_flash_attention_int8(
-            q8.data_ptr(), qs.data_ptr(), k_layer.data_ptr(),
-            k_scale.data_ptr(), v_layer.data_ptr(),
-            v_scale.data_ptr() if v_scale is not None else None,
-            *common, k_scale.stride(0),
-            v_scale.stride(0) if v_scale is not None else 0, stream,
-        )
-    else:
-        entry = (lib.qv_flash_prefill if plan.kernel == "bf16_prefill"
-                 else lib.qv_flash_attention)
-        err = entry(
-            q.data_ptr(), k_layer.data_ptr(), v_layer.data_ptr(),
-            *common, float(scale), stream,
-        )
-    _build.check(err, f"qv_flash_attention ({variant}, {plan.kernel})")
+    entry = lib.qv_flash_prefill if prefill else lib.qv_flash_decode
+    err = entry(*args, stream)
+    _build.check(err, f"flash_past_attention ({variant}, {plan.kernel})")
     flash_past_attention.launches += 1
     flash_past_attention.kernel_launches[plan.kernel] += 1
     flash_past_attention.variant_launches[variant] += 1

@@ -118,8 +118,7 @@ def test_flash_kernel_matches_plain(dev, g, length, cap):
     torch.testing.assert_close(got.float(), ref.float(), **TOL)
 
 
-@pytest.mark.parametrize("g,kernel", [(20, "bf16_small"),
-                                      (50, "bf16_prefill")])
+@pytest.mark.parametrize("g,kernel", [(20, "decode"), (50, "bf16_prefill")])
 def test_flash_kernel_reads_only_its_layer(dev, g, kernel):
     """Garbage in the other layer and past length + G must not leak in."""
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -171,8 +170,9 @@ def _int8_args(cache, li=1):
 @pytest.mark.parametrize("variant", ["int8", "int8k"])
 @pytest.mark.parametrize(
     "g,length,cap",
-    [(1, 4000, 8192), (1, 122880, 131072), (37, 3607, 8192), (600, 0, 4096),
-     (3600, 1807, 8192)],
+    [(1, 4000, 8192), (1, 57344, 65536), (1, 122880, 131072),
+     (27, 1000, 4096), (28, 1000, 4096), (37, 3607, 8192), (600, 0, 4096),
+     (3600, 1807, 8192), (3600, 53744, 65536)],
 )
 def test_flash_int8_kernels_match_plain(dev, variant, g, length, cap):
     """B1's int8-QK variants against their plain version on the same int8
@@ -249,8 +249,8 @@ def test_flash_lse_and_pure_past_modes_match_plain(dev, variant, causal, g,
     query-based merge takes (unified with the bf16 output of the hot path),
     every cache variant: out and lse against the plain version; G = 1 and
     G = 37 over 57,344 slots run split-K, so the merge kernel forms the lse
-    there. Pure past over an empty cache: out 0, lse NEG_INF, on either bf16
-    kernel (G = 20 small, G = 100 prefill)."""
+    there. Pure past over an empty cache: out 0, lse NEG_INF, on either
+    kernel (G = 20 decode, G = 100 prefill)."""
     q, k, v, kw = _mode_case(dev, variant, g, length, cap, g + length)
     scale = 128 ** -0.5
     out_dtype = torch.bfloat16 if causal else torch.float32
@@ -271,11 +271,12 @@ def test_flash_lse_and_pure_past_modes_match_plain(dev, variant, causal, g,
 
 
 @pytest.mark.parametrize("variant,g", [("bf16", 20), ("bf16", 50),
-                                       ("int8", 50)])
+                                       ("int8", 20), ("int8", 50),
+                                       ("int8k", 20), ("int8k", 50)])
 def test_flash_pure_past_reads_only_the_valid_slots(dev, variant, g):
     """Pure past attends [0, length): poisoning the group's own slots and
-    everything past length changes nothing (bf16: the small-G kernel at G
-    = 20, the prefill kernel at G = 50)."""
+    everything past length changes nothing (the decode kernel at G = 20,
+    the prefill kernels at G = 50)."""
     q, k, v, kw = _mode_case(dev, variant, g, 300, 1024, 9)
     mode = dict(causal=False, with_lse=True, out_dtype=torch.float32)
     (got, lse), _ = _launch(dev, g, 300, 1024, causal=False, variant=variant,
@@ -285,10 +286,151 @@ def test_flash_pure_past_reads_only_the_valid_slots(dev, variant, g):
         k[:, 300:].fill_(float("nan"))
         v[:, 300:].fill_(float("nan"))
     else:
-        kw["k_scale"][:, 300:].fill_(float("nan"))
-        kw["v_scale"][:, 300:].fill_(float("nan"))
+        for sc in (kw["k_scale"], kw["v_scale"]):
+            if sc is not None:
+                sc[:, 300:].fill_(float("nan"))
+        if variant == "int8k":
+            v[:, 300:].fill_(float("nan"))
     again, lse2 = flash_past_attention(q, k, v, 300, 0.1, **kw, **mode)
     assert torch.equal(got, again) and torch.equal(lse, lse2)
+
+
+# decode at G = 1 over 4,000, 57,344 (the headline's occupancy) and 122,880
+# slots (hour-scale), query-based group 0 (G = 20, pure past), 189 and 196
+# packed rows (either side of one prefill row tile), the 64-frame group step
+B1_SHAPES = [(1, 4000, 8192), (1, 57344, 65536), (1, 122880, 131072),
+             (20, 1807, 4096), (27, 1000, 4096), (28, 1000, 4096),
+             (3600, 1807, 8192)]
+
+
+@pytest.mark.parametrize("variant", ["bf16", "int8", "int8k"])
+@pytest.mark.parametrize("g,length,cap", B1_SHAPES)
+def test_flash_every_mode_and_output_matches_plain(dev, variant, g, length,
+                                                   cap):
+    """Both kernels (decode below one prefill row tile, the prefill kernel
+    of the variant above), each mode x output dtype, out and lse against
+    the plain version; the launch goes to the kernel _plan names."""
+    q, k, v, kw = _mode_case(dev, variant, g, length, cap, 3 * g + length)
+    scale = 128 ** -0.5
+    for causal in (True, False):
+        for with_lse in (False, True):
+            for out_dtype in (torch.bfloat16, torch.float32):
+                mode = dict(causal=causal, with_lse=with_lse,
+                            out_dtype=out_dtype)
+                (got, lse), _ = _launch(dev, g, length, cap, causal=causal,
+                                        variant=variant,
+                                        args=(q, k, v, length, scale), **kw,
+                                        with_lse=with_lse,
+                                        out_dtype=out_dtype)
+                ref, ref_lse = _plain(q, k, v, length, scale, kw, **mode)
+                assert got.dtype == out_dtype
+                torch.testing.assert_close(got.float(), ref.float(), **TOL)
+                if with_lse:
+                    torch.testing.assert_close(lse, ref_lse, **LSE_TOL)
+                else:
+                    assert lse is None
+
+
+@pytest.mark.parametrize("variant", ["bf16", "int8", "int8k"])
+@pytest.mark.parametrize("causal,g", [(True, 1), (False, 1), (False, 20),
+                                      (True, 27), (True, 100), (False, 100)])
+def test_flash_nan_past_the_reach_leaves_the_output_finite(dev, variant,
+                                                           causal, g):
+    """NaN written into the other layer and into every K/V row and scale
+    past the reach (length + G, or length in pure past) changes no bit of
+    the output or the lse: the tensor maps end at the reach."""
+    length, cap = 300, 1024
+    cache, q = (_int8_cache(dev, cap, variant, 7) if variant != "bf16"
+                else (None, None))
+    if variant == "bf16":
+        gen = torch.Generator(device=dev).manual_seed(7)
+        k_all = torch.randn(2, 4, cap, 128, generator=gen, device=dev).bfloat16()
+        v_all = torch.randn(2, 4, cap, 128, generator=gen, device=dev).bfloat16()
+        q = torch.randn(cap, 28, 128, generator=gen, device=dev).bfloat16()
+        kw, scales = {}, ()
+    else:
+        k_all, v_all = cache.k, cache.v
+        kw = _int8_args(cache)
+        scales = [sc for sc in (cache.k_scale, cache.v_scale) if sc is not None]
+    q = q[:g].transpose(0, 1)
+    mode = dict(causal=causal, with_lse=True, out_dtype=torch.float32)
+    args = (q, k_all[1], v_all[1], length, 0.1)
+    (got, lse), _ = _launch(dev, g, length, cap, causal=causal,
+                            variant=variant, args=args, **kw, with_lse=True,
+                            out_dtype=torch.float32)
+    reach = length + g if causal else length
+    for t in (k_all, v_all):
+        if t.dtype != torch.int8:  # int8 codes cannot hold NaN
+            t[0].fill_(float("nan"))
+            t[1, :, reach:].fill_(float("nan"))
+        else:
+            t[1, :, reach:].fill_(127)
+    for sc in scales:
+        sc[0].fill_(float("nan"))
+        sc[1, :, reach:].fill_(float("nan"))
+    again, lse2 = flash_past_attention(*args, **kw, **mode)
+    assert torch.isfinite(again).all() and torch.isfinite(lse2).all()
+    assert torch.equal(got, again) and torch.equal(lse, lse2)
+
+
+@pytest.mark.parametrize("variant", ["bf16", "int8", "int8k"])
+@pytest.mark.parametrize("g", [1, 20, 100])
+def test_flash_pure_past_over_an_empty_cache(dev, variant, g):
+    """length 0 in pure past: every row sees nothing, so out is 0 and the
+    lse NEG_INF (no NaN), on both kernels, bf16 and f32 out."""
+    q, k, v, kw = _mode_case(dev, variant, g, 0, 4096, 5)
+    for out_dtype in (torch.bfloat16, torch.float32):
+        (out, lse), _ = _launch(dev, g, 0, 4096, causal=False,
+                                variant=variant, args=(q, k, v, 0, 0.1),
+                                **kw, with_lse=True, out_dtype=out_dtype)
+        assert not out.any() and bool((lse == NEG_INF).all())
+
+
+@pytest.mark.parametrize("variant", ["bf16", "int8", "int8k"])
+@pytest.mark.parametrize("g,length,cap", [(1, 57344, 65536), (20, 1807, 4096)])
+def test_decode_split_k_matches_one_split(dev, variant, g, length, cap):
+    """The decode kernel's split-K (flash_merge_kernel over the splits'
+    partials) against the same call in one split, out and lse, and
+    repeated calls give the same bits."""
+    from quickvideo_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, kw = _mode_case(dev, variant, g, length, cap, 2)
+    mode = dict(causal=False, with_lse=True, out_dtype=torch.float32)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert _plan(g, 28, 4, length, cap, False, sms, variant).n_split > 1
+    runs = [flash_past_attention(q, k, v, length, 0.1, **kw, **mode)
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    plan = fa._plan
+
+    def one_split(*a, **kw2):
+        return plan(*a, **kw2)._replace(n_split=1)
+
+    fa._plan = one_split
+    try:
+        whole, whole_lse = flash_past_attention(q, k, v, length, 0.1, **kw,
+                                                **mode)
+    finally:
+        fa._plan = plan
+    # P is rounded to bf16 against each split's running max: one bf16
+    # rounding step apart, as against the plain version
+    torch.testing.assert_close(runs[0][0], whole, **TOL)
+    torch.testing.assert_close(runs[0][1], whole_lse, **LSE_TOL)
+
+
+def test_no_b1_instantiation_spills(dev):
+    """ptxas keeps every B1 instantiation (decode and prefill kernels of
+    each variant, each mode, and the merge kernel) in registers."""
+    import ctypes
+
+    from quickvideo_tpu_torch import _build
+
+    lib = _build.library()
+    for which in range(52):
+        vals = [ctypes.c_int() for _ in range(4)]
+        assert lib.qv_flash_kernel_info(
+            which, *(ctypes.byref(x) for x in vals)) == 0
+        assert vals[1].value == 0, (which, [x.value for x in vals])
 
 
 def test_flash_mode_operands_are_checked(dev):

@@ -206,3 +206,12 @@ def test_plain_lse_and_pure_past_match_pallas(cache, causal, g, where):
                                atol=LSE_ATOL, rtol=0)
     if length == 0 and not causal:
         assert not got.any() and bool((lse == -1e30).all())
+
+
+@pytest.mark.parametrize("cache", ["int8", "int8k"])
+@pytest.mark.parametrize("where", ["zero", "mid", "full"])
+def test_int8_pure_past_lse_at_the_query_based_group_shape(cache, where):
+    """G = 20 pure past with the lse (the shape of the query-based mode's
+    prompt rows, which the decode kernel serves) on the int8 and int8k
+    caches, against the Pallas kernel in interpret mode, as above."""
+    test_plain_lse_and_pure_past_match_pallas(cache, False, 20, where)
