@@ -24,8 +24,12 @@ checkout of the repository. Phases:
      frames, a 476x644 image's buckets and frame, ragged column validity,
      a 2304-row span), the vision rotary pass, the registers, spills and
      shared memory of each vision kernel, and the int8 vision kernels B3,
-     B4, B6 at the 7B tower's widths; a failed B3/B4/B6 check prints its
-     worst rows and reruns both sides (ROADMAP C12);
+     B4, B6 at the 7B tower's widths at S = 14,400, 250 and 90 over five
+     seeds each (device time by launch part, prologue and GEMM, at 14,400
+     and 250; registers and spills; resident clusters of the B4/B6 plan;
+     torch._int_mm on the products alone as a yardstick); a failed
+     B3/B4/B6 check prints its worst rows and reruns both sides (ROADMAP
+     C12);
   3. the main path at the full width and depth of qwen25-vl-7b (bf16
      random weights): three `generate` requests through LVU / LVUEngine on
      64 seeded 420x420 yuv420 frames, groups of 32, key_norms_small at
@@ -89,6 +93,14 @@ every B1 instantiation's registers and spills.
 With --root it times the package of another checkout, such as an
 unpacked older commit, for a before-and-after in one call. It prints no
 result line.
+
+    python3 chip_smoke.py --compare-fused [--root DIR]
+
+runs phase 1, then prints B3, B4 and B6's device time by launch part
+(prologue, GEMM, and a requantize launch where the tree has one), bound
+share and error against the plain version at S = 14,400 and 250, and
+(without --root) the kernels' registers, spills and resident clusters;
+--root as for --compare-b1. It prints no result line.
 """
 
 import contextlib
@@ -876,9 +888,18 @@ def _capture_fused_failure(name, kernel, plain, args, got, ref):
         f"{'bit-identical' if same(again_ref, ref) else 'DIFFERENT'}")
 
 
-def check_fused(dev, cases):
-    """B3, B4, B6 at the 7B tower's widths (C 1280, QKV N 3840, MLP I 3420
-    padded to 3456) for each row count."""
+# B3/B4/B6 at the 7B tower's widths: row counts, seeds per row count, and
+# the parts of a call by kernel name (the parent commit's kernels too)
+FUSED_ROWS_CASES = (14400, 250, 90)
+FUSED_SEEDS = 5
+FUSED_TIMED = (14400, 250)
+FUSED_PARTS = (("prologue", "ln_quantize"), ("requantize", "requantize"),
+               ("GEMM", "gemm"))
+
+
+def _fused_inputs(dev, s_len, seed):
+    """One block's weights and S seeded rows: the B3, B4 and B6 cases as
+    (name, kernel, plain, args, compare)."""
     import torch
 
     from quickvideo_tpu_torch.ops import fused_vision_mlp as fm
@@ -889,42 +910,191 @@ def check_fused(dev, cases):
         quantized_close,
     )
 
+    bp = fused_block(dev, 1280, 3840, 3420, s_len + 1000 * seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(s_len + 1 + seed)
+    x = torch.randn(s_len, 1280, generator=gen, device=dev).bfloat16()
+    xq, xs = quantize_act(x)
+    eps = 1e-6
+    return (
+        ("B3", fm.ln_gemm_bias, fm.ln_gemm_bias_plain,
+         (x, bp["ln"], bp["wqkv"], bp["bqkv"], eps), bf16_rows_close),
+        ("B4", fm.ln_dual_gemm_silu_quant, fm.ln_dual_gemm_silu_quant_plain,
+         (x, bp["ln"], bp["wgu_p"], bp["bgu_p"], eps), quantized_close),
+        ("B6", fm.dual_gemm_silu_quant, fm.dual_gemm_silu_quant_plain,
+         (xq, xs, bp["wgu_p"], bp["bgu_p"]), quantized_close),
+    )
+
+
+def _device_parts(fn, reps: int = 20, tries: int = 3) -> dict:
+    """Device time per call of fn by part (FUSED_PARTS: the prologue, the
+    GEMM, a requantize launch where the tree has one), from torch.profiler.
+    A trace without one GEMM kernel per call is taken again; after `tries`
+    such traces the call is timed by CUDA events ({"events": ms})."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()  # warm-up
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us, n_gemm = {}, 0
+        for e in prof.events():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            for label, frag in FUSED_PARTS:
+                if frag in e.name:
+                    us[label] = us.get(label, 0.0) + (e.time_range.end
+                                                      - e.time_range.start)
+                    n_gemm += label == "GEMM"
+                    break
+        if n_gemm >= reps:
+            return {k: v / 1e3 / reps for k, v in us.items()}
+    log(f"torch.profiler recorded no GEMM kernel per call in {tries} "
+        "traces: timed by CUDA events around the calls instead")
+    return {"events": _time_ms(fn, reps)}
+
+
+def _parts_text(parts: dict) -> str:
+    return ", ".join(f"{k} {v:.4f}" for k, v in parts.items())
+
+
+def _fused_bound(s_len, args, got):
+    """B3/B4/B6's bound: the inputs and outputs once; the s8 GEMM(s) over
+    S x 1280 x N (N = the bias width)."""
+    return bound(nbytes(args, got), {"int8": 2 * s_len * 1280 * args[3].numel()})
+
+
+def check_fused(dev, cases=FUSED_ROWS_CASES, seeds=FUSED_SEEDS):
+    """B3, B4, B6 at the 7B tower's widths (C 1280, QKV N 3840, MLP I 3420
+    padded to 3456) for each row count and seed, under
+    quickvideo_tpu_torch/testing.py's rule; a failure prints its worst rows
+    and reruns both sides (ROADMAP C12). Seed 0 at FUSED_TIMED row counts is
+    timed: device time by part (torch.profiler), CUDA events, the plain
+    version, the bound."""
+    import torch
+
     rows = []
     for s_len in cases:
-        bp = fused_block(dev, 1280, 3840, 3420, s_len)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(s_len + 1)
-        x = torch.randn(s_len, 1280, generator=gen, device=dev).bfloat16()
-        xq, xs = quantize_act(x)
-        eps = 1e-6
-        for name, kernel, plain, args, compare in (
-            ("B3", fm.ln_gemm_bias, fm.ln_gemm_bias_plain,
-             (x, bp["ln"], bp["wqkv"], bp["bqkv"], eps), bf16_rows_close),
-            ("B4", fm.ln_dual_gemm_silu_quant,
-             fm.ln_dual_gemm_silu_quant_plain,
-             (x, bp["ln"], bp["wgu_p"], bp["bgu_p"], eps), quantized_close),
-            ("B6", fm.dual_gemm_silu_quant, fm.dual_gemm_silu_quant_plain,
-             (xq, xs, bp["wgu_p"], bp["bgu_p"]), quantized_close),
-        ):
-            got, ref = kernel(*args), plain(*args)
-            err, ok, why = compare(got, ref)
-            if not ok:
-                _capture_fused_failure(name, kernel, plain, args, got, ref)
-            ms = _time_ms(lambda: kernel(*args), 20)
-            plain_ms = _time_ms(lambda: plain(*args), 5)
-            # the s8 GEMM(s) over S x 1280 x N (N = the bias width)
-            bound_ms, bound_by = bound(
-                nbytes(args, got), {"int8": 2 * s_len * 1280 * args[3].numel()}
-            )
-            log(f"{name} S={s_len}: max_abs_err={err:.3e} (rule: "
-                f"quickvideo_tpu_torch/testing.py FUSED_*) kernel {ms:.4f} ms "
-                f"plain {plain_ms:.4f} ms bound {bound_ms:.4f} ms ({bound_by}) "
-                f"{'OK' if ok else 'FAIL: ' + why}")
-            rows.append(dict(name=name, s=s_len, err=err, ms=ms,
-                             plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, ok=ok))
-        del bp
+        for seed in range(seeds):
+            for name, kernel, plain, args, compare in _fused_inputs(
+                    dev, s_len, seed):
+                got, ref = kernel(*args), plain(*args)
+                err, ok, why = compare(got, ref)
+                if not ok:
+                    _capture_fused_failure(name, kernel, plain, args, got,
+                                           ref)
+                row = dict(name=name, s=s_len, seed=seed, err=err, ok=ok)
+                line = (f"{name} S={s_len} seed {seed}: max_abs_err={err:.3e} "
+                        f"(rule: quickvideo_tpu_torch/testing.py FUSED_*)")
+                if seed == 0 and s_len in FUSED_TIMED:
+                    parts = _device_parts(lambda: kernel(*args))
+                    ms = sum(parts.values())
+                    events_ms = _time_ms(lambda: kernel(*args), 20)
+                    plain_ms = _time_ms(lambda: plain(*args), 5)
+                    bound_ms, bound_by = _fused_bound(s_len, args, got)
+                    row.update(ms=ms, parts=parts, events_ms=events_ms,
+                               plain_ms=plain_ms, bound_ms=bound_ms,
+                               bound_by=bound_by)
+                    line += (f" kernels {ms:.4f} ms device ({_parts_text(parts)}"
+                             f"), {100 * bound_ms / ms:.1f}% of the bound "
+                             f"{bound_ms:.4f} ms ({bound_by}); events "
+                             f"{events_ms:.4f} ms; plain {plain_ms:.4f} ms")
+                log(f"{line} {'OK' if ok else 'FAIL: ' + why}")
+                rows.append(row)
+                del got, ref
+            torch.cuda.empty_cache()
     return rows
+
+
+FUSED_KERNEL_NAMES = (
+    "ln_quantize_reg_kernel<8> (B3/B4 prologue, C <= 2048)",
+    "gemm_bias_kernel (B3)", "gemm_silu_quant_kernel<64> (B4/B6)",
+    "gemm_silu_quant_kernel<72> (B4/B6)",
+    "ln_quantize_kernel (B3/B4 prologue, wider rows)",
+)
+
+
+def fused_kernel_info():
+    """Registers, spilled (local) bytes and shared memory of the B3/B4/B6
+    kernels (csrc/fused_vision_mlp.cu's qv_fused_kernel_info; B3's
+    registers are its launch count, before setmaxnreg), and how many
+    clusters of the B4/B6 plan at the 7B width the card keeps resident
+    (qv_fused_max_clusters). Returns whether every query succeeded, no
+    kernel spills and the plan can launch."""
+    import ctypes
+
+    from quickvideo_tpu_torch import _build
+    from quickvideo_tpu_torch.ops import fused_vision_mlp as fm
+
+    lib = _build.library()
+    ok = True
+    for i, name in enumerate(FUSED_KERNEL_NAMES):
+        vals = [ctypes.c_int() for _ in range(4)]
+        err = lib.qv_fused_kernel_info(i, *(ctypes.byref(v) for v in vals))
+        regs, local, smem, dyn = (v.value for v in vals)
+        ok &= err == 0 and local == 0
+        why = (f" FAIL (CUDA error {err})" if err else
+               " FAIL (spills)" if local else "")
+        log(f"{name}: {regs} registers, {local} B spilled (local), {smem} B "
+            f"static + {dyn} B dynamic shared memory (0: the plan's){why}")
+    plan = fm.mlp_plan(3456)
+    n = ctypes.c_int()
+    err = lib.qv_fused_max_clusters(plan.chunk, plan.cluster, plan.nch,
+                                    plan.stages, ctypes.byref(n))
+    ok &= err == 0 and n.value >= 1
+    log(f"B4/B6 plan at Np=3456 {plan}: {n.value} clusters resident "
+        f"({n.value * plan.cluster} CTAs){'' if err == 0 and n.value else ' FAIL'}")
+    return ok
+
+
+def int_mm_yardstick(dev):
+    """torch._int_mm's device time on the products alone, (14,400 x 1280)
+    times (1280 x 3840) and (1280 x 6912): a yardstick for the GEMM core
+    (timed here only; no PyTorch call computes the fused functions)."""
+    import torch
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    a = torch.randint(-127, 128, (14400, 1280), generator=gen, device=dev,
+                      dtype=torch.int8)
+    for n in (3840, 6912):
+        w = torch.randint(-127, 128, (n, 1280), generator=gen, device=dev,
+                          dtype=torch.int8).t()
+        ms = _device_ms(lambda: torch._int_mm(a, w), ("",), 20)
+        bound_ms, _ = bound(0, {"int8": 2 * 14400 * 1280 * n})
+        log(f"torch._int_mm 14400 x 1280 x {n} (yardstick): device {ms:.4f} "
+            f"ms, {100 * bound_ms / ms:.1f}% of the ops bound {bound_ms:.4f} ms")
+
+
+def compare_fused(dev, tree):
+    """B3, B4, B6 of the package imported from `tree` (this checkout, or an
+    older one) at S = 14,400 and 250, seed 0: device time per call by part
+    (torch.profiler), its share of the bound, the error against the plain
+    version. Returns whether every output agreed."""
+    import torch
+
+    ok = True
+    for s_len in FUSED_TIMED:
+        for name, kernel, plain, args, compare in _fused_inputs(dev, s_len, 0):
+            got, ref = kernel(*args), plain(*args)
+            err, within, why = compare(got, ref)
+            ok &= within
+            parts = _device_parts(lambda: kernel(*args))
+            ms = sum(parts.values())
+            bound_ms, bound_by = _fused_bound(s_len, args, got)
+            log(f"{name} compare [{tree}] S={s_len}: device {ms:.4f} ms "
+                f"({_parts_text(parts)}), bound {bound_ms:.4f} ms "
+                f"({bound_by}), {100 * bound_ms / ms:.1f}% of it; "
+                f"max_abs_err {err:.3e} {'OK' if within else 'FAIL: ' + why}")
+            del got, ref
+        torch.cuda.empty_cache()
+    return ok
 
 
 # -- phase 3: the main path ------------------------------------------------
@@ -1638,10 +1808,9 @@ KERNEL_KINDS = (
     ("short_span_kernel<false", "B5 short-span (head-major)"),
     ("long_span_kernel", "B2/B5 long-span (wgmma)"),
     ("vision_rotary_kernel", "vision rotary pass"),
-    ("fused_gemm_kernel<false>", "B3 GEMM"),
-    ("fused_gemm_kernel<true>", "B4/B6 GEMM"),
-    ("requantize_kernel", "B4/B6 requantize"),
-    ("ln_quantize_kernel", "B3/B4 prologue"),
+    ("gemm_bias_kernel", "B3 GEMM (wgmma, TMA ring)"),
+    ("gemm_silu_quant_kernel", "B4/B6 GEMM + requantize (wgmma, cluster)"),
+    ("ln_quantize", "B3/B4 prologue"),
     ("gemm_s8", "int8 GEMM (_int_mm)"),
     ("imma", "int8 GEMM (_int_mm)"),
     ("gemm", "bf16/f32 GEMM"),
@@ -1997,9 +2166,9 @@ def run_card_vs_cpu(dev):
 
 
 def _fused_rows(fused_rows, label):
-    """(B3/B4/B6 rows of `label`, the main path's S = 14,400 row)."""
+    """(B3/B4/B6 rows of `label`, the main path's S = 14,400 timed row)."""
     rows = [r for r in fused_rows if r["name"] == label]
-    return rows, rows[0]
+    return rows, next(r for r in rows if r["s"] == 14400 and "ms" in r)
 
 
 def main():
@@ -2020,14 +2189,20 @@ def main():
              "main path's shapes (decode, int8 and int8k prefill)",
     )
     ap.add_argument(
+        "--compare-fused", action="store_true",
+        help="instead of the smoke test, print B3, B4 and B6's device times "
+             "by launch part at S = 14,400 and 250",
+    )
+    ap.add_argument(
         "--root", default=ROOT,
-        help="with --compare-b1: the checkout whose quickvideo_tpu_torch "
-             "to time (default: this one), e.g. an unpacked older commit",
+        help="with --compare-b1 or --compare-fused: the checkout whose "
+             "quickvideo_tpu_torch to time (default: this one), e.g. an "
+             "unpacked older commit",
     )
     args = ap.parse_args()
     if args.root != ROOT:
-        if not args.compare_b1:
-            ap.error("--root goes with --compare-b1")
+        if not (args.compare_b1 or args.compare_fused):
+            ap.error("--root goes with --compare-b1 or --compare-fused")
         sys.path.insert(0, os.path.abspath(args.root))
     if not torch.cuda.is_available():
         raise SystemExit(
@@ -2064,6 +2239,12 @@ def main():
         if args.root == ROOT:
             ok &= flash_kernel_info()
         log(f"compare-b1: {'OK' if ok else 'FAIL'}")
+        return
+    if args.compare_fused:
+        ok = compare_fused(dev, os.path.relpath(args.root, ROOT))
+        if args.root == ROOT:
+            ok &= fused_kernel_info()
+        log(f"compare-fused: {'OK' if ok else 'FAIL'}")
         return
 
     flash_cases = [
@@ -2112,8 +2293,10 @@ def main():
     ok &= vision_kernel_info()
     ok &= flash_kernel_info()
 
-    fused_rows = check_fused(dev, [14400, 250])
+    fused_rows = check_fused(dev)
     ok &= all(r["ok"] for r in fused_rows)
+    ok &= fused_kernel_info()
+    int_mm_yardstick(dev)
 
     lvu, main_ok, launches, logits_bf16 = run_main_path(dev)
     ok &= main_ok

@@ -63,12 +63,18 @@ SIGNATURES = {
     "qv_vision_rotary": [_P] * 6 + [_L] * 5 + [_I] * 2 + [_P],
     # kernel index; out: registers, local bytes, static and dynamic smem
     "qv_vision_kernel_info": [_I] + [_P] * 4,
-    # x, ln_w, w, sc, b, xq, xs, out; s, c, n; eps; stream
-    "qv_ln_gemm_bias": [_P] * 8 + [_I] * 3 + [_F, _P],
-    # x, ln_w, w, sc, b, xq, xs, mid, amax, q, s; rows, c, np; eps; stream
-    "qv_ln_dual_gemm_silu_quant": [_P] * 11 + [_I] * 3 + [_F, _P],
-    # xq, xs, w, sc, b, mid, amax, q, s; rows, c, np; stream
-    "qv_dual_gemm_silu_quant": [_P] * 9 + [_I] * 3 + [_P],
+    # x, ln_w, w, sc, b, xq, xs, out; s, c, n; eps; grid; stream
+    "qv_ln_gemm_bias": [_P] * 8 + [_I] * 3 + [_F, _I, _P],
+    # x, ln_w, w, sc, b, xq, xs, q, s; rows, c, np; eps; chunk, cluster,
+    # nch, stages; stream
+    "qv_ln_dual_gemm_silu_quant": [_P] * 9 + [_I] * 3 + [_F] + [_I] * 4 + [_P],
+    # xq, xs, w, sc, b, q, s; rows, c, np, chunk, cluster, nch, stages;
+    # stream
+    "qv_dual_gemm_silu_quant": [_P] * 7 + [_I] * 7 + [_P],
+    # kernel index; out: registers, local bytes, static and dynamic smem
+    "qv_fused_kernel_info": [_I] + [_P] * 4,
+    # chunk, cluster, nch, stages; out: resident clusters
+    "qv_fused_max_clusters": [_I] * 4 + [_P],
 }
 
 _lock = threading.Lock()

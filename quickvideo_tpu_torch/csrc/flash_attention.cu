@@ -194,7 +194,7 @@ cudaError_t with_mode(int past, int lse, int out_f32, F&& f) {
   return past ? by_lse(std::true_type{}) : by_lse(std::false_type{});
 }
 
-// -- Hopper primitives: TMA, mbarriers, the 128-byte swizzle ------------------
+// -- the 128-byte swizzle (TMA, mbarrier, descriptor helpers: common.cuh) -----
 
 using qv::smem_u32;
 
@@ -206,68 +206,15 @@ __device__ __forceinline__ int sw128(int r, int c) {
   return (c >> 3) * kBox + r * 128 + (((c & 7) ^ (r & 7)) << 4);
 }
 
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count)
-               : "memory");
-}
-
-// one arrival that also expects `bytes` of TMA transactions
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_u32(bar))
-               : "memory");
-}
-
-// spin until the barrier's phase of parity `parity` has completed
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// TMA: box (c0, c1, c2) of a 3D `map` into shared memory, completing on bar
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         int c0, int c1, int c2,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// TMA: box (c0, c1) of a 2D `map` (the scales) into shared memory
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
-                                            int c0, int c1, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
-      "r"(c1)
-      : "memory");
-}
+using qv::align1024;
+using qv::bar_sync;
+using qv::mbar_arrive;
+using qv::mbar_expect_tx;
+using qv::mbar_init;
+using qv::mbar_wait;
+using qv::sw128_desc;
+using qv::tma_load;
+using qv::tma_load_2d;
 
 // the K (and V) tile of key0 into a ring slot: bf16 rows as two 64-column
 // boxes, int8 rows as one 128-byte box
@@ -277,11 +224,6 @@ __device__ __forceinline__ void load_rows(unsigned char* dst,
                                           int hk, uint64_t* bar) {
   tma_load(dst, map, 0, key0, hk, bar);
   if constexpr (!kByte) tma_load(dst + kBox, map, 64, key0, hk, bar);
-}
-
-// named barrier `id` over `n` threads
-__device__ __forceinline__ void bar_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
 
 // Byte k of xb = x ^ 0x80808080 (four int8 codes, each + 128) as the f32
@@ -706,15 +648,6 @@ struct PrefillSmem {
   static constexpr int kConsumerRegs = kVar == kInt8 ? 152 : 160;
   static constexpr int kProducerRegs = kVar == kInt8 ? 40 : 24;
 };
-
-// wgmma descriptor of a 128-byte-swizzled operand (layout type 1): 8-row
-// groups 1024 bytes apart (SBO); LBO is the distance between 64-column
-// boxes along N for an MN-major operand, unused for a K-major one
-__device__ __forceinline__ uint64_t sw128_desc(const void* p, uint32_t lbo) {
-  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
-}
 
 // D (64 x 128, f32) += A (64 x 16, registers) B (16 x 128, MN-major in
 // shared memory: the transpose bit)
@@ -1172,25 +1105,8 @@ cudaError_t decode_smem_once() {
   return err;
 }
 
-// cuTensorMapEncodeTiled, from the driver library that the CUDA runtime has
-// loaded into the process: nothing links against libcuda at build time
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (lib == nullptr) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib ? reinterpret_cast<EncodeTiled>(
-                     dlsym(lib, "cuTensorMapEncodeTiled"))
-               : nullptr;
-  }();
-  return fn;
-}
+using qv::EncodeTiled;
+using qv::encode_tiled;
 
 // The tensor map of one layer view (hkv, cap, kD) of bf16 (bytes = 2) or
 // int8 (bytes = 1) rows with strides st (slot) and sh (head), in elements:

@@ -13,15 +13,20 @@ block input, with the JAX kernels' rounding points:
 B6 is B4 fed a pre-quantized input (xq, xs) instead of the raw rows.
 
 Each entry runs its plain PyTorch version (`*_plain`) on a CPU tensor, and
-on a CUDA tensor launches the hand-written Hopper kernel
-(csrc/fused_vision_mlp.cu), counts the launch in `<entry>.launches`, and
-raises on an input the kernel does not take: there is no fallback.
+on a CUDA tensor launches the hand-written Hopper kernels
+(csrc/fused_vision_mlp.cu: the row prologue for B3 and B4, then one s8
+wgmma GEMM on a TMA ring with each entry's epilogue), counts the launch in
+`<entry>.launches`, and raises on an input the kernel does not take: there
+is no fallback. The kernels' tiling is planned here (`b3_grid`,
+`mlp_plan`), so its rules are CPU-tested.
 
 The bf16 rounding points are fixed whatever the model dtype, as in the JAX
 kernels: B3 returns bf16, and the bias is rounded to bf16 first.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -32,10 +37,90 @@ from quickvideo_tpu_torch.ops.quantization import (
     quantize_act,
 )
 
-# B4/B6 process the gate/up columns in pairs of 64-column tiles; the
-# weight prep pads the intermediate width to this multiple
+# The weight prep pads the intermediate width to a multiple of PAD; B4/B6
+# process it in chunks (CHUNKS) of gate columns with the up columns that
+# pair with them
 PAD = 64
-MAX_C = 3072  # the GEMM holds a (64, C) int8 row tile in shared memory
+
+# The CUDA kernels' tiling (csrc/fused_vision_mlp.cu). K streams through a
+# ring of stages of KB bytes, so the width C has no upper bound.
+KB = 128
+B3_ROWS, B3_COLS = 128, 256  # B3's output tile (per CTA)
+MLP_ROWS = 128  # B4/B6: rows per band (two consumer warpgroups)
+CHUNKS = (72, 64)  # B4/B6: gate columns per chunk, widest first
+SMEM_MAX = 232_448  # shared memory one block can opt into on sm_90
+CLUSTERS = (1, 2, 4, 8, 16)  # CTAs per cluster; above 8 non-portable
+MIN_STAGES, MAX_STAGES = 3, 6
+
+
+# -- launch plans ----------------------------------------------------------------
+
+
+def b3_grid(s_len: int, n: int, sms: int) -> int:
+    """B3's persistent grid: one CTA per SM, or one per tile of B3_ROWS x
+    B3_COLS outputs when there are fewer."""
+    tiles = -(-s_len // B3_ROWS) * -(-n // B3_COLS)
+    return max(1, min(tiles, sms))
+
+
+def mlp_smem(chunk: int, stages: int, nch: int) -> int:
+    """Shared memory of B4/B6's kernel (csrc/fused_vision_mlp.cu::mlp_smem):
+    alignment slack, `stages` ring stages (the A box of MLP_ROWS rows and
+    the gate and up boxes of `chunk` rows, KB bytes of K each), `nch` f32
+    slices of MLP_ROWS rows x `chunk` columns, the row maxima and scales,
+    the barriers."""
+    return (1024 + stages * (MLP_ROWS + 2 * chunk) * KB
+            + nch * MLP_ROWS * chunk * 4 + 2 * MLP_ROWS * 4 + 2 * stages * 8)
+
+
+class MlpPlan(NamedTuple):
+    chunk: int    # gate columns per chunk (with as many up columns)
+    cluster: int  # CTAs per cluster, sharing a row band
+    nch: int      # chunks per CTA, at most
+    stages: int   # ring stages
+    smem: int     # bytes of shared memory per CTA
+
+
+def _fit(n_pad: int, chunk: int):
+    """The smallest cluster whose CTAs hold their chunks' f32 slices beside
+    MIN_STAGES ring stages; then as many stages as fit. None if none
+    fits."""
+    m = n_pad // chunk
+    for cluster in CLUSTERS:
+        nch = -(-m // cluster)
+        if mlp_smem(chunk, MIN_STAGES, nch) > SMEM_MAX:
+            continue
+        stages = max(s for s in range(MIN_STAGES, MAX_STAGES + 1)
+                     if mlp_smem(chunk, s, nch) <= SMEM_MAX)
+        return MlpPlan(chunk, cluster, nch, stages,
+                       mlp_smem(chunk, stages, nch))
+    return None
+
+
+def mlp_plan(n_pad: int) -> MlpPlan:
+    """B4/B6's launch for an intermediate width Np (a multiple of PAD): for
+    each chunk width of CHUNKS that divides Np, the smallest cluster that
+    holds a row band's slices (`_fit`); of those, the one with the fewest
+    columns of chunk slots per band (cluster x nch x chunk: the busiest
+    CTA sets the band's time), the wider chunk on a tie. Raises when no
+    cluster holds a row band's slices."""
+    if n_pad <= 0 or n_pad % PAD:
+        raise ValueError(f"no B4/B6 plan for Np={n_pad}")
+    plans = [f for c in CHUNKS if n_pad % c == 0
+             if (f := _fit(n_pad, c)) is not None]
+    if not plans:
+        raise ValueError(
+            f"Np={n_pad} is wider than a cluster of {CLUSTERS[-1]} CTAs "
+            f"holds in shared memory"
+        )
+    return min(plans, key=lambda f: f.cluster * f.nch * f.chunk)
+
+
+def cta_chunks(rank: int, plan: MlpPlan, n_pad: int) -> list:
+    """The chunks (of plan.chunk gate columns) that the CTA of cluster rank
+    `rank` computes and quantizes: rank, rank + cluster, ... below
+    Np / chunk (gemm_silu_quant_kernel's round-robin)."""
+    return list(range(rank, n_pad // plan.chunk, plan.cluster))
 
 
 def _round_up(x: int, m: int) -> int:
@@ -146,8 +231,8 @@ def _check_weight(w: dict, c: int, dev) -> int:
         )
     if sc.numel() != n or not sc.is_contiguous():
         raise ValueError(f"scales must be ({n},) contiguous")
-    if q8.data_ptr() % 16:
-        raise ValueError("weight q8 is not 16-byte aligned")
+    if q8.data_ptr() % 16 or sc.data_ptr() % 16:
+        raise ValueError("weight q8 or its scales not 16-byte aligned")
     for t in (q8, sc):
         if t.device != dev:
             raise ValueError(f"weight on {t.device}, input on {dev}")
@@ -167,10 +252,11 @@ def _check_rows(name: str, t: torch.Tensor, dtype, c: int, dev):
 
 
 def _check_width(c: int):
-    if c % 32 or not 0 < c <= MAX_C:
+    # TMA rows must be 16-byte strided; K steps of 32 bytes
+    if c % 32 or c <= 0:
         raise ValueError(
-            f"the fused kernels take a width C that is a multiple of 32 "
-            f"up to {MAX_C}, got {c}"
+            f"the fused kernels take a width C that is a positive multiple "
+            f"of 32, got {c}"
         )
 
 
@@ -180,7 +266,8 @@ def _vec(name: str, t: torch.Tensor, dtype, n: int, dev) -> torch.Tensor:
                          f"{tuple(t.shape)} {t.dtype}")
     if t.device != dev:
         raise ValueError(f"{name} on {t.device}, expected {dev}")
-    return t
+    # the kernels read scales and ln_w 8 or 16 bytes at a time
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _stream(dev):
@@ -207,11 +294,13 @@ def ln_gemm_bias(x: torch.Tensor, ln_w: torch.Tensor, w: dict,
     b = _vec("bias", b.to(torch.bfloat16), torch.bfloat16, n, dev)
     out = torch.empty(s_len, n, dtype=torch.bfloat16, device=dev)
     xq, xs = _row_scratch(s_len, c, dev)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if s_len:
         err = _build.library().qv_ln_gemm_bias(
             x.data_ptr(), ln_w.data_ptr(), w["q8"].data_ptr(),
             w["sc"].data_ptr(), b.data_ptr(), xq.data_ptr(), xs.data_ptr(),
-            out.data_ptr(), s_len, c, n, float(eps), _stream(dev),
+            out.data_ptr(), s_len, c, n, float(eps), b3_grid(s_len, n, sms),
+            _stream(dev),
         )
         _build.check(err, "qv_ln_gemm_bias")
         ln_gemm_bias.launches += 1
@@ -231,11 +320,9 @@ def _dual_outputs(s_len: int, n2: int, dev):
             f"{PAD} (fuse_vision_mlp_weights), got {n2}"
         )
     n_pad = n2 // 2
-    mid = torch.empty(s_len, n_pad, dtype=torch.float32, device=dev)
-    amax = torch.zeros(s_len, dtype=torch.float32, device=dev)
     q = torch.empty(s_len, n_pad, dtype=torch.int8, device=dev)
     s = torch.empty(s_len, 1, dtype=torch.float32, device=dev)
-    return n_pad, mid, amax, q, s
+    return n_pad, q, s
 
 
 def ln_dual_gemm_silu_quant(x: torch.Tensor, ln_w: torch.Tensor, wgu: dict,
@@ -254,14 +341,16 @@ def ln_dual_gemm_silu_quant(x: torch.Tensor, ln_w: torch.Tensor, wgu: dict,
     n2 = _check_weight(wgu, c, dev)
     ln_w = _vec("ln_w", ln_w.float(), torch.float32, c, dev)
     bgu = _vec("bias", bgu.to(torch.bfloat16), torch.bfloat16, n2, dev)
-    n_pad, mid, amax, q, s = _dual_outputs(s_len, n2, dev)
+    n_pad, q, s = _dual_outputs(s_len, n2, dev)
+    plan = mlp_plan(n_pad)
     xq, xs = _row_scratch(s_len, c, dev)
     if s_len:
         err = _build.library().qv_ln_dual_gemm_silu_quant(
             x.data_ptr(), ln_w.data_ptr(), wgu["q8"].data_ptr(),
             wgu["sc"].data_ptr(), bgu.data_ptr(), xq.data_ptr(),
-            xs.data_ptr(), mid.data_ptr(), amax.data_ptr(), q.data_ptr(),
-            s.data_ptr(), s_len, c, n_pad, float(eps), _stream(dev),
+            xs.data_ptr(), q.data_ptr(), s.data_ptr(), s_len, c, n_pad,
+            float(eps), plan.chunk, plan.cluster, plan.nch, plan.stages,
+            _stream(dev),
         )
         _build.check(err, "qv_ln_dual_gemm_silu_quant")
         ln_dual_gemm_silu_quant.launches += 1
@@ -283,13 +372,14 @@ def dual_gemm_silu_quant(xq: torch.Tensor, xs: torch.Tensor, wgu: dict,
     _vec("xs", xs, torch.float32, s_len, dev)
     n2 = _check_weight(wgu, c, dev)
     bgu = _vec("bias", bgu.to(torch.bfloat16), torch.bfloat16, n2, dev)
-    n_pad, mid, amax, q, s = _dual_outputs(s_len, n2, dev)
+    n_pad, q, s = _dual_outputs(s_len, n2, dev)
+    plan = mlp_plan(n_pad)
     if s_len:
         err = _build.library().qv_dual_gemm_silu_quant(
             xq.data_ptr(), xs.data_ptr(), wgu["q8"].data_ptr(),
-            wgu["sc"].data_ptr(), bgu.data_ptr(), mid.data_ptr(),
-            amax.data_ptr(), q.data_ptr(), s.data_ptr(),
-            s_len, c, n_pad, _stream(dev),
+            wgu["sc"].data_ptr(), bgu.data_ptr(), q.data_ptr(), s.data_ptr(),
+            s_len, c, n_pad, plan.chunk, plan.cluster, plan.nch, plan.stages,
+            _stream(dev),
         )
         _build.check(err, "qv_dual_gemm_silu_quant")
         dual_gemm_silu_quant.launches += 1

@@ -49,6 +49,7 @@ from quickvideo_tpu_torch.ops.quantization import (
     quantize_weight,
 )
 from quickvideo_tpu_torch.testing import (
+    FUSED_ROWS,
     bf16_rows_close,
     fused_block,
     quantized_close,
@@ -666,14 +667,15 @@ def assert_quantized_close(got, ref):
     assert ok, why
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
 @pytest.mark.parametrize(
     "s,c,n,inter",
     [(14400, 1280, 3840, 3420), (250, 1280, 3840, 3420), (90, 1280, 3840, 3420),
      (100, 160, 480, 256)],
 )
-def test_fused_kernels_match_plain(dev, s, c, n, inter):
-    bp = fused_block(dev, c, n, inter, s)
-    gen = torch.Generator(device=dev).manual_seed(7)
+def test_fused_kernels_match_plain(dev, s, c, n, inter, seed):
+    bp = fused_block(dev, c, n, inter, s + 1000 * seed)
+    gen = torch.Generator(device=dev).manual_seed(7 + seed)
     x = torch.randn(s, c, generator=gen, device=dev).bfloat16()
     x[3] = 0  # variance 0: the row's codes are all zero
     eps = 1e-6
@@ -697,6 +699,146 @@ def test_fused_kernels_match_plain(dev, s, c, n, inter):
     after = (fm.ln_gemm_bias.launches, fm.ln_dual_gemm_silu_quant.launches,
              fm.dual_gemm_silu_quant.launches)
     assert after == tuple(b + 1 for b in before)
+
+
+def _fused_case(dev, s, c, n, inter, seed=0):
+    bp = fused_block(dev, c, n, inter, seed)
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    x = torch.randn(s, c, generator=gen, device=dev).bfloat16()
+    return bp, x
+
+
+def _capture_row_scratch(monkeypatch):
+    """The prologue's (xq, xs) scratch of each B3/B4 call, as the kernel
+    left it."""
+    seen = []
+    orig = fm._row_scratch
+
+    def keep(*args):
+        seen.append(orig(*args))
+        return seen[-1]
+
+    monkeypatch.setattr(fm, "_row_scratch", keep)
+    return seen
+
+
+@pytest.mark.parametrize("s", [1, 90, 100, 250, 14401])
+def test_fused_row_counts_off_the_row_tile(dev, s):
+    """Row counts that are no multiple of the 128-row bands: TMA's zero
+    fill covers the rows past S, the epilogues mask their stores."""
+    bp, x = _fused_case(dev, s, 1280, 3840, 3420, seed=s)
+    args = (x, bp["ln"], bp["wqkv"], bp["bqkv"], 1e-6)
+    _, ok, why = bf16_rows_close(fm.ln_gemm_bias(*args),
+                                 fm.ln_gemm_bias_plain(*args))
+    assert ok, why
+    args = (x, bp["ln"], bp["wgu_p"], bp["bgu_p"], 1e-6)
+    got = fm.ln_dual_gemm_silu_quant(*args)
+    assert got[0].shape == (s, 3456) and got[1].shape == (s, 1)
+    assert_quantized_close(got, fm.ln_dual_gemm_silu_quant_plain(*args))
+    assert not got[0][:, 3420:].any()  # pad columns
+
+
+def test_fused_zero_rows_give_the_bias(dev):
+    """All-zero rows (variance 0: codes all zero), at a band's first and
+    last row and past the first band: B3 returns the bias; B4's codes and
+    scale of such a row equal the plain version's (silu(bg) * bu only)."""
+    bp, x = _fused_case(dev, 300, 1280, 3840, 3420)
+    zero = [0, 63, 64, 127, 128, 299]
+    x[zero] = 0
+    out = fm.ln_gemm_bias(x, bp["ln"], bp["wqkv"], bp["bqkv"], 1e-6)
+    assert torch.equal(out[zero], bp["bqkv"].bfloat16().expand(len(zero), -1))
+    args = (x, bp["ln"], bp["wgu_p"], bp["bgu_p"], 1e-6)
+    (q, s), (qr, sr) = (fm.ln_dual_gemm_silu_quant(*args),
+                        fm.ln_dual_gemm_silu_quant_plain(*args))
+    assert torch.equal(q[zero], qr[zero]) and torch.equal(s[zero], sr[zero])
+
+
+def test_b4_and_b6_run_one_gemm_and_match_plain_bit_for_bit(dev, monkeypatch):
+    """B4 is the prologue, then B6's GEMM kernel: B6 on the codes and scales
+    the B4 call's prologue left gives B4's output bit for bit. B6 takes its
+    codes as given, so its codes and scales equal the plain version's bit
+    for bit, and so do B4's on every row whose prologue codes and scale
+    agree with the plain prologue's."""
+    seen = _capture_row_scratch(monkeypatch)
+    bp, x = _fused_case(dev, 14400, 1280, 3840, 3420, seed=5)
+    eps = 1e-6
+    q4, s4 = fm.ln_dual_gemm_silu_quant(x, bp["ln"], bp["wgu_p"],
+                                        bp["bgu_p"], eps)
+    xq, xs = seen[-1]
+    q6, s6 = fm.dual_gemm_silu_quant(xq, xs.reshape(-1, 1), bp["wgu_p"],
+                                     bp["bgu_p"])
+    assert torch.equal(q4, q6) and torch.equal(s4, s6)
+    qr, sr = fm.dual_gemm_silu_quant_plain(xq, xs.reshape(-1, 1),
+                                           bp["wgu_p"], bp["bgu_p"])
+    assert torch.equal(q6, qr) and torch.equal(s6, sr)
+    xq_p, xs_p = fm.ln_quantize_plain(x, bp["ln"], eps)
+    agree = (xq == xq_p).all(1) & (xs == xs_p.squeeze(1))
+    assert agree.float().mean() >= FUSED_ROWS
+    q4r, s4r = fm.ln_dual_gemm_silu_quant_plain(x, bp["ln"], bp["wgu_p"],
+                                                bp["bgu_p"], eps)
+    assert torch.equal(s4[agree], s4r[agree])
+    assert torch.equal(q4[agree], q4r[agree])
+
+
+def test_fused_repeat_runs_are_bit_identical(dev):
+    """No ring or cluster race: three runs of each kernel on the same
+    inputs give the same bits."""
+    bp, x = _fused_case(dev, 14400, 1280, 3840, 3420, seed=9)
+    xq, xs = quantize_act(x)
+    for fn, args in (
+        (fm.ln_gemm_bias, (x, bp["ln"], bp["wqkv"], bp["bqkv"], 1e-6)),
+        (fm.ln_dual_gemm_silu_quant,
+         (x, bp["ln"], bp["wgu_p"], bp["bgu_p"], 1e-6)),
+        (fm.dual_gemm_silu_quant, (xq, xs, bp["wgu_p"], bp["bgu_p"])),
+    ):
+        runs = [fn(*args) for _ in range(3)]
+        for r in runs[1:]:
+            if isinstance(r, tuple):
+                assert all(torch.equal(a, b) for a, b in zip(r, runs[0]))
+            else:
+                assert torch.equal(r, runs[0])
+
+
+@pytest.mark.parametrize("s,c,n,inter", [
+    (200, 3200, 512, 1000),  # C above the old 3072 cap, 25 K stages
+    (300, 160, 480, 800),    # Np = 832: 4 CTAs with 4, 3, 3, 3 chunks of 64
+    (129, 1280, 3840, 3420),
+])
+def test_fused_kernels_at_other_widths(dev, s, c, n, inter):
+    bp, x = _fused_case(dev, s, c, n, inter, seed=c)
+    xq, xs = quantize_act(x)
+    args = (x, bp["ln"], bp["wqkv"], bp["bqkv"], 1e-6)
+    _, ok, why = bf16_rows_close(fm.ln_gemm_bias(*args),
+                                 fm.ln_gemm_bias_plain(*args))
+    assert ok, why
+    args = (x, bp["ln"], bp["wgu_p"], bp["bgu_p"], 1e-6)
+    assert_quantized_close(fm.ln_dual_gemm_silu_quant(*args),
+                           fm.ln_dual_gemm_silu_quant_plain(*args))
+    args = (xq, xs, bp["wgu_p"], bp["bgu_p"])
+    got = fm.dual_gemm_silu_quant(*args)
+    ref = fm.dual_gemm_silu_quant_plain(*args)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_no_fused_kernel_spills_and_the_plans_launch(dev):
+    """ptxas keeps both prologue kernels, B3's and both B4/B6 GEMM kernels
+    in registers; the card keeps at least one cluster of the B4/B6 plan at
+    the 7B width resident."""
+    import ctypes
+
+    from quickvideo_tpu_torch import _build
+
+    lib = _build.library()
+    for which in range(5):
+        vals = [ctypes.c_int() for _ in range(4)]
+        assert lib.qv_fused_kernel_info(
+            which, *(ctypes.byref(x) for x in vals)) == 0
+        assert vals[1].value == 0, (which, [x.value for x in vals])
+    plan = fm.mlp_plan(3456)
+    n = ctypes.c_int()
+    assert lib.qv_fused_max_clusters(plan.chunk, plan.cluster, plan.nch,
+                                     plan.stages, ctypes.byref(n)) == 0
+    assert n.value >= 1, plan
 
 
 def test_fused_wrappers_count_no_launch_on_empty_input(dev):
@@ -737,6 +879,12 @@ def test_fused_wrappers_reject_what_the_kernels_do_not_take(dev):
     with pytest.raises(ValueError):  # [wg | wu] not padded to 2 x 64k
         odd = {"q8": bp["wgu_p"]["q8"][:, :448], "sc": bp["wgu_p"]["sc"][:448]}
         fm.ln_dual_gemm_silu_quant(x, bp["ln"], odd, bp["bgu_p"][:448], 1e-6)
+    with pytest.raises(ValueError, match="multiple of 32"):  # C = 0
+        fm.ln_gemm_bias(x[:, :0], bp["ln"][:0], bp["wqkv"], bp["bqkv"], 1e-6)
+    with pytest.raises(ValueError, match="wider"):  # Np past 16 CTAs' slices
+        wide = fused_block(dev, 160, 480, 16 * 4 * 64 + 64, 0)
+        fm.ln_dual_gemm_silu_quant(x, wide["ln"], wide["wgu_p"],
+                                   wide["bgu_p"], 1e-6)
 
 
 @pytest.mark.parametrize("rows", [5, 17, 3600])
