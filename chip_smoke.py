@@ -62,6 +62,19 @@ checkout of the repository. Phases:
      video: B2/B5 launches against the JAX package's route rule, cache
      lengths, spans, peak memory, and the rel. L2 of the QV_VISION_2D=0
      logits against phase 3's (printed, not asserted);
+  3f. the rest of the LVU API on the 7B (bf16 weights of phase 3, seeded
+     64-frame videos through a seeded reader in place of the decoder): a
+     chat session (LVU.start_chat: a first ask, two follow-ups of 26 and 56
+     rows, save, LVU.resume_chat, a fourth turn that must equal the live
+     session's; the first follow-up's final-prefill logits against the
+     whole history from scratch), LVU.loglikelihood_multi over 4 options
+     against each option's own LVU.loglikelihood, LVU.generate with
+     do_sample (top_k=1 equals greedy, a seed repeats, streamed chunks),
+     BatchedQAEngine over 4 questions against their own requests, and a
+     narrow safetensors checkpoint directory through LVU with bf16 and
+     int8 weights against the same weights passed as params=; B1 launches
+     per kernel on each path against the rows its launches run, walls,
+     decode ms/token, peak memory;
   4. the same prefill on the card and (plain versions) on the CPU for a
      narrow config with production head dims, with bf16 and with int8
      weights, with an int8 KV cache, with salient_tokens and query-based
@@ -110,6 +123,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -1245,30 +1259,35 @@ def _reset_counters(counters):
 B1_KERNELS = ("bf16_prefill", "int8_prefill", "decode")
 
 
-def expected_kernels(lvu, inputs, n_tokens, variant):
-    """B1 launches of one request per "flash_kernel_{name}" key: each group
-    step and the final prefill (its exact suffix length) by _plan's
-    row-tile rule at the rows that reach the layer (group_layer_rows; a
-    query-based step's prompt rows only add to them) on the prefill kernel
-    of the cache's variant or the decode kernel, and every decode step (G =
-    1) on the decode kernel."""
+def b1_kernels(lvu, rows, variant="bf16"):
+    """B1 launches per "flash_kernel_{name}" key of launches of `rows`
+    query rows each, by _plan's row-tile rule: the prefill kernel of the
+    cache's variant at rows x (q heads / kv heads) >= PREFILL_ROWS, the
+    decode kernel below."""
     from quickvideo_tpu_torch.ops.flash_attention import PREFILL_ROWS
 
     t = lvu.model_config.text
-    n = t.num_hidden_layers
-    want = dict.fromkeys((f"flash_kernel_{k}" for k in B1_KERNELS), 0)
+    rep = t.num_attention_heads // t.num_key_value_heads
     prefill = "bf16_prefill" if variant == "bf16" else "int8_prefill"
+    want = dict.fromkeys((f"flash_kernel_{k}" for k in B1_KERNELS), 0)
+    for g in rows:
+        want[f"flash_kernel_{prefill if g * rep >= PREFILL_ROWS else 'decode'}"] += 1
+    return want
+
+
+def expected_kernels(lvu, inputs, n_tokens, variant):
+    """B1 launches of one request per "flash_kernel_{name}" key: each group
+    step and the final prefill (its exact suffix length) at the rows that
+    reach the layer (group_layer_rows; a query-based step's prompt rows
+    only add to them), and every decode step (G = 1), by b1_kernels."""
+    n = lvu.model_config.text.num_hidden_layers
     ids = np.asarray(inputs.input_ids)
     vid = np.nonzero(ids == lvu.model_config.video_token_id)[0]
-    rep = t.num_attention_heads // t.num_key_value_heads
     suffix = len(ids) - int(vid[-1]) - 1
     steps = [g for per_layer in group_layer_rows(lvu, inputs)
-             for g in per_layer] + [suffix] * n
-    for g in steps:
-        kernel = prefill if g * rep >= PREFILL_ROWS else "decode"
-        want[f"flash_kernel_{kernel}"] += 1
-    want["flash_kernel_decode"] += (n_tokens - 1) * n
-    return want
+             for g in per_layer]
+    return b1_kernels(lvu, steps + [suffix] * n + [1] * ((n_tokens - 1) * n),
+                      variant)
 
 
 def _read_counters(counters):
@@ -2002,6 +2021,507 @@ def compare_b1(dev, tree):
     return ok
 
 
+# -- phase 3f: sessions, scoring, sampling, batching, checkpoints -----------
+
+
+class SeededReader:
+    """The native interleaved reader's surface (video/quickdecode.py) over
+    seeded noise, so the entry points that open a video path run without a
+    decoder: 2 * REQUEST_FRAMES source frames of FRAME_HW x FRAME_HW at 2
+    fps; frames come out at the size the plan asked for, packed yuv420 or
+    RGB, each drawn from (path, frame index)."""
+
+    def __init__(self, path, num_threads=8, num_intervals=64):
+        self.seed = sum(path.encode())
+        self.source_height = self.source_width = FRAME_HW
+        self.height = self.width = self.interpolation = None
+        self.output_format = "RGB"
+        self.frame_iter = 1
+        self._pos = 0
+
+    def __len__(self):
+        return 2 * REQUEST_FRAMES
+
+    def get_fps(self):
+        return 2.0
+
+    def process(self, indices):
+        h, w = self.height, self.width
+        shape = ((h * w * 3 // 2,) if self.output_format == "YUV420"
+                 else (3, h, w))
+        self._frames = np.stack([
+            np.random.default_rng((self.seed, i)).integers(
+                0, 256, shape, dtype=np.uint8)
+            for i in indices
+        ])
+        self._pos = 0
+
+    def get_batch(self, indices):
+        self.process(indices)
+        return self._frames
+
+    def __next__(self):
+        block = self._frames[self._pos : self._pos + self.frame_iter]
+        self._pos += len(block)
+        if not len(block):
+            raise StopIteration
+        return block
+
+    def close(self):
+        pass
+
+
+def seeded_decode_video_batch(path, cfg):
+    """video/reader.py::decode_video_batch over a SeededReader: (frames,
+    plan, None)."""
+    from quickvideo_tpu_torch.video.reader import plan_from_reader
+
+    reader = SeededReader(path)
+    plan = plan_from_reader(reader, cfg)
+    reader.height, reader.width = plan.resized_height, plan.resized_width
+    if cfg.decode_output.lower() == "yuv420":
+        reader.output_format = "YUV420"
+    return reader.get_batch(plan.indices.tolist()), plan, None
+
+
+@contextlib.contextmanager
+def seeded_videos():
+    """The native reader and the whole-video decoder replaced by the
+    seeded ones for the block (as tests/test_torch_engine.py replaces
+    them), restored after it."""
+    from quickvideo_tpu_torch.video import quickdecode as qd
+    from quickvideo_tpu_torch.video import reader as vreader
+
+    saved = qd.InterleavedVideoReader, vreader.decode_video_batch
+    qd.InterleavedVideoReader = SeededReader
+    vreader.decode_video_batch = seeded_decode_video_batch
+    try:
+        yield
+    finally:
+        qd.InterleavedVideoReader, vreader.decode_video_batch = saved
+
+
+SESSION_QUESTIONS = (
+    "What happens in this video?",
+    "Why?",  # a 26-row follow-up suffix: 182 packed rows, the decode kernel
+    "Describe the colors in the frames.",  # 56 rows: the prefill kernel
+    "And then?",  # 31 rows (217 packed): the prefill kernel
+)
+# scored options: 2, 7 and 15 tokens (the fallback tokenizer is byte-level)
+# and 12 token ids; with the 20-row suffix the passes run 22-35 rows, on
+# both sides of B1's 192 packed rows
+SCORE_CONTEXT = "Which?"
+SCORE_OPTIONS = (" A", " B. red", " C. moving left", list(range(300, 312)))
+SCORE_ATOL = 1e-3  # one option's total, shared prefill vs its own
+BATCH_QUESTIONS = QUESTIONS + ("Is anything red?",)
+
+
+def _path_lvu(dev, params, **kw):
+    """The 7B LVU of phase 3f on the bf16 weights `params`: seeded videos
+    at the 30 x 30 grid of phase 3 (the pixel budget raised to 420 x 420),
+    groups of 32 frames."""
+    return make_lvu(dev, "bfloat16", params=params,
+                    extra_kwargs={"max_pixels": FRAME_HW * FRAME_HW}, **kw)
+
+
+class _Run:
+    """Counters reset before a call, read after it; wall and peak memory."""
+
+    def __init__(self, counters):
+        self.counters = counters
+
+    def __call__(self, fn, *args, **kw):
+        import torch
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counters(self.counters)
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        self.wall = time.perf_counter() - t0
+        self.peak = torch.cuda.max_memory_allocated() / 2**30
+        self.counts = _read_counters(self.counters)
+        return out
+
+
+def _b1_ok(counts, want):
+    """B1's per-kernel launches equal `want`, and all ran as bf16 unified
+    (the mode of every launch on these paths)."""
+    total = sum(want.values())
+    return ({k: counts[k] for k in want} == want and counts["flash"] == total
+            and counts["flash_bf16_unified"] == total)
+
+
+def _kern(d):
+    return ", ".join(f"{k[13:]} {n}" for k, n in d.items())
+
+
+def run_session(dev, params, run, runs):
+    """A first ask, two follow-ups, save, resume, a third follow-up on the
+    resumed and on the live session (equal tokens); the first follow-up's
+    final-prefill logits against a from-scratch request over the whole
+    history. B1 launches per turn by the rows each launch runs."""
+    import torch
+
+    from quickvideo_tpu_torch.video.reader import (
+        build_prefill_inputs_from_frames,
+    )
+
+    lvu = _path_lvu(dev, params)
+    eng = lvu.engine
+    n = lvu.model_config.text.num_hidden_layers
+    ok = True
+    session = lvu.start_chat("seeded-session.mp4")
+    frames, plan, _ = seeded_decode_video_batch("seeded-session.mp4",
+                                                lvu.config)
+    logits = []
+    final_prefill = eng.final_prefill
+
+    def capture(*a, **k):
+        logits.append(final_prefill(*a, **k))
+        return logits[-1]
+
+    walls, history_end = [], []
+    for i, q in enumerate(SESSION_QUESTIONS[:3]):
+        before = 0 if session._ids is None else len(session._ids)
+        eng.final_prefill = capture
+        try:
+            answer = run(session.ask, q, max_new_tokens=8)
+        finally:
+            eng.final_prefill = final_prefill
+        runs.append(run.counts)
+        history_end.append(len(session._ids))
+        toks = session.turns[-1]["tokens"]
+        n_dec = len(toks) - 1
+        if i == 0:
+            ids1 = session._ids[: len(session._ids) - n_dec]
+            want = expected_kernels(lvu, SimpleNamespace(
+                input_ids=ids1, group_grids=plan.group_grids), len(toks),
+                "bf16")
+        else:
+            g = len(session._ids) - n_dec - before
+            want = b1_kernels(lvu, [g] * n + [1] * (n_dec * n))
+        vision = run.counts["vision_2d"]
+        this_ok = (_b1_ok(run.counts, want) and (vision > 0) == (i == 0)
+                   and session._cache_len == max(session._cache.lengths))
+        ok &= this_ok
+        walls.append(run.wall)
+        spans = {k: round(v, 4) for k, v in
+                 sorted(session.turns[-1]["timings"].items())}
+        log(f"[3f session] turn {i + 1} ({'first ask, video prefill' if i == 0 else f'follow-up, {g}-row suffix'}): "
+            f"tokens={toks} cache_len={session._cache_len} (layers "
+            f"{sorted(set(session._cache.lengths))}) capacity "
+            f"{session._cache.capacity}; B1 kernels {_kern({k: run.counts[k] for k in want})} "
+            f"(expected {_kern(want)}); B2 {vision}; wall={run.wall:.4f} s "
+            f"spans(s)={spans} peak {run.peak:.2f} GiB "
+            f"{'OK' if this_ok else 'FAIL'}")
+
+    # the first follow-up against the whole history from scratch: the ids
+    # the session held once it ran, less its answer
+    t1 = session.turns[1]["tokens"]
+    hist = session._ids[: history_end[1] - (len(t1) - 1)]
+    cache, state = eng.prefill(build_prefill_inputs_from_frames(frames, plan,
+                                                                hist))
+    full = eng.final_prefill(cache, state).float().cpu()
+    del cache, state
+    inc = logits[1].float().cpu()
+    rel = ((inc - full).norm() / full.norm()).item()
+    this_ok = bool(rel <= LOGITS_REL_L2 and torch.isfinite(inc).all())
+    ok &= this_ok
+    log(f"[3f session] follow-up 1 incremental vs the whole history from "
+        f"scratch ({len(hist)} ids): final-prefill logits rel L2 {rel:.3e} "
+        f"(tol {LOGITS_REL_L2}), argmax {int(inc.argmax())} vs "
+        f"{int(full.argmax())}, turn tokens {t1} "
+        f"{'OK' if this_ok else 'FAIL'}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "session.npz")
+        t0 = time.perf_counter()
+        session.save(path)
+        t_save = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        t0 = time.perf_counter()
+        resumed = lvu.resume_chat(path)
+        torch.cuda.synchronize()
+        t_load = time.perf_counter() - t0
+    q = SESSION_QUESTIONS[3]
+    a_res = run(resumed.ask, q, max_new_tokens=8)
+    runs.append(run.counts)
+    res_wall, res_counts = run.wall, run.counts
+    a_live = run(session.ask, q, max_new_tokens=8)
+    runs.append(run.counts)
+    toks_r, toks_l = (s.turns[-1]["tokens"] for s in (resumed, session))
+    same = (toks_r == toks_l and a_res == a_live
+            and resumed._cache.lengths == session._cache.lengths
+            and res_counts == run.counts)
+    ok &= same
+    log(f"[3f session] saved {size / 2**20:.1f} MiB in {t_save:.3f} s, "
+        f"resumed in {t_load:.3f} s; turn 4 on the resumed session "
+        f"{toks_r} ({res_wall:.4f} s) vs the live one {toks_l} "
+        f"({run.wall:.4f} s), launches alike "
+        f"{'OK' if same else 'FAIL'}")
+    log(f"[3f session] walls: turn 1 {walls[0]:.4f} s, turns 2-3 "
+        f"{walls[1]:.4f} / {walls[2]:.4f} s, turn 4 {run.wall:.4f} s")
+    del lvu, session, resumed
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _video_request_rows(lvu, question, video):
+    """(per-layer group rows of every group, suffix rows) of the request
+    LVU.generate / LVU.loglikelihood build for `question` on `video`."""
+    from quickvideo_tpu_torch.tokenization import build_chat_ids_from_messages
+
+    _, plan, _ = seeded_decode_video_batch(video, lvu.config)
+    ids = build_chat_ids_from_messages(
+        lvu.tokenizer, lvu.model_config,
+        lvu._context_messages(question, video), sum(plan.tokens_per_group))
+    vid = np.nonzero(ids == lvu.model_config.video_token_id)[0]
+    inputs = SimpleNamespace(input_ids=ids, group_grids=plan.group_grids)
+    groups = [g for per in group_layer_rows(lvu, inputs) for g in per]
+    return groups, len(ids) - int(vid[-1]) - 1
+
+
+def run_scoring(dev, params, run, runs):
+    """loglikelihood_multi with 4 options against each option's own
+    loglikelihood; the request's greedy answer scored. B1 launches: the
+    video groups once, then one pass per option at suffix + option rows."""
+    import torch
+
+    lvu = _path_lvu(dev, params)
+    video = "seeded-scoring.mp4"
+    n = lvu.model_config.text.num_hidden_layers
+    multi = run(lvu.loglikelihood_multi, SCORE_CONTEXT, video,
+                list(SCORE_OPTIONS))
+    runs.append(run.counts)
+    multi_wall, multi_counts = run.wall, run.counts
+    ok = True
+    single, single_wall = [], 0.0
+    for opt in SCORE_OPTIONS:
+        single.append(run(lvu.loglikelihood, SCORE_CONTEXT, video, opt))
+        runs.append(run.counts)
+        single_wall += run.wall
+    # the expected launches: the request's groups, then one pass per option
+    groups, suffix = _video_request_rows(lvu, SCORE_CONTEXT, video)
+    conts = [lvu.tokenizer.encode_text(o) if isinstance(o, str) else o
+             for o in SCORE_OPTIONS]
+    want = b1_kernels(lvu, groups + [suffix + len(c) for c in conts
+                                     for _ in range(n)])
+    counts_ok = _b1_ok(multi_counts, want)
+    ok &= counts_ok
+    for (t_m, g_m), (t_s, g_s), c in zip(multi, single, conts):
+        this_ok = (abs(t_m - t_s) <= SCORE_ATOL and g_m == g_s
+                   and np.isfinite(t_m) and t_m < 0)
+        ok &= this_ok
+        log(f"[3f scoring] option of {len(c)} tokens (pass of "
+            f"{suffix + len(c)} rows): shared {t_m:.5f} (greedy {g_m}) vs "
+            f"its own {t_s:.5f} (greedy {g_s}), |diff| {abs(t_m - t_s):.2e} "
+            f"(tol {SCORE_ATOL}) {'OK' if this_ok else 'FAIL'}")
+    log(f"[3f scoring] 4 options on one shared prefill {multi_wall:.4f} s vs "
+        f"4 single calls {single_wall:.4f} s; B1 kernels "
+        f"{_kern({k: multi_counts[k] for k in want})} (expected {_kern(want)})"
+        f"; peak {run.peak:.2f} GiB {'OK' if counts_ok else 'FAIL'}")
+    run(lvu.generate, SCORE_CONTEXT, video, max_new_tokens=8)
+    greedy = lvu.last_result.tokens.tolist()
+    score = run(lvu.loglikelihood, SCORE_CONTEXT, video, greedy)
+    log(f"[3f scoring] the request's own greedy answer {greedy}: total "
+        f"{score[0]:.5f}, is_greedy {score[1]} (printed, not asserted)")
+    del lvu
+    torch.cuda.empty_cache()
+    return ok
+
+
+def run_sampling(dev, params, run, runs):
+    """top_k=1 sampling gives the greedy tokens; a repeated seed repeats a
+    sample; streamed chunks concatenate to the unstreamed tokens, each at
+    most stream_chunk_tokens; decode ms/token greedy against sampled (on the
+    device with top_p, which sorts the vocabulary each step, and on the
+    host). B1: every decode step on the decode kernel."""
+    import torch
+
+    q, video = QUESTIONS[1], "seeded-sampling.mp4"
+    n_new = 16
+    ok = True
+    per_tok, peaks = {}, []
+
+    def request(lvu, **kw):
+        """(tokens, decode ms/token, B1 launches as expected)."""
+        run(lvu.generate, q, video, max_new_tokens=n_new, **kw)
+        runs.append(run.counts)
+        peaks.append(run.peak)
+        res = lvu.last_result
+        n_dec = len(res.tokens) - 1
+        n = lvu.model_config.text.num_hidden_layers
+        groups, suffix = _video_request_rows(lvu, q, video)
+        want = b1_kernels(lvu, groups + [suffix] * n + [1] * (n_dec * n))
+        ms = 1e3 * res.timings["decode"] / max(n_dec, 1)
+        return res.tokens.tolist(), ms, _b1_ok(run.counts, want)
+
+    lvu = _path_lvu(dev, params, stream_chunk_tokens=4)
+    greedy, per_tok["greedy"], c_ok = request(lvu)
+    top1, per_tok["sampled top_k 1, on the card"], c1 = request(
+        lvu, do_sample=True, top_k=1)
+    this_ok = top1 == greedy and c_ok and c1
+    ok &= this_ok
+    log(f"[3f sampling] greedy {greedy}; top_k=1 sampled {top1}; B1 "
+        f"launches as expected {c_ok and c1} {'OK' if this_ok else 'FAIL'}")
+    chunks = []
+    streamed, _, c2 = request(lvu, on_tokens=chunks.append)
+    sizes = [len(c) for c in chunks]
+    this_ok = (sum(chunks, []) == streamed == greedy and sizes[0] == 1
+               and max(sizes) <= 4 and c2)
+    ok &= this_ok
+    log(f"[3f sampling] streamed chunks {sizes} (stream_chunk_tokens 4) "
+        f"concatenate to the greedy tokens {'OK' if this_ok else 'FAIL'}")
+    kw = dict(do_sample=True, top_p=0.9, temperature=1.0)
+    draws = []
+    counts_ok = True
+    for _ in range(2):
+        seeded = _path_lvu(dev, params, seed=7)
+        toks, ms, c = request(seeded, **kw)
+        draws.append(toks)
+        counts_ok &= c
+        per_tok["sampled top_p 0.9, on the card"] = ms
+        del seeded
+    host = _path_lvu(dev, params, seed=7, sample_on_device=False)
+    toks_h, per_tok["sampled top_p 0.9, on the host"], c = request(host, **kw)
+    del host
+    this_ok = draws[0] == draws[1] and counts_ok and c
+    ok &= this_ok
+    log(f"[3f sampling] seed 7, top_p 0.9, twice: {draws[0]} / {draws[1]} "
+        f"{'OK' if this_ok else 'FAIL'}; host sampling {toks_h}")
+    log("[3f sampling] decode ms/token: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in per_tok.items())
+        + f"; peak {max(peaks):.2f} GiB")
+    del lvu
+    torch.cuda.empty_cache()
+    return ok
+
+
+def run_batching(dev, params, run, runs):
+    """BatchedQAEngine over 4 questions on one video: each answer equals
+    the question's own generate; B1 launches: the groups once, then per
+    question its suffix and decode steps."""
+    import torch
+
+    from quickvideo_tpu_torch.prefill.batch import BatchedQAEngine
+
+    lvu = make_lvu(dev, "bfloat16", params=params)
+    mcfg, n = lvu.model_config, lvu.model_config.text.num_hidden_layers
+    eos = [lvu.tokenizer.eos_token_id]
+
+    def reqs():
+        return [make_request(mcfg, lvu.tokenizer, q, seed=0)
+                for q in BATCH_QUESTIONS]
+
+    got = run(BatchedQAEngine(lvu.engine).generate_batch, reqs(), 8,
+              eos_token_ids=eos)
+    runs.append(run.counts)
+    b_wall, b_counts, b_peak = run.wall, run.counts, run.peak
+    single, s_wall = [], 0.0
+    for r in reqs():
+        single.append(run(lvu.engine.generate, r, max_new_tokens=8,
+                          eos_token_ids=eos).tokens)
+        runs.append(run.counts)
+        s_wall += run.wall
+    r0 = reqs()
+    steps = [g for per in group_layer_rows(lvu, r0[0]) for g in per]
+    for r, toks in zip(r0, got):
+        ids = np.asarray(r.input_ids)
+        suffix = len(ids) - int(np.nonzero(ids == mcfg.video_token_id)[0][-1]) - 1
+        steps += [suffix] * n + [1] * ((len(toks) - 1) * n)
+    want = b1_kernels(lvu, steps)
+    same = all(np.array_equal(a, b) for a, b in zip(got, single))
+    this_ok = same and _b1_ok(b_counts, want)
+    log(f"[3f batching] {len(got)} questions, one video prefill: "
+        f"{[t.tolist() for t in got]} vs single requests "
+        f"{'equal' if same else [t.tolist() for t in single]}; B1 kernels "
+        f"{_kern({k: b_counts[k] for k in want})} (expected {_kern(want)}); "
+        f"batched {b_wall:.4f} s vs single {s_wall:.4f} s, peak "
+        f"{b_peak:.2f} GiB {'OK' if this_ok else 'FAIL'}")
+    del lvu
+    torch.cuda.empty_cache()
+    return this_ok
+
+
+def run_checkpoint(dev, run, runs):
+    """Phase 4's narrow config (production head dims) written as a
+    safetensors directory by quickvideo_tpu_torch/testing.py, loaded
+    through LVU(LVUConfig(model_name_or_path=dir)): the generated tokens
+    equal those of the same weights passed as `params=`, with bf16 and
+    with int8 weights."""
+    import tempfile
+
+    import torch
+
+    from quickvideo_tpu_torch.api import LVU
+    from quickvideo_tpu_torch.config import LVUConfig
+    from quickvideo_tpu_torch.models.qwen25_vl.convert import (
+        init_params,
+        params_to,
+    )
+    from quickvideo_tpu_torch.prefill.engine import tensor_leaves
+    from quickvideo_tpu_torch.testing import write_checkpoint
+
+    mcfg = narrow_config()
+    base = init_params(mcfg, seed=5, dtype=torch.bfloat16, device=dev)
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        d = write_checkpoint(os.path.join(tmp, "narrow"), base, mcfg)
+        for param_dtype in ("bfloat16", "int8"):
+            cfg = LVUConfig(model_name_or_path=d, max_decode_tokens=8,
+                            top_p=0.5, param_dtype=param_dtype)
+            t0 = time.perf_counter()
+            loaded = LVU(cfg, device=dev)
+            torch.cuda.synchronize()
+            t_load = time.perf_counter() - t0
+            given = LVU(cfg, params=params_to(base, device=dev), device=dev)
+            inputs = [make_request(mcfg, loaded.tokenizer,
+                                   "What happens in this video?", seed=7,
+                                   n_frames=16, group_frames=8)
+                      for _ in range(2)]
+            a = run(loaded.engine.generate, inputs[0], max_new_tokens=8)
+            runs.append(run.counts)
+            b = run(given.engine.generate, inputs[1], max_new_tokens=8)
+            runs.append(run.counts)
+            dev_ok = all(t.device.type == "cuda"
+                         for t in tensor_leaves(loaded.params))
+            this_ok = (a.tokens.tolist() == b.tokens.tolist() and dev_ok
+                       and run.counts["flash"] > 0)
+            ok &= this_ok
+            log(f"[3f checkpoint] narrow config from {len(os.listdir(d)) - 1}"
+                f" safetensors shards, {param_dtype} weights: loaded in "
+                f"{t_load:.3f} s, tokens {a.tokens.tolist()} vs the same "
+                f"weights as params= {b.tokens.tolist()}, every leaf on the "
+                f"card {dev_ok} {'OK' if this_ok else 'FAIL'}")
+            del loaded, given
+    torch.cuda.empty_cache()
+    return ok
+
+
+def run_api_paths(dev, params):
+    """Phase 3f: the 7B (bf16 weights `params`, full width and depth)
+    through LVU.start_chat / resume_chat, LVU.loglikelihood_multi,
+    LVU.generate(do_sample=...) and BatchedQAEngine on seeded 64-frame
+    videos, then a narrow checkpoint directory through LVU. Returns (ok,
+    each run's launch counts)."""
+    import torch
+
+    run = _Run(_kernel_counters())
+    runs = []
+    ok = True
+    torch.cuda.reset_peak_memory_stats()
+    with seeded_videos():
+        for fn in (run_session, run_scoring, run_sampling, run_batching):
+            ok &= fn(dev, params, run, runs)
+    ok &= run_checkpoint(dev, run, runs)
+    log("[3f] B1 launches per kernel over the phase: " + _kern(
+        {f"flash_kernel_{k}": sum(r[f"flash_kernel_{k}"] for r in runs)
+         for k in B1_KERNELS}) + f" {'OK' if ok else 'FAIL'}")
+    return ok, runs
+
+
 # -- phase 4: card vs CPU ----------------------------------------------------
 
 
@@ -2308,6 +2828,9 @@ def main():
     hm_ok, hm_runs = run_head_major(dev, lvu.params, logits_bf16)
     ok &= hm_ok
     runs += hm_runs
+    api_ok, api_runs = run_api_paths(dev, lvu.params)
+    ok &= api_ok
+    runs += api_runs
     del lvu
     torch.cuda.empty_cache()
     for param_dtype, kv_dtype, what in (

@@ -4,9 +4,15 @@ Counterpart of quickvideo_tpu/api.py for the slice: `LVU(config)` builds
 the parameters on the device, the engine, and binds the registered engine's
 run/chat drivers. A bare preset name (qwen25-vl-3b / -7b / -72b, tiny) gives
 deterministic random weights at the preset's shapes, made on the device from
-`config.seed`; a name with a "/" must be a local checkpoint directory, and
-loading one is not ported yet. `config.param_dtype="int8"` quantizes the
-weights (random ones as they are drawn, passed-in float ones in place).
+`config.seed`; a local directory is a safetensors checkpoint, read leaf by
+leaf onto the device (models/qwen25_vl/load.py); any other name with a "/"
+is refused. `config.param_dtype="int8"` quantizes the weights (random ones
+as they are drawn, loaded or passed-in float ones in place).
+
+Beside `generate` and `chat`: `loglikelihood` / `loglikelihood_multi`
+(teacher-forced scoring of continuations, several against one prefill) and
+`start_chat` / `resume_chat` (multi-turn sessions over one video that keep
+the KV cache, and their .npz files, chat.py).
 
 The device is CUDA unless `device` says otherwise: without a card `LVU`
 raises instead of running on the CPU. `device="cpu"` runs the kernels'
@@ -60,9 +66,14 @@ class LVU:
         if params is not None:
             self.params = quantize_model_params(params) if int8 else params
         elif os.path.isdir(config.model_name_or_path or ""):
-            raise NotImplementedError(
-                "loading a safetensors checkpoint is not ported yet"
+            from quickvideo_tpu_torch.models.qwen25_vl.load import load_params
+
+            self.params = load_params(
+                config.model_name_or_path, self.model_config, dtype,
+                self.device,
             )
+            if int8:
+                self.params = quantize_model_params(self.params)
         elif "/" in name:
             raise ValueError(
                 f"model_name_or_path {name!r} is not a local directory. Pass "
@@ -111,3 +122,49 @@ class LVU:
                 f"model_type {self.config.model_type!r} has no chat driver"
             )
         return self._chat(self, messages, **generation_kwargs)
+
+    @staticmethod
+    def _context_messages(context: str, video_path: Optional[str]):
+        content = []
+        if video_path is not None:
+            content.append({"type": "video", "video": video_path})
+        content.append({"type": "text", "text": context})
+        return [{"role": "user", "content": content}]
+
+    def loglikelihood(self, context: str, video_path: Optional[str],
+                      continuation) -> tuple:
+        """Teacher-forced (total_logprob, is_greedy) of `continuation`
+        (text or token ids) after the chat-formatted context, the lmms-eval
+        `loglikelihood` contract; the video prefill runs grouped and pruned
+        as generate's does."""
+        from quickvideo_tpu_torch.engines.qwen25 import score_chat
+
+        return score_chat(self, self._context_messages(context, video_path),
+                          continuation)
+
+    def loglikelihood_multi(self, context: str, video_path: Optional[str],
+                            continuations) -> list:
+        """Several continuations against one prefill of (video, context):
+        a list of (total_logprob, is_greedy)."""
+        from quickvideo_tpu_torch.engines.qwen25 import score_chat_multi
+
+        return score_chat_multi(
+            self, self._context_messages(context, video_path), continuations
+        )
+
+    def start_chat(self, video_path: str, reserve_turns: int = 8,
+                   **video_kwargs):
+        """A multi-turn session over one video (chat.ChatSession): the
+        pruned video KV cache stays on the device and each follow-up `ask`
+        appends only its own tokens."""
+        from quickvideo_tpu_torch.chat import ChatSession
+
+        return ChatSession(self, video_path, reserve_turns=reserve_turns,
+                           **video_kwargs)
+
+    def resume_chat(self, path: str):
+        """A session saved by `ChatSession.save` (by this package or the
+        JAX one), under a config whose KV-relevant fields match."""
+        from quickvideo_tpu_torch.chat import ChatSession
+
+        return ChatSession.load(self, path)

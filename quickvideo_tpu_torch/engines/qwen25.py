@@ -1,10 +1,12 @@
 """Qwen2.5-VL engines: sync (batch decode) and interleaved (overlap).
 
 Counterpart of quickvideo_tpu/engines/qwen25.py for the slice: requests
-with a video, images or both, and text; greedy decode. Tokenization, the
-video plan, the image resize and the CPU decoders are the port's copies of
-the JAX package's jax-free modules (tokenization.py, video/{reader,
-preprocess, quickdecode}.py).
+with a video, images or both, and text; greedy or sampled decode, streamed
+through `on_tokens`; and continuation scoring (`score_chat`,
+`score_chat_multi`). Tokenization, the video plan, the image resize and the
+CPU decoders are the port's copies of the JAX package's jax-free modules
+(tokenization.py, video/{reader, preprocess, quickdecode}.py). Frames are
+decoded each time (`_fetch_frames`; the disk frame cache is not ported).
 """
 
 from __future__ import annotations
@@ -108,20 +110,6 @@ def _images(lvu, image_items, timer):
         return _prepare_images(lvu.model_config, image_items)
 
 
-def _image_only(lvu, messages, images, timer, generation_kwargs):
-    """A request without a video: the whole sequence in one prefill."""
-    img_px, img_grids, img_counts = images
-    ids = build_chat_ids_from_messages(
-        lvu.tokenizer, lvu.model_config, messages, 0,
-        image_token_counts=img_counts,
-    )
-    inputs = PrefillInputs(
-        input_ids=ids, video_grid_thw=None, pixel_groups=[], group_grids=[],
-        image_grid_thw=img_grids, image_pixels=img_px,
-    )
-    return _generate(lvu, inputs, timer, generation_kwargs)
-
-
 def _config_with_video_kwargs(lvu, vkw: dict, generation_kwargs: dict):
     """Per-request fps / num_frames from the video item or the generation
     kwargs (popped, not forwarded to decode)."""
@@ -155,6 +143,44 @@ def run_sync(lvu, question: str, video_path: str, **generation_kwargs):
                      **generation_kwargs)
 
 
+def _fetch_frames(lvu, video_path, timer, cfg=None):
+    """(frames, plan, native_hw) of the whole sampled video
+    (quickvideo_tpu/engines/qwen25.py:236-259 without its disk frame
+    cache, which the port refuses through save_video_cache)."""
+    return vreader.decode_video_batch(video_path, cfg or lvu.config)
+
+
+def _video_inputs(lvu, messages, video_path, cfg, timer, images):
+    """PrefillInputs of a request with a video, decoded whole."""
+    img_px, img_grids, img_counts = images
+    with timer.span("frame_fetch"):
+        frames, plan, native_hw = _fetch_frames(lvu, video_path, timer, cfg)
+    ids = build_chat_ids_from_messages(
+        lvu.tokenizer, lvu.model_config, messages,
+        sum(plan.tokens_per_group), image_token_counts=img_counts,
+    )
+    inputs = vreader.build_prefill_inputs_from_frames(
+        frames, plan, ids, native_hw=native_hw
+    )
+    inputs.image_grid_thw = img_grids
+    inputs.image_pixels = img_px
+    return inputs
+
+
+def _image_only_inputs(lvu, messages, images):
+    """PrefillInputs of a request without a video: the whole sequence in
+    one prefill."""
+    img_px, img_grids, img_counts = images
+    ids = build_chat_ids_from_messages(
+        lvu.tokenizer, lvu.model_config, messages, 0,
+        image_token_counts=img_counts,
+    )
+    return PrefillInputs(
+        input_ids=ids, video_grid_thw=None, pixel_groups=[], group_grids=[],
+        image_grid_thw=img_grids, image_pixels=img_px,
+    )
+
+
 def chat_sync(lvu, messages, **generation_kwargs) -> List[str]:
     """Decode every sampled frame first, then prefill group by group. Image
     items, alone or beside the video, ride the prefix or suffix prefill."""
@@ -165,29 +191,40 @@ def chat_sync(lvu, messages, **generation_kwargs) -> List[str]:
     timer = SpanTimer()
     images = _images(lvu, image_items, timer)
     if video_path is None:
-        return _image_only(lvu, messages, images, timer, generation_kwargs)
-    img_px, img_grids, img_counts = images
-    with timer.span("frame_fetch"):
-        frames, plan, native_hw = vreader.decode_video_batch(video_path, cfg)
-    ids = build_chat_ids_from_messages(
-        lvu.tokenizer, lvu.model_config, messages,
-        sum(plan.tokens_per_group), image_token_counts=img_counts,
-    )
-    groups, off = [], 0
-    for cnt in plan.group_frame_counts:
-        groups.append(np.ascontiguousarray(frames[off : off + cnt]))
-        off += cnt
-    inputs = PrefillInputs(
-        input_ids=ids,
-        video_grid_thw=plan.grid_thw,
-        pixel_groups=groups,
-        group_grids=plan.group_grids,
-        second_per_grid_ts=plan.second_per_grid_ts,
-        native_hw=native_hw,
-        image_grid_thw=img_grids,
-        image_pixels=img_px,
-    )
+        inputs = _image_only_inputs(lvu, messages, images)
+    else:
+        inputs = _video_inputs(lvu, messages, video_path, cfg, timer, images)
     return _generate(lvu, inputs, timer, generation_kwargs)
+
+
+def score_chat(lvu, messages, continuation) -> tuple:
+    """Teacher-forced (total_logprob, is_greedy) of `continuation` (text or
+    token ids) after the chat context: the lmms-eval `loglikelihood`
+    contract, with chat_sync's input building."""
+    return score_chat_multi(lvu, messages, [continuation])[0]
+
+
+def score_chat_multi(lvu, messages, continuations) -> list:
+    """Several continuations against one prefill of the chat context (the
+    multiple-choice pattern): the video decodes and prefills once, and the
+    engine restores the cache's lengths between options. Returns a list of
+    (total_logprob, is_greedy)."""
+    video_path, _question, vkw, image_items = _question_from_messages(
+        messages
+    )
+    cfg = _config_with_video_kwargs(lvu, vkw, {})
+    timer = SpanTimer()
+    images = _images(lvu, image_items, timer)
+    cont_ids = [
+        lvu.tokenizer.encode_text(c) if isinstance(c, str)
+        else [int(t) for t in c]
+        for c in continuations
+    ]
+    if video_path is None:
+        inputs = _image_only_inputs(lvu, messages, images)
+    else:
+        inputs = _video_inputs(lvu, messages, video_path, cfg, timer, images)
+    return lvu.engine.score_continuations(inputs, cont_ids, timer=timer)
 
 
 def run_interleaved(lvu, question: str, video_path: str, **generation_kwargs):

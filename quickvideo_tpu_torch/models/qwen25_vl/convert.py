@@ -15,7 +15,7 @@ Matrices keep the JAX (in, out) layout and the port applies them as
 `x @ w`, so no leaf is transposed. With int8 weights a matrix is a
 {"q8", "sc"} dict (ops/quantization.py): q8 keeps the (in, out) shape as a
 view of a row-major (out, in) tensor, the layout the int8 products read.
-Loading a safetensors checkpoint is not ported yet.
+A safetensors checkpoint loads into the same tree (load.py).
 """
 
 from __future__ import annotations

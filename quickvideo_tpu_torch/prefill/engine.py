@@ -1,9 +1,9 @@
-"""Grouped-prefill engine + greedy decode loop (PyTorch).
+"""Grouped-prefill engine, decode loop and continuation scoring (PyTorch).
 
 Counterpart of quickvideo_tpu/prefill/engine.py on one device: per video
 group, vision encode -> embedding scatter -> the decoder stack with
 prune-and-append into a preallocated KV cache; then the question suffix as
-one final prefill, then greedy decode.
+one final prefill, then decode.
 
 Pruning runs every predictor and mode of the JAX engine: the 19 predict
 types (the random ones draw from per-group, per-layer torch generators
@@ -39,9 +39,22 @@ request as the JAX package's rule does (`config.resolve_auto_kv_dtype`:
 int8 above 65,536 planned slots or when a bf16 cache would not fit beside
 the weights), with the card's memory.
 
+Decode (`_generate_from_cache`, shared by `generate`, chat sessions and
+batched QA): greedy, or sampled through the JAX filters (`_filter_logits`)
+from a torch.Generator seeded once from `LVUConfig.seed`, on the engine's
+device (`sample_on_device`, the default) or on the host from logits copied
+there. `on_tokens` receives the first token alone, then chunks of
+min(32, stream_chunk_tokens) tokens, the JAX engine's sequence of calls
+(per token on the host-sampling path, as there).
+
+Continuation scoring (`score_continuations`): one prefill of the request,
+then per continuation one exact-length pass of suffix + continuation
+against the cache, log-softmax in f32 and the gather on the device; the
+per-layer lengths (host ints) are restored between continuations, so each
+scores against the same cache.
+
 Not in this slice (each raises NotImplementedError): pipeline / context /
-tensor parallelism, sampling, continuation scoring, streamed tokens
-(`on_tokens`), the on-device resize and the disk frame cache.
+tensor parallelism, the on-device resize and the disk frame cache.
 `attention_impl` is not read: the port's cache attention is kernel B1 (the
 JAX package's 'pallas' route).
 """
@@ -179,6 +192,10 @@ class LVUEngine:
         self._layouts = {}
         self._weight_bytes = None
         self._final_prefills = 0  # seeds the pruned final prefill's draws
+        # sampling streams, seeded once and continued across requests (the
+        # JAX engine's self._rng): on the device, and on the host for
+        # sample_on_device=False; made at first use
+        self._generators = {}
 
     def _layout_tensors(self, grid):
         if grid not in self._layouts:
@@ -274,10 +291,13 @@ class LVUEngine:
 
     # -- main entry points ----------------------------------------------
 
-    def prefill(self, inputs: PrefillInputs, timer: Optional[SpanTimer] = None):
+    def prefill(self, inputs: PrefillInputs, timer: Optional[SpanTimer] = None,
+                extra_capacity: int = 0):
         """Grouped prefill over the video. Returns (cache, state) for
-        final_prefill(); state["retained"][g][l] holds the retained group
-        positions of group g at layer l (None when the group kept all)."""
+        final_prefill() / _generate_from_cache(); state["retained"][g][l]
+        holds the retained group positions of group g at layer l (None when
+        the group kept all). `extra_capacity` reserves KV slots beyond the
+        plan (a chat session's later turns), rounded up with it to 4096."""
         timer = timer or SpanTimer()
         cfg, lvu = self.cfg, self.lvu
         if inputs.native_hw is not None:
@@ -341,6 +361,8 @@ class LVUEngine:
             )
 
         capacity = self.plan_capacity(group_input_lens, 0, L - suffix_start)
+        if extra_capacity:
+            capacity = -(-(capacity + int(extra_capacity)) // 4096) * 4096
         if lvu.kv_cache_capacity:
             cap_fixed = (lvu.kv_cache_capacity // 4096) * 4096
             if capacity > cap_fixed:
@@ -439,7 +461,10 @@ class LVUEngine:
             "sin": sin,
             "suffix_start": suffix_start,
             "L": L,
-            "ids_t": ids_t,
+            "ids": ids,
+            "delta": delta,
+            "positions": positions,  # host (3, L) mRoPE rows (chat sessions
+            # extend them instead of re-walking the sequence)
             "cache_len": logical_len,
             "retained": retained,
             "kv_dtype": kv_dtype,
@@ -485,7 +510,9 @@ class LVUEngine:
         the JAX engine does (quickvideo_tpu/prefill/engine.py:1404-1440;
         query predictors then score the suffix's own column sums). Sets
         state["suffix_advance"] and state["retained_final"]. Returns the
-        last row's logits (V,) f32."""
+        last row's logits (V,) f32. The cache's own tensors say its quant
+        mode (a resumed session's cache was built under an earlier "auto"
+        resolution)."""
         timer = timer or SpanTimer()
         lvu = self.lvu
         ss, L = state["suffix_start"], state["L"]
@@ -495,12 +522,8 @@ class LVUEngine:
         if lvu.do_top_k_for_query:
             keep_k = resolve_effective_top_k(lvu, 0, n, L - ss)
         with timer.span("final_prefill"):
-            ids = state["ids_t"][ss:L]
-            x = embed_tokens(lang, ids)
-            if state["img_suffix"] is not None:
-                x = qmodel.merge_vision_embeddings(
-                    x, state["img_suffix"], ids, self.cfg.image_token_id
-                )
+            ids = torch.as_tensor(state["ids"][ss:L], device=self.device)
+            x = self._embed(ids, state.get("img_suffix"))
             args = (lang, cache, x, state["cos"][ss:L], state["sin"][ss:L],
                     self.cfg.text)
             if keep_k > 0:
@@ -522,6 +545,106 @@ class LVUEngine:
         state["retained_final"] = idx
         return logits
 
+    def _embed(self, ids: torch.Tensor, img) -> torch.Tensor:
+        """Token embeddings with image embeddings `img` (or None) scattered
+        into the image placeholders."""
+        x = embed_tokens(self.params["language"], ids)
+        if img is not None:
+            x = qmodel.merge_vision_embeddings(x, img, ids,
+                                               self.cfg.image_token_id)
+        return x
+
+    # -- decode ------------------------------------------------------------
+
+    @staticmethod
+    def _filter_logits(logits: torch.Tensor, top_p=None, top_k=None):
+        """The JAX engine's top-k / nucleus filters
+        (quickvideo_tpu/prefill/engine.py:1181-1198), value for value:
+        top-k masks logits below the k-th largest (ties at the k-th value
+        stay; k >= vocab keeps all); top-p keeps the logits at or above the
+        cutoff of the smallest sorted prefix whose probability reaches
+        top_p (none reaching it: the largest alone)."""
+        if top_k is not None and top_k > 0:
+            kth = torch.sort(logits).values[-min(int(top_k), logits.shape[-1])]
+            logits = torch.where(logits < kth, -torch.inf, logits)
+        if top_p is not None and 0 < top_p < 1:
+            sorted_logits = torch.sort(logits, descending=True).values
+            csum = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
+            cutoff = sorted_logits[torch.argmax((csum >= top_p).to(torch.uint8))]
+            logits = torch.where(logits < cutoff, -torch.inf, logits)
+        return logits
+
+    def _generator(self, device) -> torch.Generator:
+        device = torch.device(device)
+        if device not in self._generators:
+            gen = torch.Generator(device=device)
+            gen.manual_seed(self.lvu.seed)
+            self._generators[device] = gen
+        return self._generators[device]
+
+    def _sample(self, logits, temperature, top_p, top_k) -> int:
+        """One token drawn from the filtered logits / temperature."""
+        flt = self._filter_logits(logits.float(), top_p, top_k)
+        probs = torch.softmax(flt / temperature, dim=-1)
+        return int(torch.multinomial(probs, 1,
+                                     generator=self._generator(probs.device)))
+
+    def _generate_from_cache(
+        self, cache, state, max_new_tokens, eos_token_ids, greedy=True,
+        temperature=1.0, timer: Optional[SpanTimer] = None, top_p=None,
+        top_k=None, on_tokens=None,
+    ):
+        """The final prefill of state's suffix (ids[suffix_start:L]), then
+        decode. Returns (tokens, cache, logical cache length): the cache
+        holds the suffix and every token but the last. Greedy and
+        device-sampled decode call `on_tokens` with the first token, then
+        with chunks of min(32, stream_chunk_tokens) tokens; host sampling
+        (sample_on_device=False) calls it per token."""
+        timer = timer or SpanTimer()
+        lvu = self.lvu
+        lang = self.params["language"]
+        logits = self.final_prefill(cache, state, timer)
+        max_new = min(max_new_tokens or lvu.max_decode_tokens,
+                      lvu.max_decode_tokens)
+        L, cos, sin = state["L"], state["cos"], state["sin"]
+        on_host = not greedy and not lvu.sample_on_device
+        out: List[int] = []
+        tok = torch.empty(1, dtype=torch.int64, device=self.device)
+
+        def pick(logits) -> int:
+            if greedy:
+                return int(torch.argmax(logits))
+            if on_host:
+                logits = logits.cpu()
+            return self._sample(logits, temperature, top_p, top_k)
+
+        def next_token() -> int:
+            # the decode rows of the tables start at L
+            row = L + len(out) - 1
+            tok.fill_(out[-1])
+            return pick(decode_step(lang, cache, tok, cos[row : row + 1],
+                                    sin[row : row + 1], self.cfg.text))
+
+        with timer.span("decode"):
+            out.append(pick(logits))
+            stream = on_tokens if on_tokens is not None else (lambda t: None)
+            stream(out[-1:])
+            chunk = (1 if on_host
+                     else max(1, min(32, int(lvu.stream_chunk_tokens))))
+            while out[-1] not in eos_token_ids and len(out) < max_new:
+                n_stop = (min(chunk, max_new - len(out))
+                          if on_tokens is not None else max_new - len(out))
+                new = []
+                while len(new) < n_stop:
+                    new.append(next_token())
+                    out.append(new[-1])
+                    if new[-1] in eos_token_ids:
+                        break
+                stream(new)
+        cache_len = (state["cache_len"] + state["suffix_advance"]
+                     + max(0, len(out) - 1))
+        return np.asarray(out, np.int64), cache, cache_len
+
     def generate(
         self,
         inputs: PrefillInputs,
@@ -533,40 +656,17 @@ class LVUEngine:
         top_k: Optional[int] = None,
         on_tokens=None,
     ) -> GenerationResult:
-        """Full request: grouped prefill + final prefill + greedy decode."""
-        if not greedy:
-            raise NotImplementedError("sampled decode is not ported yet")
-        if on_tokens is not None:
-            raise NotImplementedError("streamed tokens are not ported yet")
-        lvu = self.lvu
-        lang = self.params["language"]
+        """Full request: grouped prefill + final prefill + decode."""
         timer = SpanTimer()
         with timer.span("e2e"):
             cache, state = self.prefill(inputs, timer)
-            logits = self.final_prefill(cache, state, timer)
-            max_new = min(
-                max_new_tokens or lvu.max_decode_tokens, lvu.max_decode_tokens
+            tokens, cache, cache_len = self._generate_from_cache(
+                cache, state, max_new_tokens, eos_token_ids, greedy,
+                temperature, timer, top_p=top_p, top_k=top_k,
+                on_tokens=on_tokens,
             )
-            L = state["L"]
-            tokens: List[int] = []
-            with timer.span("decode"):
-                nxt = int(torch.argmax(logits))
-                tokens.append(nxt)
-                tok = torch.empty(1, dtype=torch.int64, device=self.device)
-                for step in range(1, max_new):
-                    if nxt in eos_token_ids:
-                        break
-                    row = L + step - 1  # decode rows of the tables start at L
-                    tok.fill_(nxt)
-                    logits = decode_step(
-                        lang, cache, tok, state["cos"][row : row + 1],
-                        state["sin"][row : row + 1], self.cfg.text,
-                    )
-                    nxt = int(torch.argmax(logits))
-                    tokens.append(nxt)
         t = self.cfg.text
-        cache_len = (state["cache_len"] + state["suffix_advance"]
-                     + max(0, len(tokens) - 1))
+        L = state["L"]
         itemsize = torch.empty((), dtype=self.dtype).element_size()
         # bytes per (K, V) token slot: int8 stores 1 B values and one f32
         # scale per head_dim row; int8k quantizes K only
@@ -577,7 +677,7 @@ class LVUEngine:
         }.get(state["kv_dtype"], (full, full))
         per_tok = t.num_hidden_layers * t.num_key_value_heads * (k_b + v_b)
         return GenerationResult(
-            tokens=np.asarray(tokens, np.int64),
+            tokens=tokens,
             timings=timer.totals(),
             cache_length=cache_len,
             prefill_tokens=L,
@@ -585,3 +685,95 @@ class LVUEngine:
             kv_unpruned_bytes=(L + len(tokens)) * per_tok,
             layer_lengths=list(cache.lengths),
         )
+
+    # -- continuation scoring ----------------------------------------------
+
+    def score_continuation(self, inputs: PrefillInputs, continuation_ids,
+                           timer: Optional[SpanTimer] = None):
+        """Teacher-forced (total log-probability, is_greedy) of
+        `continuation_ids` after the request (the lmms-eval `loglikelihood`
+        contract); see score_continuations."""
+        return self.score_continuations(inputs, [continuation_ids], timer)[0]
+
+    def score_continuations(self, inputs: PrefillInputs, continuations,
+                            timer: Optional[SpanTimer] = None) -> list:
+        """Several continuations against one prefill of the request
+        (quickvideo_tpu/prefill/engine.py:1073-1108): the video groups run
+        once, grouped and pruned as in generate; each continuation runs as
+        one exact-length pass of suffix + continuation against the cache,
+        never pruned, and the per-layer lengths are restored after it (its
+        rows above them are dead: attention reads a layer only up to its
+        length plus the call's rows, and the next pass overwrites them).
+        Returns a list of (total_logprob, is_greedy).
+
+        The suffix (the tokens after the video) must not be empty: the
+        first continuation token is predicted by the suffix's last row, and
+        without a suffix that row is not in the pass. The JAX body then
+        silently drops that token's log-probability (ROADMAP C2); the port
+        raises ValueError."""
+        timer = timer or SpanTimer()
+        lvu = self.lvu
+        conts = [np.asarray(c, np.int64) for c in continuations]
+        for cont in conts:
+            if len(cont) == 0:
+                raise ValueError("continuation_ids is empty")
+            if len(cont) > lvu.max_decode_tokens:
+                raise ValueError(
+                    f"continuation has {len(cont)} tokens > "
+                    f"max_decode_tokens={lvu.max_decode_tokens}; raise "
+                    "max_decode_tokens (the rope tables only extend that "
+                    "far past the prompt)"
+                )
+        ids = np.asarray(inputs.input_ids)
+        vid = np.nonzero(ids == self.cfg.video_token_id)[0]
+        if len(vid) and int(vid[-1]) + 1 == len(ids):
+            raise ValueError(
+                "the request ends with its video: scoring needs at least one "
+                "token after it, whose last row predicts the first "
+                "continuation token (the JAX package drops that token's "
+                "log-probability here)"
+            )
+        cache, state = self.prefill(inputs, timer)
+        return [
+            self._score_one(cache, state, cont, timer,
+                            restore=i < len(conts) - 1)
+            for i, cont in enumerate(conts)
+        ]
+
+    def _score_one(self, cache, state, cont, timer, restore: bool):
+        """One continuation against the prefilled cache; with `restore`
+        the per-layer lengths are put back afterwards."""
+        ss, L = state["suffix_start"], state["L"]
+        combined = np.concatenate([state["ids"][ss:L], cont])
+        q = len(combined)
+        saved = list(cache.lengths)
+        with timer.span("score"):
+            ids = torch.as_tensor(combined, device=self.device)
+            hidden, _ = prefill_step(
+                self.params["language"], cache,
+                self._embed(ids, state.get("img_suffix")),
+                state["cos"][ss : ss + q], state["sin"][ss : ss + q],
+                self.cfg.text, min_rows=0,
+            )
+            logits = compute_logits(self.params["language"], hidden,
+                                    self.cfg.text)
+            total, greedy = self._score_gather(logits, ids, q, L - ss)
+            total, greedy = torch.stack([total, greedy.to(total.dtype)]).tolist()
+        if restore:
+            cache.lengths[:] = saved
+        return float(total), bool(greedy)
+
+    @staticmethod
+    def _score_gather(logits, ids, valid: int, cont_start: int):
+        """(sum of the continuation rows' target log-probabilities, whether
+        every such row's argmax is its target), on the device. Row r
+        predicts ids[r + 1]; continuation rows are [cont_start - 1,
+        valid - 1) (quickvideo_tpu/prefill/engine.py:386-435)."""
+        lp = torch.log_softmax(logits.float(), dim=-1)
+        r = torch.arange(ids.shape[0], device=ids.device)
+        targets = torch.roll(ids, -1)  # the last row's is masked
+        mask = (r >= cont_start - 1) & (r < valid - 1)
+        row_lp = lp.gather(1, targets[:, None])[:, 0]
+        total = torch.where(mask, row_lp, 0.0).sum()
+        greedy = torch.where(mask, logits.argmax(-1) == targets, True).all()
+        return total, greedy

@@ -2,22 +2,27 @@
 nothing of that package) against their originals, by behaviour: configs and
 presets field by field, the resolution rules over grids of inputs, the video
 plan over frame counts, rates and sizes, the chat token ids, the patch
-normalization, the reader's plan and backend choice."""
+normalization, the reader's plan and backend choice, and the QA evaluation
+helpers (evaluation/qa.py; its dropped gen_kwargs, ROADMAP C3, are kept as
+they are and not compared)."""
 
 import dataclasses
 import itertools
+import json
 
 import numpy as np
 import pytest
 
 from quickvideo_tpu import config as jcfg
 from quickvideo_tpu import tokenization as jtok
+from quickvideo_tpu.evaluation import qa as jqa
 from quickvideo_tpu.models.qwen25_vl import config as jmc
 from quickvideo_tpu.video import preprocess as jpp
 from quickvideo_tpu.video import quickdecode as jqd
 from quickvideo_tpu.video import reader as jreader
 from quickvideo_tpu_torch import config as tcfg
 from quickvideo_tpu_torch import tokenization as ttok
+from quickvideo_tpu_torch.evaluation import qa as tqa
 from quickvideo_tpu_torch.models.qwen25_vl import config as tmc
 from quickvideo_tpu_torch.video import cv2_reader as tcv2
 from quickvideo_tpu_torch.video import preprocess as tpp
@@ -276,3 +281,91 @@ def test_vision_tiling_rule_agrees_over_spans_and_lengths():
                 assert tva.kernel_applicable(s_len, span, masked) == (
                     jva.kernel_applicable(s_len, span, masked)
                 ), (s_len, span, masked)
+
+
+# -- evaluation/qa.py ---------------------------------------------------------
+
+EXTRACT_CASES = [
+    "A", "(B)", "C.", "D) because", "  b: yes", "The answer is C",
+    "the answer is: (d)", "I think (B) is right", "maybe A or B", "E",
+    "Answer: none", "", "option b", "ANSWER IS a", "x (C) y (A)", "AB",
+    "B\nA", "answer is E", "(e)", "D.", "c) no",
+]
+
+
+@pytest.mark.parametrize("n_options", [2, 4, 5])
+def test_extract_choice_agrees(n_options):
+    for text in EXTRACT_CASES:
+        assert tqa.extract_choice(text, n_options) == jqa.extract_choice(
+            text, n_options), text
+
+
+@pytest.mark.parametrize("options", [
+    ["red", "blue"], ["A. red", "B) blue", "green", "D. x"],
+    ["a. lower", "(B) paren"], [],
+])
+def test_format_mc_question_agrees(options):
+    for question in ("What color?", "Q with {braces}\nand lines"):
+        kw = dict(video="v.mp4", question=question, options=options,
+                  answer="A", id="1")
+        assert tqa.format_mc_question(tqa.QASample(**kw)) == (
+            jqa.format_mc_question(jqa.QASample(**kw)))
+    assert tqa.MC_PROMPT == jqa.MC_PROMPT
+
+
+def test_load_jsonl_agrees(tmp_path):
+    path = tmp_path / "qa.jsonl"
+    rows = [
+        {"video": "a.mp4", "question": "q1", "options": ["x", "y"],
+         "answer": "A"},
+        {"video": "b.mp4", "question": "q2", "options": ["A. x", "B. y"],
+         "answer": "B", "id": "7", "meta": {"task": "mlvu"}},
+    ]
+    path.write_text("\n".join(json.dumps(r) for r in rows) + "\n\n")
+    got = tqa.load_jsonl(str(path))
+    want = jqa.load_jsonl(str(path))
+    assert ([dataclasses.asdict(s) for s in got]
+            == [dataclasses.asdict(s) for s in want])
+    bad = tmp_path / "bad.jsonl"
+    bad.write_text('{"video": "a.mp4"}\n')
+    assert outcome(tqa.load_jsonl, str(bad)) == outcome(jqa.load_jsonl,
+                                                        str(bad))
+
+
+@pytest.mark.parametrize("env", [
+    {}, {"QV_RANK": "1", "QV_WORLD": "3"}, {"RANK": "2", "WORLD_SIZE": "4"},
+    {"QV_RANK": "0", "RANK": "3", "WORLD_SIZE": "4"},
+])
+def test_shard_samples_agrees(env, monkeypatch):
+    for k in ("QV_RANK", "QV_WORLD", "RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    samples = list(range(11))
+    assert tqa.shard_samples(samples) == jqa.shard_samples(samples)
+    for rank, world in itertools.product(range(3), (1, 3)):
+        assert tqa.shard_samples(samples, rank, world) == jqa.shard_samples(
+            samples, rank, world)
+
+
+def test_run_qa_eval_agrees_on_a_stub():
+    """run_qa_eval over the same stub model (its answers and the
+    accuracy), and the package's exports."""
+    answers = iter(["A", "The answer is B", "(c)", "no idea"] * 2)
+
+    class Stub:
+        def generate(self, prompt, video, max_new_tokens=16):
+            return [next(answers)]
+
+    def samples(mod):
+        return [mod.QASample(f"{i}.mp4", "q", ["a", "b", "c"], "ABCA"[i])
+                for i in range(4)]
+
+    want = jqa.run_qa_eval(Stub(), samples(jqa))
+    got = tqa.run_qa_eval(Stub(), samples(tqa))
+    assert got == want and got["accuracy"] == 0.5
+    from quickvideo_tpu import evaluation as jev
+    from quickvideo_tpu_torch import evaluation as tev
+
+    assert {n for n in dir(tev) if not n.startswith("_")} >= {
+        n for n in dir(jev) if not n.startswith("_") and n != "qa"}

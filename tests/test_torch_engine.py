@@ -194,16 +194,27 @@ def test_lvu_generate_matches_jax_for_each_engine(params, monkeypatch,
     assert all(r.closed for r in FakeInterleavedReader.instances)
 
 
-def test_out_of_slice_requests_raise(params):
+def test_sampled_and_streamed_requests_run(params):
+    """Sampling and streaming, once refused, run through generate:
+    top_k=1 sampling gives the greedy tokens, and the streamed chunks
+    concatenate to them (tests/test_torch_decode_variants.py has the
+    rest)."""
     _, tp = params
     ids, grid, groups, grids = build_request()
-    eng = LVUEngine(tp, TCFG, TLVUConfig(model_name_or_path="tiny"),
+    eng = LVUEngine(tp, TCFG, TLVUConfig(model_name_or_path="tiny",
+                                         max_decode_tokens=8),
                     torch.float32)
-    inputs = PrefillInputs(ids, grid, groups, grids, 2.0)
-    with pytest.raises(NotImplementedError, match="sampled"):
-        eng.generate(inputs, greedy=False)
-    with pytest.raises(NotImplementedError, match="streamed"):
-        eng.generate(inputs, on_tokens=print)
+
+    def inputs():
+        return PrefillInputs(ids, grid, groups, grids, 2.0)
+
+    greedy = eng.generate(inputs(), max_new_tokens=6)
+    sampled = eng.generate(inputs(), max_new_tokens=6, greedy=False, top_k=1)
+    np.testing.assert_array_equal(sampled.tokens, greedy.tokens)
+    chunks = []
+    streamed = eng.generate(inputs(), max_new_tokens=6, on_tokens=chunks.append)
+    np.testing.assert_array_equal(streamed.tokens, greedy.tokens)
+    assert sum(chunks, []) == greedy.tokens.tolist() and len(chunks[0]) == 1
 
 
 @pytest.mark.parametrize(

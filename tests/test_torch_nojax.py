@@ -1,6 +1,8 @@
 """Process-level checks of the PyTorch port: neither the port (its video,
-int8, pruning-mode and image requests) nor chip_smoke.py imports jax or any
-module of the JAX package (quickvideo_tpu),
+int8, pruning-mode and image requests; a chat session saved and resumed,
+continuation scoring, a checkpoint load) nor chip_smoke.py imports jax or
+any module of the JAX package (quickvideo_tpu), and the port never needs
+the safetensors package,
 and chip_smoke.py refuses to report a result without a CUDA card or outside
 a checkout. Each needs a fresh interpreter (tests/conftest.py imports jax
 into every test process), so they run subprocesses."""
@@ -17,8 +19,9 @@ FORBIDDEN = r"""
 def forbidden():
     import sys
     return sorted(m for m in sys.modules
-                  if m in ("jax", "quickvideo_tpu")
-                  or m.startswith(("jax.", "flax", "jaxlib", "quickvideo_tpu.")))
+                  if m in ("jax", "quickvideo_tpu", "safetensors")
+                  or m.startswith(("jax.", "flax", "jaxlib", "quickvideo_tpu.",
+                                   "safetensors.")))
 """
 
 SLICE = FORBIDDEN + r"""
@@ -91,6 +94,80 @@ assert not forbidden(), forbidden()
 print("NOJAX_OK")
 """
 
+SESSION = FORBIDDEN + r"""
+import os, sys, tempfile
+assert not forbidden(), forbidden()
+import numpy as np, torch
+torch.set_num_threads(1)
+from quickvideo_tpu_torch.config import LVUConfig
+from quickvideo_tpu_torch.api import LVU
+from quickvideo_tpu_torch.models.qwen25_vl.config import get_config
+from quickvideo_tpu_torch.models.qwen25_vl.convert import init_params
+from quickvideo_tpu_torch.testing import write_checkpoint
+from quickvideo_tpu_torch.video import quickdecode as qd
+from quickvideo_tpu_torch.video import reader as vreader
+
+
+class Reader:
+    # the native reader's surface over seeded frames
+    def __init__(self, path, num_threads=8, num_intervals=64):
+        self.source_height = self.source_width = 224
+        self.height = self.width = self.interpolation = None
+        self.output_format, self.frame_iter, self._pos = "RGB", 1, 0
+
+    def __len__(self):
+        return 8
+
+    def get_fps(self):
+        return 4.0
+
+    def process(self, indices):
+        n = self.height * self.width * 3 // 2
+        self._frames = np.stack([np.random.default_rng(i).integers(
+            0, 256, n, dtype=np.uint8) for i in indices])
+
+    def __next__(self):
+        block = self._frames[self._pos : self._pos + self.frame_iter]
+        self._pos += len(block)
+        if not len(block):
+            raise StopIteration
+        return block
+
+    def close(self):
+        pass
+
+
+def decode_video_batch(path, cfg):
+    r = Reader(path)
+    plan = vreader.plan_from_reader(r, cfg)
+    r.height, r.width = plan.resized_height, plan.resized_width
+    r.process(plan.indices.tolist())
+    return r._frames, plan, None
+
+
+qd.InterleavedVideoReader = Reader
+vreader.decode_video_batch = decode_video_batch
+tmp = tempfile.mkdtemp()
+cfg = get_config("tiny")
+ckpt = write_checkpoint(os.path.join(tmp, "ckpt"), init_params(cfg, 1, torch.float32), cfg)
+lvu = LVU(LVUConfig(model_name_or_path=ckpt, model_type="qwen25_lvu_interleaved",
+                    num_frames=8, video_group_size=4, top_p=0.5,
+                    max_decode_tokens=4, decode_output="yuv420", dtype="float32"),
+          device="cpu")
+s = lvu.start_chat("clip.mp4", reserve_turns=2)
+s.ask("What?", max_new_tokens=2)
+s.save(os.path.join(tmp, "s.npz"))
+r = lvu.resume_chat(os.path.join(tmp, "s.npz"))
+assert r.ask("And?", max_new_tokens=2) == s.ask("And?", max_new_tokens=2)
+scores = lvu.loglikelihood_multi("Which?", "clip.mp4", [" A", " B"])
+assert len(scores) == 2 and all(np.isfinite(t) for t, _ in scores)
+out = lvu.generate("q", "clip.mp4", max_new_tokens=3, do_sample=True, top_p=0.9,
+                   on_tokens=lambda t: None)
+assert len(lvu.last_result.tokens) >= 1
+assert not forbidden(), forbidden()
+print("NOJAX_OK")
+"""
+
 SMOKE = FORBIDDEN + r"""
 import sys
 sys.path.insert(0, ".")
@@ -120,6 +197,12 @@ def test_port_slice_runs_without_importing_jax():
     assert "NOJAX_OK" in proc.stdout
 
 
+def test_port_session_scoring_and_checkpoint_load_import_no_jax():
+    proc = _run(["-c", SESSION], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NOJAX_OK" in proc.stdout
+
+
 def test_chip_smoke_imports_nothing_of_jax():
     """chip_smoke imported as a module, with the helpers that import the
     port run; and every import statement in it, its phases' lazy ones
@@ -136,7 +219,8 @@ def test_chip_smoke_imports_nothing_of_jax():
     names += [n.module for n in ast.walk(tree)
               if isinstance(n, ast.ImportFrom) and n.module]
     assert any(m.startswith("quickvideo_tpu_torch") for m in names)
-    bad = [m for m in names if m.split(".")[0] in ("jax", "quickvideo_tpu")]
+    bad = [m for m in names
+           if m.split(".")[0] in ("jax", "quickvideo_tpu", "safetensors")]
     assert not bad, bad
 
 
