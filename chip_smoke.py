@@ -75,12 +75,30 @@ checkout of the repository. Phases:
      int8 weights against the same weights passed as params=; B1 launches
      per kernel on each path against the rows its launches run, walls,
      decode ms/token, peak memory;
+  3g. the front end on the 7B (bf16 weights of phase 3, seeded videos):
+     the HTTP server started in this process on port 0 (a burst of 4
+     /v1/generate questions served as one micro-batch against 4 direct
+     LVU.generate calls; two sessions with one resident, the first spilled
+     to disk and resumed against a session that never spilled;
+     /v1/chat/completions with a video_url part; an SSE stream on each of
+     the three streaming routes against the unstreamed answer; a 400 and a
+     413), the CLI in this process (one --json question with int8 weights
+     from the seed, against the direct call's answer and cache_length;
+     --interactive with --session_file, saved and resumed), and the disk
+     frame cache (save_video_cache: the second request draws no frame from
+     the reader and gives the first one's tokens); answers spell their
+     token ids; walls, launches, the batch histogram, frame_fetch spans;
+  3h. the on-device resize: one 64-frame request from 480 x 854 sources
+     resized in the decoder, and resized on the card (resize_on_device) in
+     yuv420 and in RGB: launches, cache lengths, the vision span and the
+     bytes sent to the card; lanczos3_resize on the card against its CPU
+     run;
   4. the same prefill on the card and (plain versions) on the CPU for a
      narrow config with production head dims, with bf16 and with int8
      weights, with an int8 KV cache, with salient_tokens and query-based
-     pruning, under QV_VISION_2D=0 with bf16 and int8 weights, and with an
-     image: final-prefill logits agree, and the retained index sets of the
-     pruned runs.
+     pruning, under QV_VISION_2D=0 with bf16 and int8 weights, with an
+     image, and with 480 x 854 frames resized on the device: final-prefill
+     logits agree, and the retained index sets of the pruned runs.
 
 QV_VISION_2D is set only around the phases that force the route.
 
@@ -168,6 +186,11 @@ INT8_KV_LOGITS_REL_L2 = LOGITS_REL_L2
 PRUNED_LOGITS_REL_L2 = 2 * LOGITS_REL_L2
 RETAINED_AGREE = 0.9
 
+# the on-device resize on the card vs its own f32 run on the CPU, on the
+# 0..255 scale: two f32 products over 10-18 taps each, differing only in
+# summation order (TF32 stays off)
+RESIZE_ATOL = 1e-3
+
 # B1's lse (f32, natural log), kernel vs plain: both take the same f32
 # scores (exact products of the bf16 or int8 operands) and differ in
 # summation order and exp2 / log rounding, ~1e-6 of an lse of magnitude
@@ -191,6 +214,8 @@ GROUP_FRAMES = 32
 # 64/48/16/12 rows and one 1564-row frame, which the JAX package's tiling
 # rule sends to the head-major route (kernel B5)
 IMAGE_HW = (476, 644)
+# phase 3h's sources: a 480p video's frames, which the plan resizes
+RESIZE_SOURCE_HW = (480, 854)
 
 
 def log(msg):
@@ -1124,11 +1149,14 @@ def seeded_image(seed: int = 0) -> np.ndarray:
 
 def make_request(cfg, tokenizer, question: str, seed: int,
                  n_frames: int = REQUEST_FRAMES,
-                 group_frames: int = GROUP_FRAMES, image=None):
+                 group_frames: int = GROUP_FRAMES, image=None,
+                 source_hw=None):
     """PrefillInputs for `n_frames` seeded-noise 420x420 yuv420 frames in
     groups of `group_frames` (each group's grid from its own frame count),
     with the chat template around them; `image`, an (H, W, 3) uint8 array,
-    goes before the video, prepared as LVU.chat prepares it."""
+    goes before the video, prepared as LVU.chat prepares it. `source_hw`:
+    the frames come at that size instead, for the tower to resize to the
+    420x420 grid on the device (native_hw)."""
     from quickvideo_tpu_torch.engines.qwen25 import _prepare_images
     from quickvideo_tpu_torch.tokenization import build_chat_ids_from_messages
     from quickvideo_tpu_torch.prefill import PrefillInputs
@@ -1137,9 +1165,8 @@ def make_request(cfg, tokenizer, question: str, seed: int,
     tps = cfg.vision.temporal_patch_size
     gh = gw = FRAME_HW // ps
     rng = np.random.default_rng(seed)
-    frames = rng.integers(
-        0, 256, (n_frames, FRAME_HW * FRAME_HW * 3 // 2), dtype=np.uint8
-    )
+    sh, sw = source_hw or (FRAME_HW, FRAME_HW)
+    frames = rng.integers(0, 256, (n_frames, sh * sw * 3 // 2), dtype=np.uint8)
     groups, grids = [], []
     for off in range(0, n_frames, group_frames):
         groups.append(frames[off : off + group_frames])
@@ -1163,6 +1190,7 @@ def make_request(cfg, tokenizer, question: str, seed: int,
         pixel_groups=groups,
         group_grids=grids,
         second_per_grid_ts=1.0,
+        native_hw=source_hw,
         **images,
     )
 
@@ -2025,15 +2053,22 @@ def compare_b1(dev, tree):
 
 
 class SeededReader:
-    """The native interleaved reader's surface (video/quickdecode.py) over
-    seeded noise, so the entry points that open a video path run without a
-    decoder: 2 * REQUEST_FRAMES source frames of FRAME_HW x FRAME_HW at 2
-    fps; frames come out at the size the plan asked for, packed yuv420 or
-    RGB, each drawn from (path, frame index)."""
+    """The native interleaved reader's surface (video/quickdecode.py, and
+    VideoReader.get_batch) over seeded noise, so the entry points that open
+    a video path run without a decoder: 2 * REQUEST_FRAMES source frames of
+    SOURCE_HW at 2 fps; frames come out at the size the plan asked for, or
+    at the source size where none was set (the on-device resize), packed
+    yuv420 or RGB, each drawn from (path, frame index). `frames_read`
+    counts the frames drawn over all readers, `drawn_hw` is the size of
+    the last ones."""
+
+    SOURCE_HW = (FRAME_HW, FRAME_HW)
+    frames_read = 0
+    drawn_hw = None
 
     def __init__(self, path, num_threads=8, num_intervals=64):
         self.seed = sum(path.encode())
-        self.source_height = self.source_width = FRAME_HW
+        self.source_height, self.source_width = self.SOURCE_HW
         self.height = self.width = self.interpolation = None
         self.output_format = "RGB"
         self.frame_iter = 1
@@ -2046,7 +2081,8 @@ class SeededReader:
         return 2.0
 
     def process(self, indices):
-        h, w = self.height, self.width
+        h = self.height or self.source_height
+        w = self.width or self.source_width
         shape = ((h * w * 3 // 2,) if self.output_format == "YUV420"
                  else (3, h, w))
         self._frames = np.stack([
@@ -2054,6 +2090,8 @@ class SeededReader:
                 0, 256, shape, dtype=np.uint8)
             for i in indices
         ])
+        SeededReader.frames_read += len(indices)
+        SeededReader.drawn_hw = (h, w)
         self._pos = 0
 
     def get_batch(self, indices):
@@ -2071,34 +2109,30 @@ class SeededReader:
         pass
 
 
-def seeded_decode_video_batch(path, cfg):
-    """video/reader.py::decode_video_batch over a SeededReader: (frames,
-    plan, None)."""
-    from quickvideo_tpu_torch.video.reader import plan_from_reader
-
-    reader = SeededReader(path)
-    plan = plan_from_reader(reader, cfg)
-    reader.height, reader.width = plan.resized_height, plan.resized_width
-    if cfg.decode_output.lower() == "yuv420":
-        reader.output_format = "YUV420"
-    return reader.get_batch(plan.indices.tolist()), plan, None
-
-
 @contextlib.contextmanager
-def seeded_videos():
-    """The native reader and the whole-video decoder replaced by the
-    seeded ones for the block (as tests/test_torch_engine.py replaces
-    them), restored after it."""
+def seeded_videos(source_hw=(FRAME_HW, FRAME_HW)):
+    """The streaming reader replaced by the seeded one, and the seeded
+    reader forced on the registry (which the whole-video decoder and the
+    disk frame cache open), with sources of `source_hw`, for the block (as
+    tests/test_torch_engine.py replaces them), restored after it."""
     from quickvideo_tpu_torch.video import quickdecode as qd
     from quickvideo_tpu_torch.video import reader as vreader
 
-    saved = qd.InterleavedVideoReader, vreader.decode_video_batch
+    saved = (qd.InterleavedVideoReader, SeededReader.SOURCE_HW,
+             os.environ.get("FORCE_QWENVL_VIDEO_READER"))
     qd.InterleavedVideoReader = SeededReader
-    vreader.decode_video_batch = seeded_decode_video_batch
+    SeededReader.SOURCE_HW = tuple(source_hw)
+    vreader.register_backend("seeded", lambda p, threads: SeededReader(p))
+    os.environ["FORCE_QWENVL_VIDEO_READER"] = "seeded"
     try:
         yield
     finally:
-        qd.InterleavedVideoReader, vreader.decode_video_batch = saved
+        qd.InterleavedVideoReader, SeededReader.SOURCE_HW, forced = saved
+        vreader._BACKENDS.pop("seeded", None)
+        if forced is None:
+            os.environ.pop("FORCE_QWENVL_VIDEO_READER", None)
+        else:
+            os.environ["FORCE_QWENVL_VIDEO_READER"] = forced
 
 
 SESSION_QUESTIONS = (
@@ -2164,6 +2198,7 @@ def run_session(dev, params, run, runs):
     history. B1 launches per turn by the rows each launch runs."""
     import torch
 
+    from quickvideo_tpu_torch.video import reader as vreader
     from quickvideo_tpu_torch.video.reader import (
         build_prefill_inputs_from_frames,
     )
@@ -2173,8 +2208,8 @@ def run_session(dev, params, run, runs):
     n = lvu.model_config.text.num_hidden_layers
     ok = True
     session = lvu.start_chat("seeded-session.mp4")
-    frames, plan, _ = seeded_decode_video_batch("seeded-session.mp4",
-                                                lvu.config)
+    frames, plan, _ = vreader.decode_video_batch("seeded-session.mp4",
+                                                 lvu.config)
     logits = []
     final_prefill = eng.final_prefill
 
@@ -2268,19 +2303,27 @@ def run_session(dev, params, run, runs):
     return ok
 
 
-def _video_request_rows(lvu, question, video):
-    """(per-layer group rows of every group, suffix rows) of the request
+def _video_request(lvu, question, video):
+    """(input_ids and group grids, suffix rows) of the request
     LVU.generate / LVU.loglikelihood build for `question` on `video`."""
     from quickvideo_tpu_torch.tokenization import build_chat_ids_from_messages
+    from quickvideo_tpu_torch.video.reader import plan_from_reader
 
-    _, plan, _ = seeded_decode_video_batch(video, lvu.config)
+    plan = plan_from_reader(SeededReader(video), lvu.config)
     ids = build_chat_ids_from_messages(
         lvu.tokenizer, lvu.model_config,
         lvu._context_messages(question, video), sum(plan.tokens_per_group))
     vid = np.nonzero(ids == lvu.model_config.video_token_id)[0]
     inputs = SimpleNamespace(input_ids=ids, group_grids=plan.group_grids)
+    return inputs, len(ids) - int(vid[-1]) - 1
+
+
+def _video_request_rows(lvu, question, video):
+    """(per-layer group rows of every group, suffix rows) of the request
+    LVU.generate / LVU.loglikelihood build for `question` on `video`."""
+    inputs, suffix = _video_request(lvu, question, video)
     groups = [g for per in group_layer_rows(lvu, inputs) for g in per]
-    return groups, len(ids) - int(vid[-1]) - 1
+    return groups, suffix
 
 
 def run_scoring(dev, params, run, runs):
@@ -2522,6 +2565,519 @@ def run_api_paths(dev, params):
     return ok, runs
 
 
+# -- phase 3g: the HTTP server, the CLI and the disk frame cache -------------
+
+
+def _spelled(lvu):
+    """`lvu` with answers that spell their token ids: under the byte-level
+    fallback tokenizer most of the random 7B's tokens decode to U+FFFD, so
+    only spelled answers make equal text mean equal tokens on the HTTP and
+    CLI surfaces."""
+    lvu.tokenizer.decode = lambda ids: "".join(f"<{int(t)}>" for t in ids)
+    return lvu
+
+
+def _http(base, path, body=None, method=None, data=None):
+    """(status, decoded JSON body) of one request; `data` sends raw
+    bytes."""
+    import urllib.error
+    import urllib.request
+
+    if body is not None:
+        data = json.dumps(body).encode()
+    req = urllib.request.Request(
+        base + path, data=data, method=method or ("POST" if data else "GET"),
+        headers={"Content-Type": "application/json"},
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=900) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def _sse(base, path, body):
+    """(status, content type, the JSON frames before `data: [DONE]`, whether
+    the stream ended with it) of a streamed request."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, data=json.dumps(dict(body, stream=True)).encode(),
+        method="POST", headers={"Content-Type": "application/json"},
+    )
+    with urllib.request.urlopen(req, timeout=900) as resp:
+        status, ctype = resp.status, resp.headers.get("Content-Type")
+        raw = resp.read().decode()
+    frames = [f[len("data: "):] for f in raw.split("\n\n")
+              if f.startswith("data: ")]
+    done = bool(frames) and frames[-1] == "[DONE]"
+    return status, ctype, [json.loads(f) for f in frames[:-1]], done
+
+
+def _status_ok(what, got, want):
+    this_ok = got == want
+    if not this_ok:
+        log(f"[3g serve] {what}: HTTP {got}, expected {want} FAIL")
+    return this_ok
+
+
+def run_serving(dev, params, run, runs):
+    """make_http_server on port 0 in this process over the 7B (bf16
+    weights `params`, seeded videos): a burst of 4 /v1/generate questions
+    about one video served as one micro-batch, against 4 direct
+    LVU.generate calls; two sessions with max_resident_sessions=1, the
+    first spilled to disk and resumed on its next ask, against a session
+    that never spilled; /v1/chat/completions with a video_url part; one
+    SSE stream on each streaming route against the unstreamed answer; a
+    400 and a 413. Every status is checked. The LVU takes the device as
+    the server's `main` gives it, "cuda" with no index, so the worker
+    thread selects the card the LVU resolved it to."""
+    import threading
+
+    import torch
+
+    from quickvideo_tpu_torch.serving import ServerConfig, make_http_server
+
+    lvu = _spelled(_path_lvu("cuda", params))
+    n = lvu.model_config.text.num_hidden_layers
+    ok = lvu.device == dev
+    log(f"serving LVU(device='cuda') resolved to {lvu.device} "
+        f"{'OK' if ok else 'FAIL'}")
+    with tempfile.TemporaryDirectory() as tmp:
+        video = os.path.join(tmp, "serve.mp4")
+        other = os.path.join(tmp, "other.mp4")
+        for path in (video, other):  # the routes check that paths exist
+            open(path, "wb").close()
+        cfg = ServerConfig(port=0, spill_dir=os.path.join(tmp, "spill"),
+                           max_resident_sessions=1, default_max_new_tokens=8,
+                           request_timeout_s=900, max_body_bytes=1 << 16)
+        httpd, server = make_http_server(lvu, cfg)
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        base = f"http://127.0.0.1:{httpd.server_address[1]}"
+        try:
+            ok &= _serve_checks(lvu, server, base, video, other, n, run,
+                                runs)
+        finally:
+            httpd.shutdown()
+            server.shutdown()
+            httpd.server_close()
+    del lvu
+    torch.cuda.empty_cache()
+    return ok
+
+
+def _serve_checks(lvu, server, base, video, other, n, run, runs):
+    import threading
+
+    ok = True
+    questions = BATCH_QUESTIONS
+    direct, direct_toks, single_wall = [], [], 0.0
+    for q in questions:
+        direct.append(run(lvu.generate, q, video, max_new_tokens=8)[0])
+        runs.append(run.counts)
+        direct_toks.append(len(lvu.last_result.tokens))
+        single_wall += run.wall
+
+    # the burst: queued behind a paused worker (which may hold one popped
+    # job), released at once, drained into one micro-batch
+    server.pause()
+    got = {}
+
+    def ask(i):
+        got[i] = _http(base, "/v1/generate", {
+            "video": video, "question": questions[i], "max_new_tokens": 8})
+
+    threads = [threading.Thread(target=ask, args=(i,))
+               for i in range(len(questions))]
+    for t in threads:
+        t.start()
+    for _ in range(600):
+        if server._q.qsize() >= len(questions) - 1:
+            break
+        time.sleep(0.05)
+    time.sleep(0.2)
+
+    def release():
+        server.resume()
+        for t in threads:
+            t.join(timeout=900)
+
+    run(release)
+    runs.append(run.counts)
+    groups, _ = _video_request_rows(lvu, questions[0], video)
+    steps = list(groups)
+    for q, n_tok in zip(questions, direct_toks):
+        steps += ([_video_request_rows(lvu, q, video)[1]] * n
+                  + [1] * ((n_tok - 1) * n))
+    want = b1_kernels(lvu, steps)
+    code, stats = _http(base, "/v1/stats")
+    this_ok = (all(_status_ok(f"burst request {i}", got[i][0], 200)
+                   for i in got)
+               and [got[i][1].get("answer") for i in range(len(questions))]
+               == direct and stats["batches"] == {str(len(questions)): 1}
+               and _b1_ok(run.counts, want) and run.counts["vision_2d"] > 0
+               and _status_ok("stats", code, 200))
+    ok &= this_ok
+    log(f"[3g serve] burst of {len(questions)} /v1/generate questions on one "
+        f"video: answers equal to {len(questions)} direct LVU.generate calls "
+        f"{[got[i][1].get('answer') for i in range(len(questions))] == direct}"
+        f"; batch histogram {stats['batches']}; B1 kernels "
+        f"{_kern({k: run.counts[k] for k in want})} (expected {_kern(want)}); "
+        f"B2 {run.counts['vision_2d']}; wall {run.wall:.4f} s vs "
+        f"{single_wall:.4f} s for the {len(questions)} direct calls, peak "
+        f"{run.peak:.2f} GiB {'OK' if this_ok else 'FAIL'}")
+
+    # sessions: the first spills to disk when the second arrives and
+    # resumes on its next ask; a session that never spilled answers alike
+    q1, q2 = SESSION_QUESTIONS[:2]
+    live = lvu.start_chat(video)
+    live_answers = [live.ask(q1, max_new_tokens=8),
+                    run(live.ask, q2, max_new_tokens=8)]
+    live_wall = run.wall
+    del live
+    code1, s1 = _http(base, "/v1/sessions", {"video": video})
+    sid1 = s1.get("session_id")
+    code2, a1 = _http(base, f"/v1/sessions/{sid1}/ask",
+                      {"question": q1, "max_new_tokens": 8})
+    code3, s2 = run(_http, base, "/v1/sessions", {"video": other})
+    spill_wall = run.wall
+    sid2 = s2.get("session_id")
+    code4, b1 = _http(base, f"/v1/sessions/{sid2}/ask",
+                      {"question": q1, "max_new_tokens": 8})
+    code5, a2 = run(_http, base, f"/v1/sessions/{sid1}/ask",
+                    {"question": q2, "max_new_tokens": 8})
+    runs.append(run.counts)
+    resume_wall, resume_counts = run.wall, run.counts
+    _, stats = _http(base, "/v1/stats")
+    closed = [_http(base, f"/v1/sessions/{sid}", method="DELETE")[0]
+              for sid in (sid1, sid2)]
+    statuses = all(_status_ok(w, c, 200) for w, c in (
+        ("session 1", code1), ("session 1 ask", code2), ("session 2", code3),
+        ("session 2 ask", code4), ("session 1 resumed ask", code5),
+        ("close 1", closed[0]), ("close 2", closed[1])))
+    this_ok = (statuses and [a1.get("answer"), a2.get("answer")]
+               == live_answers and stats["spills"] >= 1
+               and stats["resumes"] >= 1 and resume_counts["vision_2d"] == 0
+               and resume_counts["flash"] > 0)
+    ok &= this_ok
+    log(f"[3g serve] two sessions, max_resident_sessions=1: session 1's "
+        f"answers {[a1.get('answer'), a2.get('answer')]} vs a session that "
+        f"never spilled {live_answers}; spills {stats['spills']}, resumes "
+        f"{stats['resumes']}; session 2's creation (spilling session 1's "
+        f"cache to disk) {spill_wall:.4f} s; session 1's next ask (resumed "
+        f"from disk, no vision) {resume_wall:.4f} s against "
+        f"{live_wall:.4f} s for that follow-up on a session that stayed on "
+        f"the card {'OK' if this_ok else 'FAIL'}")
+
+    # the OpenAI adapter, then one stream on each streaming route
+    messages = [{"role": "user", "content": [
+        {"type": "video_url", "video_url": {"url": f"file://{video}"}},
+        {"type": "text", "text": questions[0]}]}]
+    code, out = _http(base, "/v1/chat/completions",
+                      {"model": "qwen25-vl-7b", "max_tokens": 8,
+                       "messages": messages})
+    content = (out.get("choices") or [{}])[0].get("message", {}).get("content")
+    this_ok = (_status_ok("chat completion", code, 200)
+               and out.get("object") == "chat.completion"
+               and content == direct[0])
+    ok &= this_ok
+    log(f"[3g serve] /v1/chat/completions with a video_url part: "
+        f"{content} vs the direct answer {direct[0]} "
+        f"{'OK' if this_ok else 'FAIL'}")
+
+    code, s3 = _http(base, "/v1/sessions", {"video": video})
+    streams = {
+        "/v1/generate": (_sse(base, "/v1/generate", {
+            "video": video, "question": questions[1], "max_new_tokens": 8}),
+            direct[1], "delta"),
+        "/v1/sessions/<id>/ask": (_sse(
+            base, f"/v1/sessions/{s3.get('session_id')}/ask",
+            {"question": q1, "max_new_tokens": 8}), live_answers[0],
+            "delta"),
+        "/v1/chat/completions": (_sse(base, "/v1/chat/completions", {
+            "model": "qwen25-vl-7b", "max_tokens": 8,
+            "messages": messages}), direct[0], "openai"),
+    }
+    ok &= _status_ok("stream session", code, 200)
+    _http(base, f"/v1/sessions/{s3.get('session_id')}", method="DELETE")
+    for route, ((status, ctype, frames, done), want, kind) in streams.items():
+        if kind == "openai":
+            joined = "".join(f["choices"][0]["delta"].get("content", "")
+                             for f in frames)
+            final = frames[-1]["choices"][0]["finish_reason"] == "stop"
+        else:
+            joined = "".join(f["delta"] for f in frames if "delta" in f)
+            final = [f["answer"] for f in frames if "answer" in f] == [want]
+        this_ok = (_status_ok(f"stream {route}", status, 200) and done
+                   and ctype == "text/event-stream" and joined == want
+                   and final)
+        ok &= this_ok
+        log(f"[3g serve] SSE on {route}: {len(frames)} frames whose deltas "
+            f"join to {joined} vs the unstreamed {want} "
+            f"{'OK' if this_ok else 'FAIL'}")
+
+    code400, out400 = _http(base, "/v1/generate", {"video": video})
+    code413, out413 = _http(base, "/v1/generate",
+                            data=json.dumps({"video": video, "question":
+                                             "x" * (1 << 17)}).encode())
+    this_ok = (_status_ok("missing question", code400, 400)
+               and _status_ok("oversized body", code413, 413))
+    ok &= this_ok
+    log(f"[3g serve] refusals: {code400} {out400.get('error')!r}; {code413} "
+        f"{out413.get('error')!r} {'OK' if this_ok else 'FAIL'}")
+    return ok
+
+
+@contextlib.contextmanager
+def _cli_lvu(built, **kw):
+    """quickvideo_tpu_torch.api.LVU recording each instance the CLI builds
+    in `built` (spelled, `kw` passed on: params= for shared weights)."""
+    from quickvideo_tpu_torch import api
+
+    orig = api.LVU
+
+    def make(cfg, device=None):
+        built.append(_spelled(orig(cfg, device=device, **kw)))
+        return built[-1]
+
+    api.LVU = make
+    try:
+        yield
+    finally:
+        api.LVU = orig
+
+
+def _cli(argv):
+    """(exit code, stdout lines) of lvu_cli.main(argv) with an empty
+    stdin."""
+    import io
+
+    from quickvideo_tpu_torch import lvu_cli
+
+    out, stdin = io.StringIO(), sys.stdin
+    sys.stdin = io.StringIO("")
+    try:
+        with contextlib.redirect_stdout(out):
+            rc = lvu_cli.main(argv)
+    finally:
+        sys.stdin = stdin
+    return rc, out.getvalue().splitlines()
+
+
+def run_cli(dev, params, run, runs):
+    """lvu_cli.main in this process: one --json question on the 7B with
+    int8 weights drawn from the seed (kernels B1-B4), whose JSON line must
+    hold the direct call's answer and cache_length; then --interactive with
+    queued questions, an empty stdin and --session_file (bf16 weights
+    `params`), saved, then resumed for a third turn, against a session of
+    the same LVU that never left the card."""
+    import torch
+
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        video = os.path.join(tmp, "cli.mp4")
+        argv = ["--video_path", video, "--model_name_or_path", "qwen25-vl-7b",
+                "--num_frames", str(REQUEST_FRAMES), "--video_group_size",
+                str(GROUP_FRAMES), "--top_p", "0.5", "--decode_output",
+                "yuv420", "--max_new_tokens", "8", "--device",
+                torch.device(dev).type]
+        built = []
+        with _cli_lvu(built):
+            rc, lines = run(_cli, argv + ["--param_dtype", "int8", "--json",
+                                          "--question", QUESTIONS[0]])
+        runs.append(run.counts)
+        counts, wall = run.counts, run.wall
+        (lvu,) = built
+        rows = [json.loads(ln) for ln in lines if ln.startswith("{")]
+        answer = run(lvu.generate, QUESTIONS[0], video, max_new_tokens=8)[0]
+        res = lvu.last_result
+        this_ok = (rc == 0 and len(rows) == 1
+                   and rows[0]["answer"] == answer
+                   and rows[0]["cache_length"] == res.cache_length
+                   and rows[0]["tokens"] == len(res.tokens)
+                   and lvu.config.param_dtype == "int8"
+                   and all(counts[k] > 0 for k in
+                           ("flash", "vision_2d", "ln_gemm", "ln_mlp")))
+        ok &= this_ok
+        log(f"[3g cli] --json, int8 weights: {rows[0] if rows else lines} vs "
+            f"the direct call's answer {answer} and cache_length "
+            f"{res.cache_length}; launches B1 {counts['flash']} B2 "
+            f"{counts['vision_2d']} B3 {counts['ln_gemm']} B4 "
+            f"{counts['ln_mlp']}; wall with the 7B's init {wall:.2f} s "
+            f"{'OK' if this_ok else 'FAIL'}")
+        del built, lvu
+        torch.cuda.empty_cache()
+
+        sess = os.path.join(tmp, "session.npz")
+        chat = argv + ["--interactive", "--json", "--session_file", sess]
+        built = []
+        with _cli_lvu(built, params=params):
+            rc1, first = _cli(chat + ["--question", SESSION_QUESTIONS[0],
+                                      "--question", SESSION_QUESTIONS[1]])
+            rc2, second = _cli(chat + ["--question", SESSION_QUESTIONS[2]])
+        live = built[0].start_chat(video)
+        want = [live.ask(q, max_new_tokens=8) for q in SESSION_QUESTIONS[:3]]
+        rows = [json.loads(ln) for ln in first + second if ln.startswith("{")]
+        this_ok = (rc1 == rc2 == 0
+                   and [r["answer"] for r in rows] == want
+                   # input()'s prompt may lead the line
+                   and any(ln.endswith(f"[chat] session saved to {sess}")
+                           for ln in first)
+                   and f"[chat] resumed session from {sess} (2 prior turns)"
+                   in second)
+        ok &= this_ok
+        log(f"[3g cli] --interactive --session_file: turns "
+            f"{[r['answer'] for r in rows]} (turn_s "
+            f"{[r['turn_s'] for r in rows]}), the third after a resume, vs "
+            f"a live session {want} {'OK' if this_ok else 'FAIL'}")
+        del built, live
+    torch.cuda.empty_cache()
+    return ok
+
+
+def run_frame_cache(dev, params, run, runs):
+    """save_video_cache with a temporary cache_dir through the sync engine:
+    the first request decodes 64 frames and writes them, the second reads
+    them from disk and draws none from the reader; equal tokens."""
+    import torch
+
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        lvu = _path_lvu(dev, params, model_type="qwen25_lvu",
+                        save_video_cache=True, cache_dir=tmp)
+        seen = []
+        for turn in ("decode + write", "cache hit"):
+            SeededReader.frames_read = 0
+            run(lvu.generate, QUESTIONS[0], "seeded-cache.mp4",
+                max_new_tokens=8)
+            runs.append(run.counts)
+            res = lvu.last_result
+            seen.append((res.tokens.tolist(), SeededReader.frames_read,
+                         res.timings["frame_fetch"], run.wall,
+                         run.counts["flash"]))
+            log(f"[3g frame cache] {turn}: frames drawn from the reader "
+                f"{SeededReader.frames_read}, frame_fetch span "
+                f"{res.timings['frame_fetch']:.4f} s, wall {run.wall:.4f} s, "
+                f"tokens {res.tokens.tolist()}")
+        entries = os.listdir(tmp)
+        this_ok = (seen[0][1] == REQUEST_FRAMES and seen[1][1] == 0
+                   and seen[0][0] == seen[1][0] and len(entries) == 1
+                   and seen[0][4] == seen[1][4] > 0)
+        ok &= this_ok
+        log(f"[3g frame cache] entry {entries}; the second request read no "
+            f"frame from the reader and gave the first one's tokens "
+            f"{'OK' if this_ok else 'FAIL'}")
+        del lvu
+    torch.cuda.empty_cache()
+    return ok
+
+
+def run_front_end(dev, params):
+    """Phase 3g: the server, the CLI and the disk frame cache on the 7B.
+    Returns (ok, each run's launch counts)."""
+    run = _Run(_kernel_counters())
+    runs = []
+    ok = True
+    with seeded_videos():
+        for fn in (run_serving, run_cli, run_frame_cache):
+            ok &= fn(dev, params, run, runs)
+    log("[3g] B1 launches per kernel over the phase: " + _kern(
+        {f"flash_kernel_{k}": sum(r[f"flash_kernel_{k}"] for r in runs)
+         for k in B1_KERNELS}) + f" {'OK' if ok else 'FAIL'}")
+    return ok, runs
+
+
+# -- phase 3h: the on-device resize ------------------------------------------
+
+def run_device_resize(dev, params):
+    """Phase 3h: one 64-frame 7B request (bf16 weights `params`) from
+    480 x 854 sources, resized in the decoder (the seeded reader draws
+    frames at the grid) and resized on the card (resize_on_device) in
+    yuv420 and in RGB; each twice, the second with spans that synchronize
+    (QV_SYNC_SPANS=1). Launches, cache lengths, the vision span and the
+    frame bytes sent to the card; then lanczos3_resize on the card against
+    its own f32 run on the CPU over one group's frames. Returns (ok, each
+    run's launch counts)."""
+    import torch
+
+    from quickvideo_tpu_torch.ops.resize import lanczos3_resize
+
+    run = _Run(_kernel_counters())
+    runs = []
+    ok = True
+    video = "seeded-resize.mp4"
+    with seeded_videos(RESIZE_SOURCE_HW):
+        for fmt, resize in (("yuv420", False), ("yuv420", True),
+                            ("rgb", True)):
+            lvu = _path_lvu(dev, params, resize_on_device=resize,
+                            decode_output=fmt)
+            for sync in ("0", "1"):
+                os.environ["QV_SYNC_SPANS"] = sync
+                try:
+                    run(lvu.generate, QUESTIONS[0], video, max_new_tokens=8)
+                finally:
+                    os.environ.pop("QV_SYNC_SPANS", None)
+                runs.append(run.counts)
+            res = lvu.last_result
+            drawn = SeededReader.drawn_hw
+            inputs, suffix = _video_request(lvu, QUESTIONS[0], video)
+            ps = lvu.model_config.vision.patch_size
+            plan_hw = tuple(ps * x for x in inputs.group_grids[0][1:])
+            groups = [g for per in group_layer_rows(lvu, inputs) for g in per]
+            n = lvu.model_config.text.num_hidden_layers
+            want = b1_kernels(lvu, groups + [suffix] * n
+                              + [1] * ((len(res.tokens) - 1) * n))
+            b2, b5, rot = expected_vision(lvu.model_config,
+                                          inputs.group_grids)
+            want_len = expected_lengths(lvu, inputs, len(res.tokens))[0]
+            h, w = drawn
+            frame_bytes = h * w * 3 // 2 if fmt == "yuv420" else 3 * h * w
+            this_ok = (_b1_ok(run.counts, want)
+                       and (run.counts["vision_2d"], run.counts["vision_hm"],
+                            run.counts["rotary"]) == (b2, b5, rot)
+                       and res.cache_length == want_len
+                       # frames left the reader at the source size only
+                       # when the card resizes them
+                       and drawn == (RESIZE_SOURCE_HW if resize
+                                     else plan_hw))
+            ok &= this_ok
+            log(f"[3h] {'on the card' if resize else 'in the decoder'}, "
+                f"{fmt}: {RESIZE_SOURCE_HW[0]}x{RESIZE_SOURCE_HW[1]} -> "
+                f"{plan_hw[0]}x{plan_hw[1]} (grid {inputs.group_grids[0]}), "
+                f"frames sent at {h}x{w}: "
+                f"{REQUEST_FRAMES * frame_bytes / 2**20:.2f} MiB to the card; "
+                f"vision span {res.timings['vision']:.4f} s (sync), wall "
+                f"{run.wall:.4f} s; tokens {res.tokens.tolist()} "
+                f"cache_length {res.cache_length} (expected {want_len}); B1 kernels "
+                f"{_kern({k: run.counts[k] for k in want})} (expected "
+                f"{_kern(want)}), B2 / B5 / rotary {run.counts['vision_2d']} "
+                f"/ {run.counts['vision_hm']} / {run.counts['rotary']} "
+                f"(expected {b2} / {b5} / {rot}) "
+                f"{'OK' if this_ok else 'FAIL'}")
+            del lvu
+            torch.cuda.empty_cache()
+
+    out_hw = plan_hw
+    x = torch.randint(0, 256, (GROUP_FRAMES, 3, *RESIZE_SOURCE_HW),
+                      generator=torch.Generator().manual_seed(0)).float()
+    xd = x.to(dev)
+    got = lanczos3_resize(xd, out_hw).cpu()
+    t0 = time.perf_counter()
+    want = lanczos3_resize(x, out_hw)
+    cpu_ms = 1e3 * (time.perf_counter() - t0)
+    err = (got - want).abs().max().item()
+    ms = _time_ms(lambda: lanczos3_resize(xd, out_hw), 10)
+    this_ok = bool(err <= RESIZE_ATOL and torch.isfinite(got).all())
+    ok &= this_ok
+    log(f"[3h] lanczos3_resize of {GROUP_FRAMES} RGB f32 frames "
+        f"{RESIZE_SOURCE_HW} -> {out_hw}: card vs its CPU run max abs "
+        f"{err:.3e} (tol {RESIZE_ATOL} on 0..255), {ms:.4f} ms on the card, "
+        f"{cpu_ms:.1f} ms on the CPU {'OK' if this_ok else 'FAIL'}")
+    del x, xd, got, want
+    torch.cuda.empty_cache()
+    return ok, runs
+
+
 # -- phase 4: card vs CPU ----------------------------------------------------
 
 
@@ -2582,11 +3138,11 @@ def run_card_vs_cpu(dev):
 
     tokenizer = load_tokenizer("", mcfg)
 
-    def run(params_gpu, params_cpu, image=None, **kw):
+    def run(params_gpu, params_cpu, image=None, source_hw=None, **kw):
         """Final-prefill logits of one 16-frame request (2 groups of 8; an
-        `image` before the video) on the card (bf16 activations) and on the
-        CPU (f32): (card logits, CPU logits, rel. L2, card state, CPU state,
-        card cache)."""
+        `image` before the video; frames at `source_hw` resized on the
+        device) on the card (bf16 activations) and on the CPU (f32): (card
+        logits, CPU logits, rel. L2, card state, CPU state, card cache)."""
         lvu_cfg = LVUConfig(model_name_or_path="narrow128",
                             max_decode_tokens=8, **kw)
         out = []
@@ -2595,7 +3151,7 @@ def run_card_vs_cpu(dev):
             eng = LVUEngine(params, mcfg, lvu_cfg, dtype, device)
             cache, st = eng.prefill(make_request(
                 mcfg, tokenizer, "What happens in this video?", seed=7,
-                n_frames=16, group_frames=8, image=image,
+                n_frames=16, group_frames=8, image=image, source_hw=source_hw,
             ))
             out.append((eng.final_prefill(cache, st).float().cpu(), st, cache))
         (lg, st_g, cache_g), (lc, st_c, _) = out
@@ -2633,6 +3189,17 @@ def run_card_vs_cpu(dev):
             f"{' '.join(f'{a:.3f}' for a in agree)} (each >= "
             f"{RETAINED_AGREE}), argmax card {int(lg.argmax())} cpu "
             f"{int(lc.argmax())} {'OK' if this_ok else 'FAIL'}")
+
+    # the on-device resize: 480 x 854 yuv420 frames resampled to the grid
+    # (lanczos3_resize's two f32 products on each side)
+    lg, lc, rel, _, _, _ = run(p_gpu, p_cpu, source_hw=RESIZE_SOURCE_HW,
+                               resize_on_device=True)
+    this_ok = bool(rel <= LOGITS_REL_L2 and torch.isfinite(lg).all())
+    ok &= this_ok
+    log(f"card vs CPU, resize_on_device from {RESIZE_SOURCE_HW[0]}x"
+        f"{RESIZE_SOURCE_HW[1]}, top_p=1: final-prefill logits rel L2 "
+        f"{rel:.3e} (tol {LOGITS_REL_L2}), argmax card {int(lg.argmax())} cpu "
+        f"{int(lc.argmax())} {'OK' if this_ok else 'FAIL'}")
 
     # int8 weights: the same int8 codes on both sides (quantized once on
     # the host), bf16 activations on the card, f32 on the CPU
@@ -2831,6 +3398,10 @@ def main():
     api_ok, api_runs = run_api_paths(dev, lvu.params)
     ok &= api_ok
     runs += api_runs
+    for phase in (run_front_end, run_device_resize):
+        phase_ok, phase_runs = phase(dev, lvu.params)
+        ok &= phase_ok
+        runs += phase_runs
     del lvu
     torch.cuda.empty_cache()
     for param_dtype, kv_dtype, what in (

@@ -59,6 +59,10 @@ class LVU:
                 "LVU runs on a CUDA device and none is available; pass "
                 "device='cpu' to run the kernels' plain versions on the CPU"
             )
+        if self.device.type == "cuda" and self.device.index is None:
+            # pinned to the current card, so threads that serve it (whose
+            # current device torch keeps apart) select the same one
+            self.device = torch.device("cuda", torch.cuda.current_device())
         int8 = config.param_dtype == "int8"
         name = config.model_name_or_path or "qwen25-vl-7b"
         self.model_config = get_config(name)

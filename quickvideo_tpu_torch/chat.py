@@ -157,6 +157,7 @@ class ChatSession:
                     pixel_groups=iter(stream),
                     group_grids=plan.group_grids,
                     second_per_grid_ts=plan.second_per_grid_ts,
+                    native_hw=stream.native_hw,
                 )
                 cache, state = lvu.engine.prefill(
                     inputs, timer=timer, extra_capacity=self._reserve

@@ -5,8 +5,10 @@ with a video, images or both, and text; greedy or sampled decode, streamed
 through `on_tokens`; and continuation scoring (`score_chat`,
 `score_chat_multi`). Tokenization, the video plan, the image resize and the
 CPU decoders are the port's copies of the JAX package's jax-free modules
-(tokenization.py, video/{reader, preprocess, quickdecode}.py). Frames are
-decoded each time (`_fetch_frames`; the disk frame cache is not ported).
+(tokenization.py, video/{reader, preprocess, quickdecode, frame_cache}.py).
+With `save_video_cache` the sync path keeps the decoded frames on disk
+(`_fetch_frames`); with `resize_on_device` frames arrive at the source size
+and the vision tower resamples them (`native_hw`).
 """
 
 from __future__ import annotations
@@ -144,10 +146,29 @@ def run_sync(lvu, question: str, video_path: str, **generation_kwargs):
 
 
 def _fetch_frames(lvu, video_path, timer, cfg=None):
-    """(frames, plan, native_hw) of the whole sampled video
-    (quickvideo_tpu/engines/qwen25.py:236-259 without its disk frame
-    cache, which the port refuses through save_video_cache)."""
-    return vreader.decode_video_batch(video_path, cfg or lvu.config)
+    """(frames, plan, native_hw) of the whole sampled video, through the
+    disk frame cache when `save_video_cache` is set
+    (quickvideo_tpu/engines/qwen25.py:236-259): a hit reads the frames the
+    plan asks for from disk and decodes nothing."""
+    from quickvideo_tpu_torch.video import frame_cache
+
+    cfg = cfg or lvu.config
+    if not cfg.save_video_cache:
+        return vreader.decode_video_batch(video_path, cfg)
+    _name, reader = vreader.open_reader(video_path, cfg.decode_threads)
+    plan = vreader.plan_from_reader(reader, cfg)
+    native_hw = (
+        (reader.source_height, reader.source_width)
+        if cfg.resize_on_device and hasattr(reader, "source_height")
+        else None
+    )
+    reader.close()
+    cached = frame_cache.load(video_path, plan, cfg.cache_dir, native_hw)
+    if cached is not None:
+        return np.asarray(cached), plan, native_hw
+    frames, plan, native_hw = vreader.decode_video_batch(video_path, cfg)
+    frame_cache.save(video_path, plan, frames, cfg.cache_dir, native_hw)
+    return frames, plan, native_hw
 
 
 def _video_inputs(lvu, messages, video_path, cfg, timer, images):
@@ -259,6 +280,7 @@ def chat_interleaved(lvu, messages, **generation_kwargs) -> List[str]:
             pixel_groups=iter(stream),
             group_grids=plan.group_grids,
             second_per_grid_ts=plan.second_per_grid_ts,
+            native_hw=stream.native_hw,
             image_grid_thw=img_grids,
             image_pixels=img_px,
         )

@@ -3,7 +3,8 @@
 The port's copy of quickvideo_tpu/evaluation/qa.py (standard library only
 at module level), its lazy imports pointed at the port;
 tests/test_torch_copies.py pins it to the original by behaviour. Frames
-come from `engines.qwen25._fetch_frames` (no disk frame cache). The
+come from `engines.qwen25._fetch_frames` (through the disk frame cache
+under `save_video_cache`). The
 lmms-eval model registers as "quickvideo_tpu_torch".
 
 Standalone runner with the benchmark conventions of the reference's eval

@@ -34,10 +34,14 @@ def encode_video_group(
     pixels: torch.Tensor,
     grid_thw: Tuple[int, int, int],
     lt: Optional[dict] = None,  # vision.layout_tensors of this grid
+    native_hw: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
-    """Vision tower over one video group -> (S / merge_unit, text_hidden)."""
+    """Vision tower over one video group -> (S / merge_unit, text_hidden).
+    `native_hw` set: the frames arrive at that source size and are resized
+    to the grid on the device."""
     return vision_forward(
-        params["vision"], pixels, layout_for(cfg, grid_thw), cfg.vision, lt
+        params["vision"], pixels, layout_for(cfg, grid_thw), cfg.vision, lt,
+        native_hw=native_hw,
     )
 
 

@@ -29,7 +29,8 @@ ln2 + gate/up + SwiGLU when the block carries the one-time
 `fuse_vision_mlp_weights` prep (`wgu_p`), else the unfused act-quantized
 chain (vision.py:534-540). Every other product (the head-major route's
 QKV, the attention output, the patch embed, the merger) is weight-only
-(`act_quant=False`). The on-device Lanczos resize is not ported.
+(`act_quant=False`). Frames decoded at the source size are resized to the
+model grid on the device (`native_hw`, ops/resize.py::lanczos3_resize).
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from quickvideo_tpu_torch.ops.fused_vision_mlp import (
     ln_dual_gemm_silu_quant,
     ln_gemm_bias,
 )
+from quickvideo_tpu_torch.ops.resize import lanczos3_resize
 from quickvideo_tpu_torch.ops.quantization import (
     is_quantized,
     linear,
@@ -342,25 +344,37 @@ def vision_forward(
     layout: VisionLayout,
     cfg: VisionConfig,
     lt: Optional[dict] = None,
+    native_hw: Optional[Tuple[int, int]] = None,  # the (H, W) frames arrive
+    # at when they are resized on the device (LVUConfig.resize_on_device)
 ) -> torch.Tensor:
     """Patch embed -> window order -> blocks -> merger -> original order.
-    Returns (S / merge_unit, out_hidden_size)."""
+    Returns (S / merge_unit, out_hidden_size).
+
+    Frames at another size than the model grid (`native_hw`, or RGB frames
+    of another shape) are resampled to it on the device by
+    `lanczos3_resize`, as the JAX function does with jax.image.resize
+    (vision.py:629-642): yuv420 goes to RGB f32 at the source size, then
+    the resize, a clamp to [0, 255], and the 0..255 normalize."""
     if lt is None:
         lt = layout_tensors(layout, pixels.device)
     pdtype = params["blocks"][0]["ln1"].dtype
     fh = layout.grid_thw[1] * cfg.patch_size
     fw = layout.grid_thw[2] * cfg.patch_size
-    raw = pixels.dtype == torch.uint8
-    if pixels.ndim == 2 and raw and pixels.shape[1] == fh * fw * 3 // 2:
-        pixels = _yuv420_to_rgb(pixels, fh, fw)
+    sh, sw = native_hw if native_hw else (fh, fw)
+    # float pixels in the 0..255 domain take the normalize branch, as the
+    # JAX function's _yuv_float does
+    scaled_floats = False
+    if (pixels.ndim == 2 and pixels.dtype == torch.uint8
+            and pixels.shape[1] == sh * sw * 3 // 2):
+        pixels = _yuv420_to_rgb(pixels, sh, sw)
+        scaled_floats = True
+    if pixels.ndim == 4 and pixels.shape[2:] != (fh, fw):
+        if pixels.dtype == torch.uint8:
+            scaled_floats = True
+        pixels = torch.clamp(lanczos3_resize(pixels, (fh, fw)), 0.0, 255.0)
     if pixels.ndim == 4:
-        if pixels.shape[2:] != (fh, fw):
-            raise NotImplementedError(
-                "frames at another size than the model grid need the "
-                "on-device resize (resize_on_device), not ported yet"
-            )
         pixels = _patchify(pixels, cfg)
-    if raw:
+    if pixels.dtype == torch.uint8 or scaled_floats:
         # 0..255 patches: rescale + CLIP normalize on the device
         scale, bias = patch_norm_scale_bias(
             cfg.patch_size, cfg.temporal_patch_size, cfg.in_channels

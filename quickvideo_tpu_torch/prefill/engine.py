@@ -53,8 +53,10 @@ against the cache, log-softmax in f32 and the gather on the device; the
 per-layer lengths (host ints) are restored between continuations, so each
 scores against the same cache.
 
-Not in this slice (each raises NotImplementedError): pipeline / context /
-tensor parallelism, the on-device resize and the disk frame cache.
+Frames decoded at the source size (`resize_on_device`) carry their size in
+`PrefillInputs.native_hw`, and the vision tower resamples them to the
+model grid on the device. Not in this slice (NotImplementedError): pipeline
+/ context / tensor parallelism (a mesh).
 `attention_impl` is not read: the port's cache attention is kernel B1 (the
 JAX package's 'pallas' route).
 """
@@ -108,7 +110,8 @@ class PrefillInputs:
     pixel_groups: Iterable
     group_grids: Sequence[Tuple[int, int, int]]  # per group (t_g, h, w)
     second_per_grid_ts: float = 1.0
-    native_hw: Optional[Tuple[int, int]] = None  # on-device resize: not ported
+    native_hw: Optional[Tuple[int, int]] = None  # source (H, W) of frames
+    # that the vision tower resizes on the device (resize_on_device)
     image_grid_thw: Optional[np.ndarray] = None  # (n_img, 3) rows (1, h, w)
     image_pixels: Optional[Sequence[np.ndarray]] = None
 
@@ -137,15 +140,9 @@ def check_slice(lvu: LVUConfig) -> None:
             "the port takes quickvideo_tpu_torch.config.LVUConfig, got "
             f"{type(lvu).__module__}.{type(lvu).__name__}"
         )
-    unsupported = {
-        "mesh (multi-device)": lvu.mesh.num_devices > 1,
-        "resize_on_device": lvu.resize_on_device,
-        "save_video_cache": lvu.save_video_cache,
-    }
-    bad = [name for name, hit in unsupported.items() if hit]
-    if bad:
+    if lvu.mesh.num_devices > 1:
         raise NotImplementedError(
-            f"not ported to quickvideo_tpu_torch yet: {', '.join(bad)}"
+            "not ported to quickvideo_tpu_torch yet: mesh (multi-device)"
         )
 
 
@@ -300,8 +297,6 @@ class LVUEngine:
         plan (a chat session's later turns), rounded up with it to 4096."""
         timer = timer or SpanTimer()
         cfg, lvu = self.cfg, self.lvu
-        if inputs.native_hw is not None:
-            raise NotImplementedError("on-device resize is not ported yet")
         ids = np.asarray(inputs.input_ids)
         L = len(ids)
         img_grids = None
@@ -410,7 +405,7 @@ class LVUEngine:
             with timer.span("vision"):
                 vis = qmodel.encode_video_group(
                     self.params, cfg, self._to_device(pixels), grid,
-                    self._layout_tensors(grid),
+                    self._layout_tensors(grid), native_hw=inputs.native_hw,
                 )
             base = StepSpec(
                 q_len=in_len + prompt_len,

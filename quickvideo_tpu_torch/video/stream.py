@@ -1,14 +1,21 @@
 """Overlapped decode -> upload -> prefill pipeline.
 
-Counterpart of quickvideo_tpu/video/stream.py::AsyncPixelGroups: the same
-two producer threads. The decode thread pulls frame blocks from the native
-interleaved reader (video/quickdecode.py, the ctypes binding to the library
-built from cpp/quickdecode); the upload thread copies each uint8 block from
-pinned host memory to the device with `non_blocking=True` on a side CUDA
-stream and records an event. The consumer (the engine's group loop) makes
-its own stream wait on that event before it touches the block, so the copy
-of group i+1 overlaps the compute of group i. On a CPU device the upload
-stage only wraps the block in a tensor.
+Counterpart of quickvideo_tpu/video/stream.py::AsyncPixelGroups. The
+decode thread pulls frame blocks from the native interleaved reader
+(video/quickdecode.py, the ctypes binding to the library built from
+cpp/quickdecode). With `prefetch_to_device` (the default) a second thread
+uploads each uint8 block from pinned host memory to the device with
+`non_blocking=True` on a side CUDA stream and records an event; the
+consumer (the engine's group loop) makes its own current stream wait on
+that event before it touches the block, so the copy of group i+1 overlaps
+the compute of group i. Without it the decode thread alone feeds the
+consumer's queue and the iterator yields CPU tensors, which the consumer
+uploads. On a CPU device the upload stage only wraps the block in a
+tensor.
+
+With `resize_on_device` the reader decodes at the source's size, and
+`native_hw` tells the vision tower to resample each frame to the model
+grid on the device.
 """
 
 from __future__ import annotations
@@ -46,8 +53,6 @@ class AsyncPixelGroups:
         timer: Optional[SpanTimer] = None,
         reader=None,
     ):
-        if lvu.resize_on_device:
-            raise NotImplementedError("on-device resize is not ported yet")
         self.lvu = lvu
         self.device = torch.device(device)
         self.timer = timer or SpanTimer()
@@ -58,9 +63,17 @@ class AsyncPixelGroups:
             num_intervals=lvu.decode_intervals,
         )
         self.plan = plan or plan_from_reader(self.reader, lvu)
-        self.reader.height = self.plan.resized_height
-        self.reader.width = self.plan.resized_width
-        self.reader.interpolation = "LANCZOS"
+        self.native_hw = None
+        if lvu.resize_on_device:
+            # decode at the source size; vision_forward resamples on the
+            # device
+            self.native_hw = (
+                self.reader.source_height, self.reader.source_width
+            )
+        else:
+            self.reader.height = self.plan.resized_height
+            self.reader.width = self.plan.resized_width
+            self.reader.interpolation = "LANCZOS"
         if lvu.decode_output.lower() == "yuv420":
             self.reader.output_format = "YUV420"
         # start the native decode of the sampled frames now: decode of group
@@ -68,17 +81,25 @@ class AsyncPixelGroups:
         self.reader.process(self.plan.indices.tolist())
         self.timer.add("decode_start", time.perf_counter() - t0)
         self._q: queue.Queue = queue.Queue(maxsize=lvu.prefetch_depth)
-        self._rawq: queue.Queue = queue.Queue(maxsize=lvu.prefetch_depth)
+        self._to_device = lvu.prefetch_to_device
         self._exc: Optional[BaseException] = None
         self._closed = False
-        self._side = (
-            torch.cuda.Stream(self.device) if self.device.type == "cuda"
-            else None
-        )
-        self._threads = [
-            threading.Thread(target=self._produce_decode, daemon=True),
-            threading.Thread(target=self._produce_upload, daemon=True),
-        ]
+        self._side = None
+        self._threads = [threading.Thread(
+            target=self._produce_decode, name="qv-decode", daemon=True
+        )]
+        if self._to_device:
+            # two stages, so that the decode of block i+1 overlaps the
+            # upload of block i (one thread would chain their sum)
+            self._rawq: queue.Queue = queue.Queue(maxsize=lvu.prefetch_depth)
+            if self.device.type == "cuda":
+                self._side = torch.cuda.Stream(self.device)
+            self._threads.append(threading.Thread(
+                target=self._produce_upload, name="qv-upload", daemon=True
+            ))
+        else:
+            # the decode thread feeds the consumer's queue directly
+            self._rawq = self._q
         for t in self._threads:
             t.start()
 
@@ -154,6 +175,8 @@ class AsyncPixelGroups:
                 self._fail(e)
 
     def __iter__(self) -> Iterator[torch.Tensor]:
+        """Frame blocks in group order: on the device with
+        prefetch_to_device, else CPU tensors."""
         while True:
             try:
                 item = self._q.get(timeout=0.1)
@@ -165,8 +188,14 @@ class AsyncPixelGroups:
                 if self._exc is not None:
                     raise self._exc
                 return
+            if not self._to_device:
+                # a host block: the consumer uploads it
+                yield torch.from_numpy(np.ascontiguousarray(item))
+                continue
             tensor, event = item
             if event is not None:
+                # the iterating thread's current stream (a server's worker
+                # thread has its own)
                 consumer = torch.cuda.current_stream(self.device)
                 consumer.wait_event(event)
                 # allocated on the side stream, used on the consumer's: keep

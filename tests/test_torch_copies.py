@@ -2,9 +2,10 @@
 nothing of that package) against their originals, by behaviour: configs and
 presets field by field, the resolution rules over grids of inputs, the video
 plan over frame counts, rates and sizes, the chat token ids, the patch
-normalization, the reader's plan and backend choice, and the QA evaluation
-helpers (evaluation/qa.py; its dropped gen_kwargs, ROADMAP C3, are kept as
-they are and not compared)."""
+normalization, the reader's plan and backend choice, the disk frame cache
+(video/frame_cache.py: its keys, and entries written by either package
+read by the other), and the QA evaluation helpers (evaluation/qa.py; its
+dropped gen_kwargs, ROADMAP C3, are kept as they are and not compared)."""
 
 import dataclasses
 import itertools
@@ -16,6 +17,7 @@ import pytest
 from quickvideo_tpu import config as jcfg
 from quickvideo_tpu import tokenization as jtok
 from quickvideo_tpu.evaluation import qa as jqa
+from quickvideo_tpu.video import frame_cache as jfc
 from quickvideo_tpu.models.qwen25_vl import config as jmc
 from quickvideo_tpu.video import preprocess as jpp
 from quickvideo_tpu.video import quickdecode as jqd
@@ -25,6 +27,7 @@ from quickvideo_tpu_torch import tokenization as ttok
 from quickvideo_tpu_torch.evaluation import qa as tqa
 from quickvideo_tpu_torch.models.qwen25_vl import config as tmc
 from quickvideo_tpu_torch.video import cv2_reader as tcv2
+from quickvideo_tpu_torch.video import frame_cache as tfc
 from quickvideo_tpu_torch.video import preprocess as tpp
 from quickvideo_tpu_torch.video import quickdecode as tqd
 from quickvideo_tpu_torch.video import reader as treader
@@ -369,3 +372,58 @@ def test_run_qa_eval_agrees_on_a_stub():
 
     assert {n for n in dir(tev) if not n.startswith("_")} >= {
         n for n in dir(jev) if not n.startswith("_") and n != "qa"}
+
+
+def _cache_plans():
+    """Pairs of (JAX plan, port plan) from the same arguments: up to the
+    source, down to the pixel budget, and by fps."""
+    out = []
+    for total, fps, h, w, kw in (
+        (96, 24.0, 300, 330, dict(nframes=8)),
+        (2400, 30.0, 1080, 1920, dict(nframes=64)),
+        (3600, 30.0, 480, 854, dict(nframes=None, fps=2.0)),
+    ):
+        args = dict(total_frames=total, video_fps=fps, height=h, width=w,
+                    video_group_size=4, **kw)
+        out.append((jpp.plan_video(**args), tpp.plan_video(**args)))
+    return out
+
+
+@pytest.mark.parametrize("native_hw", [None, (480, 854)])
+def test_frame_cache_keys_agree(native_hw):
+    for jplan, tplan in _cache_plans():
+        for path in ("/videos/a.mp4", "clip.mkv"):
+            assert (tfc.cache_key(path, tplan, native_hw)
+                    == jfc.cache_key(path, jplan, native_hw))
+    assert tfc.default_cache_dir() == jfc.default_cache_dir()
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+@pytest.mark.parametrize("layout", ["rgb", "yuv420"])
+def test_frame_cache_entries_load_across_packages(tmp_path, writer, layout):
+    """An entry written by one package loads in the other with equal
+    frames and the same meta file; a plan of another shape misses, and a
+    stale entry (frames of the wrong shape) reads as a miss on both."""
+    (jplan, tplan), (jother, tother) = _cache_plans()[:2]
+    h, w = jplan.resized_height, jplan.resized_width
+    rng = np.random.default_rng(0)
+    shape = ((jplan.nframes, 3, h, w) if layout == "rgb"
+             else (jplan.nframes, h * w * 3 // 2))
+    frames = rng.integers(0, 256, shape, dtype=np.uint8)
+    save, load = ((jfc.save, tfc.load) if writer == "jax"
+                  else (tfc.save, jfc.load))
+    d = save("clip.mp4", jplan if writer == "jax" else tplan, frames,
+             str(tmp_path))
+    got = load("clip.mp4", tplan if writer == "jax" else jplan,
+               str(tmp_path))
+    np.testing.assert_array_equal(np.asarray(got), frames)
+    meta = json.loads((d / "meta.json").read_text())
+    d2 = (jfc.save if writer == "port" else tfc.save)(
+        "clip.mp4", jplan if writer == "port" else tplan, frames,
+        str(tmp_path / "other"))
+    assert json.loads((d2 / "meta.json").read_text()) == meta
+    for mod, plan in ((jfc, jother), (tfc, tother)):
+        assert mod.load("clip.mp4", plan, str(tmp_path)) is None
+    np.save(d / "frames.npy", frames[:2])
+    for mod, plan in ((jfc, jplan), (tfc, tplan)):
+        assert mod.load("clip.mp4", plan, str(tmp_path)) is None

@@ -969,3 +969,83 @@ def test_stream_uploads_on_a_side_stream(dev):
         stream.close()
     assert reader.closed and len(got) == len(stream.plan.group_frame_counts)
     np.testing.assert_array_equal(np.concatenate(got), reader.frames)
+
+
+def test_stream_without_prefetch_yields_host_blocks(dev):
+    """prefetch_to_device=False (ROADMAP C18): one decode thread, CPU
+    tensors for the consumer to upload, the same frames in order."""
+    from quickvideo_tpu_torch.config import LVUConfig
+    from quickvideo_tpu_torch.video.stream import AsyncPixelGroups
+
+    cfg = LVUConfig(num_frames=24, video_group_size=8, decode_output="yuv420",
+                    prefetch_to_device=False)
+    reader = _Reader()
+    stream = AsyncPixelGroups("clip.mp4", cfg, device=dev, reader=reader)
+    try:
+        names = [t.name for t in stream._threads]
+        got = list(stream)
+    finally:
+        stream.close()
+    assert names == ["qv-decode"] and stream._side is None
+    assert all(t.device.type == "cpu" for t in got)
+    np.testing.assert_array_equal(np.concatenate([t.numpy() for t in got]),
+                                  reader.frames)
+
+
+def test_stream_consumed_on_another_thread_waits_on_its_stream(dev):
+    """The server's worker thread iterates the stream with a current stream
+    of its own: the upload events are waited on by that stream."""
+    import threading
+
+    from quickvideo_tpu_torch.config import LVUConfig
+    from quickvideo_tpu_torch.video.stream import AsyncPixelGroups
+
+    cfg = LVUConfig(num_frames=24, video_group_size=8, decode_output="yuv420")
+    reader = _Reader()
+    out = {}
+
+    def worker():
+        torch.cuda.set_device(dev)
+        s = torch.cuda.Stream(dev)
+        with torch.cuda.stream(s):
+            stream = AsyncPixelGroups("clip.mp4", cfg, device=dev,
+                                      reader=reader)
+            try:
+                # a product on the worker's stream right after the hand-off
+                out["sums"] = [int(t.to(torch.int64).sum()) for t in stream]
+            finally:
+                stream.close()
+
+    t = threading.Thread(target=worker)
+    t.start()
+    t.join()
+    want = [int(g.astype(np.int64).sum())
+            for g in np.split(reader.frames, [8, 16])]
+    assert out["sums"] == want
+
+
+@pytest.mark.parametrize("src,out", [((480, 854), (280, 504)),
+                                     ((300, 330), (308, 336))])
+def test_lanczos3_resize_on_the_card_matches_the_cpu(dev, src, out):
+    """The on-device resize's two f32 products on the card (TF32 off, as
+    torch's default) against the same function on the CPU."""
+    from quickvideo_tpu_torch.ops.resize import lanczos3_resize
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    x = torch.randint(0, 256, (8, 3, *src), generator=torch.Generator()
+                      .manual_seed(0)).float()
+    got = lanczos3_resize(x.to(dev), out).cpu()
+    want = lanczos3_resize(x, out)
+    assert (got - want).abs().max().item() <= 1e-3
+
+
+def test_lvu_on_the_default_device_names_its_card(dev):
+    """LVU() and LVU(device="cuda") resolve to the current card's index, so
+    a thread that serves the LVU (the server's worker) can select it."""
+    from quickvideo_tpu_torch.api import LVU
+    from quickvideo_tpu_torch.config import LVUConfig
+
+    cfg = LVUConfig(model_name_or_path="tiny", dtype="float32")
+    want = torch.device("cuda", torch.cuda.current_device())
+    for device in (None, "cuda"):
+        assert LVU(cfg, device=device).device == want

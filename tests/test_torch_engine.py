@@ -221,8 +221,6 @@ def test_sampled_and_streamed_requests_run(params):
     "kw",
     [
         {"mesh": {"tp": 2}},
-        {"resize_on_device": True},
-        {"save_video_cache": True},
     ],
 )
 def test_out_of_slice_configs_raise(params, kw):

@@ -1,10 +1,11 @@
 """Process-level checks of the PyTorch port: neither the port (its video,
 int8, pruning-mode and image requests; a chat session saved and resumed,
-continuation scoring, a checkpoint load) nor chip_smoke.py imports jax or
-any module of the JAX package (quickvideo_tpu), and the port never needs
-the safetensors package,
-and chip_smoke.py refuses to report a result without a CUDA card or outside
-a checkout. Each needs a fresh interpreter (tests/conftest.py imports jax
+continuation scoring, a checkpoint load; the CLI, the HTTP server, the disk
+frame cache and the on-device resize; the package's top-level names) nor
+chip_smoke.py imports jax or any module of the JAX package
+(quickvideo_tpu), and the port never needs the safetensors package, and
+chip_smoke.py refuses to report a result without a CUDA card or outside a
+checkout. Each needs a fresh interpreter (tests/conftest.py imports jax
 into every test process), so they run subprocesses."""
 
 import os
@@ -122,7 +123,10 @@ class Reader:
         return 4.0
 
     def process(self, indices):
-        n = self.height * self.width * 3 // 2
+        # the size the plan asked for, else the source size
+        h = self.height or self.source_height
+        w = self.width or self.source_width
+        n = h * w * 3 // 2
         self._frames = np.stack([np.random.default_rng(i).integers(
             0, 256, n, dtype=np.uint8) for i in indices])
 
@@ -137,16 +141,14 @@ class Reader:
         pass
 
 
-def decode_video_batch(path, cfg):
-    r = Reader(path)
-    plan = vreader.plan_from_reader(r, cfg)
-    r.height, r.width = plan.resized_height, plan.resized_width
-    r.process(plan.indices.tolist())
-    return r._frames, plan, None
+    def get_batch(self, indices):
+        self.process(indices)
+        return self._frames
 
 
 qd.InterleavedVideoReader = Reader
-vreader.decode_video_batch = decode_video_batch
+vreader.register_backend("seeded", lambda path, threads: Reader(path))
+os.environ["FORCE_QWENVL_VIDEO_READER"] = "seeded"
 tmp = tempfile.mkdtemp()
 cfg = get_config("tiny")
 ckpt = write_checkpoint(os.path.join(tmp, "ckpt"), init_params(cfg, 1, torch.float32), cfg)
@@ -164,6 +166,61 @@ assert len(scores) == 2 and all(np.isfinite(t) for t, _ in scores)
 out = lvu.generate("q", "clip.mp4", max_new_tokens=3, do_sample=True, top_p=0.9,
                    on_tokens=lambda t: None)
 assert len(lvu.last_result.tokens) >= 1
+# the CLI and the server, with the frame cache and the on-device resize
+import contextlib, io, json, threading, urllib.request
+from quickvideo_tpu_torch import lvu_cli
+from quickvideo_tpu_torch.serving import make_http_server, ServerConfig
+buf = io.StringIO()
+with contextlib.redirect_stdout(buf):
+    assert lvu_cli.main([
+        "--video_path", "clip.mp4", "--model_name_or_path", ckpt,
+        "--model_type", "qwen25_lvu", "--dtype", "float32",
+        "--num_frames", "8", "--video_group_size", "4",
+        "--max_new_tokens", "2", "--decode_output", "yuv420",
+        "--resize_on_device", "--save_video_cache",
+        "--cache_dir", os.path.join(tmp, "frames"), "--device", "cpu",
+        "--json"]) == 0
+row = json.loads(buf.getvalue().splitlines()[-1])
+assert row["tokens"] == 2 and os.listdir(os.path.join(tmp, "frames")), row
+video = os.path.join(tmp, "clip.mp4")
+open(video, "wb").close()
+httpd, server = make_http_server(lvu, ServerConfig(port=0, spill_dir=tmp))
+threading.Thread(target=httpd.serve_forever, daemon=True).start()
+req = urllib.request.Request(
+    f"http://127.0.0.1:{httpd.server_address[1]}/v1/generate",
+    data=json.dumps({"video": video, "question": "q",
+                     "max_new_tokens": 2}).encode(),
+    headers={"Content-Type": "application/json"})
+with urllib.request.urlopen(req) as resp:
+    assert resp.status == 200 and "answer" in json.loads(resp.read())
+httpd.shutdown()
+server.shutdown()
+assert not forbidden(), forbidden()
+print("NOJAX_OK")
+"""
+
+TOP_LEVEL = FORBIDDEN + r"""
+import sys
+from quickvideo_tpu_torch import LVUConfig, LVULayerConfig, __version__
+assert "quickvideo_tpu_torch.api" not in sys.modules
+assert "torch" not in sys.modules
+assert not forbidden(), forbidden()
+import quickvideo_tpu_torch
+from quickvideo_tpu_torch.api import LVU
+assert quickvideo_tpu_torch.LVU is LVU
+assert LVUConfig is quickvideo_tpu_torch.config.LVUConfig
+import quickvideo_tpu_torch.serving
+assert not forbidden(), forbidden()
+print("NOJAX_OK")
+"""
+
+CLI_HELP = FORBIDDEN + r"""
+import runpy, sys
+sys.argv = ["lvu_cli", "--help"]
+try:
+    runpy.run_module("quickvideo_tpu_torch.lvu_cli", run_name="__main__")
+except SystemExit as e:
+    assert e.code == 0, e.code
 assert not forbidden(), forbidden()
 print("NOJAX_OK")
 """
@@ -201,6 +258,23 @@ def test_port_session_scoring_and_checkpoint_load_import_no_jax():
     proc = _run(["-c", SESSION], ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NOJAX_OK" in proc.stdout
+
+
+def test_top_level_names_import_nothing_of_jax_nor_the_model():
+    """`from quickvideo_tpu_torch import LVUConfig` (ROADMAP C17) imports
+    neither the model stack nor jax; `quickvideo_tpu_torch.LVU` resolves
+    lazily to api.LVU; importing the serving package imports no jax."""
+    proc = _run(["-c", TOP_LEVEL], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NOJAX_OK" in proc.stdout
+
+
+def test_cli_help_imports_nothing_of_jax():
+    proc = _run(["-c", CLI_HELP], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NOJAX_OK" in proc.stdout and "--device" in proc.stdout
+    proc = _run(["-m", "quickvideo_tpu_torch.lvu_cli", "--help"], ROOT)
+    assert proc.returncode == 0 and "--resize_on_device" in proc.stdout
 
 
 def test_chip_smoke_imports_nothing_of_jax():

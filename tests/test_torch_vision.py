@@ -70,11 +70,15 @@ def test_patchified_float_input_matches_jax(params):
 
 
 def test_frames_off_the_model_grid_need_the_unported_resize(params):
-    frames = np.zeros((2, 3, 200, 200), np.uint8)
-    with pytest.raises(NotImplementedError, match="resize"):
-        tmodel.encode_video_group(
-            params[1], CFG, torch.from_numpy(frames), (1, 16, 16)
-        )
+    """RGB frames at another size than the model grid are resampled to it
+    on the device (lanczos3, as jax.image.resize in the JAX tower), then
+    normalized from the 0..255 scale. The name dates from when the port
+    refused such frames; it is kept so the test's record carries on."""
+    frames = np.random.default_rng(6).integers(
+        0, 256, (2, 3, 200, 200), dtype=np.uint8
+    )
+    got, ref = _both(params, frames, (1, 16, 16))
+    np.testing.assert_allclose(got, ref, atol=ATOL, rtol=RTOL)
 
 
 def test_merger_keeps_the_f32_product_before_gelu(monkeypatch):
