@@ -93,6 +93,18 @@ checkout of the repository. Phases:
      yuv420 and in RGB: launches, cache lengths, the vision span and the
      bytes sent to the card; lanczos3_resize on the card against its CPU
      run;
+  3i. tensor and context parallelism over torch.distributed (phase 2
+     also holds B1 at a tp rank's head counts): two rank
+     processes share the card over gloo: B1 pure past + lse on each
+     rank's window of a split cache at its local length (empty windows
+     included), merged over the ranks, and the in-group partial, against
+     their plain versions; phase 3's request 0 at the 7B's full width and
+     depth under tp=2, sp=2 (bf16 and int8 KV) and tp=2 with int8 weights
+     (each rank drawing its shard from the same seed): tokens and
+     final-prefill logits against the single-rank run of phase 3, the
+     ranks' agreement, cache lengths per layer, B1 launches per rank by
+     kernel and mode, spans, peak memory per rank (walls are gloo on one
+     card); then NCCL at world size 1;
   4. the same prefill on the card and (plain versions) on the CPU for a
      narrow config with production head dims, with bf16 and with int8
      weights, with an int8 KV cache, with salient_tokens and query-based
@@ -124,6 +136,13 @@ every B1 instantiation's registers and spills.
 With --root it times the package of another checkout, such as an
 unpacked older commit, for a before-and-after in one call. It prints no
 result line.
+
+    python3 chip_smoke.py --mesh-cards
+
+runs phase 1, then phase 3i's collective, CP kernel and tp checks and its
+7B requests (tp, sp, tp x sp, int8 KV, int8 weights) with NCCL, one rank
+per card, on a machine of 2 or 4 cards, against one rank's request on
+card 0 (timed on its second run). It prints no result line.
 
     python3 chip_smoke.py --compare-fused [--root DIR]
 
@@ -355,8 +374,9 @@ def _compare(got, ref):
 
 
 def check_flash(dev, cases):
-    """B1 on a 2-layer stacked cache, layer 1, Hq=28 / Hkv=4 / D=128; each
-    row names the kernel _plan picked for its shape. Its time is the B1
+    """B1 on a 2-layer stacked cache, layer 1, D=128; a case is (G, length,
+    cap), with Hq=28 / Hkv=4, or (G, length, cap, Hq, Hkv) (a tp rank's
+    heads); each row names the kernel _plan picked for its shape. Its time is the B1
     kernels' device time (torch.profiler; host-timed beside it). The
     explicit-mask SDPA yardstick is skipped where its mask would exceed
     5e7 elements (the headline's last step: check_b1_headline_sdpa times
@@ -374,11 +394,14 @@ def check_flash(dev, cases):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows = []
-    for g, length, cap in cases:
-        k_all = torch.randn(2, 4, cap, 128, generator=gen, device=dev).bfloat16()
-        v_all = torch.randn(2, 4, cap, 128, generator=gen, device=dev).bfloat16()
+    for g, length, cap, *heads in cases:
+        hq, hkv = heads or (28, 4)
+        k_all = torch.randn(2, hkv, cap, 128, generator=gen,
+                            device=dev).bfloat16()
+        v_all = torch.randn(2, hkv, cap, 128, generator=gen,
+                            device=dev).bfloat16()
         # q as the projection lays it out: (G, Hq, D) storage, (Hq, G, D) view
-        q = torch.randn(g, 28, 128, generator=gen, device=dev).bfloat16()
+        q = torch.randn(g, hq, 128, generator=gen, device=dev).bfloat16()
         q = q.transpose(0, 1)
         scale = 128 ** -0.5
         got, _ = flash_past_attention(q, k_all[1], v_all[1], length, scale)
@@ -398,10 +421,11 @@ def check_flash(dev, cases):
         # at decode the host sets a call's pace: SDPA by device time too
         library_dev = (sdpa_ms(q, k_all[1], v_all[1], length, device=True)
                        if g < 64 else None)
-        bound_ms, bound_by = flash_bound(g, length)
-        kernel = _plan(g, 28, 4, length, cap, True, sms).kernel
+        bound_ms, bound_by = flash_bound(g, length, hq=hq, hkv=hkv)
+        kernel = _plan(g, hq, hkv, length, cap, True, sms).kernel
         ok = within
-        log(f"B1 {kernel} G={g} length={length} cap={cap}: max_abs_err="
+        log(f"B1 {kernel} Hq={hq} Hkv={hkv} G={g} length={length} cap={cap}: "
+            f"max_abs_err="
             f"{err:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|) kernel "
             f"device {ms:.4f} ms (host-timed {host_ms:.4f} ms) plain "
             f"{plain_ms:.4f} ms sdpa "
@@ -411,7 +435,8 @@ def check_flash(dev, cases):
                f"{ms / library_dev:.2f})")
             + f" bound {bound_ms:.4f} ms ({bound_by}, "
             f"{100 * bound_ms / ms:.0f}% of it) {'OK' if ok else 'FAIL'}")
-        rows.append(dict(g=g, length=length, kernel=kernel, err=err, ms=ms,
+        rows.append(dict(g=g, length=length, heads=(hq, hkv), kernel=kernel,
+                         err=err, ms=ms,
                          host_ms=host_ms, plain_ms=plain_ms,
                          library_ms=library_ms, library_dev_ms=library_dev,
                          bound_ms=bound_ms, bound_by=bound_by, ok=ok))
@@ -422,8 +447,9 @@ def check_flash(dev, cases):
 def check_flash_int8(dev, cases):
     """B1's int8-QK variants (int8 K and V; int8 K with bf16 V) against
     their plain version on the same int8 codes, on a 2-layer stacked cache
-    quantized from seeded bf16 rows, layer 1, Hq=28 / Hkv=4 / D=128; and
-    the bf16 kernel's time at the same shape (bf16 cache of the same rows).
+    quantized from seeded bf16 rows, layer 1, D=128, heads as in
+    check_flash's cases; and the bf16 kernel's time at the same shape (bf16
+    cache of the same rows).
     Both plain versions round the PV operand (p, or p * vs) to bf16 as the
     kernels do, so B1's bf16 tolerance holds. A row's time is the B1
     kernels' device time: the q quantize runs outside the kernel, as in the
@@ -446,20 +472,23 @@ def check_flash_int8(dev, cases):
     gen.manual_seed(2)
     scale = 128 ** -0.5
     rows = []
-    for g, length, cap in cases:
-        k = torch.randn(4, cap, 128, generator=gen, device=dev).bfloat16()
-        v = torch.randn(4, cap, 128, generator=gen, device=dev).bfloat16()
-        q = torch.randn(g, 28, 128, generator=gen, device=dev).bfloat16()
+    for g, length, cap, *heads in cases:
+        hq, hkv = heads or (28, 4)
+        k = torch.randn(hkv, cap, 128, generator=gen, device=dev).bfloat16()
+        v = torch.randn(hkv, cap, 128, generator=gen, device=dev).bfloat16()
+        q = torch.randn(g, hq, 128, generator=gen, device=dev).bfloat16()
         q = q.transpose(0, 1)
+
         def bf16():
             return flash_past_attention(q, k, v, length, scale)[0]
 
         bf16_ms = _time_ms(bf16, 10)
         bf16_dev = _device_ms(bf16, B1_NAMES, 10)
         q_ms = _time_ms(lambda: quantize_q(q, scale), 10)
-        row = dict(g=g, length=length, bf16_ms=bf16_ms, q_ms=q_ms, ok=True)
+        row = dict(g=g, length=length, heads=(hq, hkv), bf16_ms=bf16_ms,
+                   q_ms=q_ms, ok=True)
         for variant, mode in (("int8", True), ("int8k", "k")):
-            cache = init_cache(2, 4, cap, 128, device=dev, quantized=mode)
+            cache = init_cache(2, hkv, cap, 128, device=dev, quantized=mode)
             stacked_append(cache, 1, 0, k, v)
             ks = cache.k_scale[1]
             vs = None if cache.v_scale is None else cache.v_scale[1]
@@ -479,13 +508,15 @@ def check_flash_int8(dev, cases):
             host_ms = _time_ms(kernel, 10)
             ms = _device_ms(kernel, B1_NAMES, 10)
             plain_ms = _time_ms(plain, 2)
-            bound_ms, bound_by = flash_bound(g, length, variant)
-            kname = _plan(g, 28, 4, length, cap, True, sms, variant).kernel
+            bound_ms, bound_by = flash_bound(g, length, variant, hq=hq,
+                                             hkv=hkv)
+            kname = _plan(g, hq, hkv, length, cap, True, sms, variant).kernel
             row.update({variant: dict(err=err, ms=ms, host_ms=host_ms,
                                       plain_ms=plain_ms, kernel=kname,
                                       bound_ms=bound_ms, bound_by=bound_by)})
             row["ok"] &= within
-            log(f"B1 {variant} ({kname}) G={g} length={length} cap={cap}: "
+            log(f"B1 {variant} ({kname}) Hq={hq} Hkv={hkv} G={g} "
+                f"length={length} cap={cap}: "
                 f"max_abs_err={err:.3e} (tol {KERNEL_ATOL} + {KERNEL_RTOL}"
                 f"*|plain|) kernel device {ms:.4f} ms, {100 * bound_ms / ms:.0f}"
                 f"% of the bound (host-timed with the q quantize {host_ms:.4f}"
@@ -1386,6 +1417,11 @@ def make_lvu(dev, param_dtype, kv_cache_dtype="auto", kv_cache_capacity=None,
     return LVU(cfg, params=params, device=dev)
 
 
+# request 0 of each run_main_path call, by (param_dtype, kv_cache_dtype):
+# its tokens, final-prefill logits (host f32) and per-layer lengths, which
+# phase 3i holds its mesh runs against
+MAIN_PATH_REFERENCE = {}
+
 QUESTIONS = (
     "What happens in this video?",
     "Which objects move from left to right, and when?",
@@ -1498,6 +1534,10 @@ def run_main_path(dev, param_dtype="bfloat16", kv_cache_dtype="auto"):
         f"{'OK' if cache_ok else 'FAIL'}")
     logits = lvu.engine.final_prefill(cache, state).float().cpu()
     del cache, state
+    MAIN_PATH_REFERENCE[(param_dtype, kv_cache_dtype)] = dict(
+        tokens=results[0][1].tokens.tolist(), logits=logits,
+        layer_lengths=results[0][1].layer_lengths,
+    )
     return lvu, ok, counts, logits
 
 
@@ -3078,6 +3118,698 @@ def run_device_resize(dev, params):
     return ok, runs
 
 
+# -- phase 3i: tensor and context parallelism over torch.distributed --------
+
+# the runs of phase 3i: (tag, mesh axes, param_dtype, kv_cache_dtype); each
+# is request 0 of phase 3 on the same seeded weights, its single-rank
+# result recorded by run_main_path under (param_dtype, kv_cache_dtype)
+MESH_RUNS = (
+    ("tp2", {"tp": 2}, "bfloat16", "auto"),
+    ("sp2", {"sp": 2}, "bfloat16", "auto"),
+    ("sp2_int8kv", {"sp": 2}, "bfloat16", "int8"),
+    ("tp2_int8w", {"tp": 2}, "int8", "auto"),
+)
+MESH_WORLD = 2
+# `--mesh-cards`: the mesh runs with NCCL, one rank per card, by the
+# number of cards (each against one rank's run of request 0 on card 0)
+CARD_MESH_RUNS = {
+    2: (("tp2", {"tp": 2}, "bfloat16", "auto"),
+        ("sp2", {"sp": 2}, "bfloat16", "auto"),
+        ("tp2_int8w", {"tp": 2}, "int8", "auto")),
+    4: (("tp4", {"tp": 4}, "bfloat16", "auto"),
+        ("sp4", {"sp": 4}, "bfloat16", "auto"),
+        ("tp2_sp2", {"tp": 2, "sp": 2}, "bfloat16", "auto"),
+        ("sp4_int8kv", {"sp": 4}, "bfloat16", "int8"),
+        ("tp4_int8w", {"tp": 4}, "int8", "auto")),
+}
+# tp / sp vs one rank, final-prefill logits: the mesh changes the order of
+# f32 sums (the o-projection's and MLP's partial products summed over tp,
+# the past split in two windows and merged) and where bf16 rounds (a tp
+# product rounds once after the f32 all-reduce); under sp with an int8
+# cache the group also attends its own raw bf16 K/V (the in-group partial,
+# as the JAX package's CP route does) where one rank reads them back
+# quantized. The first is the class of difference of phase 3f's follow-up
+# against the whole history from scratch (3.468e-2, PERF.md section 6), the
+# second at most the int8-vs-bf16 KV distance of phase 3c; both within
+# LOGITS_REL_L2
+MESH_LOGITS_REL_L2 = LOGITS_REL_L2
+# the same with int8 weights: every act-quantized product re-quantizes the
+# rows those roundings moved, and the flipped codes grow through 28
+# layers; phase 4 measures int8 weights 4x as far as bf16 ones from the
+# same rounding differences (2.1e-2 against 5.4e-3, PERF.md section 6), and
+# tp = 2 measured 1.127e-1 on its first run, tokens equal, while
+# check_tp_products holds its int8 products to one device's codes and
+# sums. Three times the bf16 limit
+MESH_INT8_LOGITS_REL_L2 = 3 * LOGITS_REL_L2
+# a tp rank's int8 product against one device's (check_tp_products): the
+# codes and s32 sums are equal, only two f32 partial sums are added in
+# another order
+MESH_PRODUCT_REL_L2 = 1e-6
+# one decoder layer at the 7B's width, a tp rank's shard vs the whole
+# layer (check_tp_layer): the partial products sum in f32 over tp where one
+# device sums in one product, and B1 splits a kv head's keys differently at
+# 2 kv heads than at 4, so the outputs differ by bf16 roundings (2^-8
+# relative each; ten roundings' worth with bf16 weights) and, with int8
+# weights, by the codes those roundings flip: phase 4 measures int8 weights
+# 4x as far as bf16 from the same rounding differences (2.1e-2 against
+# 5.4e-3, PERF.md section 6)
+MESH_LAYER_REL_L2 = {"bfloat16": 1e-2, "int8": 4e-2}
+# a rank's whole mesh phase (kernel builds are done by then)
+MESH_TIMEOUT_S = 900
+# the windows of the cp kernel checks: capacity 8192 over 2 ranks; lengths
+# 0 (both windows empty), 1805 (the second empty, the 64-frame request's
+# state before its second group), 4133 (the second window partial) and
+# 8192 (both full); rows 3600 (a group step) and 1 (decode)
+CP_CHECK_CAP = 8192
+CP_CHECK_LENGTHS = (0, 1805, 4133, 8192)
+CP_CHECK_ROWS = (3600, 1)
+# the in-group partial's rows: a group step, a 20-token final prefill, a
+# decode step
+IN_GROUP_ROWS = (3600, 20, 1)
+
+
+def expected_b1_mesh(lvu, inputs, n_tokens, variant, sp):
+    """B1 launches of one rank per "flash_{variant}_{mode}" and
+    "flash_kernel_{name}" key. tp alone: those of one rank (expected_b1,
+    expected_kernels; a tp rank keeps rep = 7). Under sp every step of
+    every layer (group steps, the final prefill, each decode step) runs
+    the past on the rank's window (pure past + lse, the cache's variant)
+    and the in-group partial (unified + lse, bf16, over the raw group)."""
+    if sp == 1:
+        want = expected_b1(lvu, inputs, n_tokens, variant)
+        want.update(expected_kernels(lvu, inputs, n_tokens, variant))
+        return want
+    n = lvu.model_config.text.num_hidden_layers
+    ids = np.asarray(inputs.input_ids)
+    vid = np.nonzero(ids == lvu.model_config.video_token_id)[0]
+    suffix = len(ids) - int(vid[-1]) - 1
+    rows = [g for per_layer in group_layer_rows(lvu, inputs)
+            for g in per_layer] + [suffix] * n + [1] * ((n_tokens - 1) * n)
+    want = {f"flash_{variant}_past+lse": len(rows),
+            "flash_bf16_unified+lse": len(rows)}
+    for var in (variant, "bf16"):
+        for k, c in b1_kernels(lvu, rows, var).items():
+            want[k] = want.get(k, 0) + c
+    return want
+
+
+def _cp_check_cache(dev, variant, gen):
+    """One seeded layer of CP_CHECK_CAP slots in `variant`, whole."""
+    import torch
+
+    from quickvideo_tpu_torch.ops.kv_cache import init_cache, stacked_append
+
+    k = torch.randn(4, CP_CHECK_CAP, 128, generator=gen, device=dev)
+    v = torch.randn(4, CP_CHECK_CAP, 128, generator=gen, device=dev)
+    cache = init_cache(1, 4, CP_CHECK_CAP, 128, device=dev, quantized={
+        "bf16": False, "int8": True, "int8k": "k"}[variant])
+    stacked_append(cache, 0, 0, k.bfloat16(), v.bfloat16())
+    return cache
+
+
+def check_cp_kernels(dev, mesh):
+    """On every rank of an sp mesh (collective): B1 pure past + lse on
+    each rank's window at its local length, merged over sp
+    (cp_stacked_past_attention), against the plain version over the whole
+    cache, for every cache variant, CP_CHECK_LENGTHS x CP_CHECK_ROWS (an
+    empty window must give out 0 and lse NEG_INF before the merge weighs it
+    at 0); then the in-group partial (B1 unified + lse over an empty past)
+    against its plain version. Returns (ok, rows) with each case's error;
+    only rank 0 logs."""
+    import torch
+
+    from quickvideo_tpu_torch.ops.attention import (
+        NEG_INF,
+        cache_attention,
+        cache_attention_int8,
+        quantize_q,
+    )
+    from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
+    from quickvideo_tpu_torch.parallel.context_parallel import (
+        cp_stacked_past_attention,
+        in_group_partial,
+        shard_cache_cp,
+    )
+
+    say = log if mesh.rank == 0 else (lambda msg: None)
+    scale = 128 ** -0.5
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    ok, rows = True, []
+    for variant in B1_VARIANTS:
+        whole = _cp_check_cache(dev, variant, gen)
+        window = shard_cache_cp(whole, mesh.index("sp"), mesh.sp)
+        for g in CP_CHECK_ROWS:
+            q = torch.randn(g, 28, 128, generator=gen, device=dev)
+            q = q.bfloat16().transpose(0, 1)
+            for length in CP_CHECK_LENGTHS:
+                local = window.local_length(length)
+                own = flash_past_attention(
+                    q, window.k[0], window.v[0], local, scale,
+                    k_scale=None if window.k_scale is None
+                    else window.k_scale[0],
+                    v_scale=None if window.v_scale is None
+                    else window.v_scale[0],
+                    causal=False, with_lse=True, out_dtype=torch.float32)
+                empty_ok = local > 0 or (not own[0].any() and bool(
+                    (own[1] == NEG_INF).all()))
+                got = cp_stacked_past_attention(q, window, 0, length, scale,
+                                                mesh.group("sp"))
+                mode = dict(causal=False, with_lse=True,
+                            out_dtype=torch.float32)
+                if variant == "bf16":
+                    ref = cache_attention(q, whole.k[0], whole.v[0], length,
+                                          scale, **mode)
+                else:
+                    q8, qs = quantize_q(q, scale)
+                    ref = cache_attention_int8(
+                        q8, qs, whole.k[0], whole.k_scale[0], whole.v[0],
+                        None if whole.v_scale is None else whole.v_scale[0],
+                        length, torch.bfloat16, **mode)
+                err, within = _compare(got.out, ref[0])
+                lse_err = (got.lse - ref[1]).abs().max().item()
+                case_ok = (within and empty_ok and lse_err <= LSE_ATOL
+                           and bool(torch.isfinite(got.lse).all()))
+                ok &= case_ok
+                rows.append(dict(what="cp_past", variant=variant, g=g,
+                                 length=length, err=max(err, lse_err),
+                                 ok=case_ok))
+                say(f"[3i] B1 {variant} pure past + lse per window, merged "
+                    f"over sp={mesh.sp}: G={g} length={length} (this "
+                    f"window {local}): out max_abs_err={err:.3e} lse "
+                    f"max_abs_err={lse_err:.3e} empty window "
+                    f"{'0 / NEG_INF' if local == 0 else 'n/a'} "
+                    f"{'OK' if case_ok else 'FAIL'}")
+        del whole, window
+    for g in IN_GROUP_ROWS:
+        q = torch.randn(g, 28, 128, generator=gen, device=dev)
+        q = q.bfloat16().transpose(0, 1)
+        # the group's K/V as the model lays them out: (G, Hkv, D) rows
+        k = torch.randn(g, 4, 128, generator=gen, device=dev).bfloat16()
+        v = torch.randn(g, 4, 128, generator=gen, device=dev).bfloat16()
+        k, v = k.transpose(0, 1), v.transpose(0, 1)
+        got = in_group_partial(q, k, v, scale)
+        ref = cache_attention(q, k, v, 0, scale, causal=True, with_lse=True,
+                              out_dtype=torch.float32)
+        err, within = _compare(got.out, ref[0])
+        lse_err = (got.lse - ref[1]).abs().max().item()
+        case_ok = within and lse_err <= LSE_ATOL
+        ok &= case_ok
+        rows.append(dict(what="in_group", variant="bf16", g=g, length=0,
+                         err=max(err, lse_err), ok=case_ok))
+        say(f"[3i] B1 in-group partial (unified + lse over an empty past, "
+            f"the raw group as the cache): G={g}: out max_abs_err={err:.3e} "
+            f"lse max_abs_err={lse_err:.3e} {'OK' if case_ok else 'FAIL'}")
+    torch.cuda.synchronize()
+    return ok, rows
+
+
+def check_collectives(dev, mesh):
+    """The port's collectives (parallel/comm.py) on card tensors over the
+    group of all ranks: all_reduce_sum and all_reduce_max of
+    rank-distinct f32 rows against their elementwise sum and max, and
+    all_gather of bf16, f32 and int8 rows against the ranks' rows put
+    together. Returns ok; only rank 0 logs."""
+    import torch
+    import torch.distributed as dist
+
+    from quickvideo_tpu_torch.parallel import comm
+
+    group, n, r = mesh.group("sp"), mesh.sp, mesh.index("sp")
+    # small integers: their f32 sums are exact in any order
+    rows = [((torch.arange(4096, device=dev) * (7 + i)) % 97 - 48).float()
+            for i in range(n)]
+    ok = bool(torch.equal(comm.all_reduce_sum(rows[r].clone(), group),
+                          sum(rows[1:], rows[0])))
+    ok &= bool(torch.equal(comm.all_reduce_max(rows[r].clone(), group),
+                           torch.stack(rows).amax(0)))
+    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+        parts = [(x * 20).to(dtype).reshape(16, 256) for x in rows]
+        ok &= bool(torch.equal(comm.all_gather(parts[r], group, dim=-1),
+                               torch.cat(parts, dim=-1)))
+    if mesh.rank == 0:
+        log(f"[3i] all_reduce sum / max and all_gather (bf16, f32, int8) on "
+            f"card tensors over {dist.get_backend(group)}, {n} ranks: "
+            f"{'OK' if ok else 'FAIL'}")
+    return ok
+
+
+def check_tp_products(dev, mesh):
+    """The int8 products of a tp rank at the 7B's widths, over gloo:
+    row-split (wo 3584 x 3584, wd 18944 x 3584: the rank's slice of each
+    activation row, quantized with the whole row's scale) and
+    column-split (wq / wg columns). The row scales and int8 codes must
+    equal one device's, the ranks' s32 sums must add up to one device's
+    exactly, and the f32 products agree to MESH_PRODUCT_REL_L2 (only the
+    order of two f32 partial sums differs). Returns (ok, rows); only rank
+    0 logs."""
+    import torch
+
+    from quickvideo_tpu_torch.ops import quantization as tq
+    from quickvideo_tpu_torch.parallel import comm
+    from quickvideo_tpu_torch.parallel.sharding import COL, ROW, shard_leaf
+
+    tp, r, n = mesh.group("tp"), mesh.index("tp"), mesh.tp
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    ok, rows = True, []
+    for k, cols, rule in ((3584, 3584, ROW), (18944, 3584, ROW),
+                          (3584, 3584, COL), (3584, 18944, COL)):
+        w = (torch.randn(k, cols, generator=gen, device=dev)
+             * 0.02).bfloat16()
+        x = torch.randn(256, k, generator=gen, device=dev).bfloat16()
+        wq = tq.quantize_weight(w)
+        part = shard_leaf(wq, rule, r, n)
+        full = tq.qdot(x, wq)
+        xq, xs = tq.quantize_act(x)
+        acc = tq.int_mm(xq, wq["q8"])
+        if rule == ROW:
+            span = slice(r * k // n, (r + 1) * k // n)
+            xl = x[:, span].contiguous()
+            got = comm.all_reduce_sum(tq.qdot(xl, part, group=tp), tp)
+            xql, xsl = tq.quantize_act(xl, tp)
+            sums = comm.all_reduce_sum(
+                tq.int_mm(xql, part["q8"]).double(), tp)
+            exact = bool(torch.equal(xsl, xs) and torch.equal(
+                xql, xq[:, span]) and torch.equal(sums, acc.double()))
+            want = full
+        else:
+            span = slice(r * cols // n, (r + 1) * cols // n)
+            got = tq.qdot(x, part)
+            exact = bool(torch.equal(tq.int_mm(xq, part["q8"]),
+                                     acc[:, span]))
+            want = full[:, span]
+        rel = ((got - want).norm() / want.norm()).item()
+        case_ok = exact and rel <= MESH_PRODUCT_REL_L2
+        ok &= case_ok
+        rows.append(dict(what="tp_product", err=rel, ok=case_ok))
+        if mesh.rank == 0:
+            log(f"[3i] int8 product, {'row' if rule == ROW else 'column'}-"
+                f"split over tp={n}, (256 x {k}) @ ({k} x {cols}): scales, "
+                f"codes and s32 sums as one device's: {exact}, f32 rel L2 "
+                f"{rel:.3e} (limit {MESH_PRODUCT_REL_L2}) "
+                f"{'OK' if case_ok else 'FAIL'}")
+    torch.cuda.empty_cache()
+    return ok, rows
+
+
+def check_tp_layer(dev, mesh):
+    """One decoder layer of the 7B's width (seeded, drawn whole on every
+    rank) at a 256-row group over a 1000-slot past, with key_norms_small
+    pruning: this rank's tp shard (layer_step with the mesh) against the
+    whole layer on one device, with bf16 and with int8 weights (the
+    row-split products act-quantize here, 256 >= 16 rows: each rank must
+    quantize its slice of a row with the whole row's scale). Out rel. L2
+    within MESH_LAYER_REL_L2 of its dtype and the retained indices agreeing
+    on at least RETAINED_AGREE. Returns (ok, rows); only rank 0 logs."""
+    import torch
+
+    from quickvideo_tpu_torch.models.qwen25_vl.config import get_config
+    from quickvideo_tpu_torch.models.qwen25_vl.language import (
+        StepSpec,
+        layer_step,
+    )
+    from quickvideo_tpu_torch.ops.kv_cache import init_cache, stacked_append
+    from quickvideo_tpu_torch.ops.quantization import quantize_weight
+    from quickvideo_tpu_torch.parallel.sharding import shard_language_layer
+
+    t = get_config("qwen25-vl-7b").text
+    c, d = t.hidden_size, t.head_dim
+    hq, hkv = t.num_attention_heads, t.num_key_value_heads
+    tpi, tpn = mesh.index("tp"), mesh.tp
+    ok, rows = True, []
+    for param_dtype in ("bfloat16", "int8"):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(13)
+
+        def nrm(*shape, std=0.02):
+            w = torch.empty(shape, device=dev).normal_(0, std, generator=gen)
+            return w.bfloat16()
+
+        lp = {"ln1": nrm(c, std=1.0).abs() + 0.5,
+              "ln2": nrm(c, std=1.0).abs() + 0.5,
+              "wq": nrm(c, hq * d), "bq": nrm(hq * d, std=0.5),
+              "wk": nrm(c, hkv * d), "bk": nrm(hkv * d, std=0.5),
+              "wv": nrm(c, hkv * d), "bv": nrm(hkv * d, std=0.5),
+              "wo": nrm(hq * d, c), "wg": nrm(c, t.intermediate_size),
+              "wu": nrm(c, t.intermediate_size),
+              "wd": nrm(t.intermediate_size, c)}
+        if param_dtype == "int8":
+            for k in ("wq", "wk", "wv", "wo", "wg", "wu", "wd"):
+                lp[k] = quantize_weight(lp[k])
+        part = shard_language_layer(lp, tpi, tpn)
+        g, past = 256, 1000
+        x = nrm(g, c, std=1.0)
+        ang = torch.rand(g, d, generator=gen, device=dev) * 6.28
+        cos, sin = ang.cos(), ang.sin()
+        pk, pv = nrm(hkv, past, d, std=1.0), nrm(hkv, past, d, std=1.0)
+        spec = StepSpec(q_len=g, keep_k=g // 2)
+        outs = []
+        for lay, heads, m in ((lp, slice(None), None),
+                              (part, slice(tpi * hkv // tpn,
+                                           (tpi + 1) * hkv // tpn), mesh)):
+            cache = init_cache(1, pk[heads].shape[0], 4096, d, device=dev)
+            stacked_append(cache, 0, 0, pk[heads], pv[heads])
+            cache.lengths[0] = past
+            outs.append(layer_step(lay, x, cos, sin, cache, 0, t, spec,
+                                   mesh=m))
+        (want, want_idx), (got, got_idx) = outs
+        rel = ((got.float() - want.float()).norm()
+               / want.float().norm()).item()
+        # a key norm within an ulp of its neighbour may order either way
+        agree = len(set(got_idx.tolist()) & set(want_idx.tolist())) / (g // 2)
+        limit = MESH_LAYER_REL_L2[param_dtype]
+        case_ok = rel <= limit and agree >= RETAINED_AGREE
+        ok &= case_ok
+        rows.append(dict(what="tp_layer", param_dtype=param_dtype, err=rel,
+                         ok=case_ok))
+        if mesh.rank == 0:
+            log(f"[3i] one 7B decoder layer, {param_dtype} weights, tp="
+                f"{tpn} shard vs the whole layer (G={g} over {past} slots, "
+                f"key_norms_small keeps {g // 2}): out rel L2 {rel:.3e} "
+                f"(limit {limit}), retained indices agree "
+                f"{agree:.3f} (>= {RETAINED_AGREE}) "
+                f"{'OK' if case_ok else 'FAIL'}")
+        del lp, part, outs
+    torch.cuda.empty_cache()
+    return ok, rows
+
+
+def _mesh_request(dev, tag, mesh_kw, param_dtype, kv_dtype, mesh_rank,
+                  work):
+    """One run of MESH_RUNS on this rank: LVU on the mesh (seeded weights,
+    this rank's shard), request 0 of phase 3 through generate twice (the
+    second timed and its launches counted), then its prefill and final
+    prefill again (logits, retained sets). Returns the rank's record; its final-prefill logits go to
+    work/logits-{tag}-{rank}.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from quickvideo_tpu_torch.config import MeshConfig
+
+    counters = _kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lvu = make_lvu(dev, param_dtype, kv_dtype, mesh=MeshConfig(**mesh_kw))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    inputs = make_request(lvu.model_config, lvu.tokenizer, QUESTIONS[0],
+                          seed=0)
+    for _ in range(2):  # the second is timed and counted: the first sets up
+        dist.barrier()  # the new groups' communicators
+        _reset_counters(counters)
+        t0 = time.perf_counter()
+        res = lvu.engine.generate(inputs, max_new_tokens=8,
+                                  eos_token_ids=[lvu.tokenizer.eos_token_id])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = _read_counters(counters)
+    variant = {"int8": "int8", "int8k": "int8k"}.get(kv_dtype, "bf16")
+    want = expected_b1_mesh(lvu, inputs, len(res.tokens), variant,
+                            mesh_kw.get("sp", 1))
+    b1 = {k: counts[k] for k in counts
+          if k.startswith("flash_") and k != "flash" and counts[k]
+          and k[6:] not in B1_VARIANTS}
+    counts_ok = (b1 == {k: n for k, n in want.items() if n}
+                 and counts["flash"] == sum(
+                     n for k, n in want.items() if not k.startswith(
+                         "flash_kernel")) and counts["vision_2d"] > 0
+                 and (param_dtype != "int8" or counts["ln_mlp"] > 0))
+    want_len, want_layers = expected_lengths(lvu, inputs, len(res.tokens))
+    lens_ok = (res.cache_length == want_len
+               and res.layer_lengths == want_layers)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cache, st = lvu.engine.prefill(inputs)
+    local_shape = tuple(cache.k.shape)
+    torch.save(lvu.engine.final_prefill(cache, st).float().cpu(),
+               os.path.join(work, f"logits-{tag}-{mesh_rank}.pt"))
+    retained = [[] if i is None else i.tolist() for g in st["retained"]
+                for i in g]
+    del cache, st, lvu
+    torch.cuda.empty_cache()
+    return dict(tag=tag, rank=mesh_rank, tokens=res.tokens.tolist(),
+                cache_length=res.cache_length,
+                layer_lengths=res.layer_lengths, want_len=want_len,
+                counts=b1, want=want, counts_ok=counts_ok, lens_ok=lens_ok,
+                spans={k: round(v, 4) for k, v in sorted(
+                    res.timings.items())},
+                wall=wall, init_s=init_s, peak_gib=peak,
+                local_shape=local_shape, retained=retained,
+                kv_dtype=variant)
+
+
+def mesh_runs(world: int, backend: str):
+    """The runs of a mesh phase: MESH_RUNS over gloo on one card, or
+    CARD_MESH_RUNS[world] over NCCL."""
+    return MESH_RUNS if backend == "gloo" else CARD_MESH_RUNS[world]
+
+
+def run_mesh_rank(dev, rank: int, world: int, work: str,
+                  backend: str = "gloo") -> None:
+    """A rank process of a mesh phase (python3 chip_smoke.py --mesh-rank R
+    --mesh-dir DIR [--mesh-world W --mesh-backend nccl]): joins the
+    process group at DIR, runs the collective, CP kernel and tp checks (on
+    an sp and a tp mesh of all ranks) and each run of mesh_runs, and
+    writes its records to DIR/rank{R}.json. Any failure raises: the parent
+    fails the phase on a non-zero exit."""
+    import torch
+    import torch.distributed as dist
+
+    from quickvideo_tpu_torch.config import MeshConfig
+    from quickvideo_tpu_torch.parallel.mesh import init_multihost, make_mesh
+
+    init_multihost(f"file://{work}/init", world, rank, backend=backend)
+    mesh = make_mesh(MeshConfig(sp=world), dev)
+    kernels_ok = check_collectives(dev, mesh)
+    cp_ok, kernel_rows = check_cp_kernels(dev, mesh)
+    tp_mesh = make_mesh(MeshConfig(tp=world), dev)
+    prod_ok, prod_rows = check_tp_products(dev, tp_mesh)
+    layer_ok, layer_rows = check_tp_layer(dev, tp_mesh)
+    kernels_ok &= cp_ok and prod_ok and layer_ok
+    kernel_rows += prod_rows + layer_rows
+    del mesh
+    out = dict(kernels_ok=kernels_ok, kernel_rows=kernel_rows, runs=[])
+    for tag, mesh_kw, param_dtype, kv_dtype in mesh_runs(world, backend):
+        out["runs"].append(_mesh_request(dev, tag, mesh_kw, param_dtype,
+                                         kv_dtype, rank, work))
+        dist.barrier()
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def run_nccl_one(dev, work: str) -> None:
+    """The NCCL run of phase 3i (python3 chip_smoke.py --nccl-one --mesh-dir
+    DIR): one rank, NCCL at world size 1. The collectives the port issues
+    (all_reduce sum and max, broadcast) run through NCCL on card tensors
+    and must return their inputs, then one request through an LVU whose
+    process group is that NCCL group (at world size 1 the mesh has no
+    axis of more than one rank, so the request itself issues none).
+    Writes DIR/nccl.json."""
+    import torch
+    import torch.distributed as dist
+
+    from quickvideo_tpu_torch.config import MeshConfig
+
+    dist.init_process_group("nccl", init_method=f"file://{work}/nccl-init",
+                            world_size=1, rank=0,
+                            device_id=torch.device(dev))
+    x = torch.arange(4096, dtype=torch.float32, device=dev)
+    y = x.clone()
+    dist.all_reduce(y, op=dist.ReduceOp.SUM)
+    z = x.clone()
+    dist.all_reduce(z, op=dist.ReduceOp.MAX)
+    w = x.clone()
+    dist.broadcast(w, src=0)
+    coll_ok = bool(torch.equal(x, y) and torch.equal(x, z)
+                   and torch.equal(x, w))
+    lvu = make_lvu(dev, "bfloat16", "auto", mesh=MeshConfig())
+    inputs = make_request(lvu.model_config, lvu.tokenizer, QUESTIONS[0],
+                          seed=0)
+    t0 = time.perf_counter()
+    res = lvu.engine.generate(inputs, max_new_tokens=8,
+                              eos_token_ids=[lvu.tokenizer.eos_token_id])
+    torch.cuda.synchronize()
+    with open(os.path.join(work, "nccl.json"), "w") as f:
+        json.dump(dict(backend=dist.get_backend(), coll_ok=coll_ok,
+                       tokens=res.tokens.tolist(),
+                       wall=time.perf_counter() - t0), f)
+    dist.destroy_process_group()
+
+
+def _spawn(args, n: int, timeout_s: float, work: str):
+    """n copies of this script with `args` ("{r}" standing for the rank),
+    their output in files under `work`; waits for all and kills any left
+    at the time limit (its code is then None). Returns [(code, output)]."""
+    logs = [os.path.join(work, f"out-{time.time_ns()}-{r}.log")
+            for r in range(n)]
+    procs = []
+    for r in range(n):
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 *[a.format(r=r) for a in args]],
+                cwd=ROOT, stdout=f, stderr=subprocess.STDOUT, text=True,
+            ))
+    deadline = time.monotonic() + timeout_s
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                pass
+    finally:
+        timed_out = [p.poll() is None for p in procs]
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = []
+    for p, path, late in zip(procs, logs, timed_out):
+        with open(path) as f:
+            out.append((None if late else p.returncode, f.read()))
+    return out
+
+
+def _mesh_phase(world: int, backend: str, refs: dict, label: str):
+    """Start `world` rank processes of a mesh phase, wait for them, and
+    hold each run's records against one rank's (`refs` by (param_dtype,
+    kv_cache_dtype)). Returns (ok, kernel rows, each run's records, work
+    dir); a rank that fails fails the phase."""
+    import torch
+
+    work = tempfile.mkdtemp(prefix="qv-mesh-")
+    t0 = time.perf_counter()
+    done = _spawn(["--mesh-rank", "{r}", "--mesh-dir", work, "--mesh-world",
+                   str(world), "--mesh-backend", backend], world,
+                  MESH_TIMEOUT_S, work)
+    phase_s = time.perf_counter() - t0
+    records = []
+    for r, (rc, out) in enumerate(done):
+        for line in out.splitlines():
+            if line.startswith("[3i]") or rc != 0:
+                log(line if line.startswith("[3i]") else f"[3i rank {r}] {line}")
+        if rc != 0:
+            log(f"[3i] rank {r} exited with {rc} (None: killed at "
+                f"{MESH_TIMEOUT_S} s; a rank that fails fails the phase) "
+                "FAIL")
+            return False, [], [], work
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            records.append(json.load(f))
+    log(f"[3i] {world} ranks, {label}: phase {phase_s:.1f} s")
+    ok = all(rec["kernels_ok"] for rec in records)
+    runs = []
+    for i, (tag, mesh_kw, param_dtype, kv_dtype) in enumerate(
+            mesh_runs(world, backend)):
+        recs = [rec["runs"][i] for rec in records]
+        r0 = recs[0]
+        ref = refs[(param_dtype, kv_dtype)]
+        rank_logits = [torch.load(os.path.join(work, f"logits-{tag}-{r}.pt"))
+                       for r in range(world)]
+        logits = rank_logits[0]
+        rel = ((logits - ref["logits"]).norm()
+               / ref["logits"].norm()).item()
+        limit = (MESH_INT8_LOGITS_REL_L2 if param_dtype == "int8"
+                 else MESH_LOGITS_REL_L2)
+        agree = all(r["tokens"] == r0["tokens"]
+                    and r["retained"] == r0["retained"] for r in recs) and all(
+            torch.equal(x, logits) for x in rank_logits)
+        run_ok = (agree and rel <= limit
+                  and all(r["counts_ok"] and r["lens_ok"] for r in recs))
+        ok &= run_ok
+        same = r0["tokens"] == ref["tokens"]
+        log(f"[3i {tag}] {mesh_kw} weights {param_dtype} KV {r0['kv_dtype']}:"
+            f" tokens {r0['tokens']} vs one rank {ref['tokens']} "
+            f"({'equal' if same else 'differ'}); final-prefill logits rel "
+            f"L2 {rel:.3e} (limit {limit}); argmax "
+            f"{int(logits.argmax())} vs {int(ref['logits'].argmax())}; "
+            f"ranks agree on tokens, retained indices and logits: {agree}; "
+            f"cache lengths per layer {sorted(set(r0['layer_lengths']))} "
+            f"(expected {r0['want_len']}, one rank "
+            f"{sorted(set(ref['layer_lengths']))}) "
+            f"{'OK' if run_ok else 'FAIL'}")
+        for r in recs:
+            log(f"[3i {tag}] rank {r['rank']}: cache {r['local_shape']} "
+                f"B1 launches " + ", ".join(
+                    f"{k[6:]} {n}" for k, n in sorted(r["counts"].items()))
+                + " (expected " + ", ".join(
+                    f"{k[6:]} {n}" for k, n in sorted(r["want"].items())
+                    if n) + f") {'OK' if r['counts_ok'] else 'FAIL'}; "
+                f"init {r['init_s']:.2f} s, request wall {r['wall']:.3f} s "
+                f"({label}), spans(s) {r['spans']}, peak device "
+                f"memory {r['peak_gib']:.2f} GiB")
+        runs.append(recs)
+    return ok, records[0]["kernel_rows"], runs, work
+
+
+def run_mesh(dev):
+    """Phase 3i: tp and sp over torch.distributed with two ranks sharing
+    the one card over gloo, at the full width and depth of qwen25-vl-7b
+    (seeded bf16 weights, each rank drawing its shard from the same seed),
+    against phase 3's single-rank runs; then NCCL at world size 1. Returns
+    (ok, kernel rows, runs)."""
+    ok, kernel_rows, runs, work = _mesh_phase(
+        MESH_WORLD, "gloo", MAIN_PATH_REFERENCE,
+        "gloo on one card: its walls say nothing of NCCL between cards")
+    if not runs:
+        return False, kernel_rows, runs
+    (rc, out), = _spawn(["--nccl-one", "--mesh-dir", work], 1, 600, work)
+    if rc != 0:
+        log(out[-3000:])
+        log(f"[3i] NCCL world size 1: exited with {rc} FAIL")
+        return False, kernel_rows, runs
+    with open(os.path.join(work, "nccl.json")) as f:
+        nccl = json.load(f)
+    ref = MAIN_PATH_REFERENCE[("bfloat16", "auto")]
+    nccl_ok = nccl["coll_ok"] and nccl["tokens"] == ref["tokens"]
+    ok &= nccl_ok
+    log(f"[3i] NCCL at world size 1 (backend {nccl['backend']}): all_reduce "
+        f"sum / max and broadcast on card tensors return their inputs: "
+        f"{nccl['coll_ok']}; one request's tokens {nccl['tokens']} vs one "
+        f"rank's {ref['tokens']}, wall {nccl['wall']:.3f} s "
+        f"{'OK' if nccl_ok else 'FAIL'}")
+    return ok, kernel_rows, runs
+
+
+def run_card_mesh(dev) -> bool:
+    """`--mesh-cards`: phase 3i's checks and CARD_MESH_RUNS with NCCL, one
+    rank per card (2 or 4 cards), against one rank's run of request 0 on
+    card 0 (seeded weights, as phase 3 runs it)."""
+    import torch
+
+    world = torch.cuda.device_count()
+    if world not in CARD_MESH_RUNS:
+        log(f"--mesh-cards: {world} card(s); it runs on "
+            f"{sorted(CARD_MESH_RUNS)} FAIL")
+        return False
+    refs = {}
+    for _, _, param_dtype, kv_dtype in CARD_MESH_RUNS[world]:
+        if (param_dtype, kv_dtype) in refs:
+            continue
+        lvu = make_lvu(dev, param_dtype, kv_dtype)
+        inputs = make_request(lvu.model_config, lvu.tokenizer, QUESTIONS[0],
+                              seed=0)
+        for _ in range(2):  # the second is timed
+            t0 = time.perf_counter()
+            res = lvu.engine.generate(
+                inputs, max_new_tokens=8,
+                eos_token_ids=[lvu.tokenizer.eos_token_id])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        cache, st = lvu.engine.prefill(inputs)
+        refs[(param_dtype, kv_dtype)] = dict(
+            tokens=res.tokens.tolist(), layer_lengths=res.layer_lengths,
+            logits=lvu.engine.final_prefill(cache, st).float().cpu())
+        log(f"[3i one rank] weights {param_dtype} KV {kv_dtype}: request "
+            f"wall {wall:.3f} s (its second run), spans(s) "
+            f"{ {k: round(v, 4) for k, v in sorted(res.timings.items())} }")
+        del lvu, cache, st
+        torch.cuda.empty_cache()
+    ok, _, runs, _ = _mesh_phase(world, "nccl", refs,
+                                 f"NCCL across {world} cards")
+    return ok and bool(runs)
+
+
 # -- phase 4: card vs CPU ----------------------------------------------------
 
 
@@ -3286,6 +4018,19 @@ def main():
              "quickvideo_tpu_torch to time (default: this one), e.g. an "
              "unpacked older commit",
     )
+    # phase 3i's own processes (run_mesh starts them)
+    ap.add_argument("--mesh-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-dir", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--nccl-one", action="store_true", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-world", type=int, default=MESH_WORLD,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-backend", default="gloo", help=argparse.SUPPRESS)
+    ap.add_argument(
+        "--mesh-cards", action="store_true",
+        help="instead of the smoke test, run phase 3i's checks and requests "
+             "with NCCL, one rank per card (2 or 4 cards)",
+    )
     args = ap.parse_args()
     if args.root != ROOT:
         if not (args.compare_b1 or args.compare_fused):
@@ -3301,6 +4046,16 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
+    if args.mesh_dir is not None:  # a process of phase 3i
+        if args.mesh_backend == "nccl":  # one rank per card
+            dev = torch.device("cuda", args.mesh_rank)
+        torch.cuda.set_device(dev)
+        if args.mesh_rank is not None:
+            run_mesh_rank(dev, args.mesh_rank, args.mesh_world,
+                          args.mesh_dir, args.mesh_backend)
+        elif args.nccl_one:
+            run_nccl_one(dev, args.mesh_dir)
+        return
     gpu = _gpu_line()
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
@@ -3327,6 +4082,9 @@ def main():
             ok &= flash_kernel_info()
         log(f"compare-b1: {'OK' if ok else 'FAIL'}")
         return
+    if args.mesh_cards:
+        log(f"mesh-cards: {'OK' if run_card_mesh(dev) else 'FAIL'}")
+        return
     if args.compare_fused:
         ok = compare_fused(dev, os.path.relpath(args.root, ROOT))
         if args.root == ROOT:
@@ -3344,12 +4102,16 @@ def main():
         (27, 1000, 4096),     # 189 packed rows: the decode kernel's largest
         (28, 1000, 4096),     # 196 packed rows: one prefill row tile
     ]
+    # a tp rank's heads on the 7B (tp = 2: 14 / 2, tp = 4: 7 / 1) at the
+    # group step and at decode (phase 3i)
+    tp_cases = [(g, length, cap, hq, hkv) for hq, hkv in ((14, 2), (7, 1))
+                for g, length, cap in ((3600, 1807, 16384), (1, 4000, 8192))]
     headline = (3600, 53744, 65536)  # the 1024-frame headline's last step
-    flash_rows = check_flash(dev, flash_cases + [headline])
+    flash_rows = check_flash(dev, flash_cases + [headline] + tp_cases)
     flash_int8_rows = check_flash_int8(dev, flash_cases + [
         headline,
         (1, 122880, 131072),   # hour-scale decode
-    ])
+    ] + tp_cases)
     mode_rows = check_flash_modes(dev, [
         (False, 3620, 1807, 16384),  # the 7B query-based group, 20-token prompt
         (False, 3620, 53744, 65536),  # ... at the 1024-frame headline's last step
@@ -3357,6 +4119,13 @@ def main():
         (False, 20, 1807, 4096),  # 20 rows over a past (the decode kernel)
         (True, 3600, 1807, 16384),  # the hot path's group step with lse
         (True, 3600, 53744, 65536),
+        # context parallelism (phase 3i): a window of 4096 slots at the
+        # 64-frame request's second group step, decode over a window, and
+        # over an empty one; the in-group partial over the raw group
+        (False, 3600, 1805, 4096),
+        (False, 1, 4000, 4096),
+        (False, 1, 0, 4096),
+        (True, 3600, 0, 3600),
     ])
     check_b1_headline_sdpa(dev)
     vision_rows = check_vision(dev, [
@@ -3422,6 +4191,9 @@ def main():
     auto_ok, counts = run_auto_hour_capacity(dev)
     ok &= auto_ok
     runs.append(counts)
+    torch.cuda.empty_cache()
+    mesh_ok, mesh_kernel_rows, mesh_runs = run_mesh(dev)
+    ok &= mesh_ok
     launches = {k: sum(r[k] for r in runs) for k in launches}
     ok &= run_card_vs_cpu(dev)
 
@@ -3487,6 +4259,25 @@ def main():
                 f"flash_past_attention (B1, {variant} KV, {what})", *flash,
                 launches[f"flash_{variant}_{mode}"], rows, rows[0],
             ))
+    # phase 3i's B1 modes, launched in its rank processes (counted there
+    # per request): the past on a CP window (timed at the 64-frame request's
+    # second group step on a 4096-slot window) and the in-group partial
+    # (timed at G = 3600 over the raw group)
+    mesh_counts = [r["counts"] for recs in mesh_runs for r in recs]
+    for what, mode, key, case in (
+        ("per CP window: pure past + lse at the window's local length, "
+         "merged over sp", "past+lse", "cp_past", (3600, 1805)),
+        ("in-group partial under sp: unified + lse over an empty past",
+         "unified+lse", "in_group", (3600, 0)),
+    ):
+        rows = [r for r in mode_rows if r["variant"] == "bf16"
+                and r["mode"] == mode and (r["g"], r["length"]) == case]
+        launched = sum(c.get(f"flash_{v}_{mode}", 0) for c in mesh_counts
+                       for v in B1_VARIANTS if mode == "past+lse"
+                       or v == "bf16")
+        errs = [r for r in mesh_kernel_rows if r.get("what") == key]
+        kernels.append(entry(f"flash_past_attention (B1, {what})", *flash,
+                             launched, errs + rows, rows[0]))
     fused = "fused_vision_mlp.cu"
     kernels += [
         entry("block_diag_attention_2d (B2)", "vision_attention.cu",

@@ -17,6 +17,16 @@ the KV cache, and their .npz files, chat.py).
 The device is CUDA unless `device` says otherwise: without a card `LVU`
 raises instead of running on the CPU. `device="cpu"` runs the kernels'
 plain versions.
+
+A mesh (`config.mesh` of more than one device; quickvideo_tpu/api.py:
+93-111) runs one process per rank, each building the same LVU: the process
+group comes from parallel.mesh.init_multihost (called here from the
+environment unless the caller started it, with the backend the device
+implies: NCCL on CUDA, gloo on the CPU), `lvu.mesh` is this rank's
+Mesh, the device is cuda:{local rank} unless `device` names one, and the
+parameters are this rank's tensor-parallel shard: cut from `params`,
+read with load_params_sharded, or drawn whole and sliced. Every rank runs
+every request; each returns the same answer.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from quickvideo_tpu_torch.models import (
 )
 from quickvideo_tpu_torch.models.qwen25_vl.convert import init_params
 from quickvideo_tpu_torch.ops.quantization import quantize_model_params
+from quickvideo_tpu_torch.parallel.sharding import shard_params
 from quickvideo_tpu_torch.prefill.engine import LVUEngine, check_slice
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -50,9 +61,23 @@ class LVU:
         params: Optional[dict] = None,
         device=None,
     ):
-        check_slice(config)
+        name = config.model_name_or_path or "qwen25-vl-7b"
+        self.model_config = get_config(name)
+        check_slice(config, self.model_config)
         ensure_builtin_engines()
         self.config = config
+        self.mesh = None
+        if config.mesh.num_devices > 1:
+            from quickvideo_tpu_torch.parallel.mesh import (
+                init_multihost,
+                make_mesh,
+            )
+
+            init_multihost(device=device)
+            self.mesh = make_mesh(config.mesh, device)
+            device = self.mesh.device
+            if device.type == "cuda":
+                torch.cuda.set_device(device)
         self.device = torch.device("cuda" if device is None else device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -64,17 +89,18 @@ class LVU:
             # current device torch keeps apart) select the same one
             self.device = torch.device("cuda", torch.cuda.current_device())
         int8 = config.param_dtype == "int8"
-        name = config.model_name_or_path or "qwen25-vl-7b"
-        self.model_config = get_config(name)
         dtype = DTYPES[config.dtype]
+        tp_rank = ((0, 1) if self.mesh is None
+                   else (self.mesh.index("tp"), self.mesh.tp))
         if params is not None:
-            self.params = quantize_model_params(params) if int8 else params
+            params = quantize_model_params(params) if int8 else params
+            self.params = shard_params(params, *tp_rank)
         elif os.path.isdir(config.model_name_or_path or ""):
             from quickvideo_tpu_torch.models.qwen25_vl.load import load_params
 
             self.params = load_params(
                 config.model_name_or_path, self.model_config, dtype,
-                self.device,
+                self.device, tp_rank, int8,
             )
             if int8:
                 self.params = quantize_model_params(self.params)
@@ -93,13 +119,14 @@ class LVU:
             )
             self.params = init_params(
                 self.model_config, config.seed, dtype, self.device,
-                param_dtype=config.param_dtype,
+                param_dtype=config.param_dtype, mesh=self.mesh,
             )
         self.tokenizer = load_tokenizer(
             config.model_name_or_path or "", self.model_config
         )
         self.engine = LVUEngine(
-            self.params, self.model_config, config, dtype, self.device
+            self.params, self.model_config, config, dtype, self.device,
+            mesh=self.mesh,
         )
         self.params = self.engine.params  # with the engine's weight prep
         self.last_result = None

@@ -16,6 +16,13 @@ A session saved by either package resumes in the other. int8 caches store
 both scale tensors; an int8k cache (int8 K only) stores `k_scale` alone,
 which the JAX package cannot write (ROADMAP C15) and the port reads back.
 
+Under a mesh (quickvideo_tpu/chat.py:361-404) every rank runs the session.
+`save` gathers the cache's tp heads and sp windows (parallel/comm.py) into
+the same .npz a single device writes, which the request's first rank
+writes; `load` rounds the saved capacity up to the engine's quantum
+(4096 * sp) and gives each rank its heads and window, so a session moves
+between a mesh and one device either way.
+
 Usage:
     session = lvu.start_chat("movie.mp4")
     a1 = session.ask("What happens first?")       # full video prefill
@@ -25,6 +32,7 @@ Usage:
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from typing import List, Optional
 
@@ -33,6 +41,9 @@ import torch
 
 from quickvideo_tpu_torch.models.qwen25_vl import rope
 from quickvideo_tpu_torch.ops.kv_cache import KVCache
+from quickvideo_tpu_torch.parallel.comm import all_gather
+from quickvideo_tpu_torch.parallel.context_parallel import shard_cache_cp
+from quickvideo_tpu_torch.parallel.sharding import shard_cache
 from quickvideo_tpu_torch.tokenization import special_ids
 from quickvideo_tpu_torch.utils.timing import SpanTimer
 
@@ -251,9 +262,20 @@ class ChatSession:
                 "nothing to save: ask at least one question first"
             )
         cache = self._cache
+        mesh = self.lvu.mesh
         hi = max(cache.lengths)
-        k, k_dtype = _pack(cache.k[:, :, :hi])
-        v, v_dtype = _pack(cache.v[:, :, :hi])
+
+        def whole(t):
+            # the populated slots of every tp rank's heads and sp window
+            if t is None:
+                return None
+            if mesh is not None:
+                t = all_gather(t, mesh.group("sp"), dim=2)
+                t = all_gather(t, mesh.group("tp"), dim=1)
+            return t[:, :, :hi]
+
+        k, k_dtype = _pack(whole(cache.k))
+        v, v_dtype = _pack(whole(cache.v))
         arrays = {
             "k": k,
             "v": v,
@@ -263,9 +285,9 @@ class ChatSession:
             "pos_prefix": np.asarray(self._pos_prefix),
         }
         for name in ("k_scale", "v_scale"):
-            scale = getattr(cache, name)
+            scale = whole(getattr(cache, name))
             if scale is not None:
-                arrays[name] = scale[:, :, :hi].cpu().numpy()
+                arrays[name] = scale.cpu().numpy()
         meta = {
             "version": SESSION_FORMAT_VERSION,
             "fingerprint": _session_fingerprint(self.lvu),
@@ -282,8 +304,11 @@ class ChatSession:
                 for t in self.turns
             ],
         }
-        with open(path, "wb") as f:
-            np.savez(f, meta=json.dumps(meta), **arrays)
+        if mesh is None or mesh.is_first:
+            with open(path, "wb") as f:
+                np.savez(f, meta=json.dumps(meta), **arrays)
+        if mesh is not None and mesh.model_group is not None:
+            torch.distributed.barrier(group=mesh.model_group)
 
     @classmethod
     def load(cls, lvu, path: str) -> "ChatSession":
@@ -309,24 +334,40 @@ class ChatSession:
             )
         session = cls(lvu, meta["video_path"])
         session._reserve = meta["reserve"]
-        capacity = meta["capacity"]
+        # under context parallelism the capacity rounds up to the quantum,
+        # as a fresh prefill's does; the added slots lie past every length
+        quantum = lvu.engine.capacity_quantum
+        capacity = -(-meta["capacity"] // quantum) * quantum
 
         def grow(a: torch.Tensor) -> torch.Tensor:
+            # zero past the saved slots, on the host
             full = torch.zeros(a.shape[:2] + (capacity,) + a.shape[3:],
-                               dtype=a.dtype, device=lvu.device)
+                               dtype=a.dtype)
             full[:, :, : a.shape[2]].copy_(a)
             return full
 
         def scale(name):
             return grow(torch.from_numpy(data[name])) if name in data else None
 
-        session._cache = KVCache(
+        cache = KVCache(
             k=grow(_unpack(data["k"], meta["k_dtype"])),
             v=grow(_unpack(data["v"], meta["v_dtype"])),
             lengths=[int(n) for n in data["length"]],
             k_scale=scale("k_scale"),
             v_scale=scale("v_scale"),
         )
+        mesh = lvu.mesh
+        if mesh is not None:  # this rank's heads and capacity window
+            cache = shard_cache_cp(shard_cache(cache, mesh.index("tp"),
+                                               mesh.tp),
+                                   mesh.index("sp"), mesh.sp)
+
+        def put(t):
+            return None if t is None else t.to(lvu.device)
+
+        session._cache = dataclasses.replace(
+            cache, k=put(cache.k), v=put(cache.v),
+            k_scale=put(cache.k_scale), v_scale=put(cache.v_scale))
         session._cache_len = meta["cache_len"]
         session._delta = meta["delta"]
         session._ss0 = meta["ss0"]

@@ -98,13 +98,17 @@ def load_jsonl(path: str) -> List[QASample]:
 
 
 def shard_samples(samples, rank: Optional[int] = None,
-                  world: Optional[int] = None):
+                  world: Optional[int] = None, mesh=None):
     """Communication-free eval data parallelism: each process takes every
     world-th sample (the reference achieves the same with `accelerate launch
     --num_processes 8`, README.md:405). Rank/world default from env
-    (QV_RANK/QV_WORLD or accelerate's RANK/WORLD_SIZE)."""
+    (QV_RANK/QV_WORLD or accelerate's RANK/WORLD_SIZE). With the port's
+    `mesh` (an LVU's `lvu.mesh`), rank/world are its dp coordinate and dp
+    size: the tp and sp ranks of one request share its samples."""
     import os
 
+    if mesh is not None:
+        rank, world = mesh.index("dp"), mesh.size("dp")
     rank = rank if rank is not None else int(
         os.environ.get("QV_RANK", os.environ.get("RANK", "0"))
     )

@@ -10,13 +10,23 @@ built from cpp/quickdecode against FFmpeg).
 
 The port's counterpart of choosing a JAX platform is `--device`: `cuda`
 (the default; there is no fallback to the CPU when no card is present)
-or `cpu`, which runs the kernels' plain versions. `--mesh` parses as in
-the JAX CLI, and the LVU refuses a mesh of more than one device.
+or `cpu`, which runs the kernels' plain versions. `--mesh dp,pp,tp,sp`
+parses as in the JAX CLI and runs one process per rank:
+
+    torchrun --nproc-per-node 2 -m quickvideo_tpu_torch.lvu_cli \
+        --mesh 1,1,2,1 --video_path clip.mp4 --question "..."
+
+Every rank runs the same requests (NCCL between the cards with --device
+cuda, gloo with --device cpu); rank 0 prints, and in --interactive mode
+reads the questions and hands them to the other ranks. pp > 1 is refused
+(NotImplementedError).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import sys
 import tempfile
@@ -195,6 +205,30 @@ def main(argv=None):
         **mesh_kw,
     )
     lvu = LVU(cfg, device=args.device)
+    quiet = lvu.mesh is not None and lvu.mesh.rank != 0
+    with (contextlib.redirect_stdout(io.StringIO()) if quiet
+          else contextlib.nullcontext()):
+        return _run(args, lvu, video)
+
+
+def _read_question(mesh):
+    """The next interactive question, None at the end (EOF or an empty
+    line); under a mesh rank 0 reads it and every rank gets it."""
+    box = [None]
+    if mesh is None or mesh.rank == 0:
+        try:
+            box[0] = input("> ").strip() or None
+        except EOFError:
+            pass
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
+def _run(args, lvu, video) -> int:
+    """The questions of `args` against `video` (module docstring)."""
     if args.interactive:
         import os
         import time
@@ -212,11 +246,8 @@ def main(argv=None):
                 q = queued.pop(0)
                 print(f"> {q}")
             else:
-                try:
-                    q = input("> ").strip()
-                except EOFError:
-                    break
-                if not q:
+                q = _read_question(lvu.mesh)
+                if q is None:
                     break
             on_toks = None
             if args.stream and not args.json:

@@ -16,6 +16,11 @@ Matrices keep the JAX (in, out) layout and the port applies them as
 {"q8", "sc"} dict (ops/quantization.py): q8 keeps the (in, out) shape as a
 view of a row-major (out, in) tensor, the layout the int8 products read.
 A safetensors checkpoint loads into the same tree (load.py).
+
+Under a mesh (`mesh=`, parallel/mesh.py) each tp rank keeps its slices of
+the language matrices (parallel/sharding.py), cut from the same full
+tensors a single-device run holds, so a sharded run and a single-rank run
+hold the same numbers.
 """
 
 from __future__ import annotations
@@ -31,6 +36,17 @@ from quickvideo_tpu_torch.ops.quantization import (
     is_quantized,
     quantize_weight,
 )
+from quickvideo_tpu_torch.parallel.sharding import (
+    COL,
+    shard_language_layer,
+    shard_leaf,
+    shard_params,
+)
+
+
+def _tp_rank(mesh):
+    """(this rank's tp index, tp) of `mesh` (None: one device)."""
+    return (0, 1) if mesh is None else (mesh.index("tp"), mesh.tp)
 
 
 def _to(a, device, dtype) -> torch.Tensor:
@@ -65,11 +81,15 @@ def _unstack(stacked: dict, device, dtype) -> list:
     ]
 
 
-def params_from_jax(tree: dict, device="cpu", dtype=None) -> dict:
+def params_from_jax(tree: dict, device="cpu", dtype=None, mesh=None) -> dict:
     """Map the JAX parameter tree (leaves as numpy arrays, e.g.
     `jax.tree.map(np.asarray, params)`) onto the port's state. `dtype`
     None keeps each leaf's dtype. Quantized leaves (the JAX package's
-    quantize_model_params) stay quantized."""
+    quantize_model_params) stay quantized. With `mesh`, this rank's
+    tensor-parallel shard of it."""
+    if mesh is not None and mesh.tp > 1:
+        return shard_params(params_from_jax(tree, device, dtype),
+                            *_tp_rank(mesh))
     out = {}
     if "language" in tree:
         lang = tree["language"]
@@ -97,6 +117,7 @@ def init_params(
     dtype=torch.bfloat16,
     device="cpu",
     param_dtype: Optional[str] = None,
+    mesh=None,
 ) -> dict:
     """Seeded random weights at the config's full shapes, generated ON
     `device` (the 7B's ~16.6 GB of bf16 never passes through the host).
@@ -106,7 +127,12 @@ def init_params(
     param_dtype="int8": each matrix is quantized as soon as it is drawn
     (the embedding per row), so the float tree never exists whole. The
     generator runs the same sequence, so the int8 and float trees of one
-    seed hold the same weights up to quantization."""
+    seed hold the same weights up to quantization.
+
+    With `mesh`, this rank's tensor-parallel shard: each language matrix is
+    drawn whole (and quantized whole) from the same sequence, then sliced,
+    so a rank never holds more than one full layer beside its shard."""
+    tpi, tpn = _tp_rank(mesh)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     int8 = param_dtype == "int8"
@@ -129,7 +155,7 @@ def init_params(
     language = {
         "embed": nrm(t.vocab_size, c, contract_axis=-1),
         "layers": [
-            {
+            shard_language_layer({
                 "ln1": ones(c), "ln2": ones(c),
                 "wq": nrm(c, hq), "bq": zeros(hq),
                 "wk": nrm(c, hkv), "bk": zeros(hkv),
@@ -138,11 +164,11 @@ def init_params(
                 "wg": nrm(c, t.intermediate_size),
                 "wu": nrm(c, t.intermediate_size),
                 "wd": nrm(t.intermediate_size, c),
-            }
+            }, tpi, tpn)
             for _ in range(t.num_hidden_layers)
         ],
         "norm": ones(c),
-        "lm_head": nrm(c, t.vocab_size),
+        "lm_head": shard_leaf(nrm(c, t.vocab_size), COL, tpi, tpn),
     }
     vc, vi = v.hidden_size, v.intermediate_size
     merge_dim = vc * v.spatial_merge_unit

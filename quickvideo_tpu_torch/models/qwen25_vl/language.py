@@ -30,6 +30,21 @@ With an int8 or int8k cache the appends quantize and B1 runs its int8-QK
 variant. `prefill_step_unrolled` takes one spec per layer (decay schedules;
 the cascade shrinks the rows for the next layer).
 
+Under a mesh (parallel/mesh.py) every rank runs the same steps; `mesh`
+None is one device. Tensor parallelism (tp): a rank holds its heads' and
+MLP columns' slices of the weights (parallel/sharding.py), q/k/v carry its
+local heads, the o-projection's and the down-projection's partial products
+sum over tp in f32 (`_row_parallel`; int8 weights quantize each activation
+row with its whole-row scale), the predictors' scores reduce over tp (the
+query-based accumulation, the group probabilities, the norms), and the
+logits gather their vocab slices (`compute_logits`): the JAX package's
+manual-tp route (language.py:138-143, 158-172, 332-335, 528-530, 614-616).
+Context parallelism (sp): the cache holds the rank's capacity window, and
+every step's attention over the past is B1 pure past + lse on the window,
+merged over sp, then merged with the in-group partial (parallel/
+context_parallel.py; the JAX `cp_mesh` routes, language.py:324-392,
+405-426); appends write the window's part.
+
 Every matrix product goes through ops/quantization.py, so a layer runs bf16
 or int8 weights alike (the JAX package's qdot / qdot_multi / qtake call
 sites). `min_rows` is the act-quant row gate: None is the default gate
@@ -65,13 +80,22 @@ from quickvideo_tpu_torch.ops.quantization import (
     qdot,
     qtake,
 )
+from quickvideo_tpu_torch.parallel.comm import (
+    all_gather,
+    all_reduce_sum,
+    group_size,
+)
+from quickvideo_tpu_torch.parallel.context_parallel import (
+    cp_stacked_grouped_attention,
+    cp_stacked_past_attention,
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class StepSpec:
     """What one prefill / decode step does at one layer (the JAX package's
-    StepSpec, language.py:96-151, without the mesh and tensor-parallel
-    fields). `keep_k == 0` appends every video row."""
+    StepSpec, language.py:96-151; the mesh is the step functions' `mesh`
+    argument). `keep_k == 0` appends every video row."""
 
     q_len: int  # rows entering the step (with the prompt tail if query-based)
     keep_k: int = 0  # retained video rows (0 = keep all)
@@ -114,23 +138,42 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
 
 
+def _groups(mesh):
+    """(tp group, sp group) of the mesh; None for an axis of one rank."""
+    if mesh is None:
+        return None, None
+    return mesh.group("tp"), mesh.group("sp")
+
+
+def _row_parallel(x: torch.Tensor, w, tp,
+                  min_rows: Optional[int] = None) -> torch.Tensor:
+    """x @ w rounded to x's dtype, where under tp x is the rank's slice of
+    the contraction and w its rows: the partial products sum over tp in
+    f32 and round once."""
+    if tp is None:
+        return linear(x, w, min_rows=min_rows)
+    y = qdot(x, w, min_rows=min_rows, group=tp)
+    return all_reduce_sum(y, tp).to(x.dtype)
+
+
 def swiglu_mlp(x: torch.Tensor, lp: dict,
-               min_rows: Optional[int] = None) -> torch.Tensor:
+               min_rows: Optional[int] = None, tp=None) -> torch.Tensor:
     g, u = linear_multi(x, (lp["wg"], lp["wu"]), min_rows=min_rows)
-    return linear(F.silu(g) * u, lp["wd"], min_rows=min_rows)
+    return _row_parallel(F.silu(g) * u, lp["wd"], tp, min_rows)
 
 
 def _project_qkv(lp: dict, h: torch.Tensor, cfg: TextConfig,
                  min_rows: Optional[int] = None):
-    """(L, C) -> q (Hq, L, D), k/v (Hkv, L, D), as strided views."""
+    """(L, C) -> q (Hq, L, D), k/v (Hkv, L, D), as strided views; under tp
+    the weights hold the rank's heads, and so do q, k and v."""
     l = h.shape[0]
     hd = cfg.head_dim
     q, k, v = linear_multi(
         h, (lp["wq"], lp["wk"], lp["wv"]), min_rows=min_rows
     )
-    q = (q + lp["bq"]).view(l, cfg.num_attention_heads, hd)
-    k = (k + lp["bk"]).view(l, cfg.num_key_value_heads, hd)
-    v = (v + lp["bv"]).view(l, cfg.num_key_value_heads, hd)
+    q = (q + lp["bq"]).view(l, -1, hd)
+    k = (k + lp["bk"]).view(l, -1, hd)
+    v = (v + lp["bv"]).view(l, -1, hd)
     return q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1)
 
 
@@ -139,12 +182,13 @@ def embed_tokens(params: dict, token_ids: torch.Tensor) -> torch.Tensor:
 
 
 def compute_logits(
-    params: dict, hidden: torch.Tensor, cfg: TextConfig
+    params: dict, hidden: torch.Tensor, cfg: TextConfig, mesh=None,
 ) -> torch.Tensor:
     """(C,) or (L, C) -> logits in f32 (the product is not rounded to the
-    model dtype first, as in the JAX package)."""
+    model dtype first, as in the JAX package); under tp each rank computes
+    its vocab slice and the slices are gathered."""
     h = rms_norm(hidden, params["norm"], cfg.rms_norm_eps)
-    return qdot(h, params["lm_head"])
+    return all_gather(qdot(h, params["lm_head"]), _groups(mesh)[0], dim=-1)
 
 
 def _layer(scales: Optional[torch.Tensor], li: int):
@@ -152,23 +196,28 @@ def _layer(scales: Optional[torch.Tensor], li: int):
 
 
 def _prompt_accum_scores(q_prompt: torch.Tensor, k_video: torch.Tensor,
-                         cfg: TextConfig) -> torch.Tensor:
+                         cfg: TextConfig, tp=None) -> torch.Tensor:
     """Prompt -> video-key attention accumulated as the reference does:
     softmax over the video keys only (no past, no causal mask), summed over
-    the prompt queries, averaged over query heads -> (video_len,) f32
-    (quickvideo_tpu/models/qwen25_vl/language.py:175-190)."""
+    the prompt queries, averaged over query heads (under tp the rank's
+    head mean, averaged over the ranks) -> (video_len,) f32
+    (quickvideo_tpu/models/qwen25_vl/language.py:175-190, 332-335)."""
     hkv = k_video.shape[0]
     hq, p, d = q_prompt.shape
     qf = q_prompt.float().reshape(hkv, hq // hkv, p, d)
     scores = torch.einsum("hrqd,hkd->hrqk", qf, k_video.float()) / (
         cfg.head_dim ** 0.5
     )
-    return torch.softmax(scores, dim=-1).sum(dim=2).mean(dim=(0, 1))
+    accum = torch.softmax(scores, dim=-1).sum(dim=2).mean(dim=(0, 1))
+    return all_reduce_sum(accum, tp) / group_size(tp)
 
 
-def _query_based_attention(q, k_grp, v_grp, cache, li, length, spec, scale):
+def _query_based_attention(q, k_grp, v_grp, cache, li, length, spec, scale,
+                           sp=None):
     """The query-based step's attention (module docstring): in-group
-    partial merged with the past partial. Returns (Hq, q_len, D) f32."""
+    partial merged with the past partial (over the sp ranks' windows under
+    context parallelism, which takes precedence over the reference-
+    compatible mask, as in the JAX package). Returns (Hq, q_len, D) f32."""
     gv, ql = spec.video_len, spec.q_len
     row = torch.arange(ql, device=q.device)[:, None]
     col = torch.arange(gv, device=q.device)[None, :]
@@ -180,7 +229,9 @@ def _query_based_attention(q, k_grp, v_grp, cache, li, length, spec, scale):
     if not spec.attend_past:
         return pg.out
     ks, vs = _layer(cache.k_scale, li), _layer(cache.v_scale, li)
-    if spec.ref_query_mask:
+    if sp is not None:
+        pp = cp_stacked_past_attention(q, cache, li, length, scale, sp)
+    elif spec.ref_query_mask:
         # row i sees past slot j iff j <= i + length - prompt_len: the
         # plain masked partial over the (dequantized) valid slots
         n = max(length, 1)
@@ -210,10 +261,12 @@ def layer_step(
     spec: StepSpec,
     min_rows: Optional[int] = None,  # act-quant row gate (module docstring)
     generator: Optional[torch.Generator] = None,  # random predictors
+    mesh=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One decoder layer over the current group. Writes the group's K/V (or
     its compact) into layer `li` of the cache at `cache.lengths[li]`; the
     caller advances the length. Returns (x_out, retained indices | None)."""
+    tp, sp = _groups(mesh)
     length = cache.lengths[li]
     scale = cfg.head_dim ** -0.5
     h = rms_norm(x, lp["ln1"], cfg.rms_norm_eps)
@@ -224,13 +277,22 @@ def layer_step(
     accum = group_probs = None
     appended = False
     if spec.prompt_len > 0:
-        accum = _prompt_accum_scores(q[:, gv:], k_grp, cfg)
+        accum = _prompt_accum_scores(q[:, gv:], k_grp, cfg, tp)
         out = _query_based_attention(q, k_grp, v_grp, cache, li, length,
-                                     spec, scale)
+                                     spec, scale, sp)
     elif not spec.attend_past:
         out, group_probs = grouped_attention(
-            q, k_grp, v_grp, scale=scale, return_group_probs=spec.needs_probs
+            q, k_grp, v_grp, scale=scale, return_group_probs=spec.needs_probs,
+            group=tp,
         )
+    elif sp is not None:
+        # context parallelism: the past over the sp windows, merged with
+        # the in-group partial; the rows are appended below
+        out, lse = cp_stacked_grouped_attention(
+            q, k_grp, v_grp, cache, li, length, scale, sp
+        )
+        if spec.needs_probs:
+            group_probs = group_probs_from_lse(q, k_grp, lse, scale, tp)
     else:
         # raw group at [length, length + G) (quantized where the cache is,
         # so the group attends its own K/V with the int8 rounding);
@@ -243,12 +305,10 @@ def layer_step(
             v_scale=_layer(cache.v_scale, li), with_lse=spec.needs_probs,
         )
         if spec.needs_probs:
-            group_probs = group_probs_from_lse(q, k_grp, lse, scale)
+            group_probs = group_probs_from_lse(q, k_grp, lse, scale, tp)
     ql = x.shape[0]
-    attn = out.to(x.dtype).transpose(0, 1).reshape(
-        ql, cfg.num_attention_heads * cfg.head_dim
-    )
-    x = x + linear(attn, lp["wo"], min_rows=min_rows)
+    attn = out.to(x.dtype).transpose(0, 1).reshape(ql, -1)
+    x = x + _row_parallel(attn, lp["wo"], tp, min_rows)
     indices = None
     if spec.keep_k > 0:
         # the raw rotary keys are scored; the kept raw rows are (re)quantized
@@ -257,12 +317,14 @@ def layer_step(
         res = prune_ops.select_and_compact(
             spec.predict_type, spec.keep_k, k_grp, v_grp, hidden=x[:gv],
             group_probs=group_probs, accum_attn=accum, generator=generator,
+            group=tp,
         )
         kv.stacked_append(cache, li, length, res.k_keep, res.v_keep)
         indices = res.indices
     elif not appended:
         kv.stacked_append(cache, li, length, k_grp, v_grp)
-    x = x + swiglu_mlp(rms_norm(x, lp["ln2"], cfg.rms_norm_eps), lp, min_rows)
+    x = x + swiglu_mlp(rms_norm(x, lp["ln2"], cfg.rms_norm_eps), lp, min_rows,
+                       tp)
     return x, indices
 
 
@@ -276,6 +338,7 @@ def prefill_step_unrolled(
     specs: Sequence[StepSpec],  # one per layer
     min_rows: Optional[int] = None,
     seed_key: Optional[Sequence[int]] = None,  # random predictors' seed
+    mesh=None,
 ) -> Tuple[torch.Tensor, List[Optional[torch.Tensor]]]:
     """One group through all layers, each with its own spec (keep_k may
     change with depth). Advances layer li's length by specs[li].append_n.
@@ -289,7 +352,7 @@ def prefill_step_unrolled(
         spec = specs[li]
         x, idx = layer_step(
             lp, x, cos, sin, cache, li, cfg, spec, min_rows,
-            layer_generator(seed_key, li, spec),
+            layer_generator(seed_key, li, spec), mesh,
         )
         cache.lengths[li] += spec.append_n
         indices.append(idx)
@@ -313,12 +376,13 @@ def prefill_step(
     spec: Optional[StepSpec] = None,  # default: append all rows
     min_rows: Optional[int] = None,
     seed_key: Optional[Sequence[int]] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, List[Optional[torch.Tensor]]]:
     """`prefill_step_unrolled` with one spec for every layer."""
     spec = spec or StepSpec(q_len=x.shape[0])
     return prefill_step_unrolled(
         params, cache, x, cos, sin, cfg, [spec] * len(params["layers"]),
-        min_rows, seed_key,
+        min_rows, seed_key, mesh,
     )
 
 
@@ -329,9 +393,10 @@ def decode_step(
     cos: torch.Tensor,  # (1, head_dim)
     sin: torch.Tensor,
     cfg: TextConfig,
+    mesh=None,
 ) -> torch.Tensor:
     """Autoregressive single-token step through every layer (q = 1: kernel
     B1 at G = 1). Returns logits (V,) f32."""
     x = embed_tokens(params, token_id)
-    x, _ = prefill_step(params, cache, x, cos, sin, cfg)
-    return compute_logits(params, x[0], cfg)
+    x, _ = prefill_step(params, cache, x, cos, sin, cfg, mesh=mesh)
+    return compute_logits(params, x[0], cfg, mesh)

@@ -14,7 +14,12 @@ the raw tensors; BF16, F16 and F32). Each shard is memory-mapped and each
 leaf is copied from the mapping straight to `device` as it is needed, so a
 shard never sits in host memory as a second copy and the tree is never
 stacked on the host. A truncated or malformed file raises ValueError.
-`load_params_sharded` (a mesh) is not ported.
+
+`load_params_sharded` (quickvideo_tpu/models/qwen25_vl/load.py:133) gives
+a tensor-parallel rank its part of the tree (parallel/sharding.py): each
+split tensor is narrowed on the file's map before it is copied, so only
+the rank's slice is read and copied, and the host holds one leaf at a
+time.
 """
 
 from __future__ import annotations
@@ -30,6 +35,17 @@ import numpy as np
 import torch
 
 from quickvideo_tpu_torch.models.qwen25_vl.config import ModelConfig
+from quickvideo_tpu_torch.ops.quantization import (
+    LANG_LAYER_KEYS,
+    quantize_language_params,
+)
+from quickvideo_tpu_torch.parallel.sharding import (
+    COL,
+    LANGUAGE_RULES,
+    LAYER_RULES,
+    ROW,
+    shard_leaf,
+)
 
 DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32}
 
@@ -152,17 +168,31 @@ def _as_tensor(a) -> torch.Tensor:
 
 def params_from_fetch(
     fetch: Callable[[str], torch.Tensor], cfg: ModelConfig,
-    dtype=torch.bfloat16, device="cpu",
+    dtype=torch.bfloat16, device="cpu", tp_rank=(0, 1), int8: bool = False,
 ) -> dict:
     """The port's tree from `fetch(normalized name)` -> a tensor in the HF
     (out, in) layout. Each leaf is copied to `device` and `dtype` as it is
-    fetched (a matrix is transposed there)."""
+    fetched (a matrix is transposed there). `tp_rank` = (index, tp): the
+    language matrices that tensor parallelism splits are narrowed to the
+    rank's slice first (HF dim 0 for a column split, dim 1 for a row
+    split). `int8` quantizes the language layers as they load; a row-split
+    matrix is then read whole, quantized (its scales span the whole
+    contraction) and sliced after."""
     t, v = cfg.text, cfg.vision
+    tpi, tpn = tp_rank
+    late = ROW if int8 else None  # split after quantization
 
-    def leaf(name, transpose=False, reshape=None):
+    def leaf(name, transpose=False, reshape=None, rule=None):
         x = fetch(name)
         if reshape is not None:
             x = x.reshape(reshape)
+        if rule is not None and rule != late and tpn > 1:
+            dim = 0 if rule == COL else 1
+            w = x.shape[dim] // tpn
+            if w * tpn != x.shape[dim]:
+                raise ValueError(f"{name}: dim {dim} of {tuple(x.shape)} "
+                                 f"does not split over tp={tpn}")
+            x = x.narrow(dim, tpi * w, w)
         # a copy, also on the CPU: the fetched tensor may view a file map
         x = x.to(device=device, dtype=dtype, copy=True)
         return x.t().contiguous() if transpose else x
@@ -174,11 +204,20 @@ def params_from_fetch(
             "ln2": leaf(pre + "post_attention_layernorm.weight"),
         }
         for name in ("q", "k", "v"):
-            out[f"w{name}"] = leaf(pre + f"self_attn.{name}_proj.weight", True)
-            out[f"b{name}"] = leaf(pre + f"self_attn.{name}_proj.bias")
-        out["wo"] = leaf(pre + "self_attn.o_proj.weight", True)
+            out[f"w{name}"] = leaf(pre + f"self_attn.{name}_proj.weight", True,
+                                   rule=LAYER_RULES[f"w{name}"])
+            out[f"b{name}"] = leaf(pre + f"self_attn.{name}_proj.bias",
+                                   rule=LAYER_RULES[f"b{name}"])
+        out["wo"] = leaf(pre + "self_attn.o_proj.weight", True,
+                         rule=LAYER_RULES["wo"])
         for name, hf in (("wg", "gate"), ("wu", "up"), ("wd", "down")):
-            out[name] = leaf(pre + f"mlp.{hf}_proj.weight", True)
+            out[name] = leaf(pre + f"mlp.{hf}_proj.weight", True,
+                             rule=LAYER_RULES[name])
+        if int8:
+            quantize_language_params({"layers": [out]})
+            for name in LANG_LAYER_KEYS:
+                if LAYER_RULES[name] == late:
+                    out[name] = shard_leaf(out[name], late, tpi, tpn)
         return out
 
     def vision_block(i):
@@ -198,7 +237,7 @@ def params_from_fetch(
         "norm": leaf("language.norm.weight"),
         "lm_head": leaf(
             "language.embed_tokens.weight" if t.tie_word_embeddings
-            else "lm_head.weight", True,
+            else "lm_head.weight", True, rule=LANGUAGE_RULES["lm_head"],
         ),
     }
     vision = {
@@ -235,9 +274,11 @@ def params_from_state_dict(
 
 
 def load_params(model_dir: str, cfg: ModelConfig, dtype=torch.bfloat16,
-                device="cpu") -> dict:
+                device="cpu", tp_rank=(0, 1), int8: bool = False) -> dict:
     """Every *.safetensors shard of an HF snapshot directory, read leaf by
-    leaf onto `device`."""
+    leaf onto `device` (`tp_rank`, `int8`: see params_from_fetch; the rest
+    of the tree is quantized by ops/quantization.py's
+    quantize_model_params, which keeps the quantized leaves)."""
     shards = sorted(
         f for f in os.listdir(model_dir) if f.endswith(".safetensors")
     )
@@ -258,7 +299,18 @@ def load_params(model_dir: str, cfg: ModelConfig, dtype=torch.bfloat16,
             f, key = index[name]
             return f.tensor(key)
 
-        return params_from_fetch(fetch, cfg, dtype, device)
+        return params_from_fetch(fetch, cfg, dtype, device, tp_rank, int8)
     finally:
         for f in files:
             f.close()
+
+
+def load_params_sharded(model_dir: str, cfg: ModelConfig, mesh,
+                        dtype=torch.bfloat16, device=None,
+                        int8: bool = False) -> dict:
+    """This rank's tensor-parallel part of a checkpoint directory
+    (module docstring), on `device` (default the mesh's)."""
+    return load_params(
+        model_dir, cfg, dtype, mesh.device if device is None else device,
+        tp_rank=(mesh.index("tp"), mesh.tp), int8=int8,
+    )

@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from quickvideo_tpu_torch.ops.quantization import _div127
+from quickvideo_tpu_torch.parallel.comm import all_reduce_sum, group_size
 
 LOG2E = 1.4426950408889634
 LN2 = 0.6931471805599453
@@ -256,10 +257,12 @@ def group_probs_from_lse(
     k_grp: torch.Tensor,  # (Hkv, G, D) raw group keys
     lse: torch.Tensor,  # (Hq, G) log-sum-exp over everything the rows saw
     scale: float,
+    group=None,  # the tp process group: q / k_grp hold this rank's heads
 ) -> torch.Tensor:
     """In-group probabilities under the full softmax denominator, recovered
     from the attention's lse: prob[q, j] = exp(q . k_j * scale - lse[q]),
-    averaged over query heads, zero above the diagonal -> (G, G) f32
+    averaged over every query head (under tp the per-rank head sums add up
+    over `group`), zero above the diagonal -> (G, G) f32
     (quickvideo_tpu/models/qwen25_vl/language.py:215-241)."""
     hq, g, d = q.shape
     hkv = k_grp.shape[0]
@@ -271,7 +274,7 @@ def group_probs_from_lse(
         s = (qf[h] @ k_grp[h].float().t()) * scale
         total += torch.exp(s.sub_(lf[h]), out=s).sum(dim=0)
     total.masked_fill_(~causal_mask(g, q.device), 0.0)
-    return total / hq
+    return all_reduce_sum(total, group) / (hq * group_size(group))
 
 
 def grouped_attention(
@@ -281,6 +284,7 @@ def grouped_attention(
     *,
     scale: float,
     return_group_probs: bool = False,
+    group=None,  # the tp process group (group_probs_from_lse)
 ):
     """The group over itself only, causally (no past:
     adaptive_local_attention=False). Returns (out (Hq, G, D) f32, (G, G)
@@ -289,4 +293,4 @@ def grouped_attention(
                             causal_mask(q.shape[1], q.device), scale)
     if not return_group_probs:
         return pg.out, None
-    return pg.out, group_probs_from_lse(q, k_group, pg.lse, scale)
+    return pg.out, group_probs_from_lse(q, k_group, pg.lse, scale, group)

@@ -1,7 +1,6 @@
 """Token-importance predictors for KV pruning: the 19 policies.
 
-Counterpart of quickvideo_tpu/ops/predictors.py (single device: no tensor-
-parallel reductions). Shapes, as there:
+Counterpart of quickvideo_tpu/ops/predictors.py. Shapes, as there:
 
   keys, values: (Hkv, L, D) the group's keys (rotary applied) and values
   hidden:       (L, C) the hidden states after the attention residual
@@ -9,6 +8,13 @@ parallel reductions). Shapes, as there:
                 group keys under the full (past + group) softmax denominator,
                 zero above the diagonal where the group is causal
   accum_attn:   (L,) prompt -> key attention accumulated over the prompt
+
+Under tensor parallelism keys and values hold one tp rank's kv heads, and
+`group` (the tp process group) reduces what the heads feed: the squared
+norms (quickvideo_tpu/ops/predictors.py:48-61) and the dedup policies'
+feature norms and cosines (:165-172) sum over the group. `attn` and
+`accum_attn` arrive already averaged over every head. Every rank then
+scores the same numbers and keeps the same indices.
 
 Every policy returns k distinct indices, ascending. Ties break toward the
 lowest index, as jax.lax.top_k and the JAX package's stable argsort do: the
@@ -26,6 +32,8 @@ from typing import Optional
 
 import torch
 
+from quickvideo_tpu_torch.parallel.comm import all_reduce_sum
+
 RANDOM_PREDICTORS = frozenset(
     {"random", "key_norms_small_random", "attention_weights_sum_with_random"}
 )
@@ -34,19 +42,20 @@ RANDOM_PREDICTORS = frozenset(
 # -- score primitives --------------------------------------------------------
 
 
-def _flat_norms(x: torch.Tensor) -> torch.Tensor:
-    """(H, L, D) -> (L,) f32 L2 norm over the heads-flattened feature dim."""
+def _flat_norms(x: torch.Tensor, group=None) -> torch.Tensor:
+    """(H, L, D) -> (L,) f32 L2 norm over the heads-flattened feature dim
+    (every head's: the squared sums add up over the tp group)."""
     h, l, d = x.shape
     flat = x.transpose(0, 1).reshape(l, h * d).float()
-    return torch.sqrt(torch.sum(flat * flat, dim=-1))
+    return torch.sqrt(all_reduce_sum(torch.sum(flat * flat, dim=-1), group))
 
 
-def key_norms(keys: torch.Tensor) -> torch.Tensor:
-    return _flat_norms(keys)
+def key_norms(keys: torch.Tensor, group=None) -> torch.Tensor:
+    return _flat_norms(keys, group)
 
 
-def value_norms(values: torch.Tensor) -> torch.Tensor:
-    return _flat_norms(values)
+def value_norms(values: torch.Tensor, group=None) -> torch.Tensor:
+    return _flat_norms(values, group)
 
 
 def output_norms(hidden: torch.Tensor) -> torch.Tensor:
@@ -94,16 +103,18 @@ def _sorted_indices(scores: torch.Tensor, largest: bool) -> torch.Tensor:
 
 
 def _dedup_select(pivot_scores: torch.Tensor, feat: torch.Tensor, k: int,
-                  num_pivots: int, largest: bool) -> torch.Tensor:
+                  num_pivots: int, largest: bool, group=None) -> torch.Tensor:
     """`num_pivots` tokens by score, then the k - num_pivots remaining
     tokens least cosine-similar (mean over the pivots) to the pivot set, on
-    the feature rows `feat` (L, C)."""
+    the feature rows `feat` (L, C); under tp each rank holds a slice of C,
+    and the norms and dot products sum over the group."""
     order = _sorted_indices(pivot_scores, largest)
     pivots, others = order[:num_pivots], order[num_pivots:]
     f = feat.float()
-    f = f / torch.clamp(torch.sqrt((f * f).sum(dim=-1, keepdim=True)),
-                        min=1e-12)
-    mean_cos = (f[pivots] @ f[others].t()).mean(dim=0)
+    sq = all_reduce_sum((f * f).sum(dim=-1, keepdim=True), group)
+    f = f / torch.clamp(torch.sqrt(sq), min=1e-12)
+    cos = all_reduce_sum(f[pivots] @ f[others].t(), group)
+    mean_cos = cos.mean(dim=0)
     fill = others[_top_k_indices(-mean_cos, k - num_pivots, largest=True)]
     return torch.sort(torch.cat([pivots, fill])).values
 
@@ -147,6 +158,7 @@ def select_top_k_indices(
     attn: Optional[torch.Tensor] = None,
     accum_attn: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    group=None,  # the tp process group (module docstring)
 ) -> torch.Tensor:
     """The k retained positions within the group (int64, ascending)."""
     if k <= 0:
@@ -178,7 +190,7 @@ def select_top_k_indices(
             )
         w = accum_attn.float()
         if pt == "query_attention_weights_by_value_norm":
-            w = w * value_norms(values)
+            w = w * value_norms(values, group)
         return _top_k_indices(w, k, largest=True)
     if pt == "attention_weights_sum":
         colsum, _, _ = attn_column_stats(_need(attn, "attn", pt))
@@ -203,17 +215,19 @@ def select_top_k_indices(
     if pt == "attention_weights_deduplication":
         colsum, _, _ = attn_column_stats(_need(attn, "attn", pt))
         feat = values.transpose(0, 1).reshape(l, -1)
-        return _dedup_select(colsum, feat, k, (k - 1) // 2 + 1, largest=True)
+        return _dedup_select(colsum, feat, k, (k - 1) // 2 + 1, largest=True,
+                             group=group)
     if pt == "vector_norms":
-        return _top_k_indices(value_norms(values), k, largest=True)
+        return _top_k_indices(value_norms(values, group), k, largest=True)
     if pt == "vector_norms_small":
-        return _top_k_indices(value_norms(values), k, largest=False)
+        return _top_k_indices(value_norms(values, group), k, largest=False)
     if pt == "key_norms":
-        return _top_k_indices(key_norms(keys), k, largest=True)
+        return _top_k_indices(key_norms(keys, group), k, largest=True)
     if pt == "key_norms_small":
-        return _top_k_indices(key_norms(keys), k, largest=False)
+        return _top_k_indices(key_norms(keys, group), k, largest=False)
     if pt == "key_norms_small_random":
-        return _half_and_random(_sorted_indices(key_norms(keys), largest=False),
+        return _half_and_random(_sorted_indices(key_norms(keys, group),
+                                                largest=False),
                                 k, generator)
     if pt == "random":
         like = next(a for a in (keys, values, hidden, attn) if a is not None)
@@ -221,10 +235,11 @@ def select_top_k_indices(
                                device=like.device)
     if pt == "key_norms_small_deduplication":
         feat = keys.transpose(0, 1).reshape(l, -1)
-        return _dedup_select(key_norms(keys), feat, k, (k - 1) // 16 + 1,
-                             largest=False)
+        return _dedup_select(key_norms(keys, group), feat, k,
+                             (k - 1) // 16 + 1, largest=False, group=group)
     if pt == "key_weighted_vector_norms":
-        w = torch.softmax(key_norms(keys), dim=-1) * value_norms(values)
+        w = (torch.softmax(key_norms(keys, group), dim=-1)
+             * value_norms(values, group))
         return _top_k_indices(w, k, largest=True)
     if pt == "output_norms":
         return _top_k_indices(output_norms(_need(hidden, "hidden", pt)), k,
@@ -232,7 +247,7 @@ def select_top_k_indices(
     if pt == "weighted_norms":
         # mean over queries of ||attn[q, i] v_i|| = ||v_i|| mean_q attn[q, i]
         w = _need(attn, "attn", pt).float().abs().mean(dim=0)
-        return _top_k_indices(w * value_norms(values), k, largest=True)
+        return _top_k_indices(w * value_norms(values, group), k, largest=True)
     raise ValueError(f"Unknown predict type: {predict_type}")
 
 

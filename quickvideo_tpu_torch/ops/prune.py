@@ -30,12 +30,16 @@ def select_and_compact(
     group_probs: Optional[torch.Tensor] = None,  # (G, G) head-averaged
     accum_attn: Optional[torch.Tensor] = None,  # (G,) prompt -> key scores
     generator: Optional[torch.Generator] = None,  # random predictors
+    group=None,  # the tp process group: k/v hold this rank's kv heads
 ) -> PruneResult:
     """Score the group's tokens by `predict_type` (ops/predictors.py), keep
-    `keep_k`, gather their K/V (and accumulated scores)."""
+    `keep_k`, gather their K/V (and accumulated scores). Under tp the
+    scores reduce over `group`, so every rank keeps the same indices and
+    gathers its own heads' rows."""
     idx = predictors.select_top_k_indices(
         predict_type, keep_k, keys=k_group, values=v_group, hidden=hidden,
         attn=group_probs, accum_attn=accum_attn, generator=generator,
+        group=group,
     )
     return PruneResult(
         k_keep=k_group.index_select(1, idx),

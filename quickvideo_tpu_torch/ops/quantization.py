@@ -24,6 +24,12 @@ bucket always has at least 32 rows) passes `min_rows=0`.
 The int8 products go to `torch._int_mm` (s8 x s8 -> s32, exact): the JAX
 package left them to XLA, not to a Pallas kernel. On CUDA it needs more
 than 16 rows, so `int_mm` pads fewer rows with zeros.
+
+Under tensor parallelism a row-split product (wo, wd) sees only its tp
+rank's slice of each activation row. `group` (the tp process group) makes
+`quantize_act` take each row's max over the whole row (an all-reduce max),
+so every rank quantizes with the scale one device would use, and the gates
+count the whole row's width.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ from __future__ import annotations
 from typing import List, Optional, Sequence
 
 import torch
+
+from quickvideo_tpu_torch.parallel.comm import all_reduce_max, group_size
 
 EPS = 1e-8
 ACT_MIN_DIM = 256
@@ -77,10 +85,13 @@ def dequantize_weight(w: dict, contract_axis: int = -2,
     return (w["q8"].float() * w["sc"].unsqueeze(contract_axis)).to(dtype)
 
 
-def quantize_act(x: torch.Tensor):
-    """Per-row symmetric int8: (xq int8 (..., K), xs f32 (..., 1))."""
+def quantize_act(x: torch.Tensor, group=None):
+    """Per-row symmetric int8: (xq int8 (..., K), xs f32 (..., 1)). With a
+    process group, x holds one rank's slice of each row and the row max is
+    reduced over the group first."""
     xf = x.float()
-    xs = _div127(torch.clamp(xf.abs().amax(dim=-1, keepdim=True), min=EPS))
+    amax = all_reduce_max(xf.abs().amax(dim=-1, keepdim=True), group)
+    xs = _div127(torch.clamp(amax, min=EPS))
     xq = torch.round(xf / xs).clamp_(-127, 127).to(torch.int8)
     return xq, xs
 
@@ -123,20 +134,22 @@ def mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.float() @ w.float()
 
 
-def _act_gate(x: torch.Tensor, min_rows: Optional[int]) -> bool:
+def _act_gate(x: torch.Tensor, min_rows: Optional[int], group=None) -> bool:
     rows = ACT_MIN_ROWS if min_rows is None else min_rows
-    return x.ndim >= 2 and x.shape[-1] >= ACT_MIN_DIM and x.shape[-2] >= rows
+    return (x.ndim >= 2 and x.shape[-1] * group_size(group) >= ACT_MIN_DIM
+            and x.shape[-2] >= rows)
 
 
 def qdot(x: torch.Tensor, w, *, min_rows: Optional[int] = None,
-         act_quant: bool = True) -> torch.Tensor:
+         act_quant: bool = True, group=None) -> torch.Tensor:
     """x @ w with f32 accumulation, returned in f32; `w` may be quantized.
     Quantized: per-row act-quant when `act_quant` and the gates pass, else
-    weight-only."""
+    weight-only. `group`: x is a tp rank's slice of the contraction (module
+    docstring); the result is this rank's partial product."""
     if not is_quantized(w):
         return mm_f32(x, w)
-    if act_quant and _act_gate(x, min_rows):
-        return qdot_pre(*quantize_act(x), w)
+    if act_quant and _act_gate(x, min_rows, group):
+        return qdot_pre(*quantize_act(x, group), w)
     return mm_f32(x, w["q8"]) * w["sc"]
 
 

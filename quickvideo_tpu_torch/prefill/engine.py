@@ -55,8 +55,17 @@ scores against the same cache.
 
 Frames decoded at the source size (`resize_on_device`) carry their size in
 `PrefillInputs.native_hw`, and the vision tower resamples them to the
-model grid on the device. Not in this slice (NotImplementedError): pipeline
-/ context / tensor parallelism (a mesh).
+model grid on the device.
+
+A mesh (`LVUConfig.mesh`, the `mesh` argument: parallel/mesh.py) runs
+the same loop on every rank (quickvideo_tpu/prefill/engine.py:174-193,
+761-828): context parallelism (sp > 1) splits the cache's capacity over
+the sp ranks, whose quantum is 4096 * sp (so capacities, kv_cache_bytes
+and the "auto" dtype match the JAX engine's), and every step's past
+attention runs on the windows and merges; tensor parallelism holds the
+rank's kv heads in the cache (tp must divide both head counts), with sp
+and tp composing. dp ranks run their own requests. Pipeline parallelism
+(pp > 1) is not ported (NotImplementedError).
 `attention_impl` is not read: the port's cache attention is kernel B1 (the
 JAX package's 'pallas' route).
 """
@@ -91,6 +100,7 @@ from quickvideo_tpu_torch.models.qwen25_vl.language import (
 from quickvideo_tpu_torch.models.qwen25_vl.vision import layout_tensors
 from quickvideo_tpu_torch.ops.fused_vision_mlp import fuse_vision_mlp_weights
 from quickvideo_tpu_torch.ops import kv_cache as kvc
+from quickvideo_tpu_torch.parallel.sharding import check_tp, global_nbytes
 from quickvideo_tpu_torch.utils.timing import SpanTimer
 
 
@@ -132,18 +142,24 @@ class GenerationResult:
         return self.kv_cache_bytes / max(self.kv_unpruned_bytes, 1)
 
 
-def check_slice(lvu: LVUConfig) -> None:
+def check_slice(lvu: LVUConfig, model_cfg: Optional[ModelConfig] = None
+                ) -> None:
     """Raise TypeError for a config that is not the port's LVUConfig, and
-    NotImplementedError for a configuration outside the slice."""
+    NotImplementedError for a configuration outside the port: a pipeline-
+    parallel mesh, or (given the model) a tp that does not divide its head
+    counts."""
     if not isinstance(lvu, LVUConfig):
         raise TypeError(
             "the port takes quickvideo_tpu_torch.config.LVUConfig, got "
             f"{type(lvu).__module__}.{type(lvu).__name__}"
         )
-    if lvu.mesh.num_devices > 1:
+    if lvu.mesh.pp > 1:
         raise NotImplementedError(
-            "not ported to quickvideo_tpu_torch yet: mesh (multi-device)"
+            "not ported to quickvideo_tpu_torch yet: pipeline parallelism "
+            f"(mesh pp={lvu.mesh.pp}); dp, tp and sp are"
         )
+    if model_cfg is not None:
+        check_tp(model_cfg.text, lvu.mesh.tp)
 
 
 def tensor_leaves(tree):
@@ -168,8 +184,17 @@ class LVUEngine:
         lvu_cfg: LVUConfig,
         dtype=torch.bfloat16,
         device=None,
+        mesh=None,  # parallel.mesh.Mesh of this rank, for lvu_cfg.mesh
     ):
-        check_slice(lvu_cfg)
+        check_slice(lvu_cfg, model_cfg)
+        if lvu_cfg.mesh.num_devices > 1 and (
+                mesh is None or mesh.config != lvu_cfg.mesh):
+            raise ValueError(
+                f"LVUConfig.mesh {lvu_cfg.mesh} needs this rank's Mesh "
+                "(parallel.mesh.make_mesh) and parameters sharded for it; "
+                "LVU builds both"
+            )
+        self.mesh = mesh if lvu_cfg.mesh.num_devices > 1 else None
         self.params = params
         if "vision" in params and os.environ.get("QV_VISION_2D", "1") != "0":
             # one-time weight prep of an int8 tower for kernel B4 (a float
@@ -258,8 +283,10 @@ class LVUEngine:
         if self.lvu.kv_cache_dtype != "auto":
             return self.lvu.kv_cache_dtype
         if self._weight_bytes is None:
-            self._weight_bytes = sum(
-                t.nbytes for t in tensor_leaves(self.params)
+            # the whole model's bytes, as the JAX engine counts its sharded
+            # arrays
+            self._weight_bytes = global_nbytes(
+                self.params, self.lvu.mesh.tp
             )
         return resolve_auto_kv_dtype(
             capacity, self.cfg.text, self._weight_bytes,
@@ -267,12 +294,20 @@ class LVUEngine:
             compute_itemsize=torch.empty((), dtype=self.dtype).element_size(),
         )
 
+    @property
+    def capacity_quantum(self) -> int:
+        """Capacities round to 4096 slots, times sp under context
+        parallelism, so that every window holds a 4096 multiple
+        (quickvideo_tpu/prefill/engine.py:761-768)."""
+        return 4096 * self.lvu.mesh.sp
+
     def plan_capacity(
         self, group_token_counts: Sequence[int], prefix_len: int,
         suffix_len: int,
     ) -> int:
         """Worst-case cache capacity in tokens (same numbers as the JAX
-        engine, 4096-rounded; the kernel itself only needs length + G)."""
+        engine, 4096-rounded; the kernel itself only needs length + G).
+        The caller rounds it to `capacity_quantum`."""
         n = self.cfg.text.num_hidden_layers
         decode_budget = -(-self.lvu.max_decode_tokens // 32) * 32
         total = prefix_len + suffix_len + decode_budget
@@ -358,23 +393,21 @@ class LVUEngine:
         capacity = self.plan_capacity(group_input_lens, 0, L - suffix_start)
         if extra_capacity:
             capacity = -(-(capacity + int(extra_capacity)) // 4096) * 4096
+        quantum = self.capacity_quantum
+        capacity = -(-capacity // quantum) * quantum
         if lvu.kv_cache_capacity:
-            cap_fixed = (lvu.kv_cache_capacity // 4096) * 4096
+            cap_fixed = (lvu.kv_cache_capacity // quantum) * quantum
             if capacity > cap_fixed:
                 raise ValueError(
                     f"request needs {capacity} KV slots > configured "
                     f"kv_cache_capacity={lvu.kv_cache_capacity} aligned down "
-                    f"to the 4096-slot quantum ({cap_fixed})"
+                    f"to the {quantum}-slot quantum ({cap_fixed})"
                 )
             capacity = cap_fixed
         kv_dtype = self.resolve_kv_dtype(capacity)
         t = cfg.text
         with timer.span("cache_alloc"):
-            cache = kvc.init_cache(
-                t.num_hidden_layers, t.num_key_value_heads, capacity,
-                t.head_dim, dtype=self.dtype, device=self.device,
-                quantized=kv_quant_mode(kv_dtype),
-            )
+            cache = self.new_cache(capacity, kv_quant_mode(kv_dtype))
 
         lang = self.params["language"]
         ids_t = torch.as_tensor(ids, device=self.device)
@@ -436,6 +469,7 @@ class LVUEngine:
                 _, idx = prefill_step_unrolled(
                     lang, cache, x, cos[rows], sin[rows], t,
                     self._layer_specs(base), seed_key=(lvu.seed + 1, gi),
+                    mesh=self.mesh,
                 )
             retained.append(idx)
             past_len += in_len
@@ -466,6 +500,18 @@ class LVUEngine:
             "img_suffix": img_suffix,  # scattered by the final prefill
         }
         return cache, state
+
+    def new_cache(self, capacity: int, quantized) -> kvc.KVCache:
+        """This rank's part of a zeroed cache of `capacity` slots: its tp
+        rank's kv heads and its sp rank's capacity window
+        (quickvideo_tpu/prefill/engine.py:817-828)."""
+        t, m = self.cfg.text, self.lvu.mesh
+        idx = self.mesh.index("sp") if self.mesh is not None else 0
+        return kvc.init_cache(
+            t.num_hidden_layers, t.num_key_value_heads // m.tp, capacity,
+            t.head_dim, dtype=self.dtype, device=self.device,
+            quantized=quantized, sp_index=idx, sp_size=m.sp,
+        )
 
     def _encode_images(self, img_grids, image_pixels, ids, suffix_start,
                        timer):
@@ -530,12 +576,14 @@ class LVUEngine:
                 )
                 self._final_prefills += 1
                 hidden, idx = prefill_step(
-                    *args, spec, seed_key=(lvu.seed, self._final_prefills)
+                    *args, spec, seed_key=(lvu.seed, self._final_prefills),
+                    mesh=self.mesh,
                 )
             else:
                 # the JAX package's padded bucket always passes the gate
-                hidden, idx = prefill_step(*args, min_rows=0)
-            logits = compute_logits(lang, hidden[-1], self.cfg.text)
+                hidden, idx = prefill_step(*args, min_rows=0, mesh=self.mesh)
+            logits = compute_logits(lang, hidden[-1], self.cfg.text,
+                                    self.mesh)
         state["suffix_advance"] = keep_k or L - ss
         state["retained_final"] = idx
         return logits
@@ -618,7 +666,8 @@ class LVUEngine:
             row = L + len(out) - 1
             tok.fill_(out[-1])
             return pick(decode_step(lang, cache, tok, cos[row : row + 1],
-                                    sin[row : row + 1], self.cfg.text))
+                                    sin[row : row + 1], self.cfg.text,
+                                    self.mesh))
 
         with timer.span("decode"):
             out.append(pick(logits))
@@ -748,10 +797,10 @@ class LVUEngine:
                 self.params["language"], cache,
                 self._embed(ids, state.get("img_suffix")),
                 state["cos"][ss : ss + q], state["sin"][ss : ss + q],
-                self.cfg.text, min_rows=0,
+                self.cfg.text, min_rows=0, mesh=self.mesh,
             )
             logits = compute_logits(self.params["language"], hidden,
-                                    self.cfg.text)
+                                    self.cfg.text, self.mesh)
             total, greedy = self._score_gather(logits, ids, q, L - ss)
             total, greedy = torch.stack([total, greedy.to(total.dtype)]).tolist()
         if restore:

@@ -87,9 +87,11 @@ def test_refusals_match_the_jax_cli(argv, rc, capsys):
 
 
 def test_a_mesh_is_refused_by_the_lvu(tmp_path):
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """A pipeline-parallel mesh, which is not ported (a tp / sp mesh runs
+    under torchrun: tests/test_torch_parallel.py)."""
+    with pytest.raises(NotImplementedError, match="mesh pp=2"):
         tcli.main(["--video_path", str(tmp_path / "v.mp4"), "--mesh",
-                   "1,1,2,1", "--model_name_or_path", "tiny", "--device",
+                   "1,2,1,1", "--model_name_or_path", "tiny", "--device",
                    "cpu"])
 
 

@@ -220,7 +220,7 @@ def test_sampled_and_streamed_requests_run(params):
 @pytest.mark.parametrize(
     "kw",
     [
-        {"mesh": {"tp": 2}},
+        {"mesh": {"pp": 2}},  # pipeline parallelism: not ported
     ],
 )
 def test_out_of_slice_configs_raise(params, kw):

@@ -1,7 +1,8 @@
 """Process-level checks of the PyTorch port: neither the port (its video,
 int8, pruning-mode and image requests; a chat session saved and resumed,
 continuation scoring, a checkpoint load; the CLI, the HTTP server, the disk
-frame cache and the on-device resize; the package's top-level names) nor
+frame cache and the on-device resize; the package's top-level names; each
+rank of a gloo mesh and the parallel/ modules) nor
 chip_smoke.py imports jax or any module of the JAX package
 (quickvideo_tpu), and the port never needs the safetensors package, and
 chip_smoke.py refuses to report a result without a CUDA card or outside a
@@ -258,6 +259,38 @@ def test_port_session_scoring_and_checkpoint_load_import_no_jax():
     proc = _run(["-c", SESSION], ROOT)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NOJAX_OK" in proc.stdout
+
+
+def test_mesh_ranks_import_nothing_of_jax(tmp_path):
+    """Each rank of a gloo mesh (tp = 2 and sp = 2 on the tiny preset's
+    seeded weights, through the CLI: LVU's process-group init, sharded
+    init, the tp and sp routes, parallel/*) holds no jax and no
+    quickvideo_tpu module at its end; the parallel modules import alone
+    without either."""
+    from torch_mesh_ranks import run_ranks
+
+    argv = ["--model_name_or_path", "tiny", "--dtype", "float32",
+            "--num_frames", "8", "--video_group_size", "4",
+            "--max_new_tokens", "2", "--decode_output", "yuv420",
+            "--video_path", "clip.mp4", "--json", "--device", "cpu",
+            "--mesh", "1,1,2,2"]
+    ranks = run_ranks(tmp_path, "cli", 4, argv=argv)
+    assert [r["forbidden"] for r in ranks] == [[]] * 4
+    assert [r["rc"] for r in ranks] == [0] * 4
+    proc = _run(["-c", FORBIDDEN + PARALLEL], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NOJAX_OK" in proc.stdout
+
+
+PARALLEL = r"""
+import quickvideo_tpu_torch.parallel.mesh
+import quickvideo_tpu_torch.parallel.comm
+import quickvideo_tpu_torch.parallel.sharding
+import quickvideo_tpu_torch.parallel.context_parallel
+import quickvideo_tpu_torch.models.qwen25_vl.load
+assert not forbidden(), forbidden()
+print("NOJAX_OK")
+"""
 
 
 def test_top_level_names_import_nothing_of_jax_nor_the_model():
