@@ -16,7 +16,8 @@ checkout of the repository. Phases:
      device, up to the 1024-frame headline's last group step and
      hour-scale decode, with SDPA's device time at decode; its lse
      output and pure-past mode on
-     every cache, out and lse apart; one SDPA call at the headline's last
+     every cache, out and lse apart, beside aten's memory-efficient SDPA
+     with its lse on bf16 operands; one SDPA call at the headline's last
      group step, 53,744 slots, pure past and unified causal; the
      registers, spills and shared memory of every B1 instantiation), B2
      and B5 (short-span kernel up to 64-row spans, wgmma
@@ -105,6 +106,18 @@ checkout of the repository. Phases:
      ranks' agreement, cache lengths per layer, B1 launches per rank by
      kernel and mode, spans, peak memory per rank (walls are gloo on one
      card); then NCCL at world size 1;
+  3j. pipeline parallelism over torch.distributed: two rank processes
+     share the card over gloo, pp = 2 (14 layers per stage, each rank
+     drawing its stage's weights from the same seed), phase 3's request 0
+     at the 7B's full width and depth with bf16 weights, an int8 KV cache
+     and int8 weights, and on the first also decode sampled on the card, a
+     streamed request and 4 scored continuations: tokens and final-prefill
+     logits against the single-rank run of phase 3 (bit for bit, limit
+     1e-6 rel. L2), cache_length, kv_cache_bytes and the per-layer
+     lengths gathered over the stages, each stage's retained sets, B1
+     launches per stage (half of one rank's) and their sum, resident and
+     peak memory per rank, each stage's group step alone, request walls
+     and decode ms/token beside one rank's;
   4. the same prefill on the card and (plain versions) on the CPU for a
      narrow config with production head dims, with bf16 and with int8
      weights, with an int8 KV cache, with salient_tokens and query-based
@@ -140,9 +153,11 @@ result line.
     python3 chip_smoke.py --mesh-cards
 
 runs phase 1, then phase 3i's collective, CP kernel and tp checks and its
-7B requests (tp, sp, tp x sp, int8 KV, int8 weights) with NCCL, one rank
-per card, on a machine of 2 or 4 cards, against one rank's request on
-card 0 (timed on its second run). It prints no result line.
+7B requests (tp, sp, tp x sp, int8 KV, int8 weights) and phase 3j's
+pipeline requests (pp = 2 on two cards; on four: pp = 4, pp 2 x tp 2,
+pp = 4 with int8 weights, and pp = 2 in two dp replicas) with NCCL, one
+rank per card, on a machine of 2 or 4 cards, against one rank's request
+on card 0 (timed on its second run). It prints no result line.
 
     python3 chip_smoke.py --compare-fused [--root DIR]
 
@@ -154,6 +169,7 @@ share and error against the plain version at S = 14,400 and 250, and
 """
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -328,6 +344,47 @@ def sdpa_ms(q, k, v, length, causal=True, reps=5, device=False):
                                               enable_gqa=True)
 
     return _device_ms(call, ("",), reps) if device else _time_ms(call, reps)
+
+
+def sdpa_lse_ms(q, k, v, length, causal=True, reps=5):
+    """One PyTorch call computing B1's output and its lse on bf16
+    operands: aten's memory-efficient attention with compute_log_sumexp,
+    the kv heads repeated over their q heads outside the call (GQA), a
+    bias for the unified causal offset (none for pure past); timed by
+    CUDA events for comparison only (the port never calls it); a refusal
+    of the call is printed and gives no time. Returns
+    (ms, out, lse): (Hq, G, D) and (Hq, G), or (None, None, None) over an
+    empty past."""
+    import torch
+
+    hq, g, _ = q.shape
+    n = length + g if causal else length
+    if n == 0:
+        return None, None, None
+    rep = hq // k.shape[0]
+    kb = k[:, :n].repeat_interleave(rep, 0)[None]
+    vb = v[:, :n].repeat_interleave(rep, 0)[None]
+    qb = q[None]
+    bias = None
+    if causal:  # its rows padded to 16 elements, as the kernel asks
+        pad = -(-n // 16) * 16
+        rows = torch.arange(g, device=q.device)[:, None]
+        cols = torch.arange(pad, device=q.device)[None, :]
+        bias = torch.zeros(g, pad, dtype=q.dtype, device=q.device)
+        bias.masked_fill_(cols > rows + length, float("-inf"))
+        # one row per q head, as the kernel asks (a broadcast view)
+        bias = bias[None, None, :, :n].expand(1, hq, g, n)
+
+    def call():
+        return torch.ops.aten._scaled_dot_product_efficient_attention(
+            qb, kb, vb, bias, True)
+
+    try:
+        out, lse = call()[:2]
+    except RuntimeError as e:  # a yardstick: its absence fails nothing
+        log(f"memory-efficient SDPA refused G={g} n={n}: {e}")
+        return None, None, None
+    return _time_ms(call, reps), out[0], lse[0, :, :g]
 
 
 def _device_ms(fn, names, reps: int, tries: int = 3) -> float:
@@ -599,17 +656,32 @@ def check_flash_modes(dev, cases):
             bound_ms, bound_by = flash_bound(
                 g, length, variant, causal, out_dtype.itemsize, with_lse=True
             )
+            lib = ""
+            library_ms = None  # no PyTorch call takes an int8 cache
+            if variant == "bf16":
+                library_ms, lib_out, lib_lse = sdpa_lse_ms(q, k, v, length,
+                                                           causal)
+                if library_ms is not None:
+                    d_out = (lib_out.float() - ref.float()).abs().max()
+                    d_lse = (lib_lse - ref_lse).abs().max()
+                    lib = (f" memory-efficient SDPA with lse "
+                           f"{library_ms:.4f} ms (its out / lse against the "
+                           f"plain version {d_out.item():.3e} / "
+                           f"{d_lse.item():.3e})")
+                del lib_out, lib_lse
             log(f"B1 {variant} {name} G={g} length={length} cap={cap}: "
                 f"out max_abs_err={err:.3e} (tol {KERNEL_ATOL} + "
                 f"{KERNEL_RTOL}*|plain|), lse max_abs_err={lse_err:.3e} (tol "
                 f"{LSE_ATOL}) kernel device {ms:.4f} ms (host-timed "
                 f"{host_ms:.4f} ms) plain {plain_ms:.4f} ms "
                 f"bound {bound_ms:.4f} ms ({bound_by}, "
-                f"{100 * bound_ms / ms:.0f}% of it) {'OK' if ok else 'FAIL'}")
+                f"{100 * bound_ms / ms:.0f}% of it){lib} "
+                f"{'OK' if ok else 'FAIL'}")
             rows.append(dict(variant=variant, mode=name, g=g, length=length,
                              err=max(err, lse_err), ms=ms, host_ms=host_ms,
                              plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, ok=ok))
+                             bound_by=bound_by, library_ms=library_ms,
+                             ok=ok))
             del kl, vl, kw
             if variant != "bf16":
                 del cache
@@ -1418,9 +1490,59 @@ def make_lvu(dev, param_dtype, kv_cache_dtype="auto", kv_cache_capacity=None,
 
 
 # request 0 of each run_main_path call, by (param_dtype, kv_cache_dtype):
-# its tokens, final-prefill logits (host f32) and per-layer lengths, which
-# phase 3i holds its mesh runs against
+# its tokens, final-prefill logits (host f32), lengths, retained sets,
+# memory and walls (reference_record), which phases 3i and 3j hold their
+# mesh runs against
 MAIN_PATH_REFERENCE = {}
+# phase 3j's sampled decode (on the card, from a fresh generator), streamed
+# request and scored options (the engine call under loglikelihood_multi:
+# 2, 5, 9 and 12 token ids), run by one rank and by the pipeline alike
+PP_SAMPLING = dict(greedy=False, temperature=0.8, top_p=0.9, top_k=50)
+PP_SCORE_OPTIONS = ([300, 301], list(range(400, 405)), list(range(500, 509)),
+                    list(range(600, 612)))
+
+
+def pp_extras(lvu, inputs):
+    """Request `inputs` sampled on the card (the engine's generator fresh:
+    the first sampled call of `lvu`), streamed (the on_tokens chunks) and
+    scored against PP_SCORE_OPTIONS; for phase 3j, on one rank and on the
+    pipeline's stages alike."""
+    eos = [lvu.tokenizer.eos_token_id]
+    sampled = lvu.engine.generate(inputs, max_new_tokens=8,
+                                  eos_token_ids=eos, **PP_SAMPLING)
+    chunks = []
+    lvu.engine.generate(inputs, max_new_tokens=8, eos_token_ids=eos,
+                        on_tokens=lambda t: chunks.append(list(t)))
+    scores = lvu.engine.score_continuations(inputs, list(PP_SCORE_OPTIONS))
+    return dict(sampled=sampled.tokens.tolist(), chunks=chunks,
+                scores=[[float(t), bool(g)] for t, g in scores])
+
+
+def reference_record(lvu, inputs, resident, peak):
+    """What phases 3i and 3j hold a mesh run of `inputs` against: one
+    rank's warm generate of it (tokens, lengths, wall, decode ms/token),
+    its resident and peak GiB, and the final-prefill logits and retained
+    sets of a fresh prefill."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = lvu.engine.generate(inputs, max_new_tokens=8,
+                              eos_token_ids=[lvu.tokenizer.eos_token_id])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cache, st = lvu.engine.prefill(inputs)
+    logits = lvu.engine.final_prefill(cache, st).float().cpu()
+    n_dec = len(res.tokens) - 1
+    return dict(
+        tokens=res.tokens.tolist(), logits=logits,
+        layer_lengths=res.layer_lengths, cache_length=res.cache_length,
+        kv_cache_bytes=res.kv_cache_bytes,
+        retained=[[None if i is None else i.tolist() for i in g]
+                  for g in st["retained"]],
+        wall=wall, resident_gib=resident, peak_gib=peak,
+        decode_ms=(1e3 * res.timings["decode"] / n_dec if n_dec else 0.0),
+    )
 
 QUESTIONS = (
     "What happens in this video?",
@@ -1442,14 +1564,21 @@ def run_main_path(dev, param_dtype="bfloat16", kv_cache_dtype="auto"):
     variant = {"int8": "int8", "int8k": "int8k"}.get(kv_cache_dtype, "bf16")
     if variant != "bf16":
         tag += f" weights, {variant} KV"
+    # an earlier phase's LVU can linger in a reference cycle until the
+    # collector runs; what remains is held (the reference records this
+    # LVU's own memory above it)
+    gc.collect()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
     t0 = time.perf_counter()
     lvu = make_lvu(dev, param_dtype, kv_cache_dtype)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tensor_leaves(lvu.params))
+    resident = torch.cuda.memory_allocated() / 2**30
     log(f"[{tag}] 7B init on the card: {time.perf_counter() - t0:.2f} s, "
-        f"{n_params / 1e9:.3f} B parameter values, "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+        f"{n_params / 1e9:.3f} B parameter values, {resident:.2f} GiB "
+        f"({base:.2f} GiB held before it)")
     mcfg = lvu.model_config
     requests = [
         make_request(mcfg, lvu.tokenizer, q, seed=i)
@@ -1522,8 +1651,12 @@ def run_main_path(dev, param_dtype="bfloat16", kv_cache_dtype="auto"):
     log(f"[{tag}] main-path launches: "
         + ", ".join(f"{k} {counts[k]} (expected {exp[k]})" for k in counts)
         + f" {'OK' if counts_ok else 'FAIL'}")
-    log(f"[{tag}] peak device memory: "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[{tag}] peak device memory: {peak:.2f} GiB")
+    ref = reference_record(lvu, requests[0], resident - base, peak - base)
+    if (param_dtype, kv_cache_dtype) == ("bfloat16", "auto"):
+        ref.update(pp_extras(lvu, requests[0]))
+    MAIN_PATH_REFERENCE[(param_dtype, kv_cache_dtype)] = ref
     cache, state = lvu.engine.prefill(requests[0])
     want_mode = {"bf16": False, "int8": True, "int8k": "k"}[variant]
     cache_ok = cache.quantized == want_mode
@@ -1534,10 +1667,6 @@ def run_main_path(dev, param_dtype="bfloat16", kv_cache_dtype="auto"):
         f"{'OK' if cache_ok else 'FAIL'}")
     logits = lvu.engine.final_prefill(cache, state).float().cpu()
     del cache, state
-    MAIN_PATH_REFERENCE[(param_dtype, kv_cache_dtype)] = dict(
-        tokens=results[0][1].tokens.tolist(), logits=logits,
-        layer_lengths=results[0][1].layer_lengths,
-    )
     return lvu, ok, counts, logits
 
 
@@ -2003,7 +2132,10 @@ B1_COMPARE_SHAPES = tuple(
            (False, True, 3600, 53744, 65536))]
     + [("bf16", True, False, 3600, 1807, 16384),
        ("bf16", True, False, 3600, 53744, 65536),
-       ("bf16", False, False, 3600, 53744, 65536)]
+       ("bf16", False, False, 3600, 53744, 65536),
+       # the lse modes, beside memory-efficient SDPA with its lse
+       ("bf16", True, True, 3600, 1807, 16384),
+       ("bf16", False, True, 3620, 1807, 16384)]
 )
 
 
@@ -2076,6 +2208,11 @@ def compare_b1(dev, tree):
         if plan.n_split > 1:  # the split-K merge's share
             merge = _device_ms(run, ("flash_merge",), 10)
             extra += f"; split-K merge {merge:.4f} ms of it"
+        if lse and variant == "bf16":
+            lib_ms = sdpa_lse_ms(q, k, v, length, causal, reps=10)[0]
+            if lib_ms is not None:
+                extra += (f"; memory-efficient SDPA with lse {lib_ms:.4f} ms"
+                          " (CUDA events)")
         mname = ("unified" if causal else "past") + ("+lse" if lse else "")
         log(f"B1 compare [{tree}] {variant} {mname} G={g} length={length} "
             f"cap={cap} (plan {plan.kernel}, split {plan.n_split}): device "
@@ -3130,18 +3267,37 @@ MESH_RUNS = (
     ("tp2_int8w", {"tp": 2}, "int8", "auto"),
 )
 MESH_WORLD = 2
+# the runs of phase 3j, pipeline parallelism, in the same form; the first
+# also runs pp_extras (sampled, streamed, scored)
+PP_RUNS = (
+    ("pp2", {"pp": 2}, "bfloat16", "auto"),
+    ("pp2_int8kv", {"pp": 2}, "bfloat16", "int8"),
+    ("pp2_int8w", {"pp": 2}, "int8", "auto"),
+)
 # `--mesh-cards`: the mesh runs with NCCL, one rank per card, by the
 # number of cards (each against one rank's run of request 0 on card 0)
 CARD_MESH_RUNS = {
     2: (("tp2", {"tp": 2}, "bfloat16", "auto"),
         ("sp2", {"sp": 2}, "bfloat16", "auto"),
-        ("tp2_int8w", {"tp": 2}, "int8", "auto")),
+        ("tp2_int8w", {"tp": 2}, "int8", "auto"),
+        ("pp2", {"pp": 2}, "bfloat16", "auto")),
     4: (("tp4", {"tp": 4}, "bfloat16", "auto"),
         ("sp4", {"sp": 4}, "bfloat16", "auto"),
         ("tp2_sp2", {"tp": 2, "sp": 2}, "bfloat16", "auto"),
         ("sp4_int8kv", {"sp": 4}, "bfloat16", "int8"),
-        ("tp4_int8w", {"tp": 4}, "int8", "auto")),
+        ("tp4_int8w", {"tp": 4}, "int8", "auto"),
+        ("pp4", {"pp": 4}, "bfloat16", "auto"),
+        ("pp2_tp2", {"pp": 2, "tp": 2}, "bfloat16", "auto"),
+        ("pp4_int8w", {"pp": 4}, "int8", "auto"),
+        # pp = 2 on two cards, twice over (two dp replicas)
+        ("dp2_pp2", {"dp": 2, "pp": 2}, "bfloat16", "auto")),
 }
+# pipeline parallelism vs one rank, final-prefill logits: pp changes no
+# arithmetic (each layer runs the same kernels at the same shapes on the
+# same cache layout; the activation crosses as its bytes), so they are
+# expected bit for bit; the stated limit only admits a difference that
+# the line names. pp x tp is held against tp alone's limits
+PP_LOGITS_REL_L2 = 1e-6
 # tp / sp vs one rank, final-prefill logits: the mesh changes the order of
 # f32 sums (the o-projection's and MLP's partial products summed over tp,
 # the past split in two windows and merged) and where bf16 rounds (a tp
@@ -3558,20 +3714,143 @@ def _mesh_request(dev, tag, mesh_kw, param_dtype, kv_dtype, mesh_rank,
                 kv_dtype=variant)
 
 
-def mesh_runs(world: int, backend: str):
-    """The runs of a mesh phase: MESH_RUNS over gloo on one card, or
-    CARD_MESH_RUNS[world] over NCCL."""
-    return MESH_RUNS if backend == "gloo" else CARD_MESH_RUNS[world]
+def _pp_request(dev, tag, mesh_kw, param_dtype, kv_dtype, mesh_rank,
+                work, extras=False):
+    """One pipeline-parallel run on this rank: LVU on the mesh (seeded
+    weights, this rank's stage: drawn in one device's order, the rest
+    dropped), request 0 of phase 3 through generate twice (the second
+    timed and its launches counted), its prefill and final prefill again
+    (logits, this stage's retained sets, the gathered per-layer lengths),
+    the stage's group-step time (its layers alone on the request's second
+    group, CUDA events, the stages one after another), and with `extras`
+    pp_extras. Returns the rank's record; its final-prefill logits go to
+    work/logits-{tag}-{rank}.pt."""
+    import torch
+    import torch.distributed as dist
+
+    from quickvideo_tpu_torch.config import MeshConfig
+    from quickvideo_tpu_torch.models.qwen25_vl.language import (
+        StepSpec,
+        prefill_step_unrolled,
+    )
+
+    counters = _kernel_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lvu = make_lvu(dev, param_dtype, kv_dtype, mesh=MeshConfig(**mesh_kw))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated() / 2**30
+    mesh, eng = lvu.mesh, lvu.engine
+    inputs = make_request(lvu.model_config, lvu.tokenizer, QUESTIONS[0],
+                          seed=0)
+    for _ in range(2):  # the second is timed and counted: the first sets up
+        dist.barrier()  # the links' communicators
+        _reset_counters(counters)
+        t0 = time.perf_counter()
+        res = eng.generate(inputs, max_new_tokens=8,
+                           eos_token_ids=[lvu.tokenizer.eos_token_id])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    counts = _read_counters(counters)
+    variant = {"int8": "int8", "int8k": "int8k"}.get(kv_dtype, "bf16")
+    one = expected_b1_mesh(lvu, inputs, len(res.tokens), variant, 1)
+    stages = mesh.pp
+    want = {k: n // stages for k, n in one.items()}
+    b1 = {k: counts[k] for k in counts
+          if k.startswith("flash_") and k != "flash" and counts[k]
+          and k[6:] not in B1_VARIANTS}
+    first = mesh.is_first_stage
+    counts_ok = (b1 == {k: n for k, n in want.items() if n}
+                 and counts["flash"] == sum(
+                     n for k, n in want.items()
+                     if not k.startswith("flash_kernel"))
+                 and (counts["vision_2d"] > 0) == first
+                 and (param_dtype != "int8"
+                      or (counts["ln_mlp"] > 0) == first))
+    want_len, want_layers = expected_lengths(lvu, inputs, len(res.tokens))
+    lens_ok = (res.cache_length == want_len
+               and res.layer_lengths == want_layers)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    cache, st = eng.prefill(inputs)
+    local_shape = tuple(cache.k.shape)
+    torch.save(eng.final_prefill(cache, st).float().cpu(),
+               os.path.join(work, f"logits-{tag}-{mesh_rank}.pt"))
+    retained = [[None if i is None else i.tolist() for i in g]
+                for g in st["retained"]]
+    # the stage's group step alone: its layers on the second group's rows
+    # (random hidden states), appended past the request's rows
+    from quickvideo_tpu_torch.config import resolve_effective_top_k
+
+    stack, mcfg = st["pp_stack"], lvu.model_config
+    q_len = (int(np.prod(inputs.group_grids[1]))
+             // mcfg.vision.spatial_merge_unit)
+    x = torch.randn(q_len, mcfg.text.hidden_size, device=dev,
+                    dtype=eng.dtype)
+    spec = StepSpec(q_len=q_len, keep_k=resolve_effective_top_k(
+        lvu.config, 0, mcfg.text.num_hidden_layers, q_len))
+    rows = slice(0, q_len)
+
+    def group_step():
+        saved = list(cache.lengths)
+        prefill_step_unrolled(stack.params, cache, x, st["cos"][rows],
+                              st["sin"][rows], mcfg.text,
+                              [spec] * len(stack.layers), mesh=mesh,
+                              layer0=stack.layer0)
+        cache.lengths[:] = saved
+
+    step_ms = None
+    for s_ in range(stages):
+        dist.barrier()
+        if s_ == mesh.stage:
+            step_ms = _time_ms(group_step, 3)
+    dist.barrier()
+    rec = dict(tag=tag, rank=mesh_rank, stage=mesh.stage,
+               tokens=res.tokens.tolist(), cache_length=res.cache_length,
+               kv_cache_bytes=res.kv_cache_bytes,
+               layer_lengths=res.layer_lengths,
+               want_len=want_len, counts=b1, want=want, one=one,
+               counts_ok=counts_ok, lens_ok=lens_ok,
+               spans={k: round(v, 4) for k, v in sorted(
+                   res.timings.items())},
+               wall=wall, decode_ms=1e3 * res.timings["decode"] / max(
+                   len(res.tokens) - 1, 1),
+               init_s=init_s, resident_gib=resident, peak_gib=peak,
+               local_shape=local_shape, retained=retained,
+               layers=[stack.layers.start, stack.layers.stop],
+               step_ms=step_ms, step_rows=q_len, kv_dtype=variant)
+    del cache, st, stack, x
+    if extras:
+        rec.update(pp_extras(lvu, inputs))
+    del lvu, eng
+    torch.cuda.empty_cache()
+    return rec
+
+
+def mesh_runs(world: int, backend: str, phase: str = "3i", only=None):
+    """The runs of a mesh phase: MESH_RUNS (3i) or PP_RUNS (3j) over gloo
+    on one card, or CARD_MESH_RUNS[world] over NCCL, those tagged in
+    `only` (a comma-separated string) where it is given."""
+    if backend != "gloo":
+        runs = CARD_MESH_RUNS[world]
+    else:
+        runs = PP_RUNS if phase == "3j" else MESH_RUNS
+    if only:
+        tags = only.split(",")
+        runs = tuple(r for r in runs if r[0] in tags)
+    return runs
 
 
 def run_mesh_rank(dev, rank: int, world: int, work: str,
-                  backend: str = "gloo") -> None:
+                  backend: str = "gloo", phase: str = "3i",
+                  only=None) -> None:
     """A rank process of a mesh phase (python3 chip_smoke.py --mesh-rank R
-    --mesh-dir DIR [--mesh-world W --mesh-backend nccl]): joins the
-    process group at DIR, runs the collective, CP kernel and tp checks (on
-    an sp and a tp mesh of all ranks) and each run of mesh_runs, and
-    writes its records to DIR/rank{R}.json. Any failure raises: the parent
-    fails the phase on a non-zero exit."""
+    --mesh-dir DIR [--mesh-world W --mesh-backend nccl --mesh-phase 3j]):
+    joins the process group at DIR, runs (phase 3i) the collective, CP
+    kernel and tp checks (on an sp and a tp mesh of all ranks), then each
+    run of mesh_runs (a pp run through _pp_request), and writes its
+    records to DIR/rank{R}.json. Any failure raises: the parent fails the
+    phase on a non-zero exit."""
     import torch
     import torch.distributed as dist
 
@@ -3579,19 +3858,27 @@ def run_mesh_rank(dev, rank: int, world: int, work: str,
     from quickvideo_tpu_torch.parallel.mesh import init_multihost, make_mesh
 
     init_multihost(f"file://{work}/init", world, rank, backend=backend)
-    mesh = make_mesh(MeshConfig(sp=world), dev)
-    kernels_ok = check_collectives(dev, mesh)
-    cp_ok, kernel_rows = check_cp_kernels(dev, mesh)
-    tp_mesh = make_mesh(MeshConfig(tp=world), dev)
-    prod_ok, prod_rows = check_tp_products(dev, tp_mesh)
-    layer_ok, layer_rows = check_tp_layer(dev, tp_mesh)
-    kernels_ok &= cp_ok and prod_ok and layer_ok
-    kernel_rows += prod_rows + layer_rows
-    del mesh
+    kernels_ok, kernel_rows = True, []
+    if phase == "3i":
+        mesh = make_mesh(MeshConfig(sp=world), dev)
+        kernels_ok = check_collectives(dev, mesh)
+        cp_ok, kernel_rows = check_cp_kernels(dev, mesh)
+        tp_mesh = make_mesh(MeshConfig(tp=world), dev)
+        prod_ok, prod_rows = check_tp_products(dev, tp_mesh)
+        layer_ok, layer_rows = check_tp_layer(dev, tp_mesh)
+        kernels_ok &= cp_ok and prod_ok and layer_ok
+        kernel_rows += prod_rows + layer_rows
+        del mesh
     out = dict(kernels_ok=kernels_ok, kernel_rows=kernel_rows, runs=[])
-    for tag, mesh_kw, param_dtype, kv_dtype in mesh_runs(world, backend):
-        out["runs"].append(_mesh_request(dev, tag, mesh_kw, param_dtype,
-                                         kv_dtype, rank, work))
+    for i, (tag, mesh_kw, param_dtype, kv_dtype) in enumerate(
+            mesh_runs(world, backend, phase, only)):
+        if mesh_kw.get("pp", 1) > 1:
+            out["runs"].append(_pp_request(
+                dev, tag, mesh_kw, param_dtype, kv_dtype, rank, work,
+                extras=backend == "gloo" and phase == "3j" and i == 0))
+        else:
+            out["runs"].append(_mesh_request(dev, tag, mesh_kw, param_dtype,
+                                             kv_dtype, rank, work))
         dist.barrier()
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -3671,7 +3958,8 @@ def _spawn(args, n: int, timeout_s: float, work: str):
     return out
 
 
-def _mesh_phase(world: int, backend: str, refs: dict, label: str):
+def _mesh_phase(world: int, backend: str, refs: dict, label: str,
+                phase: str = "3i", only=None):
     """Start `world` rank processes of a mesh phase, wait for them, and
     hold each run's records against one rank's (`refs` by (param_dtype,
     kv_cache_dtype)). Returns (ok, kernel rows, each run's records, work
@@ -3681,31 +3969,38 @@ def _mesh_phase(world: int, backend: str, refs: dict, label: str):
     work = tempfile.mkdtemp(prefix="qv-mesh-")
     t0 = time.perf_counter()
     done = _spawn(["--mesh-rank", "{r}", "--mesh-dir", work, "--mesh-world",
-                   str(world), "--mesh-backend", backend], world,
+                   str(world), "--mesh-backend", backend, "--mesh-phase",
+                   phase] + (["--mesh-runs", only] if only else []), world,
                   MESH_TIMEOUT_S, work)
     phase_s = time.perf_counter() - t0
     records = []
     for r, (rc, out) in enumerate(done):
         for line in out.splitlines():
-            if line.startswith("[3i]") or rc != 0:
-                log(line if line.startswith("[3i]") else f"[3i rank {r}] {line}")
+            if line.startswith(f"[{phase}]") or rc != 0:
+                log(line if line.startswith(f"[{phase}]")
+                    else f"[{phase} rank {r}] {line}")
         if rc != 0:
-            log(f"[3i] rank {r} exited with {rc} (None: killed at "
+            log(f"[{phase}] rank {r} exited with {rc} (None: killed at "
                 f"{MESH_TIMEOUT_S} s; a rank that fails fails the phase) "
                 "FAIL")
             return False, [], [], work
         with open(os.path.join(work, f"rank{r}.json")) as f:
             records.append(json.load(f))
-    log(f"[3i] {world} ranks, {label}: phase {phase_s:.1f} s")
+    log(f"[{phase}] {world} ranks, {label}: phase {phase_s:.1f} s")
     ok = all(rec["kernels_ok"] for rec in records)
     runs = []
     for i, (tag, mesh_kw, param_dtype, kv_dtype) in enumerate(
-            mesh_runs(world, backend)):
+            mesh_runs(world, backend, phase, only)):
         recs = [rec["runs"][i] for rec in records]
         r0 = recs[0]
         ref = refs[(param_dtype, kv_dtype)]
         rank_logits = [torch.load(os.path.join(work, f"logits-{tag}-{r}.pt"))
                        for r in range(world)]
+        if mesh_kw.get("pp", 1) > 1:
+            ok &= _check_pp_run(phase, tag, mesh_kw, param_dtype, recs, ref,
+                                rank_logits, label)
+            runs.append(recs)
+            continue
         logits = rank_logits[0]
         rel = ((logits - ref["logits"]).norm()
                / ref["logits"].norm()).item()
@@ -3742,6 +4037,103 @@ def _mesh_phase(world: int, backend: str, refs: dict, label: str):
     return ok, records[0]["kernel_rows"], runs, work
 
 
+def _check_pp_run(phase, tag, mesh_kw, param_dtype, recs, ref,
+                  rank_logits, label) -> bool:
+    """One pipeline run's records (every rank's) against one rank's:
+    tokens, final-prefill logits (bit for bit: PP_LOGITS_REL_L2; under pp x
+    tp tp's limits, as phase 3i holds tp), the ranks' agreement,
+    cache_length, kv_cache_bytes, the per-layer lengths gathered over the
+    stages, each stage's retained sets (one rank's at the stage's layers;
+    not under tp, whose sums round elsewhere), B1 launches per stage (one
+    rank's / pp, and their sum one rank's), and the sampled, streamed and
+    scored requests of pp_extras where the run has them. Prints memory
+    and walls beside one rank's."""
+    import torch
+
+    r0, logits = recs[0], rank_logits[0]
+    tp = mesh_kw.get("tp", 1)
+    copies = tp * mesh_kw.get("dp", 1)  # ranks that run each stage
+    rel = ((logits - ref["logits"]).norm() / ref["logits"].norm()).item()
+    exact = torch.equal(logits, ref["logits"])
+    if tp > 1:
+        limit = (MESH_INT8_LOGITS_REL_L2 if param_dtype == "int8"
+                 else MESH_LOGITS_REL_L2)
+    else:
+        limit = PP_LOGITS_REL_L2
+    agree = (all(r["tokens"] == r0["tokens"] for r in recs)
+             and all(torch.equal(x, logits) for x in rank_logits))
+    same = r0["tokens"] == ref["tokens"]
+    lens_ok = all(r["lens_ok"] and r["layer_lengths"] == ref["layer_lengths"]
+                  and r["cache_length"] == ref["cache_length"]
+                  and r["kv_cache_bytes"] == ref["kv_cache_bytes"]
+                  for r in recs)
+    ret_ok = tp > 1 or all(
+        r["retained"] == [g[r["layers"][0]:r["layers"][1]]
+                          for g in ref["retained"]] for r in recs)
+    total = {}
+    for r in recs:
+        for k, n in r["counts"].items():
+            total[k] = total.get(k, 0) + n
+    sum_ok = total == {k: n * copies for k, n in r0["one"].items() if n}
+    counts_ok = sum_ok and all(r["counts_ok"] for r in recs)
+    run_ok = (agree and rel <= limit and (same or tp > 1) and lens_ok
+              and ret_ok and counts_ok)
+    log(f"[{phase} {tag}] {mesh_kw} weights {param_dtype} KV "
+        f"{r0['kv_dtype']}: tokens {r0['tokens']} vs one rank "
+        f"{ref['tokens']} ({'equal' if same else 'differ'}); final-prefill "
+        f"logits {'bit for bit equal' if exact else 'differ'}: rel L2 "
+        f"{rel:.3e} (limit {limit}), max |diff| "
+        f"{(logits - ref['logits']).abs().max().item():.3e}; ranks agree on "
+        f"tokens and logits: {agree}; cache_length {r0['cache_length']} "
+        f"kv_cache_bytes {r0['kv_cache_bytes']} per-layer lengths "
+        f"{sorted(set(r0['layer_lengths']))} (one rank "
+        f"{ref['cache_length']}, {ref['kv_cache_bytes']}, "
+        f"{sorted(set(ref['layer_lengths']))}): {lens_ok}; retained sets per "
+        f"stage as one rank's: {ret_ok if tp == 1 else 'not held under tp'}"
+        f"; B1 launches over the stages {total} (one rank x tp x dp "
+        f"{ {k: n * copies for k, n in r0['one'].items() if n} }): {sum_ok} "
+        f"{'OK' if run_ok else 'FAIL'}")
+    for r in recs:
+        log(f"[{phase} {tag}] rank {r['rank']} stage {r['stage']} (layers "
+            f"{r['layers'][0]}-{r['layers'][1] - 1}): cache "
+            f"{r['local_shape']} B1 launches " + ", ".join(
+                f"{k[6:]} {n}" for k, n in sorted(r["counts"].items()))
+            + f" (one rank / {mesh_kw['pp']}) "
+            f"{'OK' if r['counts_ok'] else 'FAIL'}; the stage's group step "
+            f"({r['step_rows']} rows over its layers) {r['step_ms']:.4f} ms;"
+            f" resident {r['resident_gib']:.2f} GiB, peak "
+            f"{r['peak_gib']:.2f} GiB (one rank: {ref['resident_gib']:.2f} /"
+            f" {ref['peak_gib']:.2f}); init {r['init_s']:.2f} s; request "
+            f"wall {r['wall']:.3f} s, decode {r['decode_ms']:.2f} ms/token "
+            f"(one rank {ref['wall']:.3f} s, {ref['decode_ms']:.2f} "
+            f"ms/token; {label}); spans(s) {r['spans']}")
+    if "sampled" in r0:
+        extras_ok = all(r["sampled"] == ref["sampled"]
+                        and r["chunks"] == ref["chunks"]
+                        and r["scores"] == ref["scores"] for r in recs)
+        run_ok &= extras_ok
+        log(f"[{phase} {tag}] sampled on the card {r0['sampled']} (one rank "
+            f"{ref['sampled']}); streamed chunks {r0['chunks']} (one rank "
+            f"{ref['chunks']}); scores of {len(PP_SCORE_OPTIONS)} options "
+            f"{r0['scores']} (one rank {ref['scores']}); equal on every "
+            f"rank: {extras_ok} {'OK' if extras_ok else 'FAIL'}")
+    return run_ok
+
+
+def run_pipeline(dev):
+    """Phase 3j: pipeline parallelism over torch.distributed with two
+    ranks sharing the one card over gloo (pp = 2, 14 layers per stage),
+    request 0 of phase 3 at the full width and depth of qwen25-vl-7b with
+    bf16 weights, an int8 KV cache and int8 weights, and the sampled,
+    streamed and scored requests, against phase 3's single-rank runs.
+    Returns (ok, runs)."""
+    ok, _, runs, _ = _mesh_phase(
+        MESH_WORLD, "gloo", MAIN_PATH_REFERENCE,
+        "gloo on one card: its walls say nothing of NCCL between cards",
+        phase="3j")
+    return ok and bool(runs), runs
+
+
 def run_mesh(dev):
     """Phase 3i: tp and sp over torch.distributed with two ranks sharing
     the one card over gloo, at the full width and depth of qwen25-vl-7b
@@ -3771,10 +4163,12 @@ def run_mesh(dev):
     return ok, kernel_rows, runs
 
 
-def run_card_mesh(dev) -> bool:
-    """`--mesh-cards`: phase 3i's checks and CARD_MESH_RUNS with NCCL, one
-    rank per card (2 or 4 cards), against one rank's run of request 0 on
-    card 0 (seeded weights, as phase 3 runs it)."""
+def run_card_mesh(dev, only=None) -> bool:
+    """`--mesh-cards [--mesh-runs TAGS]`: CARD_MESH_RUNS (those tagged in
+    `only`) with NCCL, one rank per card (2 or 4 cards), after phase 3i's
+    checks where a run other than a pipeline one is among them, against
+    one rank's run of request 0 on card 0 (seeded weights, as phase 3
+    runs it)."""
     import torch
 
     world = torch.cuda.device_count()
@@ -3782,32 +4176,40 @@ def run_card_mesh(dev) -> bool:
         log(f"--mesh-cards: {world} card(s); it runs on "
             f"{sorted(CARD_MESH_RUNS)} FAIL")
         return False
+    runs = mesh_runs(world, "nccl", only=only)
+    if not runs:
+        log(f"--mesh-runs {only}: no run of {world} cards has those tags "
+            "FAIL")
+        return False
     refs = {}
-    for _, _, param_dtype, kv_dtype in CARD_MESH_RUNS[world]:
+    for _, _, param_dtype, kv_dtype in runs:
         if (param_dtype, kv_dtype) in refs:
             continue
+        gc.collect()  # the previous reference's LVU, in a cycle
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
         lvu = make_lvu(dev, param_dtype, kv_dtype)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated() / 2**30
         inputs = make_request(lvu.model_config, lvu.tokenizer, QUESTIONS[0],
                               seed=0)
-        for _ in range(2):  # the second is timed
-            t0 = time.perf_counter()
-            res = lvu.engine.generate(
-                inputs, max_new_tokens=8,
-                eos_token_ids=[lvu.tokenizer.eos_token_id])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        cache, st = lvu.engine.prefill(inputs)
-        refs[(param_dtype, kv_dtype)] = dict(
-            tokens=res.tokens.tolist(), layer_lengths=res.layer_lengths,
-            logits=lvu.engine.final_prefill(cache, st).float().cpu())
+        lvu.engine.generate(inputs, max_new_tokens=8,
+                            eos_token_ids=[lvu.tokenizer.eos_token_id])
+        # the second run is timed (reference_record)
+        ref = reference_record(lvu, inputs, resident,
+                               torch.cuda.max_memory_allocated() / 2**30)
+        refs[(param_dtype, kv_dtype)] = ref
         log(f"[3i one rank] weights {param_dtype} KV {kv_dtype}: request "
-            f"wall {wall:.3f} s (its second run), spans(s) "
-            f"{ {k: round(v, 4) for k, v in sorted(res.timings.items())} }")
-        del lvu, cache, st
+            f"wall {ref['wall']:.3f} s (its second run), decode "
+            f"{ref['decode_ms']:.2f} ms/token, resident "
+            f"{resident:.2f} GiB, peak {ref['peak_gib']:.2f} GiB")
+        del lvu
         torch.cuda.empty_cache()
-    ok, _, runs, _ = _mesh_phase(world, "nccl", refs,
-                                 f"NCCL across {world} cards")
-    return ok and bool(runs)
+    pp_only = all(kw.get("pp", 1) > 1 for _, kw, _, _ in runs)
+    ok, _, done, _ = _mesh_phase(world, "nccl", refs,
+                                 f"NCCL across {world} cards",
+                                 "3j" if pp_only else "3i", only)
+    return ok and bool(done)
 
 
 # -- phase 4: card vs CPU ----------------------------------------------------
@@ -4026,6 +4428,12 @@ def main():
     ap.add_argument("--mesh-world", type=int, default=MESH_WORLD,
                     help=argparse.SUPPRESS)
     ap.add_argument("--mesh-backend", default="gloo", help=argparse.SUPPRESS)
+    ap.add_argument("--mesh-phase", default="3i", help=argparse.SUPPRESS)
+    ap.add_argument(
+        "--mesh-runs", default=None,
+        help="with --mesh-cards: the comma-separated tags of the runs to "
+             "make (default: every run for the number of cards)",
+    )
     ap.add_argument(
         "--mesh-cards", action="store_true",
         help="instead of the smoke test, run phase 3i's checks and requests "
@@ -4052,7 +4460,8 @@ def main():
         torch.cuda.set_device(dev)
         if args.mesh_rank is not None:
             run_mesh_rank(dev, args.mesh_rank, args.mesh_world,
-                          args.mesh_dir, args.mesh_backend)
+                          args.mesh_dir, args.mesh_backend, args.mesh_phase,
+                          args.mesh_runs)
         elif args.nccl_one:
             run_nccl_one(dev, args.mesh_dir)
         return
@@ -4083,7 +4492,8 @@ def main():
         log(f"compare-b1: {'OK' if ok else 'FAIL'}")
         return
     if args.mesh_cards:
-        log(f"mesh-cards: {'OK' if run_card_mesh(dev) else 'FAIL'}")
+        ok = run_card_mesh(dev, args.mesh_runs)
+        log(f"mesh-cards: {'OK' if ok else 'FAIL'}")
         return
     if args.compare_fused:
         ok = compare_fused(dev, os.path.relpath(args.root, ROOT))
@@ -4194,6 +4604,8 @@ def main():
     torch.cuda.empty_cache()
     mesh_ok, mesh_kernel_rows, mesh_runs = run_mesh(dev)
     ok &= mesh_ok
+    pp_ok, pp_runs = run_pipeline(dev)
+    ok &= pp_ok
     launches = {k: sum(r[k] for r in runs) for k in launches}
     ok &= run_card_vs_cpu(dev)
 
@@ -4253,11 +4665,13 @@ def main():
                            ("past+lse", "pure past + lse")):
             rows = [r for r in mode_rows
                     if r["variant"] == variant and r["mode"] == mode]
-            # rows[0] is the 7B group step's shape; no PyTorch call returns
-            # the lse
+            # rows[0] is the 7B group step's shape; memory-efficient SDPA
+            # returns the lse on bf16 operands (sdpa_lse_ms), and no call
+            # takes an int8 cache
             kernels.append(entry(
                 f"flash_past_attention (B1, {variant} KV, {what})", *flash,
                 launches[f"flash_{variant}_{mode}"], rows, rows[0],
+                rows[0]["library_ms"],
             ))
     # phase 3i's B1 modes, launched in its rank processes (counted there
     # per request): the past on a CP window (timed at the 64-frame request's
@@ -4277,7 +4691,20 @@ def main():
                        or v == "bf16")
         errs = [r for r in mesh_kernel_rows if r.get("what") == key]
         kernels.append(entry(f"flash_past_attention (B1, {what})", *flash,
-                             launched, errs + rows, rows[0]))
+                             launched, errs + rows, rows[0],
+                             rows[0]["library_ms"]))
+    # phase 3j's B1 launches, in its rank processes: each stage runs its
+    # L / pp layers of every step (its count one rank's / pp, checked
+    # there); the kernel and shapes are the main path's, so its times are
+    # the group step's row
+    pp_total = sum(n for recs in pp_runs for r in recs
+                   for k, n in r["counts"].items()
+                   if not k.startswith("flash_kernel"))
+    rows = [r for r in flash_rows if r["kernel"] == "bf16_prefill"]
+    row = next(r for r in rows if (r["g"], r["length"]) == (3600, 1807))
+    kernels.append(entry(
+        "flash_past_attention (B1, per pp stage: the stage's layers of "
+        "every step)", *flash, pp_total, rows, row, row["library_ms"]))
     fused = "fused_vision_mlp.cu"
     kernels += [
         entry("block_diag_attention_2d (B2)", "vision_attention.cu",

@@ -24,9 +24,14 @@ group comes from parallel.mesh.init_multihost (called here from the
 environment unless the caller started it, with the backend the device
 implies: NCCL on CUDA, gloo on the CPU), `lvu.mesh` is this rank's
 Mesh, the device is cuda:{local rank} unless `device` names one, and the
-parameters are this rank's tensor-parallel shard: cut from `params`,
-read with load_params_sharded, or drawn whole and sliced. Every rank runs
-every request; each returns the same answer.
+parameters are this rank's part: under pipeline parallelism its stage's
+layers (the vision tower and embedding on the first stage, the norm and
+lm_head on the last), and of those its tensor-parallel slices. They are
+cut from `params`, read from a checkpoint directory tensor by tensor
+(load_params with the rank's stage and tp slice), or drawn from the seed
+in one device's order with the rest dropped as it is drawn
+(quickvideo_tpu/api.py:100-107 likewise never replicates the weights
+under pp). Every rank runs every request; each returns the same answer.
 """
 
 from __future__ import annotations
@@ -48,7 +53,7 @@ from quickvideo_tpu_torch.models import (
 )
 from quickvideo_tpu_torch.models.qwen25_vl.convert import init_params
 from quickvideo_tpu_torch.ops.quantization import quantize_model_params
-from quickvideo_tpu_torch.parallel.sharding import shard_params
+from quickvideo_tpu_torch.parallel.sharding import mesh_params, stage_of
 from quickvideo_tpu_torch.prefill.engine import LVUEngine, check_slice
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -94,13 +99,13 @@ class LVU:
                    else (self.mesh.index("tp"), self.mesh.tp))
         if params is not None:
             params = quantize_model_params(params) if int8 else params
-            self.params = shard_params(params, *tp_rank)
+            self.params = mesh_params(params, self.mesh)
         elif os.path.isdir(config.model_name_or_path or ""):
             from quickvideo_tpu_torch.models.qwen25_vl.load import load_params
 
             self.params = load_params(
                 config.model_name_or_path, self.model_config, dtype,
-                self.device, tp_rank, int8,
+                self.device, tp_rank, int8, stage_of(self.mesh),
             )
             if int8:
                 self.params = quantize_model_params(self.params)

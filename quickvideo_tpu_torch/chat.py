@@ -21,7 +21,8 @@ Under a mesh (quickvideo_tpu/chat.py:361-404) every rank runs the session.
 the same .npz a single device writes, which the request's first rank
 writes; `load` rounds the saved capacity up to the engine's quantum
 (4096 * sp) and gives each rank its heads and window, so a session moves
-between a mesh and one device either way.
+between a mesh and one device either way. Pipeline parallelism is
+refused, as the JAX package refuses it (`refuse_pipeline`).
 
 Usage:
     session = lvu.start_chat("movie.mp4")
@@ -84,11 +85,24 @@ def _unpack(a: np.ndarray, tag: str) -> torch.Tensor:
     return torch.from_numpy(a.astype(np.dtype(tag), copy=False))
 
 
+def refuse_pipeline(lvu) -> None:
+    """ValueError under pipeline parallelism, with the JAX package's
+    message (quickvideo_tpu/chat.py:90-95), on every rank before any
+    collective."""
+    if lvu.config.mesh.pp > 1:
+        raise ValueError(
+            "chat sessions do not support pipeline parallelism yet "
+            "(the session holds a KVCache value; pp keeps the cache "
+            "slabbed inside the PipelinedStack)"
+        )
+
+
 class ChatSession:
     """One video, many turns; the KV cache persists across `ask` calls."""
 
     def __init__(self, lvu, video_path: str, reserve_turns: int = 8,
                  **video_kwargs):
+        refuse_pipeline(lvu)
         if lvu.config.query_based or lvu.config.do_top_k_for_query:
             # question-dependent pruning makes the cached video KV specific
             # to the first question
@@ -315,6 +329,7 @@ class ChatSession:
         """Rebuild a saved session under `lvu`, whose config must match the
         saved fingerprint. The cache is allocated at the saved capacity on
         the device, the saved slots copied in and the rest zero."""
+        refuse_pipeline(lvu)
         data = np.load(path, allow_pickle=False)
         meta = json.loads(str(data["meta"]))
         if meta["version"] != SESSION_FORMAT_VERSION:

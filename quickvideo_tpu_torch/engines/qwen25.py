@@ -9,6 +9,13 @@ CPU decoders are the port's copies of the JAX package's jax-free modules
 With `save_video_cache` the sync path keeps the decoded frames on disk
 (`_fetch_frames`); with `resize_on_device` frames arrive at the source size
 and the vision tower resamples them (`native_hw`).
+
+Under pipeline parallelism only the first stage runs the vision tower: on
+the later stages `chat_interleaved` opens no decode stream (no thread
+decodes or uploads frames that nothing would take); it reads the video's
+plan from the reader's metadata alone (`_planned_inputs`). `chat_sync`
+decodes on the host on every stage, and the engine uploads nothing on the
+later ones.
 """
 
 from __future__ import annotations
@@ -253,10 +260,40 @@ def run_interleaved(lvu, question: str, video_path: str, **generation_kwargs):
                             **generation_kwargs)
 
 
+def _planned_inputs(lvu, messages, video_path, cfg, images):
+    """PrefillInputs of a video request without its pixels, for a pipeline
+    stage past the first: the plan from the interleaved reader's metadata
+    (as AsyncPixelGroups plans it), no frame decoded."""
+    from quickvideo_tpu_torch.video import quickdecode as qd
+
+    img_px, img_grids, img_counts = images
+    reader = qd.InterleavedVideoReader(
+        video_path, num_threads=cfg.decode_threads,
+        num_intervals=cfg.decode_intervals,
+    )
+    try:
+        plan = vreader.plan_from_reader(reader, cfg)
+        native_hw = ((reader.source_height, reader.source_width)
+                     if cfg.resize_on_device else None)
+    finally:
+        reader.close()
+    ids = build_chat_ids_from_messages(
+        lvu.tokenizer, lvu.model_config, messages,
+        sum(plan.tokens_per_group), image_token_counts=img_counts,
+    )
+    return PrefillInputs(
+        input_ids=ids, video_grid_thw=plan.grid_thw, pixel_groups=[],
+        group_grids=plan.group_grids,
+        second_per_grid_ts=plan.second_per_grid_ts, native_hw=native_hw,
+        image_grid_thw=img_grids, image_pixels=img_px,
+    )
+
+
 def chat_interleaved(lvu, messages, **generation_kwargs) -> List[str]:
     """Overlapped driver: native interval decode and the upload to the card
     run ahead of the prefill loop (video/stream.py). A request without a
-    video has nothing to stream and takes the sync path."""
+    video has nothing to stream and takes the sync path; a pipeline stage
+    past the first opens no stream (module docstring)."""
     from quickvideo_tpu_torch.video.stream import AsyncPixelGroups
 
     video_path, _question, vkw, image_items = _question_from_messages(
@@ -266,7 +303,11 @@ def chat_interleaved(lvu, messages, **generation_kwargs) -> List[str]:
         return chat_sync(lvu, messages, **generation_kwargs)
     cfg = _config_with_video_kwargs(lvu, vkw, generation_kwargs)
     timer = SpanTimer()
-    img_px, img_grids, img_counts = _images(lvu, image_items, timer)
+    images = _images(lvu, image_items, timer)
+    if not lvu.engine.first_stage:
+        inputs = _planned_inputs(lvu, messages, video_path, cfg, images)
+        return _generate(lvu, inputs, timer, generation_kwargs)
+    img_px, img_grids, img_counts = images
     stream = AsyncPixelGroups(video_path, cfg, device=lvu.device, timer=timer)
     try:
         plan = stream.plan

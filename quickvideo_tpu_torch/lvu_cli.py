@@ -18,8 +18,10 @@ parses as in the JAX CLI and runs one process per rank:
 
 Every rank runs the same requests (NCCL between the cards with --device
 cuda, gloo with --device cpu); rank 0 prints, and in --interactive mode
-reads the questions and hands them to the other ranks. pp > 1 is refused
-(NotImplementedError).
+reads the questions and hands them to the other ranks. Under pipeline
+parallelism (`--mesh 1,2,1,1`: two stages) the last stage picks each token
+and every stage gets it, so rank 0, on the first stage, prints the answer.
+`--interactive` is refused under pp, as chat sessions are (ValueError).
 """
 
 from __future__ import annotations
@@ -90,7 +92,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "upsample + BT.601 run on device)")
     p.add_argument("--mesh", default=None,
                    help="device mesh axes as dp,pp,tp,sp (e.g. --mesh "
-                        "1,1,2,1 for tp=2); default single device")
+                        "1,1,2,1 for tp=2, 1,2,1,1 for two pipeline "
+                        "stages), one process per rank under torchrun; "
+                        "default single device")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default): the hand-written kernels on the "

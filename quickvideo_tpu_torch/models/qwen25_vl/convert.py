@@ -20,7 +20,8 @@ A safetensors checkpoint loads into the same tree (load.py).
 Under a mesh (`mesh=`, parallel/mesh.py) each tp rank keeps its slices of
 the language matrices (parallel/sharding.py), cut from the same full
 tensors a single-device run holds, so a sharded run and a single-rank run
-hold the same numbers.
+hold the same numbers; under pipeline parallelism a rank holds only its
+stage's layers and parts (`sharding.stage_params`).
 """
 
 from __future__ import annotations
@@ -38,9 +39,12 @@ from quickvideo_tpu_torch.ops.quantization import (
 )
 from quickvideo_tpu_torch.parallel.sharding import (
     COL,
+    mesh_params,
     shard_language_layer,
     shard_leaf,
-    shard_params,
+    stage_holds,
+    stage_layers,
+    stage_of,
 )
 
 
@@ -85,11 +89,11 @@ def params_from_jax(tree: dict, device="cpu", dtype=None, mesh=None) -> dict:
     """Map the JAX parameter tree (leaves as numpy arrays, e.g.
     `jax.tree.map(np.asarray, params)`) onto the port's state. `dtype`
     None keeps each leaf's dtype. Quantized leaves (the JAX package's
-    quantize_model_params) stay quantized. With `mesh`, this rank's
-    tensor-parallel shard of it."""
-    if mesh is not None and mesh.tp > 1:
-        return shard_params(params_from_jax(tree, device, dtype),
-                            *_tp_rank(mesh))
+    quantize_model_params) stay quantized. With `mesh`, this rank's part
+    of it: its pipeline stage's layers and parts, and its tensor-parallel
+    slices (parallel/sharding.py::mesh_params)."""
+    if mesh is not None:
+        return mesh_params(params_from_jax(tree, device, dtype), mesh)
     out = {}
     if "language" in tree:
         lang = tree["language"]
@@ -131,8 +135,14 @@ def init_params(
 
     With `mesh`, this rank's tensor-parallel shard: each language matrix is
     drawn whole (and quantized whole) from the same sequence, then sliced,
-    so a rank never holds more than one full layer beside its shard."""
+    so a rank never holds more than one full layer beside its shard. Under
+    pipeline parallelism every leaf is drawn in the same order, and the
+    rank keeps its stage's (parallel/sharding.py::stage_params): its
+    layers, the vision tower and embedding on the first stage, the norm
+    and lm_head on the last; the rest is dropped as it is drawn."""
     tpi, tpn = _tp_rank(mesh)
+    stage, stages = stage_of(mesh)
+    mine = stage_layers(cfg.text.num_hidden_layers, stage, stages)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     int8 = param_dtype == "int8"
@@ -152,46 +162,58 @@ def init_params(
     t, v = cfg.text, cfg.vision
     c, hd = t.hidden_size, t.head_dim
     hq, hkv = t.num_attention_heads * hd, t.num_key_value_heads * hd
-    language = {
-        "embed": nrm(t.vocab_size, c, contract_axis=-1),
-        "layers": [
-            shard_language_layer({
-                "ln1": ones(c), "ln2": ones(c),
-                "wq": nrm(c, hq), "bq": zeros(hq),
-                "wk": nrm(c, hkv), "bk": zeros(hkv),
-                "wv": nrm(c, hkv), "bv": zeros(hkv),
-                "wo": nrm(hq, c),
-                "wg": nrm(c, t.intermediate_size),
-                "wu": nrm(c, t.intermediate_size),
-                "wd": nrm(t.intermediate_size, c),
-            }, tpi, tpn)
-            for _ in range(t.num_hidden_layers)
-        ],
-        "norm": ones(c),
-        "lm_head": shard_leaf(nrm(c, t.vocab_size), COL, tpi, tpn),
-    }
+
+    def holds(part, key=None):
+        return stage_holds(part, key, stage, stages)
+
+    # every leaf is drawn, so the sequence is one device's; a stage keeps
+    # its own and drops the rest as it is drawn
+    language = {}
+    embed = nrm(t.vocab_size, c, contract_axis=-1)
+    if holds("language", "embed"):
+        language["embed"] = embed
+    del embed
+    language["layers"] = []
+    for li in range(t.num_hidden_layers):
+        layer = {
+            "ln1": ones(c), "ln2": ones(c),
+            "wq": nrm(c, hq), "bq": zeros(hq),
+            "wk": nrm(c, hkv), "bk": zeros(hkv),
+            "wv": nrm(c, hkv), "bv": zeros(hkv),
+            "wo": nrm(hq, c),
+            "wg": nrm(c, t.intermediate_size),
+            "wu": nrm(c, t.intermediate_size),
+            "wd": nrm(t.intermediate_size, c),
+        }
+        if li in mine:
+            language["layers"].append(shard_language_layer(layer, tpi, tpn))
+    head = nrm(c, t.vocab_size)
+    if holds("language", "lm_head"):  # with the final norm
+        language["norm"] = ones(c)
+        language["lm_head"] = shard_leaf(head, COL, tpi, tpn)
+    del head
     vc, vi = v.hidden_size, v.intermediate_size
     merge_dim = vc * v.spatial_merge_unit
-    vision = {
-        "patch_embed": nrm(v.patch_input_dim, vc),
-        "blocks": [
-            {
-                "ln1": ones(vc), "ln2": ones(vc),
-                "wqkv": nrm(vc, 3 * vc), "bqkv": zeros(3 * vc),
-                "wo": nrm(vc, vc), "bo": zeros(vc),
-                "wg": nrm(vc, vi), "bg": zeros(vi),
-                "wu": nrm(vc, vi), "bu": zeros(vi),
-                "wd": nrm(vi, vc), "bd": zeros(vc),
-            }
-            for _ in range(v.depth)
-        ],
-        "merger": {
-            "ln_q": ones(vc),
-            "w1": nrm(merge_dim, merge_dim), "b1": zeros(merge_dim),
-            "w2": nrm(merge_dim, v.out_hidden_size),
-            "b2": zeros(v.out_hidden_size),
-        },
+    vision = {"patch_embed": nrm(v.patch_input_dim, vc), "blocks": []}
+    for _ in range(v.depth):
+        block = {
+            "ln1": ones(vc), "ln2": ones(vc),
+            "wqkv": nrm(vc, 3 * vc), "bqkv": zeros(3 * vc),
+            "wo": nrm(vc, vc), "bo": zeros(vc),
+            "wg": nrm(vc, vi), "bg": zeros(vi),
+            "wu": nrm(vc, vi), "bu": zeros(vi),
+            "wd": nrm(vi, vc), "bd": zeros(vc),
+        }
+        if holds("vision"):
+            vision["blocks"].append(block)
+    vision["merger"] = {
+        "ln_q": ones(vc),
+        "w1": nrm(merge_dim, merge_dim), "b1": zeros(merge_dim),
+        "w2": nrm(merge_dim, v.out_hidden_size),
+        "b2": zeros(v.out_hidden_size),
     }
+    if not holds("vision"):
+        return {"language": language}
     return {"language": language, "vision": vision}
 
 

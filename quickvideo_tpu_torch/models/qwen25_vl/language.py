@@ -31,11 +31,14 @@ variant. `prefill_step_unrolled` takes one spec per layer (decay schedules;
 the cascade shrinks the rows for the next layer).
 
 Under a mesh (parallel/mesh.py) every rank runs the same steps; `mesh`
-None is one device. Tensor parallelism (tp): a rank holds its heads' and
-MLP columns' slices of the weights (parallel/sharding.py), q/k/v carry its
-local heads, the o-projection's and the down-projection's partial products
-sum over tp in f32 (`_row_parallel`; int8 weights quantize each activation
-row with its whole-row scale), the predictors' scores reduce over tp (the
+None is one device. Pipeline parallelism (pp) runs a stage's slab of
+layers and of the cache through the same functions (`layer0`, the slab's
+first global layer, seeds the random predictors; parallel/pipeline.py).
+Tensor parallelism (tp): a rank holds its heads' and MLP columns' slices
+of the weights (parallel/sharding.py), q/k/v carry its local heads, the
+o-projection's and the down-projection's partial products sum over tp in
+f32 (`_row_parallel`; int8 weights quantize each activation row with its
+whole-row scale), the predictors' scores reduce over tp (the
 query-based accumulation, the group probabilities, the norms), and the
 logits gather their vocab slices (`compute_logits`): the JAX package's
 manual-tp route (language.py:138-143, 158-172, 332-335, 528-530, 614-616).
@@ -177,8 +180,12 @@ def _project_qkv(lp: dict, h: torch.Tensor, cfg: TextConfig,
     return q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1)
 
 
-def embed_tokens(params: dict, token_ids: torch.Tensor) -> torch.Tensor:
-    return qtake(params["embed"], token_ids, params["norm"].dtype)
+def embed_tokens(params: dict, token_ids: torch.Tensor,
+                 dtype=None) -> torch.Tensor:
+    """Token embeddings in `dtype` (default the final norm's: a pipeline
+    stage without the norm passes its compute dtype)."""
+    return qtake(params["embed"], token_ids,
+                 dtype if dtype is not None else params["norm"].dtype)
 
 
 def compute_logits(
@@ -339,20 +346,27 @@ def prefill_step_unrolled(
     min_rows: Optional[int] = None,
     seed_key: Optional[Sequence[int]] = None,  # random predictors' seed
     mesh=None,
+    layer0: int = 0,  # the global index of params["layers"][0]
 ) -> Tuple[torch.Tensor, List[Optional[torch.Tensor]]]:
     """One group through all layers, each with its own spec (keep_k may
     change with depth). Advances layer li's length by specs[li].append_n.
     With `cascade`, a pruning layer passes only its kept rows (and the
     prompt rows, in query-based mode) to the next layer, with their rotary
     rows (quickvideo_tpu/models/qwen25_vl/language.py:669-719). Returns
-    (final hidden states, per-layer retained indices)."""
+    (final hidden states, per-layer retained indices).
+
+    A pipeline stage passes its slab of layers and of the cache: the cache
+    index stays local to the slab (li), while the random predictors'
+    generator takes the global layer (layer0 + li), so a stage draws what
+    one device draws at those layers (quickvideo_tpu/parallel/
+    pipeline.py:94-97 splits the two the same way)."""
     n = len(params["layers"])
     indices = []
     for li, lp in enumerate(params["layers"]):
         spec = specs[li]
         x, idx = layer_step(
             lp, x, cos, sin, cache, li, cfg, spec, min_rows,
-            layer_generator(seed_key, li, spec), mesh,
+            layer_generator(seed_key, layer0 + li, spec), mesh,
         )
         cache.lengths[li] += spec.append_n
         indices.append(idx)
@@ -377,12 +391,13 @@ def prefill_step(
     min_rows: Optional[int] = None,
     seed_key: Optional[Sequence[int]] = None,
     mesh=None,
+    layer0: int = 0,
 ) -> Tuple[torch.Tensor, List[Optional[torch.Tensor]]]:
     """`prefill_step_unrolled` with one spec for every layer."""
     spec = spec or StepSpec(q_len=x.shape[0])
     return prefill_step_unrolled(
         params, cache, x, cos, sin, cfg, [spec] * len(params["layers"]),
-        min_rows, seed_key, mesh,
+        min_rows, seed_key, mesh, layer0,
     )
 
 
@@ -396,7 +411,9 @@ def decode_step(
     mesh=None,
 ) -> torch.Tensor:
     """Autoregressive single-token step through every layer (q = 1: kernel
-    B1 at G = 1). Returns logits (V,) f32."""
+    B1 at G = 1). Returns logits (V,) f32. Its three parts, the embedding,
+    the stack and the logits, are what a pipeline runs on its first, every
+    and its last stage (parallel/pipeline.py::PipelinedStack.decode_step)."""
     x = embed_tokens(params, token_id)
     x, _ = prefill_step(params, cache, x, cos, sin, cfg, mesh=mesh)
     return compute_logits(params, x[0], cfg, mesh)

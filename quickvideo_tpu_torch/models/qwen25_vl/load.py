@@ -19,7 +19,10 @@ stacked on the host. A truncated or malformed file raises ValueError.
 a tensor-parallel rank its part of the tree (parallel/sharding.py): each
 split tensor is narrowed on the file's map before it is copied, so only
 the rank's slice is read and copied, and the host holds one leaf at a
-time.
+time. Under pipeline parallelism a rank reads only the tensors of its
+stage: its layers, the vision tower and embedding on the first stage, the
+final norm and lm_head on the last (the embedding too, where lm_head is
+tied to it).
 """
 
 from __future__ import annotations
@@ -45,6 +48,9 @@ from quickvideo_tpu_torch.parallel.sharding import (
     LAYER_RULES,
     ROW,
     shard_leaf,
+    stage_holds,
+    stage_layers,
+    stage_of,
 )
 
 DTYPES = {"BF16": torch.bfloat16, "F16": torch.float16, "F32": torch.float32}
@@ -169,6 +175,7 @@ def _as_tensor(a) -> torch.Tensor:
 def params_from_fetch(
     fetch: Callable[[str], torch.Tensor], cfg: ModelConfig,
     dtype=torch.bfloat16, device="cpu", tp_rank=(0, 1), int8: bool = False,
+    stage=(0, 1),
 ) -> dict:
     """The port's tree from `fetch(normalized name)` -> a tensor in the HF
     (out, in) layout. Each leaf is copied to `device` and `dtype` as it is
@@ -177,9 +184,11 @@ def params_from_fetch(
     rank's slice first (HF dim 0 for a column split, dim 1 for a row
     split). `int8` quantizes the language layers as they load; a row-split
     matrix is then read whole, quantized (its scales span the whole
-    contraction) and sliced after."""
+    contraction) and sliced after. `stage` = (index, stages): only the
+    stage's tensors are fetched (parallel/sharding.py::stage_params)."""
     t, v = cfg.text, cfg.vision
     tpi, tpn = tp_rank
+    st, stages = stage
     late = ROW if int8 else None  # split after quantization
 
     def leaf(name, transpose=False, reshape=None, rule=None):
@@ -231,15 +240,23 @@ def params_from_fetch(
             out[f"b{name}"] = leaf(pre + hf + ".bias")
         return out
 
-    language = {
-        "embed": leaf("language.embed_tokens.weight"),
-        "layers": [lang_layer(i) for i in range(t.num_hidden_layers)],
-        "norm": leaf("language.norm.weight"),
-        "lm_head": leaf(
+    def holds(part, key):
+        return stage_holds(part, key, st, stages)
+
+    language = {}
+    if holds("language", "embed"):
+        language["embed"] = leaf("language.embed_tokens.weight")
+    language["layers"] = [lang_layer(i) for i in
+                          stage_layers(t.num_hidden_layers, st, stages)]
+    if holds("language", "norm"):
+        language["norm"] = leaf("language.norm.weight")
+    if holds("language", "lm_head"):
+        language["lm_head"] = leaf(
             "language.embed_tokens.weight" if t.tie_word_embeddings
             else "lm_head.weight", True, rule=LANGUAGE_RULES["lm_head"],
-        ),
-    }
+        )
+    if not holds("vision", None):
+        return {"language": language}
     vision = {
         "patch_embed": leaf("visual.patch_embed.proj.weight", True,
                             reshape=(v.hidden_size, -1)),
@@ -274,10 +291,11 @@ def params_from_state_dict(
 
 
 def load_params(model_dir: str, cfg: ModelConfig, dtype=torch.bfloat16,
-                device="cpu", tp_rank=(0, 1), int8: bool = False) -> dict:
+                device="cpu", tp_rank=(0, 1), int8: bool = False,
+                stage=(0, 1)) -> dict:
     """Every *.safetensors shard of an HF snapshot directory, read leaf by
-    leaf onto `device` (`tp_rank`, `int8`: see params_from_fetch; the rest
-    of the tree is quantized by ops/quantization.py's
+    leaf onto `device` (`tp_rank`, `int8`, `stage`: see params_from_fetch;
+    the rest of the tree is quantized by ops/quantization.py's
     quantize_model_params, which keeps the quantized leaves)."""
     shards = sorted(
         f for f in os.listdir(model_dir) if f.endswith(".safetensors")
@@ -299,7 +317,8 @@ def load_params(model_dir: str, cfg: ModelConfig, dtype=torch.bfloat16,
             f, key = index[name]
             return f.tensor(key)
 
-        return params_from_fetch(fetch, cfg, dtype, device, tp_rank, int8)
+        return params_from_fetch(fetch, cfg, dtype, device, tp_rank, int8,
+                                 stage)
     finally:
         for f in files:
             f.close()
@@ -308,9 +327,11 @@ def load_params(model_dir: str, cfg: ModelConfig, dtype=torch.bfloat16,
 def load_params_sharded(model_dir: str, cfg: ModelConfig, mesh,
                         dtype=torch.bfloat16, device=None,
                         int8: bool = False) -> dict:
-    """This rank's tensor-parallel part of a checkpoint directory
-    (module docstring), on `device` (default the mesh's)."""
+    """This rank's part of a checkpoint directory: its pipeline stage's
+    tensors, tensor-parallel slices of them (module docstring), on
+    `device` (default the mesh's)."""
     return load_params(
         model_dir, cfg, dtype, mesh.device if device is None else device,
         tp_rank=(mesh.index("tp"), mesh.tp), int8=int8,
+        stage=stage_of(mesh),
     )

@@ -11,15 +11,19 @@ row-major order, so the inner axes (tp, then sp) are neighbours:
 
 Axes (config.MeshConfig):
   dp  data parallel: independent requests (evaluation/qa.py::shard_samples)
-  pp  pipeline parallel: not ported (the engine refuses pp > 1)
+  pp  pipeline parallel: layer slabs over stages, activations passed
+      from stage to stage (parallel/pipeline.py)
   tp  tensor parallel: attention heads and MLP columns (parallel/sharding.py)
   sp  context parallel: the KV cache's capacity axis
       (parallel/context_parallel.py)
 
 `Mesh` holds this rank's coordinates, one process group per axis of more
 than one rank (`torch.distributed.new_group`; None for an axis of one), the
-group of the ranks that serve one request together (tp x sp), and the
-device. `init_multihost` starts the process group from the environment:
+group of the ranks that serve one request together (pp x tp x sp), and the
+device. Under pp it also names this rank's stage and the global ranks of
+the previous and next stage at the same dp, tp and sp coordinates (the
+ends of its point-to-point links) and of the last stage (the source of
+each broadcast token). `init_multihost` starts the process group from the environment:
 QV_COORDINATOR / QV_NUM_PROCESSES / QV_PROCESS_ID (the JAX package's
 contract), else torchrun's RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT.
 The backend is the caller's choice: "nccl" by default on a CUDA device,
@@ -142,7 +146,8 @@ class Mesh:
         self.rank = rank
         self.coords = dict(zip(AXES, _coords(config, rank)))
         self.groups = groups
-        self.model_group = model_group  # the tp x sp ranks of one request
+        self.model_group = model_group  # the pp x tp x sp ranks of one
+        # request
         self.model_ranks = model_ranks  # their global ranks, ascending
         self.device = device
 
@@ -157,12 +162,47 @@ class Mesh:
         return self.groups[axis]
 
     @property
+    def pp(self) -> int:
+        return self.config.pp
+
+    @property
     def tp(self) -> int:
         return self.config.tp
 
     @property
     def sp(self) -> int:
         return self.config.sp
+
+    @property
+    def stage(self) -> int:
+        """This rank's pipeline stage (0 without pp)."""
+        return self.coords["pp"]
+
+    @property
+    def is_first_stage(self) -> bool:
+        return self.stage == 0
+
+    @property
+    def is_last_stage(self) -> bool:
+        return self.stage == self.config.pp - 1
+
+    def stage_rank(self, stage: int) -> int:
+        """The global rank of `stage` at this rank's dp, tp and sp
+        coordinates."""
+        coords = dict(self.coords, pp=stage)
+        return _rank_of(self.config, [coords[a] for a in AXES])
+
+    @property
+    def prev_stage_rank(self) -> Optional[int]:
+        """The rank this one receives activations from (None on the first
+        stage)."""
+        return None if self.is_first_stage else self.stage_rank(self.stage - 1)
+
+    @property
+    def next_stage_rank(self) -> Optional[int]:
+        """The rank this one sends activations to (None on the last
+        stage)."""
+        return None if self.is_last_stage else self.stage_rank(self.stage + 1)
 
     @property
     def is_first(self) -> bool:
@@ -238,7 +278,7 @@ def make_mesh(cfg: MeshConfig, device=None) -> Mesh:
         else:
             groups[a] = None
     model_group, model_ranks = None, [rank]
-    if cfg.tp * cfg.sp > 1:
-        model_group, model_ranks = _new_groups(cfg, ("tp", "sp"), rank)
+    if cfg.pp * cfg.tp * cfg.sp > 1:
+        model_group, model_ranks = _new_groups(cfg, ("pp", "tp", "sp"), rank)
     return Mesh(cfg, rank, groups, model_group, model_ranks,
                 rank_device(device))

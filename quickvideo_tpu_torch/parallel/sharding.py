@@ -20,6 +20,13 @@ sharding.py:95-111). The KV cache holds the rank's kv heads
 
 tp must divide both num_attention_heads and num_key_value_heads (the 7B:
 tp in {1, 2, 4}); any other tp raises NotImplementedError.
+
+Pipeline parallelism (pp) splits the layer axis first: stage s of S holds
+layers [s * L / S, (s + 1) * L / S) (`stage_layers`), the vision tower and
+the embedding live on the first stage, the final norm and lm_head on the
+last (`stage_params`), and tp then slices within the stage as above
+(quickvideo_tpu/parallel/pipeline.py:179-208). A mesh-like object without
+a pp axis counts as one stage (`stage_of`).
 """
 
 from __future__ import annotations
@@ -52,6 +59,51 @@ def check_tp(text_cfg, tp: int) -> None:
             f"num_key_value_heads={text_cfg.num_key_value_heads} (the KV "
             "cache is split by kv heads)"
         )
+
+
+def stage_of(mesh) -> tuple:
+    """(this rank's stage, stages) of `mesh` ((0, 1) for None or a mesh
+    without a pp axis)."""
+    stages = getattr(mesh, "pp", 1) if mesh is not None else 1
+    return (mesh.index("pp"), stages) if stages > 1 else (0, 1)
+
+
+def stage_layers(n_layers: int, stage: int, stages: int) -> range:
+    """The global layers of `stage` (stages divides n_layers)."""
+    per = n_layers // stages
+    return range(stage * per, (stage + 1) * per)
+
+
+def stage_holds(part: str, key: Optional[str], stage: int,
+                stages: int) -> bool:
+    """Whether `stage` holds params[part][key] (key None: the whole part):
+    the vision tower and the embedding on the first stage, the final norm
+    and lm_head on the last; the layers are split (stage_layers)."""
+    if part == "vision" or key == "embed":
+        return stage == 0
+    if key in ("norm", "lm_head"):
+        return stage == stages - 1
+    return True
+
+
+def stage_params(params: dict, stage: int, stages: int) -> dict:
+    """Stage `stage` of `stages`' tree from the whole one (module
+    docstring); its leaves are the whole tree's, not copies."""
+    if stages == 1:
+        return params
+    out = {}
+    for part, tree in params.items():
+        if part != "language":
+            if stage_holds(part, None, stage, stages):
+                out[part] = tree
+            continue
+        rows = stage_layers(len(tree["layers"]), stage, stages)
+        out[part] = {
+            k: v[rows.start:rows.stop] if k == "layers" else v
+            for k, v in tree.items()
+            if k == "layers" or stage_holds(part, k, stage, stages)
+        }
+    return out
 
 
 def _slice(t: torch.Tensor, dim: int, index: int, n: int) -> torch.Tensor:
@@ -107,6 +159,15 @@ def shard_params(params: dict, index: int, n: int) -> dict:
     return out
 
 
+def mesh_params(params: dict, mesh) -> dict:
+    """This rank's tree from the whole one: its pipeline stage's part
+    (stage_params), then its tp slices (shard_params)."""
+    if mesh is None:
+        return params
+    return shard_params(stage_params(params, *stage_of(mesh)),
+                        mesh.index("tp"), mesh.tp)
+
+
 def shard_cache(cache, index: int, n: int):
     """Rank `index` of `n`'s kv heads of a KVCache (values and int8 scales
     alike), as new tensors; the lengths and capacity window are kept."""
@@ -138,7 +199,9 @@ def _leaf_nbytes(leaf, rule: Optional[str], tp: int) -> int:
 
 def global_nbytes(params: dict, tp: int) -> int:
     """Bytes of the whole model's parameters, from a tp rank's tree (the
-    JAX engine counts its sharded arrays whole)."""
+    JAX engine counts its sharded arrays whole); from a pipeline stage's
+    tree, the bytes of that stage's part, which the stages sum
+    (prefill/engine.py::LVUEngine.resolve_kv_dtype)."""
     total = 0
     for part, tree in params.items():
         if part != "language":

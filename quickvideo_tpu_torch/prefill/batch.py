@@ -15,6 +15,10 @@ Every request of a batch must share the video geometry and the tokens up
 to the video's end; the questions after it may differ in content and
 length. Query-based predictors are refused (their prompt rides with every
 group). Sampling works as in LVUEngine.generate.
+
+Pipeline parallelism is refused (ValueError): the JAX engine's batched path
+reads `cache.length` where its pp engine returns no cache (it raises
+AttributeError there, ROADMAP C23).
 """
 
 from __future__ import annotations
@@ -32,6 +36,13 @@ class BatchedQAEngine:
 
     def __init__(self, engine: LVUEngine):
         self.eng = engine
+        if engine.lvu.mesh.pp > 1:
+            raise ValueError(
+                "batched QA does not support pipeline parallelism (mesh "
+                f"pp={engine.lvu.mesh.pp}): the JAX package's batched path "
+                "reads the cache that its pp engine keeps in the stages; run "
+                "each question with generate, or batch with pp=1"
+            )
         if engine.lvu.query_based:
             raise ValueError("batched mode does not support query-based "
                              "predictors (per-sample prompt appends)")

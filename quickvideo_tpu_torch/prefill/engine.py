@@ -64,8 +64,25 @@ the sp ranks, whose quantum is 4096 * sp (so capacities, kv_cache_bytes
 and the "auto" dtype match the JAX engine's), and every step's past
 attention runs on the windows and merges; tensor parallelism holds the
 rank's kv heads in the cache (tp must divide both head counts), with sp
-and tp composing. dp ranks run their own requests. Pipeline parallelism
-(pp > 1) is not ported (NotImplementedError).
+and tp composing. dp ranks run their own requests.
+
+Pipeline parallelism (pp > 1; quickvideo_tpu/prefill/engine.py:194-221,
+787-806, 916-979, 1127-1159, 1200-1382) runs the same loop on every stage
+over a per-request parallel/pipeline.py::PipelinedStack: the cache is the
+stage's slab of L / pp layers (`new_cache`), the first stage alone runs
+the vision tower and the embeddings (the other stages draw nothing from
+`pixel_groups`), each group is pushed through the stages, and the final
+prefill, scoring and each decode step run as sequential passes whose
+logits live on the last stage: it picks or samples each token with its own
+generator and broadcasts it, the final-prefill logits and a score's two
+scalars likewise. Tokens, `cache_length`, `kv_cache_bytes` and
+`layer_lengths` (gathered over the stages) are one rank's. Each stage
+keeps the retained index sets of its own layers: `state["retained"][g][j]`
+on stage s is that of global layer s * L / pp + j, so a caller gathers
+all of them by collecting every stage's (the sets are host-readable
+tensors). pp composes with tp inside a stage and with dp; it refuses sp,
+a layer count it does not divide and decay or cascade schedules
+(`check_slice`, with the JAX messages).
 `attention_impl` is not read: the port's cache attention is kernel B1 (the
 JAX package's 'pallas' route).
 """
@@ -100,6 +117,8 @@ from quickvideo_tpu_torch.models.qwen25_vl.language import (
 from quickvideo_tpu_torch.models.qwen25_vl.vision import layout_tensors
 from quickvideo_tpu_torch.ops.fused_vision_mlp import fuse_vision_mlp_weights
 from quickvideo_tpu_torch.ops import kv_cache as kvc
+from quickvideo_tpu_torch.parallel.comm import all_reduce_sum
+from quickvideo_tpu_torch.parallel.pipeline import PipelinedStack
 from quickvideo_tpu_torch.parallel.sharding import check_tp, global_nbytes
 from quickvideo_tpu_torch.utils.timing import SpanTimer
 
@@ -144,22 +163,41 @@ class GenerationResult:
 
 def check_slice(lvu: LVUConfig, model_cfg: Optional[ModelConfig] = None
                 ) -> None:
-    """Raise TypeError for a config that is not the port's LVUConfig, and
-    NotImplementedError for a configuration outside the port: a pipeline-
-    parallel mesh, or (given the model) a tp that does not divide its head
-    counts."""
+    """Raise TypeError for a config that is not the port's LVUConfig,
+    NotImplementedError for a configuration outside the port (given the
+    model, a tp that does not divide its head counts), and ValueError for
+    what pipeline parallelism refuses, with the JAX engine's messages
+    (quickvideo_tpu/prefill/engine.py:203-214, 792-797): sp beside it, a
+    layer count it does not divide, decay or cascade schedules. Every rank
+    runs these checks before any collective."""
     if not isinstance(lvu, LVUConfig):
         raise TypeError(
             "the port takes quickvideo_tpu_torch.config.LVUConfig, got "
             f"{type(lvu).__module__}.{type(lvu).__name__}"
         )
-    if lvu.mesh.pp > 1:
-        raise NotImplementedError(
-            "not ported to quickvideo_tpu_torch yet: pipeline parallelism "
-            f"(mesh pp={lvu.mesh.pp}); dp, tp and sp are"
-        )
+    m = lvu.mesh
+    if m.pp > 1:
+        if m.sp > 1:
+            shape = {a: getattr(m, a) for a in m.axis_names()}
+            raise ValueError(
+                "pp does not compose with sp inside a stage (context "
+                "parallelism is a non-pp mesh mode); tp inside a stage "
+                f"IS supported (mesh shape {shape})"
+            )
+        n = None if model_cfg is None else model_cfg.text.num_hidden_layers
+        if n is not None and n % m.pp:
+            raise ValueError(
+                f"num_hidden_layers={n} not divisible by pp={m.pp}"
+            )
+        if (lvu.top_k_decay_type is not None
+                or lvu.prefill_prune_starting_layer is not None):
+            raise ValueError(
+                "pipeline parallelism does not support decay/cascade "
+                "schedules (per-layer shape changes need the unrolled path; "
+                "run with pp=1)"
+            )
     if model_cfg is not None:
-        check_tp(model_cfg.text, lvu.mesh.tp)
+        check_tp(model_cfg.text, m.tp)
 
 
 def tensor_leaves(tree):
@@ -195,6 +233,12 @@ class LVUEngine:
                 "LVU builds both"
             )
         self.mesh = mesh if lvu_cfg.mesh.num_devices > 1 else None
+        # pipeline parallelism: this rank's stage (its layers, and the
+        # tower and embedding or the norm and lm_head; module docstring);
+        # the last stage computes the logits
+        self.pp = self.mesh if lvu_cfg.mesh.pp > 1 else None
+        self.first_stage = self.pp is None or self.mesh.is_first_stage
+        self.last_stage = self.pp is None or self.mesh.is_last_stage
         self.params = params
         if "vision" in params and os.environ.get("QV_VISION_2D", "1") != "0":
             # one-time weight prep of an int8 tower for kernel B4 (a float
@@ -209,7 +253,7 @@ class LVUEngine:
         self.dtype = dtype
         self.device = torch.device(
             device if device is not None
-            else params["language"]["norm"].device
+            else next(tensor_leaves(params["language"])).device
         )
         self._layouts = {}
         self._weight_bytes = None
@@ -284,10 +328,14 @@ class LVUEngine:
             return self.lvu.kv_cache_dtype
         if self._weight_bytes is None:
             # the whole model's bytes, as the JAX engine counts its sharded
-            # arrays
-            self._weight_bytes = global_nbytes(
-                self.params, self.lvu.mesh.tp
-            )
+            # arrays; under pp the stages' parts summed (every rank
+            # resolves the same request at the same point)
+            n = global_nbytes(self.params, self.lvu.mesh.tp)
+            if self.pp is not None:
+                n = int(all_reduce_sum(
+                    torch.tensor([n], dtype=torch.int64, device=self.device),
+                    self.pp.group("pp")))
+            self._weight_bytes = n
         return resolve_auto_kv_dtype(
             capacity, self.cfg.text, self._weight_bytes,
             self.device_memory_bytes(),
@@ -406,8 +454,12 @@ class LVUEngine:
             capacity = cap_fixed
         kv_dtype = self.resolve_kv_dtype(capacity)
         t = cfg.text
+        stack = None
         with timer.span("cache_alloc"):
             cache = self.new_cache(capacity, kv_quant_mode(kv_dtype))
+            if self.pp is not None:
+                stack = PipelinedStack(self.mesh, t, self.params["language"],
+                                       cache, self.dtype)
 
         lang = self.params["language"]
         ids_t = torch.as_tensor(ids, device=self.device)
@@ -424,7 +476,9 @@ class LVUEngine:
         n_layers = t.num_hidden_layers
         past_len = logical_len = 0
         retained = []
-        pixel_iter = inputs.pixel_groups
+        # a stage past the first runs no vision tower and takes no pixels
+        pixel_iter = (inputs.pixel_groups if self.first_stage
+                      else [None] * len(inputs.group_grids))
         if lvu.use_tqdm:
             from tqdm import tqdm
 
@@ -435,11 +489,13 @@ class LVUEngine:
         for gi, pixels in enumerate(pixel_iter):
             grid = tuple(int(x) for x in inputs.group_grids[gi])
             in_len = group_input_lens[gi]
-            with timer.span("vision"):
-                vis = qmodel.encode_video_group(
-                    self.params, cfg, self._to_device(pixels), grid,
-                    self._layout_tensors(grid), native_hw=inputs.native_hw,
-                )
+            if pixels is not None:
+                with timer.span("vision"):
+                    vis = qmodel.encode_video_group(
+                        self.params, cfg, self._to_device(pixels), grid,
+                        self._layout_tensors(grid),
+                        native_hw=inputs.native_hw,
+                    )
             base = StepSpec(
                 q_len=in_len + prompt_len,
                 keep_k=resolve_effective_top_k(lvu, 0, n_layers, in_len),
@@ -450,27 +506,35 @@ class LVUEngine:
                 ref_query_mask=lvu.reference_query_mask,
             )
             with timer.span("prefill"):
-                g_ids = ids_t[past_len : past_len + in_len]
-                if prompt_len:
-                    g_ids = torch.cat([g_ids, ids_t[suffix_start:]])
-                x = qmodel.merge_vision_embeddings(
-                    embed_tokens(lang, g_ids), vis, g_ids, cfg.video_token_id
-                )
-                img = img_g0 if gi == 0 else img_rest
-                if img is not None:
+                x = None
+                if self.first_stage:
+                    g_ids = ids_t[past_len : past_len + in_len]
+                    if prompt_len:
+                        g_ids = torch.cat([g_ids, ids_t[suffix_start:]])
                     x = qmodel.merge_vision_embeddings(
-                        x, img, g_ids, cfg.image_token_id
+                        self._embed(g_ids, None), vis, g_ids,
+                        cfg.video_token_id,
                     )
+                    img = img_g0 if gi == 0 else img_rest
+                    if img is not None:
+                        x = qmodel.merge_vision_embeddings(
+                            x, img, g_ids, cfg.image_token_id
+                        )
                 # rotary rows contiguous past the group's start: in
                 # query-based mode the prompt rows take the positions of the
                 # tokens that follow the group (the JAX engine's quirk,
                 # quickvideo_tpu/prefill/engine.py:311-319)
                 rows = slice(past_len, past_len + base.q_len)
-                _, idx = prefill_step_unrolled(
-                    lang, cache, x, cos[rows], sin[rows], t,
-                    self._layer_specs(base), seed_key=(lvu.seed + 1, gi),
-                    mesh=self.mesh,
-                )
+                specs = self._layer_specs(base)
+                seed_key = (lvu.seed + 1, gi)
+                if stack is None:
+                    _, idx = prefill_step_unrolled(
+                        lang, cache, x, cos[rows], sin[rows], t, specs,
+                        seed_key=seed_key, mesh=self.mesh,
+                    )
+                else:  # on to the next stage without waiting for it
+                    _, idx = stack.push_group(x, base.q_len, cos[rows],
+                                              sin[rows], specs, seed_key)
             retained.append(idx)
             past_len += in_len
             # under decay / cascade a layer that keeps all appends the whole
@@ -480,6 +544,9 @@ class LVUEngine:
                 resolve_effective_top_k(lvu, li, n_layers, in_len) or in_len
                 for li in range(n_layers)
             )
+        if stack is not None:
+            with timer.span("prefill"):
+                stack.end_stream()
         if past_len != suffix_start:
             raise ValueError(
                 f"pixel groups covered {past_len} tokens, the video ends at "
@@ -498,17 +565,19 @@ class LVUEngine:
             "retained": retained,
             "kv_dtype": kv_dtype,
             "img_suffix": img_suffix,  # scattered by the final prefill
+            "pp_stack": stack,  # under pp: the stage's slab and links
         }
         return cache, state
 
     def new_cache(self, capacity: int, quantized) -> kvc.KVCache:
-        """This rank's part of a zeroed cache of `capacity` slots: its tp
-        rank's kv heads and its sp rank's capacity window
-        (quickvideo_tpu/prefill/engine.py:817-828)."""
+        """This rank's part of a zeroed cache of `capacity` slots: its
+        pipeline stage's layers, its tp rank's kv heads and its sp rank's
+        capacity window (quickvideo_tpu/prefill/engine.py:787-828)."""
         t, m = self.cfg.text, self.lvu.mesh
         idx = self.mesh.index("sp") if self.mesh is not None else 0
         return kvc.init_cache(
-            t.num_hidden_layers, t.num_key_value_heads // m.tp, capacity,
+            t.num_hidden_layers // m.pp, t.num_key_value_heads // m.tp,
+            capacity,
             t.head_dim, dtype=self.dtype, device=self.device,
             quantized=quantized, sp_index=idx, sp_size=m.sp,
         )
@@ -518,7 +587,9 @@ class LVUEngine:
         """Each image through the vision tower; returns the embeddings of
         the images before `suffix_start` and of those after it (None where
         there are none), after checking the placeholder counts
-        (quickvideo_tpu/prefill/engine.py:718-756)."""
+        (quickvideo_tpu/prefill/engine.py:718-756) on the host, on every
+        pipeline stage; only the first runs the tower (the others return
+        (None, None))."""
         cfg = self.cfg
         pix_list = image_pixels or []
         if len(pix_list) != len(img_grids):
@@ -526,6 +597,18 @@ class LVUEngine:
                 f"{len(img_grids)} image grids but {len(pix_list)} "
                 "image pixel arrays"
             )
+        # the tower gives t * h * w / merge_unit rows per grid
+        n_rows = sum(int(np.prod(g)) // cfg.vision.spatial_merge_unit
+                     for g in img_grids)
+        n_prefix = int(np.sum(ids[:suffix_start] == cfg.image_token_id))
+        n_total = int(np.sum(ids == cfg.image_token_id))
+        if n_rows != n_total:
+            raise ValueError(
+                f"image grids produce {n_rows} tokens "
+                f"but input_ids contain {n_total} image placeholders"
+            )
+        if not self.first_stage:
+            return None, None
         with timer.span("vision"):
             embs = []
             for g, pix in zip(img_grids, pix_list):
@@ -535,13 +618,6 @@ class LVUEngine:
                     self._layout_tensors(grid),
                 ))
             img_embeds = torch.cat(embs)
-        n_prefix = int(np.sum(ids[:suffix_start] == cfg.image_token_id))
-        n_total = int(np.sum(ids == cfg.image_token_id))
-        if img_embeds.shape[0] != n_total:
-            raise ValueError(
-                f"image grids produce {int(img_embeds.shape[0])} tokens "
-                f"but input_ids contain {n_total} image placeholders"
-            )
         return (img_embeds[:n_prefix] if n_prefix else None,
                 img_embeds[n_prefix:] if n_total > n_prefix else None)
 
@@ -565,8 +641,7 @@ class LVUEngine:
         with timer.span("final_prefill"):
             ids = torch.as_tensor(state["ids"][ss:L], device=self.device)
             x = self._embed(ids, state.get("img_suffix"))
-            args = (lang, cache, x, state["cos"][ss:L], state["sin"][ss:L],
-                    self.cfg.text)
+            rows = slice(ss, L)
             if keep_k > 0:
                 # exact rows, so the act-quant gate sees the real count
                 spec = StepSpec(
@@ -575,23 +650,51 @@ class LVUEngine:
                     needs_probs=lvu.needs_attn_stats or lvu.query_based,
                 )
                 self._final_prefills += 1
-                hidden, idx = prefill_step(
-                    *args, spec, seed_key=(lvu.seed, self._final_prefills),
-                    mesh=self.mesh,
+                hidden, idx = self._pass(
+                    cache, state, x, rows, spec,
+                    seed_key=(lvu.seed, self._final_prefills),
                 )
             else:
                 # the JAX package's padded bucket always passes the gate
-                hidden, idx = prefill_step(*args, min_rows=0, mesh=self.mesh)
-            logits = compute_logits(lang, hidden[-1], self.cfg.text,
-                                    self.mesh)
+                hidden, idx = self._pass(cache, state, x, rows,
+                                         StepSpec(q_len=L - ss), min_rows=0)
+            logits = None
+            if self.last_stage:
+                logits = compute_logits(lang, hidden[-1], self.cfg.text,
+                                        self.mesh)
+            stack = state.get("pp_stack")
+            if stack is not None:
+                logits = stack.share(logits, (self.cfg.text.vocab_size,),
+                                     torch.float32)
         state["suffix_advance"] = keep_k or L - ss
         state["retained_final"] = idx
         return logits
 
-    def _embed(self, ids: torch.Tensor, img) -> torch.Tensor:
+    def _pass(self, cache, state, x, rows: slice, spec: StepSpec,
+              seed_key=None, min_rows=None):
+        """One sequential pass of `spec.q_len` rows at rotary rows `rows`
+        through every layer with one spec: prefill_step on one rank, the
+        stage's chain under pp (x None off the first stage). Returns (the
+        final hidden states, None off the last stage; the per-layer
+        retained indices of this rank's layers)."""
+        cos, sin = state["cos"][rows], state["sin"][rows]
+        stack = state.get("pp_stack")
+        if stack is None:
+            return prefill_step(self.params["language"], cache, x, cos, sin,
+                                self.cfg.text, spec, min_rows, seed_key,
+                                self.mesh)
+        return stack.chunk(x, spec.q_len, cos, sin,
+                           [spec] * self.cfg.text.num_hidden_layers,
+                           seed_key, min_rows)
+
+    def _embed(self, ids: torch.Tensor, img) -> Optional[torch.Tensor]:
         """Token embeddings with image embeddings `img` (or None) scattered
-        into the image placeholders."""
-        x = embed_tokens(self.params["language"], ids)
+        into the image placeholders; None on a pipeline stage past the
+        first, which receives its rows."""
+        if not self.first_stage:
+            return None
+        lang = self.params["language"]
+        x = embed_tokens(lang, ids, None if "norm" in lang else self.dtype)
         if img is not None:
             x = qmodel.merge_vision_embeddings(x, img, ids,
                                                self.cfg.image_token_id)
@@ -642,10 +745,14 @@ class LVUEngine:
         holds the suffix and every token but the last. Greedy and
         device-sampled decode call `on_tokens` with the first token, then
         with chunks of min(32, stream_chunk_tokens) tokens; host sampling
-        (sample_on_device=False) calls it per token."""
+        (sample_on_device=False) calls it per token. Under pp the last
+        stage picks each token (its generators sample) and every stage
+        gets it (PipelinedStack.share_token / decode_step), so every stage
+        returns the same tokens and streams the same chunks."""
         timer = timer or SpanTimer()
         lvu = self.lvu
         lang = self.params["language"]
+        stack = state.get("pp_stack")
         logits = self.final_prefill(cache, state, timer)
         max_new = min(max_new_tokens or lvu.max_decode_tokens,
                       lvu.max_decode_tokens)
@@ -665,12 +772,19 @@ class LVUEngine:
             # the decode rows of the tables start at L
             row = L + len(out) - 1
             tok.fill_(out[-1])
+            if stack is not None:
+                return stack.decode_step(lang, tok, cos[row : row + 1],
+                                         sin[row : row + 1], pick)
             return pick(decode_step(lang, cache, tok, cos[row : row + 1],
                                     sin[row : row + 1], self.cfg.text,
                                     self.mesh))
 
         with timer.span("decode"):
-            out.append(pick(logits))
+            if stack is None:
+                out.append(pick(logits))
+            else:
+                out.append(stack.share_token(
+                    pick(logits) if stack.is_last else None))
             stream = on_tokens if on_tokens is not None else (lambda t: None)
             stream(out[-1:])
             chunk = (1 if on_host
@@ -727,8 +841,16 @@ class LVUEngine:
             prefill_tokens=L,
             kv_cache_bytes=cache_len * per_tok,
             kv_unpruned_bytes=(L + len(tokens)) * per_tok,
-            layer_lengths=list(cache.lengths),
+            layer_lengths=self.layer_lengths(cache, state),
         )
+
+    @staticmethod
+    def layer_lengths(cache, state) -> List[int]:
+        """Every layer's cache length (gathered over the stages under pp:
+        a collective, which every stage calls)."""
+        stack = state.get("pp_stack")
+        return (list(cache.lengths) if stack is None
+                else stack.gather_lengths())
 
     # -- continuation scoring ----------------------------------------------
 
@@ -793,17 +915,21 @@ class LVUEngine:
         saved = list(cache.lengths)
         with timer.span("score"):
             ids = torch.as_tensor(combined, device=self.device)
-            hidden, _ = prefill_step(
-                self.params["language"], cache,
-                self._embed(ids, state.get("img_suffix")),
-                state["cos"][ss : ss + q], state["sin"][ss : ss + q],
-                self.cfg.text, min_rows=0, mesh=self.mesh,
+            hidden, _ = self._pass(
+                cache, state, self._embed(ids, state.get("img_suffix")),
+                slice(ss, ss + q), StepSpec(q_len=q), min_rows=0,
             )
-            logits = compute_logits(self.params["language"], hidden,
-                                    self.cfg.text, self.mesh)
-            total, greedy = self._score_gather(logits, ids, q, L - ss)
-            total, greedy = torch.stack([total, greedy.to(total.dtype)]).tolist()
-        if restore:
+            pair = None
+            if self.last_stage:
+                logits = compute_logits(self.params["language"], hidden,
+                                        self.cfg.text, self.mesh)
+                total, greedy = self._score_gather(logits, ids, q, L - ss)
+                pair = torch.stack([total, greedy.to(total.dtype)])
+            stack = state.get("pp_stack")
+            if stack is not None:  # the last stage's two scalars
+                pair = stack.share(pair, (2,), torch.float32)
+            total, greedy = pair.tolist()
+        if restore:  # each stage restores its own layers' lengths
             cache.lengths[:] = saved
         return float(total), bool(greedy)
 

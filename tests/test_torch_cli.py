@@ -87,9 +87,12 @@ def test_refusals_match_the_jax_cli(argv, rc, capsys):
 
 
 def test_a_mesh_is_refused_by_the_lvu(tmp_path):
-    """A pipeline-parallel mesh, which is not ported (a tp / sp mesh runs
-    under torchrun: tests/test_torch_parallel.py)."""
-    with pytest.raises(NotImplementedError, match="mesh pp=2"):
+    """A pipeline-parallel mesh whose stage count does not divide the tiny
+    preset's 3 layers is refused before any process group is asked for
+    (a mesh that fits runs under torchrun: tests/test_torch_parallel.py,
+    tests/test_torch_pipeline.py)."""
+    with pytest.raises(ValueError,
+                       match="num_hidden_layers=3 not divisible by pp=2"):
         tcli.main(["--video_path", str(tmp_path / "v.mp4"), "--mesh",
                    "1,2,1,1", "--model_name_or_path", "tiny", "--device",
                    "cpu"])

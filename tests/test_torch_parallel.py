@@ -376,21 +376,25 @@ def test_cli_runs_under_a_mesh_of_two_gloo_ranks(tmp_path, monkeypatch,
     assert got == want
 
 
-@pytest.mark.parametrize("mesh_kw,match", [
-    ({"pp": 2}, "pipeline parallelism"),
-    ({"pp": 2, "tp": 2}, "pipeline parallelism"),
-    ({"tp": 4}, "tp=4"),
-    ({"tp": 3}, "tp=3"),
+@pytest.mark.parametrize("mesh_kw,error,match", [
+    ({"pp": 3, "sp": 2}, ValueError, "pp does not compose with sp"),
+    ({"pp": 2}, ValueError, "num_hidden_layers=3 not divisible by pp=2"),
+    ({"tp": 4}, NotImplementedError, "tp=4"),
+    ({"tp": 3}, NotImplementedError, "tp=3"),
 ])
-def test_pp_and_a_tp_that_does_not_divide_the_heads_raise(mesh_kw, match):
-    """pp > 1 and a tp that does not divide the tiny preset's 4 q / 2 kv
-    heads raise NotImplementedError, before any process group is asked
-    for."""
+def test_pp_and_a_tp_that_does_not_divide_the_heads_raise(mesh_kw, error,
+                                                          match):
+    """What a mesh cannot run raises before any process group is asked
+    for: pp beside sp and a pp that does not divide the tiny preset's 3
+    layers (ValueError, the JAX engine's messages; until pipeline
+    parallelism was ported these cases were pp = 2 and pp = 2 x tp = 2,
+    NotImplementedError), and a tp that does not divide its 4 q / 2 kv
+    heads (NotImplementedError)."""
     cfg = TLVUConfig(mesh=MeshConfig(**mesh_kw), **BASE)
     params = init_params(CFG, 0, torch.float32)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         TLVU(cfg, params=params, device="cpu")
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         LVUEngine(params, CFG, cfg, torch.float32)
 
 

@@ -1,5 +1,6 @@
 """Rank processes of the PyTorch port's mesh tests
-(tests/test_torch_parallel.py, tests/test_torch_context_parallel.py).
+(tests/test_torch_parallel.py, tests/test_torch_context_parallel.py,
+tests/test_torch_pipeline.py, tests/test_torch_pipeline_engine.py).
 
     python tests/torch_mesh_ranks.py SPEC.json RANK
 
@@ -159,7 +160,7 @@ def case_generate(spec, rank):
 
     res = lvu.engine.generate(inputs(), max_new_tokens=spec["max_new"])
     cache, st = lvu.engine.prefill(inputs())
-    lengths = list(cache.lengths)
+    lengths = lvu.engine.layer_lengths(cache, st)  # over every stage
     logits = lvu.engine.final_prefill(cache, st)
     sets = [i for g in st["retained"] for i in g if i is not None]
     sets += [i for i in (st.get("retained_final") or []) if i is not None]
@@ -280,7 +281,136 @@ def case_cli(spec, rank):
     return dict(rc=rc, lines=buf.getvalue().splitlines())
 
 
+# the pipeline tests' sampled decode and scored continuations
+PP_SAMPLE = dict(greedy=False, temperature=0.8, top_p=0.9, top_k=20)
+PP_CONTS = ([7, 8], [11, 12, 13, 14, 15])
+
+
+def _image(seed, h=140, w=140):
+    return np.random.default_rng(seed).integers(0, 256, (h, w, 3), np.uint8)
+
+
+def pipeline_record(lvu, request, max_new, modes=False):
+    """What the pipeline tests compare of one LVU (a rank of a pipeline
+    mesh, or one device): `request` through LVUEngine.generate; its prefill
+    and final prefill again (logits, the per-layer lengths over every
+    stage, the retained index sets by (group, global layer)); with `modes`
+    also decode sampled on the device and on the host, streamed chunks,
+    scoring (lengths restored between continuations), LVU.loglikelihood
+    (_multi), LVU.generate and LVU.chat with images (seeded reader,
+    patch_port_readers) and evaluation/qa.py's run_qa_eval."""
+    from quickvideo_tpu_torch.evaluation.qa import QASample, run_qa_eval
+    from quickvideo_tpu_torch.prefill import PrefillInputs
+    from quickvideo_tpu_torch.utils.timing import SpanTimer
+
+    eng = lvu.engine
+    ids, grid, groups, grids = request
+
+    def inputs():
+        return PrefillInputs(ids, grid, groups, grids, 2.0)
+
+    res = eng.generate(inputs(), max_new_tokens=max_new)
+    cache, st = eng.prefill(inputs())
+    lengths = eng.layer_lengths(cache, st)
+    stack = st["pp_stack"]
+    layers = (list(stack.layers) if stack is not None
+              else list(range(len(cache.lengths))))
+    gathered = None
+    if stack is not None:  # the slabs as one cache, after the prefill
+        whole = stack.gather_cache()
+        gathered = (whole.lengths, tuple(whole.k.shape))
+    out = dict(gathered=gathered,
+        tokens=res.tokens, cache_length=res.cache_length,
+        kv_cache_bytes=res.kv_cache_bytes, layer_lengths=res.layer_lengths,
+        prefill_lengths=lengths, layers=layers, capacity=cache.capacity,
+        local_shape=tuple(cache.k.shape), kv_dtype=st["kv_dtype"],
+        retained={(g, layers[j]): i.numpy()
+                  for g, per in enumerate(st["retained"])
+                  for j, i in enumerate(per) if i is not None},
+        logits=eng.final_prefill(cache, st).numpy(),
+    )
+    if not modes:
+        return out
+    out["sampled"] = eng.generate(inputs(), max_new_tokens=max_new,
+                                  **PP_SAMPLE).tokens
+    chunks = []
+    out["streamed"] = eng.generate(
+        inputs(), max_new_tokens=max_new,
+        on_tokens=lambda t: chunks.append(list(t))).tokens
+    out["chunks"] = chunks
+    cfg = eng.lvu
+    eng.lvu = cfg.replace(sample_on_device=False)
+    host_chunks = []
+    out["host_sampled"] = eng.generate(
+        inputs(), max_new_tokens=max_new,
+        on_tokens=lambda t: host_chunks.append(list(t)), **PP_SAMPLE).tokens
+    out["host_chunks"] = host_chunks
+    eng.lvu = cfg
+    cache, st = eng.prefill(inputs())
+    before = eng.layer_lengths(cache, st)
+    out["scores"] = [eng._score_one(cache, st, np.asarray(c), SpanTimer(),
+                                    restore=True) for c in PP_CONTS]
+    out["restored"] = eng.layer_lengths(cache, st) == before
+    out["multi"] = eng.score_continuations(inputs(), list(PP_CONTS))
+    out["ll"] = lvu.loglikelihood("What moves?", "clip.mp4", "cat")
+    out["ll_multi"] = lvu.loglikelihood_multi("What moves?", "clip.mp4",
+                                              ["cat", [5, 6, 7]])
+    out["answer"] = lvu.generate("What moves?", "clip.mp4", max_new_tokens=4)
+    out["chat"] = lvu.chat([{"role": "user", "content": [
+        {"type": "image", "image": _image(1)},
+        {"type": "video", "video": "clip.mp4"},
+        {"type": "text", "text": "Compare them."},
+        {"type": "image", "image": _image(2, 100, 150)}]}],
+        max_new_tokens=4)
+    out["chat_tokens"] = lvu.last_result.tokens
+    samples = [QASample("clip.mp4", "What color dominates?",
+                        ["A. red", "B. blue"], "A", id="s1")]
+    out["qa"] = [p["raw"] for p in run_qa_eval(
+        lvu, samples, max_new_tokens=4)["per_sample"]]
+    return out
+
+
+def case_pipeline(spec, rank):
+    """Each of spec["runs"] (LVUConfig keywords, modes, optionally its own
+    params file) on the mesh:
+    pipeline_record, then with modes the refusals of chat sessions and
+    batched QA under pp, which every rank must raise."""
+    import torch
+
+    from quickvideo_tpu_torch.ops import quantization as tq
+    from quickvideo_tpu_torch.prefill.batch import BatchedQAEngine
+
+    patch_port_readers()
+    request = torch.load(spec["request"], weights_only=False)
+    out = []
+    default_dim = tq.ACT_MIN_DIM
+    for run in spec["runs"]:
+        tq.ACT_MIN_DIM = run.get("act_min_dim") or default_dim
+        lvu = _lvu(dict(spec, lvu=run["lvu"],
+                        params=run.get("params", spec.get("params"))))
+        rec = pipeline_record(lvu, request, spec["max_new"], run["modes"])
+        rec["holds"] = dict(
+            vision="vision" in lvu.params, layers=len(
+                lvu.params["language"]["layers"]),
+            **{k: k in lvu.params["language"]
+               for k in ("embed", "norm", "lm_head")})
+        if run["modes"]:
+            refused = []
+            for call in (lambda: lvu.start_chat("clip.mp4"),
+                         lambda: lvu.resume_chat(spec["session"]),
+                         lambda: BatchedQAEngine(lvu.engine)):
+                try:
+                    call()
+                    refused.append(None)
+                except ValueError as e:
+                    refused.append(str(e))
+            rec["refused"] = refused
+        out.append(rec)
+    return dict(runs=out)
+
+
 CASES = {
+    "pipeline": case_pipeline,
     "generate": case_generate,
     "cp_past": case_cp_past,
     "cp_append": case_cp_append,
