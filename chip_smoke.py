@@ -118,6 +118,22 @@ checkout of the repository. Phases:
      launches per stage (half of one rank's) and their sum, resident and
      peak memory per rank, each stage's group step alone, request walls
      and decode ms/token beside one rank's;
+  3k. the HTTP server on a mesh (run after 3h, on phase 3's bf16 weights
+     for one rank's answers): two rank processes share the card over
+     gloo, each building the 7B on the mesh and calling make_http_server;
+     rank 0 serves over HTTP, rank 1 follows its jobs. tp = 2: a burst of
+     4 /v1/generate questions served as one micro-batch on both ranks
+     against the mesh's 4 direct LVU.generate calls (and B1 launches per
+     rank against the same BatchedQAEngine call made directly), two
+     sessions with one resident (the first spilled to one .npz, resumed,
+     against a session that never spilled), /v1/chat/completions with a
+     video_url part, an SSE stream against the unstreamed answer, and a
+     request after an idle gap beyond the lowered control timeout; pp =
+     2: the burst served one by one, its answers one rank's bit for bit,
+     B1 launches per stage as the 4 direct calls', a stream, and
+     /v1/sessions refused with the JAX message on both ranks; walls,
+     resident and peak memory per rank, the batch histogram; every rank
+     exits 0 after the leader's shutdown;
   4. the same prefill on the card and (plain versions) on the CPU for a
      narrow config with production head dims, with bf16 and with int8
      weights, with an int8 KV cache, with salient_tokens and query-based
@@ -157,7 +173,9 @@ runs phase 1, then phase 3i's collective, CP kernel and tp checks and its
 pipeline requests (pp = 2 on two cards; on four: pp = 4, pp 2 x tp 2,
 pp = 4 with int8 weights, and pp = 2 in two dp replicas) with NCCL, one
 rank per card, on a machine of 2 or 4 cards, against one rank's request
-on card 0 (timed on its second run). It prints no result line.
+on card 0 (timed on its second run). With --mesh-runs serve it runs phase
+3k's server checks instead, over NCCL: tp = 2 and pp = 2 on two cards; on
+four dp 2 x tp 2, dp 2 x pp 2 and pp 2 x tp 2. It prints no result line.
 
     python3 chip_smoke.py --compare-fused [--root DIR]
 
@@ -3858,6 +3876,18 @@ def run_mesh_rank(dev, rank: int, world: int, work: str,
     from quickvideo_tpu_torch.parallel.mesh import init_multihost, make_mesh
 
     init_multihost(f"file://{work}/init", world, rank, backend=backend)
+    if phase == "3k":  # the server on the mesh
+        runs = (SERVE_MESH_RUNS if backend == "gloo"
+                else CARD_SERVE_RUNS[world])
+        out = dict(runs=[])
+        for i, (tag, mesh_kw) in enumerate(runs):
+            out["runs"].append(_serve_mesh_run(
+                dev, tag, mesh_kw, rank, work, SERVE_IDLE_S if i == 0 else 0))
+            dist.barrier()
+        with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.destroy_process_group()
+        return
     kernels_ok, kernel_rows = True, []
     if phase == "3i":
         mesh = make_mesh(MeshConfig(sp=world), dev)
@@ -4168,7 +4198,8 @@ def run_card_mesh(dev, only=None) -> bool:
     `only`) with NCCL, one rank per card (2 or 4 cards), after phase 3i's
     checks where a run other than a pipeline one is among them, against
     one rank's run of request 0 on card 0 (seeded weights, as phase 3
-    runs it)."""
+    runs it); `--mesh-runs serve`: phase 3k's server checks over
+    CARD_SERVE_RUNS instead."""
     import torch
 
     world = torch.cuda.device_count()
@@ -4176,6 +4207,11 @@ def run_card_mesh(dev, only=None) -> bool:
         log(f"--mesh-cards: {world} card(s); it runs on "
             f"{sorted(CARD_MESH_RUNS)} FAIL")
         return False
+    if only == "serve":  # phase 3k's server checks over NCCL
+        ok, done = _serve_mesh_phase(dev, None, world, "nccl",
+                                     CARD_SERVE_RUNS[world],
+                                     f"NCCL across {world} cards")
+        return ok and bool(done)
     runs = mesh_runs(world, "nccl", only=only)
     if not runs:
         log(f"--mesh-runs {only}: no run of {world} cards has those tags "
@@ -4210,6 +4246,387 @@ def run_card_mesh(dev, only=None) -> bool:
                                  f"NCCL across {world} cards",
                                  "3j" if pp_only else "3i", only)
     return ok and bool(done)
+
+
+# -- phase 3k: the HTTP server on a mesh ---------------------------------------
+
+# the runs of phase 3k (two gloo ranks sharing the card): (tag, mesh axes),
+# bf16 weights, phase 3f's seeded 64-frame videos; `--mesh-cards --mesh-runs
+# serve` makes CARD_SERVE_RUNS[cards] over NCCL, one rank per card
+SERVE_MESH_RUNS = (("tp2", {"tp": 2}), ("pp2", {"pp": 2}))
+CARD_SERVE_RUNS = {
+    2: SERVE_MESH_RUNS,
+    4: (("dp2_tp2", {"dp": 2, "tp": 2}), ("dp2_pp2", {"dp": 2, "pp": 2}),
+        ("pp2_tp2", {"pp": 2, "tp": 2})),
+}
+# lowered for the phase: a follower waits for its next job at most
+# SERVE_CONTROL_TIMEOUT_S (parallel/mesh.py CONTROL_TIMEOUT_S), the
+# leader's heartbeat comes every SERVE_HEARTBEAT_S (serving/server.py
+# HEARTBEAT_S), and the first run's leader idles SERVE_IDLE_S once
+SERVE_CONTROL_TIMEOUT_S = 5.0
+SERVE_HEARTBEAT_S = 1.0
+SERVE_IDLE_S = 7.0
+SERVE_MESH_TIMEOUT_S = 600
+SERVE_B1 = ("flash",) + tuple(f"flash_kernel_{k}" for k in B1_KERNELS)
+
+
+def _b1_counts(counts):
+    return {k: counts[k] for k in SERVE_B1}
+
+
+def _add_counts(total, counts):
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+    return total
+
+
+def _log_jobs(server, counters, jobs):
+    """Record each job this rank's server dispatches: its kind, payloads,
+    wall and B1 launches (every rank dispatches the same jobs in the same
+    order, so the leader's job indices name the followers' too)."""
+    import torch
+
+    dispatch = server._dispatch
+
+    def logged(batch):
+        torch.cuda.synchronize()
+        before = _read_counters(counters)
+        t0 = time.perf_counter()
+        try:
+            dispatch(batch)
+        finally:
+            torch.cuda.synchronize()
+            after = _read_counters(counters)
+            jobs.append(dict(kind=batch[0].kind, n=len(batch),
+                             wall=time.perf_counter() - t0,
+                             b1={k: after[k] - before[k] for k in SERVE_B1}))
+
+    server._dispatch = logged
+
+
+def _serve_mesh_client(base, server, lvu, video, other, jobs, idle_s):
+    """The leader's requests of phase 3k, from its own HTTP clients while
+    its worker serves them (and every follower follows): a burst of
+    BATCH_QUESTIONS behind the paused worker, one SSE stream, and under pp
+    a session refused; otherwise two sessions with one spill and resume,
+    then (idle_s) an idle gap beyond the control timeout, then
+    /v1/chat/completions with a video_url part. Returns what it saw."""
+    import threading
+
+    out = {}
+    questions = BATCH_QUESTIONS
+    server.pause()
+    got = {}
+
+    def ask(i):
+        got[i] = _http(base, "/v1/generate", {
+            "video": video, "question": questions[i], "max_new_tokens": 8})
+
+    threads = [threading.Thread(target=ask, args=(i,))
+               for i in range(len(questions))]
+    for t in threads:
+        t.start()
+    for _ in range(600):
+        if server._q.qsize() >= len(questions) - 1:
+            break
+        time.sleep(0.05)
+    time.sleep(0.2)
+    i0, t0 = len(jobs), time.perf_counter()
+    server.resume()
+    for t in threads:
+        t.join(timeout=900)
+    out["burst"] = dict(
+        wall=time.perf_counter() - t0, jobs=[i0, len(jobs)],
+        codes=[got[i][0] for i in range(len(questions))],
+        answers=[got[i][1].get("answer") for i in range(len(questions))],
+        batches=dict(_http(base, "/v1/stats")[1]["batches"]))
+    status, ctype, frames, done = _sse(base, "/v1/generate", {
+        "video": video, "question": questions[1], "max_new_tokens": 8})
+    out["stream"] = dict(
+        status=status, ctype=ctype, done=done, frames=len(frames),
+        joined="".join(f["delta"] for f in frames if "delta" in f),
+        final=[f["answer"] for f in frames if "answer" in f])
+    if lvu.mesh.pp > 1:
+        out["session_refused"] = _http(base, "/v1/sessions", {"video": video})
+        return out
+    # session 1 asks, session 2's creation spills it (max_resident_sessions
+    # = 1), its next ask resumes it from the file
+    q1, q2 = SESSION_QUESTIONS[:2]
+    code1, s1 = _http(base, "/v1/sessions", {"video": video})
+    sid1 = s1.get("session_id")
+    code2, a1 = _http(base, f"/v1/sessions/{sid1}/ask",
+                      {"question": q1, "max_new_tokens": 8})
+    t0 = time.perf_counter()
+    code3, s2 = _http(base, "/v1/sessions", {"video": other})
+    spill_wall = time.perf_counter() - t0
+    spill_files = sorted(os.listdir(server.spill_dir))
+    t0 = time.perf_counter()
+    code4, a2 = _http(base, f"/v1/sessions/{sid1}/ask",
+                      {"question": q2, "max_new_tokens": 8})
+    resume_wall = time.perf_counter() - t0
+    stats = _http(base, "/v1/stats")[1]
+    closed = [_http(base, f"/v1/sessions/{sid}", method="DELETE")[0]
+              for sid in (sid1, s2.get("session_id"))]
+    out["sessions"] = dict(
+        codes=[code1, code2, code3, code4] + closed,
+        answers=[a1.get("answer"), a2.get("answer")],
+        spills=stats["spills"], resumes=stats["resumes"],
+        spill_wall=spill_wall, resume_wall=resume_wall,
+        spill_files=spill_files)
+    if idle_s:  # the next request comes after an idle gap
+        time.sleep(idle_s)
+        out["idle_s"] = idle_s
+    code, body = _http(base, "/v1/chat/completions", {
+        "model": "qwen25-vl-7b", "max_tokens": 8, "messages": [{
+            "role": "user", "content": [
+                {"type": "video_url", "video_url": {"url": f"file://{video}"}},
+                {"type": "text", "text": questions[0]}]}]})
+    out["chat"] = dict(code=code, object=body.get("object"), content=(
+        body.get("choices") or [{}])[0].get("message", {}).get("content"))
+    return out
+
+
+def _serve_mesh_run(dev, tag, mesh_kw, rank, work, idle_s):
+    """One run of phase 3k on this rank: the 7B LVU on the mesh (seeded
+    bf16 weights, this rank's part), its direct calls (BATCH_QUESTIONS by
+    LVU.generate; without pp a live session's two turns), then
+    make_http_server: the leader serves _serve_mesh_client's requests, a
+    follower follows until the leader's shutdown. Returns the rank's
+    record, with the B1 launches the served burst must make on this rank:
+    under pp the direct calls' (served one by one), otherwise the
+    micro-batch's from its rows (the groups once, then each question's
+    suffix and decode steps, as phase 3g counts them)."""
+    import threading
+
+    import torch
+
+    from quickvideo_tpu_torch.config import MeshConfig
+    from quickvideo_tpu_torch.parallel import mesh as tmesh
+    from quickvideo_tpu_torch.serving import server as tserver
+
+    tmesh.CONTROL_TIMEOUT_S = SERVE_CONTROL_TIMEOUT_S
+    tserver.HEARTBEAT_S = SERVE_HEARTBEAT_S
+    video, other = (os.path.join(work, n) for n in ("serve.mp4", "other.mp4"))
+    counters = _kernel_counters()
+    run = _Run(counters)
+    torch.cuda.reset_peak_memory_stats()
+    with seeded_videos():
+        lvu = _spelled(make_lvu(
+            dev, "bfloat16", mesh=MeshConfig(**mesh_kw),
+            extra_kwargs={"max_pixels": FRAME_HW * FRAME_HW}))
+        torch.cuda.synchronize()
+        rec = dict(tag=tag, rank=rank, stage=lvu.mesh.stage,
+                   resident_gib=torch.cuda.memory_allocated() / 2**30)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        direct, counts, wall, n_tok = [], {}, 0.0, []
+        for q in BATCH_QUESTIONS:
+            direct.append(run(lvu.generate, q, video, max_new_tokens=8)[0])
+            n_tok.append(len(lvu.last_result.tokens))
+            _add_counts(counts, _b1_counts(run.counts))
+            wall, peak = wall + run.wall, max(peak, run.peak)
+        rec.update(direct=direct, direct_b1=counts, direct_wall=wall)
+        if lvu.mesh.pp == 1:
+            n = lvu.model_config.text.num_hidden_layers
+            steps = list(_video_request_rows(lvu, BATCH_QUESTIONS[0],
+                                             video)[0])
+            for q, k in zip(BATCH_QUESTIONS, n_tok):
+                steps += ([_video_request_rows(lvu, q, video)[1]] * n
+                          + [1] * ((k - 1) * n))
+            want = b1_kernels(lvu, steps)
+            rec["burst_want_b1"] = dict(want, flash=sum(want.values()))
+            live = lvu.start_chat(video)
+            rec["live"] = [live.ask(q, max_new_tokens=8)
+                           for q in SESSION_QUESTIONS[:2]]
+            peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+            del live
+        else:
+            rec["burst_want_b1"] = counts
+        cfg = tserver.ServerConfig(
+            port=0, spill_dir=os.path.join(work, f"spill-{tag}"),
+            max_resident_sessions=1, default_max_new_tokens=8,
+            request_timeout_s=900)
+        httpd, server = tserver.make_http_server(lvu, cfg)
+        jobs = []
+        _log_jobs(server, counters, jobs)
+        rec["leader"] = server.is_leader
+        if server.is_leader:
+            threading.Thread(target=httpd.serve_forever, daemon=True).start()
+            base = f"http://127.0.0.1:{httpd.server_address[1]}"
+            try:
+                rec.update(_serve_mesh_client(base, server, lvu, video, other,
+                                              jobs, idle_s))
+            finally:
+                httpd.shutdown()
+                server.shutdown()
+                httpd.server_close()
+            rec["worker_alive"] = server._worker.is_alive()
+        else:
+            httpd.serve_forever()  # returns at the leader's stop
+            server.shutdown()
+        torch.cuda.synchronize()
+        rec.update(jobs=jobs, stats=server.stats, peak_gib=max(
+            peak, torch.cuda.max_memory_allocated() / 2**30))
+    del lvu, server, httpd
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _serve_lines(tag, mesh_kw, recs, one_rank, label):
+    """Phase 3k's checks of one run, every rank's record against the
+    leader's requests; prints them. Returns ok."""
+    lead = next(r for r in recs if r["leader"])
+    pp = mesh_kw.get("pp", 1) > 1
+    ok = True
+
+    def line(what, this_ok):
+        nonlocal ok
+        ok &= bool(this_ok)
+        log(f"[3k {tag}] {what} {'OK' if this_ok else 'FAIL'}")
+
+    agree = all(r["direct"] == lead["direct"] for r in recs)
+    burst = lead["burst"]
+    i0, i1 = burst["jobs"]
+    served = [_add_counts({}, {}) for _ in recs]
+    for r, total in zip(recs, served):
+        for job in r["jobs"][i0:i1]:
+            _add_counts(total, job["b1"])
+    n = len(BATCH_QUESTIONS)
+    # the leader drains the burst into one job of n payloads on every rank
+    same_jobs = all([(j["kind"], j["n"]) for j in r["jobs"][i0:i1]]
+                    == [("generate", n)] for r in recs)
+    want_b1 = [r["burst_want_b1"] for r in recs]
+    if pp:
+        # served one by one: launches as the n direct generate calls'; one
+        # rank's answers bit for bit where no tp changes the sums
+        exact = burst["answers"] == one_rank
+        answers_ok = (burst["answers"] == lead["direct"]
+                      and (exact or mesh_kw.get("tp", 1) > 1))
+        what = (f"one by one (BatchedQAEngine refused under pp, C23): "
+                f"answers {burst['answers']} vs one rank's {one_rank} "
+                f"(bit for bit {exact})")
+    else:
+        answers_ok = burst["answers"] == lead["direct"]
+        what = (f"as one micro-batch on every rank: answers "
+                f"{burst['answers']} vs the mesh's {n} direct LVU.generate "
+                f"calls {lead['direct']}")
+    line(f"burst of {n} /v1/generate on one video {what}; statuses "
+         f"{burst['codes']}; batch histogram {burst['batches']}; every rank "
+         f"ran the same jobs {same_jobs}; direct answers agree over the "
+         f"ranks {agree}", answers_ok and agree and same_jobs
+         and burst["codes"] == [200] * n and burst["batches"] == {str(n): 1})
+    for r, got, want in zip(recs, served, want_b1):
+        line(f"rank {r['rank']} (stage {r['stage']}): B1 launches of the "
+             f"served burst {_kern({k: got.get(k, 0) for k in SERVE_B1[1:]})}"
+             f", flash {got.get('flash', 0)}, vs the direct calls' "
+             f"{_kern({k: want[k] for k in SERVE_B1[1:]})}, flash "
+             f"{want['flash']} ("
+             + ("measured on the direct calls" if pp
+                else "the micro-batch's rows") + ")",
+             got == want and want["flash"] > 0)
+    log(f"[3k {tag}] walls ({label}): served burst {burst['wall']:.4f} s vs "
+        f"{lead['direct_wall']:.4f} s for the {n} direct LVU.generate calls;"
+        f" memory per rank "
+        + "; ".join(f"rank {r['rank']} resident {r['resident_gib']:.2f} GiB "
+                    f"peak {r['peak_gib']:.2f} GiB" for r in recs))
+    st = lead["stream"]
+    line(f"SSE on /v1/generate: {st['frames']} frames joining to "
+         f"{st['joined']} vs the unstreamed {lead['direct'][1]}",
+         st["status"] == 200 and st["done"]
+         and st["ctype"] == "text/event-stream"
+         and st["joined"] == lead["direct"][1]
+         and st["final"] == [lead["direct"][1]])
+    if pp:
+        code, body = lead["session_refused"]
+        line(f"/v1/sessions refused on every rank: HTTP {code} "
+             f"{body.get('error')!r}", code == 500
+             and "chat sessions do not support pipeline parallelism"
+             in body.get("error", ""))
+    else:
+        ss = lead["sessions"]
+        line(f"two sessions, max_resident_sessions=1: session 1's answers "
+             f"{ss['answers']} vs a session that never spilled "
+             f"{lead['live']}; statuses {ss['codes']}; spills {ss['spills']}"
+             f", resumes {ss['resumes']}; session 2's creation (spilling "
+             f"session 1: a gather and one .npz, {ss['spill_files']}) "
+             f"{ss['spill_wall']:.4f} s, session 1's resumed ask "
+             f"{ss['resume_wall']:.4f} s",
+             ss["answers"] == lead["live"]
+             and all(r["live"] == lead["live"] for r in recs)
+             and ss["codes"] == [200] * 6 and ss["spills"] >= 1
+             and ss["resumes"] >= 1 and len(ss["spill_files"]) == 1)
+        ch = lead["chat"]
+        idle = (f"after {lead['idle_s']} s idle (control timeout lowered to "
+                f"{SERVE_CONTROL_TIMEOUT_S} s, heartbeat every "
+                f"{SERVE_HEARTBEAT_S} s) " if "idle_s" in lead else "")
+        line(f"{idle}/v1/chat/completions with a video_url part: HTTP "
+             f"{ch['code']} {ch['content']} vs {lead['direct'][0]}",
+             ch["code"] == 200 and ch["object"] == "chat.completion"
+             and ch["content"] == lead["direct"][0])
+    keys = ("requests", "errors", "spills", "resumes")
+    line("every follower ran every job: " + "; ".join(
+        f"rank {r['rank']} {[r['stats'][k] for k in keys]}" for r in recs)
+        + f" ({'/'.join(keys)}); the leader's worker ended: "
+        f"{not lead['worker_alive']}",
+        all([r["stats"][k] for k in keys] == [lead["stats"][k] for k in keys]
+            and len(r["jobs"]) == len(lead["jobs"]) for r in recs)
+        and not lead["worker_alive"])
+    return ok
+
+
+def _serve_mesh_phase(dev, params, world, backend, runs, label):
+    """Start `world` rank processes of phase 3k (or of `--mesh-cards
+    --mesh-runs serve`), hold each run against its checks and, under pp,
+    against one rank's answers (the bf16 weights `params` on this
+    process's card). Returns (ok, each run's records)."""
+    import torch
+
+    work = tempfile.mkdtemp(prefix="qv-serve-")
+    for name in ("serve.mp4", "other.mp4"):  # the routes check paths exist
+        open(os.path.join(work, name), "wb").close()
+    video = os.path.join(work, "serve.mp4")
+    one_rank = None
+    if any(kw.get("pp", 1) > 1 for _, kw in runs):
+        with seeded_videos():
+            one = _spelled(_path_lvu(dev, params))
+            one_rank = [one.generate(q, video, max_new_tokens=8)[0]
+                        for q in BATCH_QUESTIONS]
+            del one
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    args = ["--mesh-rank", "{r}", "--mesh-dir", work, "--mesh-world",
+            str(world), "--mesh-backend", backend, "--mesh-phase", "3k"]
+    if backend != "gloo":
+        args += ["--mesh-runs", "serve"]
+    done = _spawn(args, world, SERVE_MESH_TIMEOUT_S, work)
+    phase_s = time.perf_counter() - t0
+    records = []
+    for r, (rc, out) in enumerate(done):
+        if rc != 0:
+            log(out[-3000:])
+            log(f"[3k] rank {r} exited with {rc} (None: killed at "
+                f"{SERVE_MESH_TIMEOUT_S} s; every rank must exit 0 after "
+                "the leader's shutdown) FAIL")
+            return False, []
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            records.append(json.load(f))
+    log(f"[3k] {world} ranks ({label}) exited 0 after shutdown: phase "
+        f"{phase_s:.1f} s")
+    ok, done_runs = True, []
+    for i, (tag, mesh_kw) in enumerate(runs):
+        recs = [rec["runs"][i] for rec in records]
+        ok &= _serve_lines(tag, mesh_kw, recs, one_rank, label)
+        done_runs.append(recs)
+    return ok, done_runs
+
+
+def run_serving_mesh(dev, params):
+    """Phase 3k: the HTTP server over two gloo ranks sharing the card (tp =
+    2, then pp = 2) on the 7B at full width and depth, bf16 weights
+    `params` for the one-rank answers. Returns (ok, each run's records)."""
+    return _serve_mesh_phase(
+        dev, params, MESH_WORLD, "gloo", SERVE_MESH_RUNS,
+        "gloo on one card: its walls say nothing of NCCL between cards")
 
 
 # -- phase 4: card vs CPU ----------------------------------------------------
@@ -4432,7 +4849,8 @@ def main():
     ap.add_argument(
         "--mesh-runs", default=None,
         help="with --mesh-cards: the comma-separated tags of the runs to "
-             "make (default: every run for the number of cards)",
+             "make (default: every run for the number of cards), or serve: "
+             "phase 3k's server checks over NCCL",
     )
     ap.add_argument(
         "--mesh-cards", action="store_true",
@@ -4493,7 +4911,8 @@ def main():
         return
     if args.mesh_cards:
         ok = run_card_mesh(dev, args.mesh_runs)
-        log(f"mesh-cards: {'OK' if ok else 'FAIL'}")
+        log(f"mesh-cards: {'OK' if ok else 'FAIL'} ({gpu}, "
+            f"{torch.cuda.device_count()} cards)")
         return
     if args.compare_fused:
         ok = compare_fused(dev, os.path.relpath(args.root, ROOT))
@@ -4581,6 +5000,8 @@ def main():
         phase_ok, phase_runs = phase(dev, lvu.params)
         ok &= phase_ok
         runs += phase_runs
+    serve_ok, serve_runs = run_serving_mesh(dev, lvu.params)
+    ok &= serve_ok
     del lvu
     torch.cuda.empty_cache()
     for param_dtype, kv_dtype, what in (
@@ -4705,6 +5126,15 @@ def main():
     kernels.append(entry(
         "flash_past_attention (B1, per pp stage: the stage's layers of "
         "every step)", *flash, pp_total, rows, row, row["library_ms"]))
+    # phase 3k's B1 launches, in its rank processes: every job of the
+    # served requests on every rank (the served burst's per rank checked
+    # there against the same work called directly)
+    serve_total = sum(job["b1"]["flash"] for recs in serve_runs
+                      for r in recs for job in r["jobs"])
+    kernels.append(entry(
+        "flash_past_attention (B1, served on a mesh: each rank's jobs, tp "
+        "heads or pp stage)", *flash, serve_total, rows, row,
+        row["library_ms"]))
     fused = "fused_vision_mlp.cu"
     kernels += [
         entry("block_diag_attention_2d (B2)", "vision_attention.cu",

@@ -35,6 +35,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 from typing import List, Optional
 
 import numpy as np
@@ -319,8 +320,13 @@ class ChatSession:
             ],
         }
         if mesh is None or mesh.is_first:
-            with open(path, "wb") as f:
+            # written whole, then renamed into place: under dp each
+            # replica's first rank writes the same file, and a reader
+            # sees one complete copy
+            part = f"{path}.{os.getpid()}.part"
+            with open(part, "wb") as f:
                 np.savez(f, meta=json.dumps(meta), **arrays)
+            os.replace(part, path)
         if mesh is not None and mesh.model_group is not None:
             torch.distributed.barrier(group=mesh.model_group)
 

@@ -20,6 +20,10 @@ later ones.
 
 from __future__ import annotations
 
+import os
+import shutil
+import tempfile
+from pathlib import Path
 from typing import List
 
 import numpy as np
@@ -174,8 +178,30 @@ def _fetch_frames(lvu, video_path, timer, cfg=None):
     if cached is not None:
         return np.asarray(cached), plan, native_hw
     frames, plan, native_hw = vreader.decode_video_batch(video_path, cfg)
-    frame_cache.save(video_path, plan, frames, cfg.cache_dir, native_hw)
+    _publish_frames(video_path, plan, frames, cfg.cache_dir, native_hw)
     return frames, plan, native_hw
+
+
+def _publish_frames(video_path, plan, frames, cache_dir, native_hw):
+    """frame_cache.save, made whole in a directory of this process's own
+    and renamed into place: a reader sees no entry or a complete one. The
+    ranks of a mesh run each request at once and share the cache
+    directory, so several may write one entry while another reads it."""
+    from quickvideo_tpu_torch.video import frame_cache
+
+    root = (Path(cache_dir).expanduser() if cache_dir
+            else frame_cache.default_cache_dir())
+    root.mkdir(parents=True, exist_ok=True)
+    part = Path(tempfile.mkdtemp(prefix=".part-", dir=root))
+    try:
+        entry = frame_cache.save(video_path, plan, frames, str(part),
+                                 native_hw)
+        try:
+            os.rename(entry, root / entry.name)
+        except OSError:
+            pass  # another writer published the same entry first
+    finally:
+        shutil.rmtree(part, ignore_errors=True)
 
 
 def _video_inputs(lvu, messages, video_path, cfg, timer, images):

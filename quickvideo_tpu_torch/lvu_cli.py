@@ -32,6 +32,7 @@ import io
 import json
 import sys
 import tempfile
+from typing import Optional
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -145,23 +146,31 @@ def _stream_printer(lvu):
     return on_tokens
 
 
+def mesh_from_flag(value: Optional[str]) -> Optional[dict]:
+    """LVUConfig keywords of a `--mesh dp,pp,tp,sp` flag: {} without one,
+    {"mesh": MeshConfig} for four axes; None, after an error line on
+    stderr, for any other count."""
+    if not value:
+        return {}
+    from quickvideo_tpu_torch.config import MeshConfig
+
+    axes = [int(x) for x in value.split(",")]
+    if len(axes) != 4:
+        print("error: --mesh wants 4 comma-separated axes: dp,pp,tp,sp",
+              file=sys.stderr)
+        return None
+    return {"mesh": MeshConfig(dp=axes[0], pp=axes[1], tp=axes[2],
+                               sp=axes[3])}
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
     from quickvideo_tpu_torch.config import LVUConfig
     from quickvideo_tpu_torch.api import LVU
 
-    mesh_kw = {}
-    if args.mesh:
-        from quickvideo_tpu_torch.config import MeshConfig
-
-        axes = [int(x) for x in args.mesh.split(",")]
-        if len(axes) != 4:
-            print("error: --mesh wants 4 comma-separated axes: dp,pp,tp,sp",
-                  file=sys.stderr)
-            return 2
-        mesh_kw["mesh"] = MeshConfig(
-            dp=axes[0], pp=axes[1], tp=axes[2], sp=axes[3]
-        )
+    mesh_kw = mesh_from_flag(args.mesh)
+    if mesh_kw is None:
+        return 2
 
     video = args.video_path
     if video is None:

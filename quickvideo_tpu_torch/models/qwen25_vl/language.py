@@ -417,3 +417,29 @@ def decode_step(
     x = embed_tokens(params, token_id)
     x, _ = prefill_step(params, cache, x, cos, sin, cfg, mesh=mesh)
     return compute_logits(params, x[0], cfg, mesh)
+
+
+def full_forward_logits(
+    params: dict,
+    x: torch.Tensor,  # (L, C) embeddings
+    cos: torch.Tensor,  # (L, head_dim) f32
+    sin: torch.Tensor,
+    cfg: TextConfig,
+) -> torch.Tensor:
+    """Ungrouped, uncached causal forward over a whole sequence -> logits
+    (L, V) f32 (quickvideo_tpu/models/qwen25_vl/language.py:770); the
+    baseline and a parity target. Each layer's attention is kernel B1 in
+    unified causal mode over an empty past, with the sequence's own K/V as
+    the cache (the in-group partial's route, parallel/context_parallel.py).
+    One device."""
+    n = x.shape[0]
+    scale = cfg.head_dim ** -0.5
+    for lp in params["layers"]:
+        h = rms_norm(x, lp["ln1"], cfg.rms_norm_eps)
+        q, k, v = _project_qkv(lp, h, cfg)
+        q, k = apply_rotary(q, k, cos, sin)
+        out, _ = flash_past_attention(q, k, v, 0, scale)
+        x = x + linear(out.to(x.dtype).transpose(0, 1).reshape(n, -1),
+                       lp["wo"])
+        x = x + swiglu_mlp(rms_norm(x, lp["ln2"], cfg.rms_norm_eps), lp)
+    return compute_logits(params, x, cfg)

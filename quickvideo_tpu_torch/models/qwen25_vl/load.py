@@ -15,6 +15,7 @@ leaf is copied from the mapping straight to `device` as it is needed, so a
 shard never sits in host memory as a second copy and the tree is never
 stacked on the host. A truncated or malformed file raises ValueError.
 
+`params_from_torch_model` (load.py:259) takes a live module's state dict.
 `load_params_sharded` (quickvideo_tpu/models/qwen25_vl/load.py:133) gives
 a tensor-parallel rank its part of the tree (parallel/sharding.py): each
 split tensor is narrowed on the file's map before it is copied, so only
@@ -288,6 +289,17 @@ def params_from_state_dict(
         return _as_tensor(state[name])
 
     return params_from_fetch(fetch, cfg, dtype, device)
+
+
+def params_from_torch_model(torch_model, cfg: ModelConfig,
+                            dtype=torch.bfloat16, device="cpu") -> dict:
+    """The tree of a live module whose state_dict() has HF names (a
+    Qwen2_5_VLForConditionalGeneration; transformers is not imported
+    here), through params_from_state_dict
+    (quickvideo_tpu/models/qwen25_vl/load.py:259)."""
+    state = {k: v.detach().to("cpu").float()
+             for k, v in torch_model.state_dict().items()}
+    return params_from_state_dict(state, cfg, dtype, device)
 
 
 def load_params(model_dir: str, cfg: ModelConfig, dtype=torch.bfloat16,

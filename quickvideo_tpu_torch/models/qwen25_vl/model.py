@@ -12,6 +12,10 @@ import torch
 
 from quickvideo_tpu_torch.models.qwen25_vl.config import ModelConfig
 from quickvideo_tpu_torch.models.qwen25_vl import rope
+from quickvideo_tpu_torch.models.qwen25_vl.language import (
+    embed_tokens,
+    full_forward_logits,
+)
 from quickvideo_tpu_torch.models.qwen25_vl.vision import (
     build_layout,
     vision_forward,
@@ -92,3 +96,48 @@ def mrope_tables(
         cfg.text.mrope_section,
         cfg.text.rope_theta,
     )
+
+
+def forward_full_sequence(
+    params: dict,
+    cfg: ModelConfig,
+    input_ids: np.ndarray,  # (L,)
+    pixels=None,  # (S, patch_input_dim) patchified floats, or frames
+    video_grid_thw: Optional[np.ndarray] = None,
+    second_per_grid_ts: Optional[Sequence[float]] = None,
+    image_pixels: Optional[Sequence] = None,  # per image
+    image_grid_thw: Optional[np.ndarray] = None,  # (n_img, 3)
+) -> torch.Tensor:
+    """Ungrouped full forward -> logits (L, V) f32
+    (quickvideo_tpu/models/qwen25_vl/model.py:145): the video's vision
+    embeddings scatter into its `<|video_pad|>` slots, and the images',
+    in image order, into the `<|image_pad|>` slots (HF masked_scatter
+    semantics); then full_forward_logits. Inputs go to the device that
+    holds the parameters."""
+    lang = params["language"]
+    dev = lang["norm"].device
+    ids = torch.as_tensor(np.asarray(input_ids), dtype=torch.int64,
+                          device=dev)
+    x = embed_tokens(lang, ids)
+    if pixels is not None:
+        vis = encode_video_group(
+            params, cfg, torch.as_tensor(pixels, device=dev),
+            tuple(int(v) for v in np.asarray(video_grid_thw)[0]))
+        x = merge_vision_embeddings(x, vis, ids, cfg.video_token_id)
+    if image_pixels is not None:
+        embs = [
+            encode_video_group(params, cfg, torch.as_tensor(p, device=dev),
+                               tuple(int(v) for v in g))
+            for p, g in zip(image_pixels, np.asarray(image_grid_thw))
+        ]
+        x = merge_vision_embeddings(x, torch.cat(embs), ids,
+                                    cfg.image_token_id)
+    positions, _ = rope_index_for(
+        cfg, np.asarray(input_ids), video_grid_thw=video_grid_thw,
+        image_grid_thw=image_grid_thw,
+        second_per_grid_ts=second_per_grid_ts,
+    )
+    cos, sin = rope.mrope_cos_sin(positions, cfg.text.head_dim,
+                                  cfg.text.mrope_section,
+                                  cfg.text.rope_theta, dev)
+    return full_forward_logits(lang, x, cos, sin, cfg.text)

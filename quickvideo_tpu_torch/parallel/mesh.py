@@ -23,7 +23,10 @@ group of the ranks that serve one request together (pp x tp x sp), and the
 device. Under pp it also names this rank's stage and the global ranks of
 the previous and next stage at the same dp, tp and sp coordinates (the
 ends of its point-to-point links) and of the last stage (the source of
-each broadcast token). `init_multihost` starts the process group from the environment:
+each broadcast token), and the control group: every rank, over gloo, with
+its own long timeout (CONTROL_TIMEOUT_S), which carries the HTTP server's
+job descriptions from rank 0 to the others (serving/server.py) and never
+the model's tensors. `init_multihost` starts the process group from the environment:
 QV_COORDINATOR / QV_NUM_PROCESSES / QV_PROCESS_ID (the JAX package's
 contract), else torchrun's RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT.
 The backend is the caller's choice: "nccl" by default on a CUDA device,
@@ -32,6 +35,7 @@ The backend is the caller's choice: "nccl" by default on a CUDA device,
 
 from __future__ import annotations
 
+import datetime
 import itertools
 import os
 from typing import Dict, Optional
@@ -42,6 +46,11 @@ import torch.distributed as dist
 from quickvideo_tpu_torch.config import MeshConfig
 
 AXES = ("dp", "pp", "tp", "sp")
+# how long a rank may wait in one collective of the control group: a
+# follower of the HTTP server waits there for as long as the server is
+# idle, and the leader sends a heartbeat (serving/server.py HEARTBEAT_S)
+# well within it
+CONTROL_TIMEOUT_S = 3600.0
 
 
 def default_backend(device) -> str:
@@ -141,7 +150,8 @@ class Mesh:
 
     def __init__(self, config: MeshConfig, rank: int,
                  groups: Dict[str, Optional[object]],
-                 model_group, model_ranks, device: torch.device):
+                 model_group, model_ranks, device: torch.device,
+                 control_group=None):
         self.config = config
         self.rank = rank
         self.coords = dict(zip(AXES, _coords(config, rank)))
@@ -150,6 +160,7 @@ class Mesh:
         # request
         self.model_ranks = model_ranks  # their global ranks, ascending
         self.device = device
+        self.control_group = control_group  # every rank, gloo
 
     def size(self, axis: str) -> int:
         return getattr(self.config, axis)
@@ -280,5 +291,8 @@ def make_mesh(cfg: MeshConfig, device=None) -> Mesh:
     model_group, model_ranks = None, [rank]
     if cfg.pp * cfg.tp * cfg.sp > 1:
         model_group, model_ranks = _new_groups(cfg, ("pp", "tp", "sp"), rank)
+    control = dist.new_group(
+        list(range(world)), backend="gloo",
+        timeout=datetime.timedelta(seconds=CONTROL_TIMEOUT_S))
     return Mesh(cfg, rank, groups, model_group, model_ranks,
-                rank_device(device))
+                rank_device(device), control)

@@ -20,6 +20,26 @@ bodies, status codes and statistics:
   its own tokens only (chat.py). Beyond `max_resident_sessions` the least
   recently used session spills to disk through ChatSession.save and
   resumes on its next ask.
+* **A mesh: rank 0 answers, every rank follows its jobs.** Under a mesh
+  (`lvu.mesh`, one process per rank, parallel/mesh.py) every rank must run
+  every request, since each request's collectives span the ranks. The
+  same script runs on every rank: `make_http_server(lvu, cfg)` binds the
+  HTTP port on rank 0 (the leader) only; on the other ranks (followers) it
+  returns an object whose `serve_forever()` runs the follow loop. The
+  leader's worker thread, and only it, broadcasts each dispatch before any
+  device work over the mesh's gloo control group (the job kind, the
+  micro-batch's payloads without their stream queues, whether each
+  streams), in the order it chose; each follower runs the same
+  `_dispatch` with its own sessions, so spills and resumes come at the
+  same job everywhere (a spill is itself a collective, chat.py). Where
+  the leader streams, a follower passes an `on_tokens` that does nothing,
+  so the decode chunks alike. Errors that come from the request arise on
+  every rank at the same point; the leader alone answers them. An idle
+  leader sends a heartbeat every HEARTBEAT_S, well within the control
+  group's timeout (parallel/mesh.py CONTROL_TIMEOUT_S); `shutdown()` on the
+  leader sends a stop, and every follower's `serve_forever()` returns.
+  Sessions spill into `spill_dir`, which every rank must see (one
+  directory on one host; a shared filesystem across hosts).
 * **OpenAI-compatible adapter.** `POST /v1/chat/completions` accepts
   `video_url` content parts and returns a `chat.completion` object.
 * **Streaming (SSE).** `"stream": true` on /v1/generate,
@@ -43,12 +63,15 @@ Endpoints:
                                   (+ "stream": true -> SSE chunks)
 
 Run: `python -m quickvideo_tpu_torch.serving --device cuda` (the default;
-`--device cpu` runs the kernels' plain versions).
+`--device cpu` runs the kernels' plain versions); on a mesh, one process
+per rank: `torchrun --nproc-per-node 2 -m quickvideo_tpu_torch.serving
+--mesh 1,1,2,1` (dp,pp,tp,sp; rank 0 prints and binds --host / --port).
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import queue
 import threading
@@ -59,6 +82,13 @@ from dataclasses import dataclass, field
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Dict, List, Optional
 from urllib.parse import urlparse
+
+# an idle leader's heartbeat to its followers, in seconds: each follower
+# waits for its next job inside a collective of the mesh's control group,
+# which times out after parallel/mesh.py CONTROL_TIMEOUT_S
+HEARTBEAT_S = 60.0
+# the payload keys that stay on the leader (a stream's queue and nonce)
+_LEADER_ONLY = ("_stream", "_stream_nonce")
 
 
 @dataclass
@@ -123,6 +153,12 @@ class LVUServer:
     def __init__(self, lvu, cfg: Optional[ServerConfig] = None):
         self.lvu = lvu
         self.cfg = cfg or ServerConfig()
+        mesh = getattr(lvu, "mesh", None)
+        # the gloo group that carries jobs to the followers (None: one
+        # device); rank 0 leads
+        self._control = None if mesh is None else mesh.control_group
+        self.is_leader = mesh is None or mesh.rank == 0
+        self._broken: Optional[BaseException] = None
         self.spill_dir = self.cfg.spill_dir or os.path.join(
             os.environ.get("TMPDIR", "/tmp"), "qv_sessions"
         )
@@ -151,10 +187,12 @@ class LVUServer:
         self._admitted = 0  # submitted-and-unfinished request count
         self._admit_lock = threading.Lock()
         self._stop = False
-        self._worker = threading.Thread(
-            target=self._work_loop, name="lvu-worker", daemon=True
-        )
-        self._worker.start()
+        self._worker = None
+        if self.is_leader:
+            self._worker = threading.Thread(
+                target=self._work_loop, name="lvu-worker", daemon=True
+            )
+            self._worker.start()
 
     # ---- client-facing (any thread) -------------------------------------
 
@@ -242,6 +280,10 @@ class LVUServer:
         boundaries."""
         sq = p.get("_stream")
         if sq is None:
+            if p.get("_streamed"):
+                # a follower's copy of a streamed job: the decode chunks as
+                # on the leader, whose stream alone is read
+                return (lambda new: None), (lambda answer: None)
             return None, lambda answer: None
         tok = self.lvu.tokenizer
         eos = {tok.eos_token_id}
@@ -271,10 +313,100 @@ class LVUServer:
         self._paused.set()
 
     def shutdown(self):
+        """Stop the worker after its job in flight; under a mesh it then
+        stops the followers. A follower's shutdown does nothing: its loop
+        ends at the leader's stop."""
         self._stop = True
         self._paused.set()
+        if self._worker is None:
+            return
         self._q.put(_Job("noop", {}))
-        self._worker.join(timeout=10)
+        # under a mesh the followers wait for the stop the worker sends
+        # once its job in flight ends
+        self._worker.join(
+            timeout=10 if self._control is None
+            else self.cfg.request_timeout_s)
+
+    # ---- the mesh's control channel (leader: worker thread only) ---------
+
+    def _send(self, kind: str, batch: List[_Job]) -> None:
+        """Broadcast a dispatch to the followers before any device work:
+        the kind and each payload without what stays on the leader. A
+        failure (a follower has exited) fails this and every later job:
+        the leader does not serve on alone."""
+        if self._control is None:
+            return
+        if self._broken is not None:
+            raise RuntimeError(
+                "a follower rank left the mesh; the server cannot serve "
+                f"without it: {self._broken}") from self._broken
+        payloads = []
+        for j in batch:
+            p = {k: v for k, v in j.payload.items() if k not in _LEADER_ONLY}
+            if "_stream" in j.payload:
+                p["_streamed"] = True
+            payloads.append(p)
+        import torch.distributed as dist
+
+        try:
+            dist.broadcast_object_list([(kind, payloads)], src=0,
+                                       group=self._control)
+        except BaseException as e:  # noqa: BLE001 - fails the jobs
+            self._broken = e
+            raise RuntimeError(
+                "a follower rank did not take the job; the server cannot "
+                f"serve without it: {e}") from e
+
+    def _next_job(self) -> _Job:
+        """The next queued job; under a mesh an idle wait sends a
+        heartbeat every HEARTBEAT_S."""
+        if self._control is None:
+            return self._q.get()
+        while True:
+            try:
+                return self._q.get(timeout=HEARTBEAT_S)
+            except queue.Empty:
+                self._heartbeat()
+
+    def _heartbeat(self) -> None:
+        if self._broken is None:
+            try:
+                self._send("noop", [])
+            except RuntimeError:
+                pass  # recorded in _broken: every later job fails
+
+    def _wait_running(self) -> None:
+        """Hold while paused; under a mesh with heartbeats."""
+        if self._control is None:
+            self._paused.wait()
+            return
+        while not self._paused.wait(HEARTBEAT_S):
+            self._heartbeat()
+
+    def follow(self) -> None:
+        """A follower's loop: run each job the leader broadcasts, through
+        the same `_dispatch`, until the leader's stop. Errors that come
+        from the request arise here as on the leader, which answers them;
+        the follower goes on to the next job."""
+        import torch.distributed as dist
+
+        self._bind_device()
+        while True:
+            msg = [None]
+            dist.broadcast_object_list(msg, src=0, group=self._control)
+            kind, payloads = msg[0]
+            if kind == "stop":
+                return
+            if kind == "noop":
+                continue
+            batch = [_Job(kind, p) for p in payloads]
+            try:
+                self._dispatch(batch)
+            except Exception as e:  # noqa: BLE001 - the leader answers it
+                self.stats["errors"] += len(batch)
+                logging.getLogger(__name__).warning(
+                    "rank %d: %s job failed: %s: %s", self.lvu.mesh.rank,
+                    kind, type(e).__name__, e)
 
     # ---- worker (single thread owns ALL device work) ---------------------
 
@@ -298,14 +430,19 @@ class LVUServer:
             setup_error = e
         pending: List[_Job] = []
         while True:
-            job = pending.pop(0) if pending else self._q.get()
-            self._paused.wait()
+            job = pending.pop(0) if pending else self._next_job()
+            self._wait_running()
             if self._stop:
                 for j in pending:
                     j.error = RuntimeError("server shut down")
                     j.done.set()
                 job.error = RuntimeError("server shut down")
                 job.done.set()
+                if self._control is not None and self._broken is None:
+                    try:
+                        self._send("stop", [])
+                    except RuntimeError:
+                        pass  # a follower has gone already
                 return
             if job.kind == "noop":
                 job.done.set()
@@ -332,6 +469,10 @@ class LVUServer:
                     raise RuntimeError(
                         "the server's worker could not select its device: "
                         f"{setup_error}") from setup_error
+                if job.kind == "session_new":
+                    # drawn here, so that every rank keeps the same id
+                    job.payload.setdefault("session_id", uuid.uuid4().hex[:16])
+                self._send(job.kind, batch)
                 self._dispatch(batch)
                 self.stats["last_e2e_s"] = round(time.monotonic() - t0, 3)
             except BaseException as e:  # noqa: BLE001 - reported per-job
@@ -472,7 +613,7 @@ class LVUServer:
         video = p["video"]
         if not os.path.exists(video):
             raise RequestError(f"video not found: {video}")
-        sid = uuid.uuid4().hex[:16]
+        sid = p["session_id"]  # drawn by the leader's worker
         self._sessions[sid] = self.lvu.start_chat(
             video, **p.get("video_kwargs", {})
         )
@@ -778,11 +919,35 @@ class _Handler(BaseHTTPRequestHandler):
         self._route("DELETE")
 
 
+class _Follower:
+    """What make_http_server returns in place of the HTTP server on a
+    follower rank: `serve_forever()` runs the follow loop and returns at
+    the leader's stop; it binds no port."""
+
+    server_address = None
+
+    def __init__(self, lvu_server: LVUServer):
+        self.lvu_server = lvu_server
+
+    def serve_forever(self):
+        self.lvu_server.follow()
+
+    def shutdown(self):
+        pass
+
+    def server_close(self):
+        pass
+
+
 def make_http_server(lvu, cfg: Optional[ServerConfig] = None):
     """Build (ThreadingHTTPServer, LVUServer). Caller runs serve_forever()
-    (or spins it in a thread — tests do)."""
+    (or spins it in a thread — tests do). Under a mesh every rank calls
+    this: rank 0 gets the HTTP server, every other rank a follower whose
+    serve_forever() runs the jobs rank 0 sends until rank 0 shuts down."""
     cfg = cfg or ServerConfig()
     lvu_server = LVUServer(lvu, cfg)
+    if not lvu_server.is_leader:
+        return _Follower(lvu_server), lvu_server
     handler = type("BoundHandler", (_Handler,), {"lvu_server": lvu_server})
     httpd = ThreadingHTTPServer((cfg.host, cfg.port), handler)
     return httpd, lvu_server
@@ -819,7 +984,17 @@ def main(argv: Optional[List[str]] = None):
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                     help="cuda (default): the hand-written kernels on the "
                          "card; cpu: their plain versions")
+    ap.add_argument("--mesh", default=None,
+                    help="device mesh axes as dp,pp,tp,sp (e.g. --mesh "
+                         "1,1,2,1), one process per rank under torchrun "
+                         "(the CLI's flag); rank 0 binds --host / --port "
+                         "and every rank runs every request")
     args = ap.parse_args(argv)
+    from quickvideo_tpu_torch.lvu_cli import mesh_from_flag
+
+    mesh_kw = mesh_from_flag(args.mesh)
+    if mesh_kw is None:
+        return 2
 
     lvu = LVU(LVUConfig(
         model_name_or_path=args.model,
@@ -832,6 +1007,7 @@ def main(argv: Optional[List[str]] = None):
         param_dtype=args.param_dtype,
         kv_cache_dtype=args.kv_cache_dtype,
         max_decode_tokens=args.max_new_tokens,
+        **mesh_kw,
     ), device=args.device)
     cfg = ServerConfig(
         host=args.host, port=args.port, max_batch=args.max_batch,
@@ -840,13 +1016,24 @@ def main(argv: Optional[List[str]] = None):
         default_max_new_tokens=args.max_new_tokens,
     )
     httpd, lvu_server = make_http_server(lvu, cfg)
+    import signal
+
+    if not lvu_server.is_leader:
+        # a follower ends at the leader's stop; a signal to every rank
+        # (Ctrl-C, the launcher's SIGTERM) lets the leader drain first
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, signal.SIG_IGN)
+        httpd.serve_forever()
+        _leave_mesh(lvu)
+        return None
     print(f"serving {args.model} ({args.model_type}) on "
-          f"http://{cfg.host}:{httpd.server_address[1]}")
+          f"http://{cfg.host}:{httpd.server_address[1]}"
+          + (f" over the mesh {lvu.mesh.config}" if lvu.mesh else ""))
 
     # graceful drain: SIGTERM/SIGINT stop accepting new connections, let
     # the worker finish the in-flight job(s), then exit — kubernetes-style
-    # termination instead of killing a mid-prefill request
-    import signal
+    # termination instead of killing a mid-prefill request; under a mesh
+    # the worker then stops the followers
 
     def _drain(signum, frame):
         print(f"signal {signum}: draining ({lvu_server._admitted} in "
@@ -864,7 +1051,17 @@ def main(argv: Optional[List[str]] = None):
     while lvu_server._admitted > 0 and time.monotonic() < deadline:
         time.sleep(0.1)
     lvu_server.shutdown()
+    _leave_mesh(lvu)
     print("drained, bye")
+
+
+def _leave_mesh(lvu) -> None:
+    """Close this rank's process group once its server has stopped."""
+    if getattr(lvu, "mesh", None) is not None:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

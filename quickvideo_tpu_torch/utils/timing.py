@@ -54,3 +54,11 @@ class SpanTimer:
 
     def totals(self) -> Dict[str, float]:
         return dict(self._totals)
+
+    def report(self) -> str:
+        """Reference-style breakdown, one line per span, longest first
+        (quickvideo_tpu/utils/timing.py:76)."""
+        lines = []
+        for name, tot in sorted(self._totals.items(), key=lambda kv: -kv[1]):
+            lines.append(f"{name}: {tot:.2f}s (n={self._counts[name]})")
+        return "\n".join(lines)

@@ -2,7 +2,9 @@
 int8, pruning-mode and image requests; a chat session saved and resumed,
 continuation scoring, a checkpoint load; the CLI, the HTTP server, the disk
 frame cache and the on-device resize; the package's top-level names; each
-rank of a gloo mesh and the parallel/ modules) nor
+rank of a gloo mesh and the parallel/ modules; the HTTP server on a mesh,
+its leader and follower ranks; the full-sequence forward, the live-module
+loader and the span report) nor
 chip_smoke.py imports jax or any module of the JAX package
 (quickvideo_tpu), and the port never needs the safetensors package, and
 chip_smoke.py refuses to report a result without a CUDA card or outside a
@@ -291,6 +293,64 @@ import quickvideo_tpu_torch.models.qwen25_vl.load
 assert not forbidden(), forbidden()
 print("NOJAX_OK")
 """
+
+
+FULL_FORWARD = r"""
+import numpy as np, torch
+torch.set_num_threads(1)
+from quickvideo_tpu_torch.models.qwen25_vl.config import get_config
+from quickvideo_tpu_torch.models.qwen25_vl.convert import init_params
+from quickvideo_tpu_torch.models.qwen25_vl.load import params_from_torch_model
+from quickvideo_tpu_torch.models.qwen25_vl.model import forward_full_sequence
+from quickvideo_tpu_torch.testing import hf_state_dict
+from quickvideo_tpu_torch.utils.timing import SpanTimer
+cfg = get_config("tiny")
+params = init_params(cfg, 0, torch.float32)
+ids = np.concatenate([[5, 6, cfg.vision_start_token_id],
+                      np.full(2 * 8 * 8, cfg.video_token_id),
+                      [cfg.vision_end_token_id, 7]]).astype(np.int64)
+pixels = np.random.default_rng(0).standard_normal(
+    (2 * 16 * 16, cfg.vision.patch_input_dim)).astype(np.float32)
+logits = forward_full_sequence(params, cfg, ids, pixels,
+                               np.array([(2, 16, 16)]), [2.0])
+assert logits.shape == (len(ids), cfg.text.vocab_size)
+state = hf_state_dict(params, cfg)
+module = torch.nn.Module()
+module.state_dict = lambda: state
+again = params_from_torch_model(module, cfg, torch.float32)
+assert torch.equal(again["language"]["layers"][0]["wq"],
+                   params["language"]["layers"][0]["wq"])
+timer = SpanTimer()
+timer.add("vision", 0.5)
+assert timer.report() == "vision: 0.50s (n=1)"
+assert not forbidden(), forbidden()
+print("NOJAX_OK")
+"""
+
+
+def test_mesh_server_and_the_model_functions_import_nothing_of_jax(
+        tmp_path):
+    """The HTTP server on a tp = 2 gloo mesh (tests/torch_mesh_ranks.py::
+    case_serve on the seeded weights: the leader serves the script, the
+    follower runs its jobs) holds no jax and no quickvideo_tpu module on
+    either rank at its end; forward_full_sequence, params_from_torch_model
+    and SpanTimer.report run in a fresh interpreter without either."""
+    from torch_mesh_ranks import run_ranks
+
+    video = tmp_path / "clip.mp4"
+    video.write_bytes(b"")
+    ranks = run_ranks(
+        tmp_path, "serve", 2, video=str(video), spill=str(tmp_path / "spill"),
+        lvu=dict(model_name_or_path="tiny", model_type="qwen25_lvu",
+                 num_frames=8, video_group_size=4, top_p=0.5,
+                 max_decode_tokens=8, decode_output="yuv420",
+                 dtype="float32", mesh={"tp": 2}),
+        control_timeout_s=60.0, heartbeat_s=1.0, idle_s=0.0)
+    assert [r["role"] for r in ranks] == ["leader", "follower"]
+    assert [r["forbidden"] for r in ranks] == [[]] * 2
+    proc = _run(["-c", FORBIDDEN + FULL_FORWARD], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NOJAX_OK" in proc.stdout
 
 
 def test_top_level_names_import_nothing_of_jax_nor_the_model():

@@ -467,6 +467,34 @@ def test_server_main_takes_a_device_flag(monkeypatch):
         tserver.main(["--device", "tpu"])
 
 
+def test_server_main_takes_the_clis_mesh_flag(monkeypatch, capsys):
+    """`--mesh dp,pp,tp,sp` (the port's; the JAX server has one controller
+    and no such flag) is parsed and refused as lvu_cli's: four axes go to
+    the LVU's MeshConfig, another count returns 2 with the CLI's error."""
+    import quickvideo_tpu_torch.api as tapi
+    from quickvideo_tpu_torch.config import MeshConfig
+    from quickvideo_tpu_torch.serving import server as tserver
+
+    built = {}
+
+    class Stop(Exception):
+        pass
+
+    def fake_lvu(cfg, device=None):
+        built.update(cfg=cfg)
+        raise Stop
+
+    monkeypatch.setattr(tapi, "LVU", fake_lvu)
+    with pytest.raises(Stop):
+        tserver.main(["--mesh", "1,2,2,1", "--device", "cpu"])
+    assert built["cfg"].mesh == MeshConfig(dp=1, pp=2, tp=2, sp=1)
+    with pytest.raises(Stop):
+        tserver.main([])
+    assert built["cfg"].mesh == MeshConfig()
+    assert tserver.main(["--mesh", "1,2"]) == 2
+    assert "dp,pp,tp,sp" in capsys.readouterr().err
+
+
 def test_a_worker_that_cannot_select_its_device_fails_its_jobs(
         lvus, video, tmp_path, monkeypatch):
     """The worker selects the LVU's card before its first job. Where that

@@ -18,6 +18,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -34,9 +35,16 @@ def forbidden():
 
 def run_ranks(tmp_path, case: str, world: int, **spec):
     """Start `world` ranks of `case` with `spec` (JSON-able, plus paths
-    the parent saved), wait for all, return their results by rank."""
-    import torch
+    the parent saved), wait for all, return their results by rank. Every
+    rank must exit 0, or with spec["exit_codes"][rank] where that is given
+    (its result is then None)."""
+    return start_ranks(tmp_path, case, world, **spec)()
 
+
+def start_ranks(tmp_path, case: str, world: int, **spec):
+    """run_ranks in two halves: start the ranks and return a function that
+    waits for them and returns their results (the caller works
+    meanwhile)."""
     spec = dict(spec, case=case, world=world,
                 init=f"file://{tmp_path}/init-{case}-{time.time_ns()}",
                 out=str(tmp_path / f"res-{case}"))
@@ -49,23 +57,34 @@ def run_ranks(tmp_path, case: str, world: int, **spec):
         cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True,
     ) for r in range(world)]
-    outs, deadline = [], time.monotonic() + RANK_TIMEOUT_S
-    try:
-        for p in procs:
-            outs.append(p.communicate(
-                timeout=max(1.0, deadline - time.monotonic()))[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} of {case} failed:\n{out[-4000:]}"
-    results = [torch.load(f"{spec['out']}.{r}", weights_only=False)
-               for r in range(world)]
-    for r, res in enumerate(results):
-        assert res["forbidden"] == [], (r, res["forbidden"])
-    return results
+    deadline = time.monotonic() + RANK_TIMEOUT_S
+
+    def wait():
+        import torch
+
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(
+                    timeout=max(1.0, deadline - time.monotonic()))[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        codes = spec.get("exit_codes") or [0] * world
+        for r, (p, out) in enumerate(zip(procs, outs)):
+            assert p.returncode == codes[r], (
+                f"rank {r} of {case} exited with {p.returncode}, not "
+                f"{codes[r]}:\n{out[-4000:]}")
+        results = [torch.load(f"{spec['out']}.{r}", weights_only=False)
+                   if codes[r] == 0 else None for r in range(world)]
+        for r, res in enumerate(results):
+            assert res is None or res["forbidden"] == [], (
+                r, res["forbidden"])
+        return results
+
+    return wait
 
 
 # -- the seeded video reader (jax-free; the tests patch both packages with
@@ -409,6 +428,274 @@ def case_pipeline(spec, rank):
     return dict(runs=out)
 
 
+# -- the HTTP server on a mesh (tests/test_torch_serving_mesh.py): the
+# client side, run against the JAX server in the test process and against
+# the port's leader in rank 0 -------------------------------------------
+
+SERVE_QUESTIONS = ("What is happening?", "Describe the clip.")
+SESSION_QUESTIONS = ("What happens?", "Why?")
+
+
+def http(base, path, body=None, method=None):
+    """(status, decoded JSON body) of one request."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(
+        base + path, data=data, method=method or ("POST" if data else "GET"),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def sse(base, path, body):
+    """The JSON frames of a streamed request, before `data: [DONE]`."""
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + path, data=json.dumps(dict(body, stream=True)).encode(),
+        method="POST", headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as resp:
+        assert resp.status == 200
+        assert resp.headers.get("Content-Type") == "text/event-stream"
+        raw = resp.read().decode()
+    frames = [f[len("data: "):] for f in raw.split("\n\n")
+              if f.startswith("data: ")]
+    assert frames and frames[-1] == "[DONE]"
+    return [json.loads(f) for f in frames[:-1]]
+
+
+def without_id(obj):
+    """A body with its random `id` / `created` dropped, as JSON text."""
+    return json.dumps({k: v for k, v in obj.items()
+                       if k not in ("id", "created")})
+
+
+def _wait(cond, tries=400):
+    for _ in range(tries):
+        if cond():
+            return True
+        time.sleep(0.05)
+    return cond()
+
+
+def serve_script(base, server, video, direct):
+    """The requests that each package's server on a mesh answers, in
+    order; {step: what was observed}. `direct` holds the same LVU's direct
+    answers (SERVE_QUESTIONS by LVU.generate; the session's two turns by
+    LVU.start_chat, None where sessions are refused)."""
+    obs = {}
+    code, models = http(base, "/v1/models")
+    obs["health"] = [http(base, "/healthz"), code, models,
+                     sorted(http(base, "/v1/stats")[1])]
+    obs["generate"] = http(base, "/v1/generate", {
+        "video": video, "question": SERVE_QUESTIONS[0],
+        "max_new_tokens": 4})
+    # a burst of 3 behind the paused worker (which may hold one popped
+    # job), released at once: one micro-batch where batching runs
+    server.pause()
+    got = {}
+    body = {"video": video, "question": SERVE_QUESTIONS[1],
+            "max_new_tokens": 4}
+
+    def ask(i):
+        got[i] = http(base, "/v1/generate", body)
+
+    threads = [threading.Thread(target=ask, args=(i,)) for i in range(3)]
+    for t in threads:
+        t.start()
+    assert _wait(lambda: server._q.qsize() >= 2)
+    time.sleep(0.2)
+    server.resume()
+    for t in threads:
+        t.join(timeout=120)
+    obs["burst"] = [[got[i] for i in range(3)],
+                    dict(server.stats["batches"])]
+    obs["stream"] = sse(base, "/v1/generate", {
+        "video": video, "question": SERVE_QUESTIONS[0], "max_new_tokens": 4})
+    code, out = http(base, "/v1/chat/completions", {
+        "model": "tiny", "max_tokens": 4, "messages": [{
+            "role": "user", "content": [
+                {"type": "video_url", "video_url": {"url": f"file://{video}"}},
+                {"type": "text", "text": SERVE_QUESTIONS[0]}]}]})
+    obs["chat"] = [code, without_id(out)]
+    code, s1 = http(base, "/v1/sessions", {"video": video})
+    seen = [code, s1 if code != 200 else "id"]
+    if code == 200:
+        sid1 = s1["session_id"]
+        a1 = http(base, f"/v1/sessions/{sid1}/ask",
+                  {"question": SESSION_QUESTIONS[0], "max_new_tokens": 4})
+        # a second session spills the first (max_resident_sessions=1)
+        code2, s2 = http(base, "/v1/sessions", {"video": video})
+        sid2 = s2["session_id"]
+        b1 = http(base, f"/v1/sessions/{sid2}/ask",
+                  {"question": SESSION_QUESTIONS[0], "max_new_tokens": 4})
+        a2 = http(base, f"/v1/sessions/{sid1}/ask",  # resumed from disk
+                  {"question": SESSION_QUESTIONS[1], "max_new_tokens": 4})
+        closed = [http(base, f"/v1/sessions/{sid}", method="DELETE")[0]
+                  for sid in (sid1, sid2)]
+        code3, gone = http(base, f"/v1/sessions/{sid1}/ask",
+                           {"question": "?"})
+        gone = (code3, gone["error"].replace(sid1, "<id>"))
+        seen += [a1, code2, b1, a2, closed, gone, server.stats["spills"],
+                 server.stats["resumes"]]
+        assert [a1[1]["answer"], a2[1]["answer"]] == list(direct["session"])
+        assert server.stats["spills"] >= 1 and server.stats["resumes"] >= 1
+    obs["sessions"] = seen
+    obs["errors"] = [
+        http(base, "/v1/generate", {"video": video}),
+        http(base, "/v1/generate", {"video": "/nonexistent.mp4",
+                                    "question": "?"}),
+        http(base, "/v1/sessions/nope/ask", {"question": "?"}),
+    ]
+    obs["stats_keys"] = sorted(http(base, "/v1/stats")[1])
+    assert obs["generate"] == (200, {"answer": direct["generate"][0]})
+    assert [f["answer"] for f in obs["stream"] if "answer" in f] == [
+        direct["generate"][0]]
+    return obs
+
+
+def spell(lvu):
+    """Answers that spell their token ids (as tests/test_torch_serving.py
+    patches both packages' tokenizers)."""
+    lvu.tokenizer.decode = lambda ids: "".join(f"<{int(t)}>" for t in ids)
+    return lvu
+
+
+def direct_answers(lvu, video):
+    """What serve_script holds the served answers to: LVU.generate of each
+    SERVE_QUESTIONS, and a session's two turns (None where refused)."""
+    gen = [lvu.generate(q, video, max_new_tokens=4)[0]
+           for q in SERVE_QUESTIONS]
+    session = None
+    if lvu.config.mesh.pp == 1:
+        s = lvu.start_chat(video)
+        session = [s.ask(q, max_new_tokens=4) for q in SESSION_QUESTIONS]
+    return {"generate": gen, "session": session}
+
+
+def _slow_cache_writes(rank):
+    """Frame-cache timing that a real deployment can hit: rank 0 writes its
+    entry slowly (half of frames.npy, a pause, the rest) and rank 1 looks
+    for the entry while rank 0 is still writing."""
+    from quickvideo_tpu_torch.video import frame_cache
+
+    if rank == 1:
+        load = frame_cache.load
+
+        def late_load(*a, **k):
+            time.sleep(0.4)
+            return load(*a, **k)
+
+        frame_cache.load = late_load
+        return
+    real_save = np.save
+
+    def slow_save(path, arr, *a, **k):
+        if not str(path).endswith("frames.npy"):
+            return real_save(path, arr, *a, **k)
+        with open(path, "wb") as f:
+            np.lib.format.write_array_header_1_0(
+                f, np.lib.format.header_data_from_array_1_0(arr))
+            raw = np.ascontiguousarray(arr).tobytes()
+            f.write(raw[: len(raw) // 2])
+            f.flush()
+            time.sleep(1.0)
+            f.write(raw[len(raw) // 2:])
+
+    np.save = slow_save  # this rank process's numpy; frames.npy only
+
+
+def case_serve(spec, rank):
+    """The port's server on the mesh: every rank builds the LVU and makes
+    the direct calls, then rank 0 serves serve_script over HTTP from a
+    thread of its own while the others follow; then (rank 0) an idle gap
+    of spec["idle_s"] beyond the lowered control timeout and one more
+    request, and shutdown, after which every follower's serve_forever
+    returns. With spec["frame_cache"] the LVU caches frames in one shared
+    directory (slow writes, _slow_cache_writes) and rank 0 serves two
+    requests for one video instead of the script. With
+    spec["follower_exits"] rank 1 exits (code 3) when its first generate
+    job comes, and rank 0 sends two requests after it instead."""
+    from quickvideo_tpu_torch.parallel import mesh as tmesh
+    from quickvideo_tpu_torch.serving import server as tserver
+    from quickvideo_tpu_torch.video import reader as treader
+
+    tmesh.CONTROL_TIMEOUT_S = spec["control_timeout_s"]
+    tserver.HEARTBEAT_S = spec["heartbeat_s"]
+    patch_port_readers()
+    decodes = []
+    decode = treader.decode_video_batch
+
+    def counted(path, lvu):
+        decodes.append(path)
+        return decode(path, lvu)
+
+    treader.decode_video_batch = counted
+    video = spec["video"]
+    if spec.get("frame_cache"):
+        treader.open_reader = lambda path, n=None: ("native",
+                                                    SeededReader(path))
+        _slow_cache_writes(rank)
+    lvu = spell(_lvu(spec))
+    direct = None if spec.get("frame_cache") else direct_answers(lvu, video)
+    cfg = tserver.ServerConfig(port=0, spill_dir=spec["spill"],
+                               default_max_new_tokens=4,
+                               request_timeout_s=120)
+    httpd, server = tserver.make_http_server(lvu, cfg)
+    if spec.get("follower_exits") and rank == 1:
+        dispatch = server._dispatch
+
+        def exit_at_generate(batch):
+            if batch[0].kind == "generate":
+                os._exit(3)
+            return dispatch(batch)
+
+        server._dispatch = exit_at_generate
+    if not server.is_leader:
+        assert httpd.server_address is None  # binds nothing
+        httpd.serve_forever()
+        server.shutdown()
+        httpd.server_close()
+        return dict(role="follower", direct=direct, decodes=len(decodes),
+                    stats=server.stats)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    out = dict(role="leader", direct=direct)
+    try:
+        if spec.get("follower_exits"):
+            body = {"video": video, "question": SERVE_QUESTIONS[0],
+                    "max_new_tokens": 4}
+            out["after_exit"] = [http(base, "/v1/generate", body)
+                                 for _ in range(2)]
+        elif spec.get("frame_cache"):
+            body = {"video": video, "question": SERVE_QUESTIONS[0],
+                    "max_new_tokens": 4}
+            first = http(base, "/v1/generate", body)
+            n_first = len(decodes)
+            second = http(base, "/v1/generate", body)
+            out.update(first=first, second=second,
+                       decodes=[n_first, len(decodes)])
+        else:
+            out["obs"] = serve_script(base, server, video, direct)
+            time.sleep(spec["idle_s"])
+            out["after_idle"] = http(base, "/v1/generate", {
+                "video": video, "question": SERVE_QUESTIONS[0],
+                "max_new_tokens": 4})
+    finally:
+        httpd.shutdown()
+        server.shutdown()
+        httpd.server_close()
+    out["worker_alive"] = server._worker.is_alive()
+    out["stats"] = server.stats
+    return out
+
+
 CASES = {
     "pipeline": case_pipeline,
     "generate": case_generate,
@@ -417,6 +704,7 @@ CASES = {
     "chat": case_chat,
     "score": case_score,
     "cli": case_cli,
+    "serve": case_serve,
 }
 
 
