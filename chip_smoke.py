@@ -134,12 +134,22 @@ checkout of the repository. Phases:
      /v1/sessions refused with the JAX message on both ranks; walls,
      resident and peak memory per rank, the batch histogram; every rank
      exits 0 after the leader's shutdown;
+  3l. the other two model sizes on the one card (phase 2 also holds B1 at
+     their 8 q heads per kv head: 64 / 8, 32 / 4, 16 / 2):
+     qwen25-vl-3b at full width and depth, and qwen25-vl-72b at full width
+     and 8 of its 80 layers, each with bf16 weights, int8 weights and an
+     int8 KV cache: phase 3's request 0 twice, the second timed and
+     counted: B1 launches per variant, mode and kernel, cache lengths per
+     layer, the cache "auto" resolved to, tokens and finite logits, init
+     wall, resident and peak memory;
   4. the same prefill on the card and (plain versions) on the CPU for a
      narrow config with production head dims, with bf16 and with int8
      weights, with an int8 KV cache, with salient_tokens and query-based
      pruning, under QV_VISION_2D=0 with bf16 and int8 weights, with an
-     image, and with 480 x 854 frames resized on the device: final-prefill
-     logits agree, and the retained index sets of the pruned runs.
+     image, and with 480 x 854 frames resized on the device, and for a
+     narrow config at 8 q heads per kv head with the 72B's text eps and
+     tokens_per_second: final-prefill logits agree, and the retained index
+     sets of the pruned runs.
 
 QV_VISION_2D is set only around the phases that force the route.
 
@@ -166,16 +176,27 @@ With --root it times the package of another checkout, such as an
 unpacked older commit, for a before-and-after in one call. It prints no
 result line.
 
-    python3 chip_smoke.py --mesh-cards
+    python3 chip_smoke.py --mesh-cards [--mesh-runs TAGS] [--one-card]
 
-runs phase 1, then phase 3i's collective, CP kernel and tp checks and its
-7B requests (tp, sp, tp x sp, int8 KV, int8 weights) and phase 3j's
-pipeline requests (pp = 2 on two cards; on four: pp = 4, pp 2 x tp 2,
-pp = 4 with int8 weights, and pp = 2 in two dp replicas) with NCCL, one
-rank per card, on a machine of 2 or 4 cards, against one rank's request
-on card 0 (timed on its second run). With --mesh-runs serve it runs phase
-3k's server checks instead, over NCCL: tp = 2 and pp = 2 on two cards; on
-four dp 2 x tp 2, dp 2 x pp 2 and pp 2 x tp 2. It prints no result line.
+runs phase 1 (every card's name and power limit), then phase 3i's
+collective, CP kernel and tp checks and its 7B requests (tp, sp, tp x sp,
+int8 KV, int8 weights) and phase 3j's pipeline requests (pp = 2 on two
+cards; on four: pp = 4, pp 2 x tp 2, pp = 4 with int8 weights, and pp = 2
+in two dp replicas) with NCCL, one rank per card, on a machine of 2 or 4
+cards, against one rank's request on card 0 (timed on its second run);
+on four also the 72B at 8 of its 80 layers (tp = 2 and tp = 4 against
+the same 8 on card 0, pp 2 x tp 2 against tp = 2 bit for bit, with a
+bf16 and an int8 cache). TAGS picks runs of CARD_MESH_RUNS, TAGGED_RUNS
+(made only so: the 72B at 16 layers over tp = 2; at its 80 layers tp = 4
+with "auto" and with bf16 KV, pp 2 x tp 2 against tp = 4 with each, and
+int8 weights over tp = 2 on two cards) and CARD_SERVE_RUNS, e.g.
+--mesh-runs 72b_tp4,72b_tp4_bf16kv,72b_tp2_int8w,72b_serve_tp4; `serve`
+stands for every server run: phase 3k's checks over NCCL, tp = 2 and pp
+= 2 on two cards; on four dp 2 x tp 2, dp 2 x pp 2, pp 2 x tp 2 and the
+72B over tp = 4. With --one-card the tagged mesh runs of up to 4 ranks
+run as gloo ranks sharing card 0 (e.g. --mesh-runs
+72b8_tp2,72b8_tp4,72b8_pp2_tp2 on one H100). It exits non-zero where a
+check failed and prints no result line.
 
     python3 chip_smoke.py --compare-fused [--root DIR]
 
@@ -195,6 +216,7 @@ import sys
 import tempfile
 import time
 from types import SimpleNamespace
+from typing import NamedTuple, Optional
 
 import numpy as np
 
@@ -275,13 +297,18 @@ def log(msg):
     print(msg, flush=True)
 
 
-def _gpu_line() -> str:
+def _gpu_lines() -> list:
+    """nvidia-smi's "name, power.limit" line of every card."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     )
-    return out.stdout.strip().splitlines()[0]
+    return out.stdout.strip().splitlines()
+
+
+def _gpu_line() -> str:
+    return _gpu_lines()[0]
 
 
 def _time_ms(fn, reps: int) -> float:
@@ -448,6 +475,20 @@ def _compare(got, ref):
     return diff.max().item(), within
 
 
+# the 3B's and the 72B's GQA ratio, 8 q heads per kv head: the 72B on one
+# card (64 / 8), a 72B tp = 2 rank (32 / 4), the 3B and a 72B tp = 4 rank
+# (16 / 2)
+REP8_HEADS = ((64, 8), (32, 4), (16, 2))
+# B1 at rep 8: the 64-frame request's second group step (G = 3600, 28,800
+# packed rows, 150 row blocks per kv head) at every head count; at 16 / 2
+# G = 1 (decode), 23 (184 rows: the decode kernel's largest), 24 (192:
+# exactly one prefill row block) and 25 (a second, partial row block); and
+# decode at the 1024-frame headline's occupancy
+REP8_CASES = ([(3600, 1807, 16384, hq, hkv) for hq, hkv in REP8_HEADS]
+              + [(g, 1000, 4096, 16, 2) for g in (1, 23, 24, 25)]
+              + [(1, 57344, 65536, hq, hkv) for hq, hkv in ((64, 8), (16, 2))])
+
+
 def check_flash(dev, cases):
     """B1 on a 2-layer stacked cache, layer 1, D=128; a case is (G, length,
     cap), with Hq=28 / Hkv=4, or (G, length, cap, Hq, Hkv) (a tp rank's
@@ -609,10 +650,10 @@ def check_flash_int8(dev, cases):
 def check_flash_modes(dev, cases):
     """B1's lse output and pure-past mode against their plain versions, on
     the bf16, int8 and int8k caches (one layer quantized from seeded bf16
-    rows), Hq=28 / Hkv=4 / D=128: out and lse errors apart, B1 device
-    times. A case is (causal, G, length, cap); pure past writes the f32
-    output the query-based merge takes, unified + lse the hot path's bf16
-    output."""
+    rows), D=128: out and lse errors apart, B1 device times. A case is
+    (causal, G, length, cap) at Hq=28 / Hkv=4, or (causal, G, length, cap,
+    Hq, Hkv); pure past writes the f32 output the query-based merge takes,
+    unified + lse the hot path's bf16 output."""
     import torch
 
     from quickvideo_tpu_torch.ops.attention import (
@@ -628,10 +669,11 @@ def check_flash_modes(dev, cases):
     gen.manual_seed(4)
     scale = 128 ** -0.5
     rows = []
-    for causal, g, length, cap in cases:
-        k = torch.randn(4, cap, 128, generator=gen, device=dev).bfloat16()
-        v = torch.randn(4, cap, 128, generator=gen, device=dev).bfloat16()
-        q = torch.randn(g, 28, 128, generator=gen, device=dev).bfloat16()
+    for causal, g, length, cap, *heads in cases:
+        hq, hkv = heads or (28, 4)
+        k = torch.randn(hkv, cap, 128, generator=gen, device=dev).bfloat16()
+        v = torch.randn(hkv, cap, 128, generator=gen, device=dev).bfloat16()
+        q = torch.randn(g, hq, 128, generator=gen, device=dev).bfloat16()
         q = q.transpose(0, 1)
         out_dtype = torch.bfloat16 if causal else torch.float32
         mode = dict(causal=causal, with_lse=True, out_dtype=out_dtype)
@@ -640,7 +682,7 @@ def check_flash_modes(dev, cases):
             kw = {}
             kl, vl = k, v
             if variant != "bf16":
-                cache = init_cache(1, 4, cap, 128, device=dev,
+                cache = init_cache(1, hkv, cap, 128, device=dev,
                                    quantized=True if variant == "int8" else "k")
                 stacked_append(cache, 0, 0, k, v)
                 kl, vl = cache.k[0], cache.v[0]
@@ -672,8 +714,8 @@ def check_flash_modes(dev, cases):
             ms = _device_ms(kernel, B1_NAMES, 10)
             plain_ms = _time_ms(plain, 2)
             bound_ms, bound_by = flash_bound(
-                g, length, variant, causal, out_dtype.itemsize, with_lse=True
-            )
+                g, length, variant, causal, out_dtype.itemsize, with_lse=True,
+                hq=hq, hkv=hkv)
             lib = ""
             library_ms = None  # no PyTorch call takes an int8 cache
             if variant == "bf16":
@@ -687,19 +729,20 @@ def check_flash_modes(dev, cases):
                            f"plain version {d_out.item():.3e} / "
                            f"{d_lse.item():.3e})")
                 del lib_out, lib_lse
-            log(f"B1 {variant} {name} G={g} length={length} cap={cap}: "
-                f"out max_abs_err={err:.3e} (tol {KERNEL_ATOL} + "
-                f"{KERNEL_RTOL}*|plain|), lse max_abs_err={lse_err:.3e} (tol "
-                f"{LSE_ATOL}) kernel device {ms:.4f} ms (host-timed "
-                f"{host_ms:.4f} ms) plain {plain_ms:.4f} ms "
+            log(f"B1 {variant} {name} Hq={hq} Hkv={hkv} G={g} "
+                f"length={length} cap={cap}: out max_abs_err={err:.3e} "
+                f"(tol {KERNEL_ATOL} + {KERNEL_RTOL}*|plain|), lse "
+                f"max_abs_err={lse_err:.3e} (tol {LSE_ATOL}) kernel device "
+                f"{ms:.4f} ms (host-timed {host_ms:.4f} ms) plain "
+                f"{plain_ms:.4f} ms "
                 f"bound {bound_ms:.4f} ms ({bound_by}, "
                 f"{100 * bound_ms / ms:.0f}% of it){lib} "
                 f"{'OK' if ok else 'FAIL'}")
             rows.append(dict(variant=variant, mode=name, g=g, length=length,
-                             err=max(err, lse_err), ms=ms, host_ms=host_ms,
-                             plain_ms=plain_ms, bound_ms=bound_ms,
-                             bound_by=bound_by, library_ms=library_ms,
-                             ok=ok))
+                             heads=(hq, hkv), err=max(err, lse_err), ms=ms,
+                             host_ms=host_ms, plain_ms=plain_ms,
+                             bound_ms=bound_ms, bound_by=bound_by,
+                             library_ms=library_ms, ok=ok))
             del kl, vl, kw
             if variant != "bf16":
                 del cache
@@ -1480,17 +1523,35 @@ def _kernel_counters():
     }
 
 
+MODEL_7B = "qwen25-vl-7b"
+
+
+def model_config(model=MODEL_7B, layers=None):
+    """The preset `model`'s ModelConfig, at `layers` decoder layers where
+    that is given (full width, depth cut)."""
+    import dataclasses
+
+    from quickvideo_tpu_torch.models.qwen25_vl.config import get_config
+
+    cfg = get_config(model)
+    if layers is None:
+        return cfg
+    return dataclasses.replace(cfg, text=dataclasses.replace(
+        cfg.text, num_hidden_layers=layers))
+
+
 def make_lvu(dev, param_dtype, kv_cache_dtype="auto", kv_cache_capacity=None,
-             params=None, **pruning):
-    """LVU for qwen25-vl-7b at full width and depth, random weights from
+             params=None, model=MODEL_7B, layers=None, **pruning):
+    """LVU for the preset `model` (qwen25-vl-7b by default) at full width
+    and depth (`layers` decoder layers where given), random weights from
     seed 0 (or `params`), as the main path runs it ("auto" KV, which
-    resolves to bf16 for the 64-frame requests); `pruning` overrides the
-    key_norms_small policy's LVUConfig fields."""
+    resolves to bf16 for the 64-frame requests on one card); `pruning`
+    overrides the key_norms_small policy's LVUConfig fields."""
     from quickvideo_tpu_torch.config import LVUConfig
     from quickvideo_tpu_torch.api import LVU
 
     cfg = LVUConfig(
-        model_name_or_path="qwen25-vl-7b",
+        model_name_or_path=model,
         model_type="qwen25_lvu_interleaved",
         video_group_size=GROUP_FRAMES,
         num_frames=REQUEST_FRAMES,
@@ -1504,7 +1565,23 @@ def make_lvu(dev, param_dtype, kv_cache_dtype="auto", kv_cache_capacity=None,
         kv_cache_capacity=kv_cache_capacity,
         seed=0,
     ).replace(**pruning)
-    return LVU(cfg, params=params, device=dev)
+    with _preset(model, model_config(model, layers)):
+        return LVU(cfg, params=params, device=dev)
+
+
+@contextlib.contextmanager
+def _preset(model, cfg):
+    """The port's preset `model` is `cfg` inside the block (an LVU
+    resolves its model name once, as it is built), the published one
+    again after it."""
+    from quickvideo_tpu_torch.models.qwen25_vl.config import PRESETS
+
+    published = PRESETS[model]
+    PRESETS[model] = cfg
+    try:
+        yield
+    finally:
+        PRESETS[model] = published
 
 
 # request 0 of each run_main_path call, by (param_dtype, kv_cache_dtype):
@@ -3275,41 +3352,113 @@ def run_device_resize(dev, params):
 
 # -- phase 3i: tensor and context parallelism over torch.distributed --------
 
-# the runs of phase 3i: (tag, mesh axes, param_dtype, kv_cache_dtype); each
-# is request 0 of phase 3 on the same seeded weights, its single-rank
-# result recorded by run_main_path under (param_dtype, kv_cache_dtype)
+class MeshRun(NamedTuple):
+    """One run of a mesh phase: request 0 of phase 3 on the mesh `mesh`
+    (seeded weights of the preset `model`, at `layers` decoder layers where
+    given), held `against` one rank's run of the same configuration on card
+    0 ("one"; phases 3i / 3j take phase 3's, recorded by run_main_path),
+    against an earlier run of the same call (its tag), or against nothing
+    ("none": the run must agree over its ranks and with the config's rules
+    only; its logits are printed beside the earlier runs' of the same
+    model)."""
+
+    tag: str
+    mesh: dict
+    param_dtype: str
+    kv_dtype: str
+    model: str = MODEL_7B
+    layers: Optional[int] = None
+    against: str = "one"
+
+    @property
+    def world(self) -> int:
+        return int(np.prod(list(self.mesh.values())))
+
+    @property
+    def ref_key(self):
+        """The key of its one-rank reference."""
+        if (self.model, self.layers) == (MODEL_7B, None):
+            return (self.param_dtype, self.kv_dtype)  # MAIN_PATH_REFERENCE's
+        return (self.model, self.layers, self.param_dtype, self.kv_dtype)
+
+
+# the runs of phase 3i, the 7B on two gloo ranks sharing the card
 MESH_RUNS = (
-    ("tp2", {"tp": 2}, "bfloat16", "auto"),
-    ("sp2", {"sp": 2}, "bfloat16", "auto"),
-    ("sp2_int8kv", {"sp": 2}, "bfloat16", "int8"),
-    ("tp2_int8w", {"tp": 2}, "int8", "auto"),
+    MeshRun("tp2", {"tp": 2}, "bfloat16", "auto"),
+    MeshRun("sp2", {"sp": 2}, "bfloat16", "auto"),
+    MeshRun("sp2_int8kv", {"sp": 2}, "bfloat16", "int8"),
+    MeshRun("tp2_int8w", {"tp": 2}, "int8", "auto"),
 )
 MESH_WORLD = 2
-# the runs of phase 3j, pipeline parallelism, in the same form; the first
-# also runs pp_extras (sampled, streamed, scored)
+# the runs of phase 3j, pipeline parallelism; the first also runs
+# pp_extras (sampled, streamed, scored)
 PP_RUNS = (
-    ("pp2", {"pp": 2}, "bfloat16", "auto"),
-    ("pp2_int8kv", {"pp": 2}, "bfloat16", "int8"),
-    ("pp2_int8w", {"pp": 2}, "int8", "auto"),
+    MeshRun("pp2", {"pp": 2}, "bfloat16", "auto"),
+    MeshRun("pp2_int8kv", {"pp": 2}, "bfloat16", "int8"),
+    MeshRun("pp2_int8w", {"pp": 2}, "int8", "auto"),
 )
+MODEL_72B = "qwen25-vl-72b"
 # `--mesh-cards`: the mesh runs with NCCL, one rank per card, by the
-# number of cards (each against one rank's run of request 0 on card 0)
+# number of cards on the machine; a run of fewer ranks takes the first
+# cards
 CARD_MESH_RUNS = {
-    2: (("tp2", {"tp": 2}, "bfloat16", "auto"),
-        ("sp2", {"sp": 2}, "bfloat16", "auto"),
-        ("tp2_int8w", {"tp": 2}, "int8", "auto"),
-        ("pp2", {"pp": 2}, "bfloat16", "auto")),
-    4: (("tp4", {"tp": 4}, "bfloat16", "auto"),
-        ("sp4", {"sp": 4}, "bfloat16", "auto"),
-        ("tp2_sp2", {"tp": 2, "sp": 2}, "bfloat16", "auto"),
-        ("sp4_int8kv", {"sp": 4}, "bfloat16", "int8"),
-        ("tp4_int8w", {"tp": 4}, "int8", "auto"),
-        ("pp4", {"pp": 4}, "bfloat16", "auto"),
-        ("pp2_tp2", {"pp": 2, "tp": 2}, "bfloat16", "auto"),
-        ("pp4_int8w", {"pp": 4}, "int8", "auto"),
+    2: (MeshRun("tp2", {"tp": 2}, "bfloat16", "auto"),
+        MeshRun("sp2", {"sp": 2}, "bfloat16", "auto"),
+        MeshRun("tp2_int8w", {"tp": 2}, "int8", "auto"),
+        MeshRun("pp2", {"pp": 2}, "bfloat16", "auto")),
+    4: (MeshRun("tp4", {"tp": 4}, "bfloat16", "auto"),
+        MeshRun("sp4", {"sp": 4}, "bfloat16", "auto"),
+        MeshRun("tp2_sp2", {"tp": 2, "sp": 2}, "bfloat16", "auto"),
+        MeshRun("sp4_int8kv", {"sp": 4}, "bfloat16", "int8"),
+        MeshRun("tp4_int8w", {"tp": 4}, "int8", "auto"),
+        MeshRun("pp4", {"pp": 4}, "bfloat16", "auto"),
+        MeshRun("pp2_tp2", {"pp": 2, "tp": 2}, "bfloat16", "auto"),
+        MeshRun("pp4_int8w", {"pp": 4}, "int8", "auto"),
         # pp = 2 on two cards, twice over (two dp replicas)
-        ("dp2_pp2", {"dp": 2, "pp": 2}, "bfloat16", "auto")),
+        MeshRun("dp2_pp2", {"dp": 2, "pp": 2}, "bfloat16", "auto"),
+        # the 72B, which fits one card only cut in depth: its 8 layers
+        # over tp = 2 and tp = 4 against the same 8 on card 0, and pp 2 x
+        # tp 2 against tp = 2 (the same sums: bit for bit), with a bf16 and
+        # an int8 cache (ROADMAP C28)
+        MeshRun("72b8_tp2", {"tp": 2}, "bfloat16", "auto", MODEL_72B, 8),
+        MeshRun("72b8_tp4", {"tp": 4}, "bfloat16", "auto", MODEL_72B, 8),
+        MeshRun("72b8_pp2_tp2", {"pp": 2, "tp": 2}, "bfloat16", "auto",
+                MODEL_72B, 8, against="72b8_tp2"),
+        MeshRun("72b8_tp2_int8kv", {"tp": 2}, "bfloat16", "int8",
+                MODEL_72B, 8),
+        MeshRun("72b8_tp4_int8kv", {"tp": 4}, "bfloat16", "int8",
+                MODEL_72B, 8),
+        MeshRun("72b8_pp2_tp2_int8kv", {"pp": 2, "tp": 2}, "bfloat16",
+                "int8", MODEL_72B, 8, against="72b8_tp2_int8kv")),
 }
+# runs made only where `--mesh-runs` names them: the 72B at 16 layers over
+# tp = 2 (how far tp's roundings grow with depth; fits one card's gloo
+# ranks), and at its 80 layers on four cards (about 13 minutes for all of
+# them: about 40 GB of bf16 weights a rank over four, drawn and run once
+# each). There "auto" resolves to int8 (ROADMAP C26), so an explicit bf16
+# cache beside it; pp 2 x tp 2 against tp = 4 (other sums: C28); int8
+# weights over tp = 2 on two cards (about 37.7 GB a rank)
+TAGGED_RUNS = (
+    MeshRun("72b16_tp2", {"tp": 2}, "bfloat16", "auto", MODEL_72B, 16),
+    MeshRun("72b_tp4", {"tp": 4}, "bfloat16", "auto", MODEL_72B,
+            against="none"),
+    MeshRun("72b_tp4_bf16kv", {"tp": 4}, "bfloat16", "bfloat16", MODEL_72B,
+            against="none"),
+    MeshRun("72b_pp2_tp2", {"pp": 2, "tp": 2}, "bfloat16", "auto", MODEL_72B,
+            against="72b_tp4"),
+    MeshRun("72b_pp2_tp2_bf16kv", {"pp": 2, "tp": 2}, "bfloat16", "bfloat16",
+            MODEL_72B, against="72b_tp4_bf16kv"),
+    MeshRun("72b_tp2_int8w", {"tp": 2}, "int8", "auto", MODEL_72B,
+            against="none"),
+)
+
+
+def tagged_runs(only: str) -> tuple:
+    """The runs of every table (CARD_MESH_RUNS, TAGGED_RUNS) tagged in
+    `only`, a comma-separated string."""
+    tags = only.split(",")
+    return tuple(r for table in (*CARD_MESH_RUNS.values(), TAGGED_RUNS)
+                 for r in table if r.tag in tags)
 # pipeline parallelism vs one rank, final-prefill logits: pp changes no
 # arithmetic (each layer runs the same kernels at the same shapes on the
 # same cache layout; the activation crosses as its bytes), so they are
@@ -3669,24 +3818,27 @@ def check_tp_layer(dev, mesh):
     return ok, rows
 
 
-def _mesh_request(dev, tag, mesh_kw, param_dtype, kv_dtype, mesh_rank,
-                  work):
-    """One run of MESH_RUNS on this rank: LVU on the mesh (seeded weights,
+def _mesh_request(dev, run, mesh_rank, work):
+    """One MeshRun (tp / sp) on this rank: LVU on the mesh (seeded weights,
     this rank's shard), request 0 of phase 3 through generate twice (the
     second timed and its launches counted), then its prefill and final
-    prefill again (logits, retained sets). Returns the rank's record; its final-prefill logits go to
-    work/logits-{tag}-{rank}.pt."""
+    prefill again (logits, retained sets). Returns the rank's record; its
+    final-prefill logits go to work/logits-{tag}-{rank}.pt."""
     import torch
     import torch.distributed as dist
 
     from quickvideo_tpu_torch.config import MeshConfig
 
+    tag, mesh_kw = run.tag, run.mesh
+    param_dtype, kv_dtype = run.param_dtype, run.kv_dtype
     counters = _kernel_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    lvu = make_lvu(dev, param_dtype, kv_dtype, mesh=MeshConfig(**mesh_kw))
+    lvu = make_lvu(dev, param_dtype, kv_dtype, mesh=MeshConfig(**mesh_kw),
+                   model=run.model, layers=run.layers)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    resident = torch.cuda.memory_allocated() / 2**30
     inputs = make_request(lvu.model_config, lvu.tokenizer, QUESTIONS[0],
                           seed=0)
     for _ in range(2):  # the second is timed and counted: the first sets up
@@ -3698,7 +3850,9 @@ def _mesh_request(dev, tag, mesh_kw, param_dtype, kv_dtype, mesh_rank,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counts = _read_counters(counters)
-    variant = {"int8": "int8", "int8k": "int8k"}.get(kv_dtype, "bf16")
+    peak = torch.cuda.max_memory_allocated() / 2**30  # before the checks
+    cache, st = lvu.engine.prefill(inputs)
+    variant = {"int8": "int8", "int8k": "int8k"}.get(st["kv_dtype"], "bf16")
     want = expected_b1_mesh(lvu, inputs, len(res.tokens), variant,
                             mesh_kw.get("sp", 1))
     b1 = {k: counts[k] for k in counts
@@ -3712,28 +3866,29 @@ def _mesh_request(dev, tag, mesh_kw, param_dtype, kv_dtype, mesh_rank,
     want_len, want_layers = expected_lengths(lvu, inputs, len(res.tokens))
     lens_ok = (res.cache_length == want_len
                and res.layer_lengths == want_layers)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    cache, st = lvu.engine.prefill(inputs)
     local_shape = tuple(cache.k.shape)
     torch.save(lvu.engine.final_prefill(cache, st).float().cpu(),
                os.path.join(work, f"logits-{tag}-{mesh_rank}.pt"))
     retained = [[] if i is None else i.tolist() for g in st["retained"]
                 for i in g]
     del cache, st, lvu
+    gc.collect()  # the LVU, in a cycle: the next run's must fit beside
     torch.cuda.empty_cache()
     return dict(tag=tag, rank=mesh_rank, tokens=res.tokens.tolist(),
                 cache_length=res.cache_length,
+                kv_cache_bytes=res.kv_cache_bytes,
                 layer_lengths=res.layer_lengths, want_len=want_len,
                 counts=b1, want=want, counts_ok=counts_ok, lens_ok=lens_ok,
                 spans={k: round(v, 4) for k, v in sorted(
                     res.timings.items())},
-                wall=wall, init_s=init_s, peak_gib=peak,
+                wall=wall, decode_ms=1e3 * res.timings["decode"] / max(
+                    len(res.tokens) - 1, 1),
+                init_s=init_s, resident_gib=resident, peak_gib=peak,
                 local_shape=local_shape, retained=retained,
                 kv_dtype=variant)
 
 
-def _pp_request(dev, tag, mesh_kw, param_dtype, kv_dtype, mesh_rank,
-                work, extras=False):
+def _pp_request(dev, run, mesh_rank, work, extras=False):
     """One pipeline-parallel run on this rank: LVU on the mesh (seeded
     weights, this rank's stage: drawn in one device's order, the rest
     dropped), request 0 of phase 3 through generate twice (the second
@@ -3752,10 +3907,13 @@ def _pp_request(dev, tag, mesh_kw, param_dtype, kv_dtype, mesh_rank,
         prefill_step_unrolled,
     )
 
+    tag, param_dtype = run.tag, run.param_dtype
     counters = _kernel_counters()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    lvu = make_lvu(dev, param_dtype, kv_dtype, mesh=MeshConfig(**mesh_kw))
+    lvu = make_lvu(dev, param_dtype, run.kv_dtype,
+                   mesh=MeshConfig(**run.mesh), model=run.model,
+                   layers=run.layers)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     resident = torch.cuda.memory_allocated() / 2**30
@@ -3771,7 +3929,9 @@ def _pp_request(dev, tag, mesh_kw, param_dtype, kv_dtype, mesh_rank,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     counts = _read_counters(counters)
-    variant = {"int8": "int8", "int8k": "int8k"}.get(kv_dtype, "bf16")
+    peak = torch.cuda.max_memory_allocated() / 2**30  # before the checks
+    cache, st = eng.prefill(inputs)
+    variant = {"int8": "int8", "int8k": "int8k"}.get(st["kv_dtype"], "bf16")
     one = expected_b1_mesh(lvu, inputs, len(res.tokens), variant, 1)
     stages = mesh.pp
     want = {k: n // stages for k, n in one.items()}
@@ -3789,8 +3949,6 @@ def _pp_request(dev, tag, mesh_kw, param_dtype, kv_dtype, mesh_rank,
     want_len, want_layers = expected_lengths(lvu, inputs, len(res.tokens))
     lens_ok = (res.cache_length == want_len
                and res.layer_lengths == want_layers)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    cache, st = eng.prefill(inputs)
     local_shape = tuple(cache.k.shape)
     torch.save(eng.final_prefill(cache, st).float().cpu(),
                os.path.join(work, f"logits-{tag}-{mesh_rank}.pt"))
@@ -3841,22 +3999,19 @@ def _pp_request(dev, tag, mesh_kw, param_dtype, kv_dtype, mesh_rank,
     if extras:
         rec.update(pp_extras(lvu, inputs))
     del lvu, eng
+    gc.collect()  # the LVU, in a cycle: the next run's must fit beside
     torch.cuda.empty_cache()
     return rec
 
 
-def mesh_runs(world: int, backend: str, phase: str = "3i", only=None):
+def mesh_runs(world: int, phase: str = "3i", only=None):
     """The runs of a mesh phase: MESH_RUNS (3i) or PP_RUNS (3j) over gloo
-    on one card, or CARD_MESH_RUNS[world] over NCCL, those tagged in
-    `only` (a comma-separated string) where it is given."""
-    if backend != "gloo":
-        runs = CARD_MESH_RUNS[world]
-    else:
-        runs = PP_RUNS if phase == "3j" else MESH_RUNS
-    if only:
-        tags = only.split(",")
-        runs = tuple(r for r in runs if r[0] in tags)
-    return runs
+    on one card; with `only` (a comma-separated string of tags, as
+    `--mesh-cards` passes it, over NCCL or gloo) the runs so tagged of any
+    machine's table whose mesh has `world` ranks."""
+    if not only:
+        return PP_RUNS if phase == "3j" else MESH_RUNS
+    return tuple(r for r in tagged_runs(only) if r.world == world)
 
 
 def run_mesh_rank(dev, rank: int, world: int, work: str,
@@ -3877,19 +4032,19 @@ def run_mesh_rank(dev, rank: int, world: int, work: str,
 
     init_multihost(f"file://{work}/init", world, rank, backend=backend)
     if phase == "3k":  # the server on the mesh
-        runs = (SERVE_MESH_RUNS if backend == "gloo"
-                else CARD_SERVE_RUNS[world])
         out = dict(runs=[])
-        for i, (tag, mesh_kw) in enumerate(runs):
+        for i, run in enumerate(serve_runs(world, backend, only)):
             out["runs"].append(_serve_mesh_run(
-                dev, tag, mesh_kw, rank, work, SERVE_IDLE_S if i == 0 else 0))
+                dev, run, rank, work, SERVE_IDLE_S if i == 0 else 0))
             dist.barrier()
         with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
         dist.destroy_process_group()
         return
     kernels_ok, kernel_rows = True, []
-    if phase == "3i":
+    runs = mesh_runs(world, phase, only)
+    # phase 3i's checks are the 7B's: made where a 7B tp / sp run is
+    if phase == "3i" and any(r.model == MODEL_7B for r in runs):
         mesh = make_mesh(MeshConfig(sp=world), dev)
         kernels_ok = check_collectives(dev, mesh)
         cp_ok, kernel_rows = check_cp_kernels(dev, mesh)
@@ -3900,15 +4055,13 @@ def run_mesh_rank(dev, rank: int, world: int, work: str,
         kernel_rows += prod_rows + layer_rows
         del mesh
     out = dict(kernels_ok=kernels_ok, kernel_rows=kernel_rows, runs=[])
-    for i, (tag, mesh_kw, param_dtype, kv_dtype) in enumerate(
-            mesh_runs(world, backend, phase, only)):
-        if mesh_kw.get("pp", 1) > 1:
+    for i, run in enumerate(runs):
+        if run.mesh.get("pp", 1) > 1:
             out["runs"].append(_pp_request(
-                dev, tag, mesh_kw, param_dtype, kv_dtype, rank, work,
-                extras=backend == "gloo" and phase == "3j" and i == 0))
+                dev, run, rank, work,
+                extras=phase == "3j" and not only and i == 0))
         else:
-            out["runs"].append(_mesh_request(dev, tag, mesh_kw, param_dtype,
-                                             kv_dtype, rank, work))
+            out["runs"].append(_mesh_request(dev, run, rank, work))
         dist.barrier()
     with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
         json.dump(out, f)
@@ -3989,22 +4142,24 @@ def _spawn(args, n: int, timeout_s: float, work: str):
 
 
 def _mesh_phase(world: int, backend: str, refs: dict, label: str,
-                phase: str = "3i", only=None):
+                phase: str = "3i", only=None, done=None):
     """Start `world` rank processes of a mesh phase, wait for them, and
-    hold each run's records against one rank's (`refs` by (param_dtype,
-    kv_cache_dtype)). Returns (ok, kernel rows, each run's records, work
-    dir); a rank that fails fails the phase."""
+    hold each run's records against its reference: one rank's (`refs` by
+    MeshRun.ref_key) or an earlier run's, of this call or in `done` (tag ->
+    rank 0's record, its logits and mesh; this call's runs are added).
+    Returns (ok, kernel rows, each run's records, work dir); a rank that
+    fails fails the phase."""
     import torch
 
     work = tempfile.mkdtemp(prefix="qv-mesh-")
     t0 = time.perf_counter()
-    done = _spawn(["--mesh-rank", "{r}", "--mesh-dir", work, "--mesh-world",
+    outs = _spawn(["--mesh-rank", "{r}", "--mesh-dir", work, "--mesh-world",
                    str(world), "--mesh-backend", backend, "--mesh-phase",
                    phase] + (["--mesh-runs", only] if only else []), world,
                   MESH_TIMEOUT_S, work)
     phase_s = time.perf_counter() - t0
     records = []
-    for r, (rc, out) in enumerate(done):
+    for r, (rc, out) in enumerate(outs):
         for line in out.splitlines():
             if line.startswith(f"[{phase}]") or rc != 0:
                 log(line if line.startswith(f"[{phase}]")
@@ -4019,40 +4174,77 @@ def _mesh_phase(world: int, backend: str, refs: dict, label: str,
     log(f"[{phase}] {world} ranks, {label}: phase {phase_s:.1f} s")
     ok = all(rec["kernels_ok"] for rec in records)
     runs = []
-    for i, (tag, mesh_kw, param_dtype, kv_dtype) in enumerate(
-            mesh_runs(world, backend, phase, only)):
+    done = {} if done is None else done
+    for i, run in enumerate(mesh_runs(world, phase, only)):
+        tag, mesh_kw, param_dtype = run.tag, run.mesh, run.param_dtype
         recs = [rec["runs"][i] for rec in records]
         r0 = recs[0]
-        ref = refs[(param_dtype, kv_dtype)]
         rank_logits = [torch.load(os.path.join(work, f"logits-{tag}-{r}.pt"))
                        for r in range(world)]
+        logits = rank_logits[0]
+        same_model = [t for t, d in done.items()
+                      if (d["model"], d["layers"]) == (run.model, run.layers)]
+        done[tag] = dict(r0, logits=logits, model=run.model,
+                         layers=run.layers, mesh=mesh_kw)
+        what = "one rank"
+        if run.against == "one":
+            ref = refs[run.ref_key]
+        elif run.against == "none":
+            ref = None
+        elif run.against in done:
+            ref, what = done[run.against], run.against
+        else:
+            log(f"[{phase} {tag}] held against {run.against}, which is not "
+                "among this call's runs: not checked FAIL")
+            ok = False
+            continue
         if mesh_kw.get("pp", 1) > 1:
             ok &= _check_pp_run(phase, tag, mesh_kw, param_dtype, recs, ref,
-                                rank_logits, label)
+                                rank_logits, label, what)
+            for t in same_model:
+                if t != run.against:
+                    log(f"[{phase} {tag}] final-prefill logits rel L2 "
+                        f"against {t} {_rel_l2(logits, done[t]['logits']):.3e}"
+                        " (printed, not asserted)")
             runs.append(recs)
             continue
-        logits = rank_logits[0]
-        rel = ((logits - ref["logits"]).norm()
-               / ref["logits"].norm()).item()
-        limit = (MESH_INT8_LOGITS_REL_L2 if param_dtype == "int8"
-                 else MESH_LOGITS_REL_L2)
         agree = all(r["tokens"] == r0["tokens"]
                     and r["retained"] == r0["retained"] for r in recs) and all(
             torch.equal(x, logits) for x in rank_logits)
-        run_ok = (agree and rel <= limit
+        vocab = model_config(run.model).text.vocab_size
+        valid = (bool(torch.isfinite(logits).all())
+                 and logits.shape[-1] == vocab
+                 and all(0 <= t < vocab for t in r0["tokens"]))
+        run_ok = (agree and valid
                   and all(r["counts_ok"] and r["lens_ok"] for r in recs))
+        model = run.model + ("" if run.layers is None
+                             else f" at {run.layers} layers")
+        if ref is None:
+            held = "; ".join(
+                [f"tokens {r0['tokens']}; final-prefill logits finite, "
+                 f"tokens in the vocabulary: {valid}; held against no "
+                 "one-rank run (it does not fit one card)"]
+                + [f"logits rel L2 against {t} "
+                   f"{_rel_l2(logits, done[t]['logits']):.3e} (printed, not "
+                   "asserted)" for t in same_model])
+        else:
+            rel = _rel_l2(logits, ref["logits"])
+            limit = (MESH_INT8_LOGITS_REL_L2 if param_dtype == "int8"
+                     else MESH_LOGITS_REL_L2)
+            run_ok &= rel <= limit
+            same = r0["tokens"] == ref["tokens"]
+            held = (f"tokens {r0['tokens']} vs {what} {ref['tokens']} "
+                    f"({'equal' if same else 'differ'}); final-prefill "
+                    f"logits rel L2 {rel:.3e} (limit {limit}); argmax "
+                    f"{int(logits.argmax())} vs "
+                    f"{int(ref['logits'].argmax())}; {what}'s cache lengths "
+                    f"per layer {sorted(set(ref['layer_lengths']))}")
         ok &= run_ok
-        same = r0["tokens"] == ref["tokens"]
-        log(f"[3i {tag}] {mesh_kw} weights {param_dtype} KV {r0['kv_dtype']}:"
-            f" tokens {r0['tokens']} vs one rank {ref['tokens']} "
-            f"({'equal' if same else 'differ'}); final-prefill logits rel "
-            f"L2 {rel:.3e} (limit {limit}); argmax "
-            f"{int(logits.argmax())} vs {int(ref['logits'].argmax())}; "
-            f"ranks agree on tokens, retained indices and logits: {agree}; "
-            f"cache lengths per layer {sorted(set(r0['layer_lengths']))} "
-            f"(expected {r0['want_len']}, one rank "
-            f"{sorted(set(ref['layer_lengths']))}) "
-            f"{'OK' if run_ok else 'FAIL'}")
+        log(f"[3i {tag}] {model} {mesh_kw} weights {param_dtype} KV "
+            f"{r0['kv_dtype']} ({run.kv_dtype}): {held}; ranks agree on "
+            f"tokens, retained indices and logits: {agree}; cache lengths "
+            f"per layer {sorted(set(r0['layer_lengths']))} (expected "
+            f"{r0['want_len']}) {'OK' if run_ok else 'FAIL'}")
         for r in recs:
             log(f"[3i {tag}] rank {r['rank']}: cache {r['local_shape']} "
                 f"B1 launches " + ", ".join(
@@ -4061,17 +4253,24 @@ def _mesh_phase(world: int, backend: str, refs: dict, label: str,
                     f"{k[6:]} {n}" for k, n in sorted(r["want"].items())
                     if n) + f") {'OK' if r['counts_ok'] else 'FAIL'}; "
                 f"init {r['init_s']:.2f} s, request wall {r['wall']:.3f} s "
-                f"({label}), spans(s) {r['spans']}, peak device "
-                f"memory {r['peak_gib']:.2f} GiB")
+                f"({label}), decode {r['decode_ms']:.2f} ms/token, spans(s) "
+                f"{r['spans']}, resident {r['resident_gib']:.2f} GiB, peak "
+                f"device memory {r['peak_gib']:.2f} GiB")
         runs.append(recs)
     return ok, records[0]["kernel_rows"], runs, work
 
 
+def _rel_l2(a, b) -> float:
+    return ((a - b).norm() / b.norm()).item()
+
+
 def _check_pp_run(phase, tag, mesh_kw, param_dtype, recs, ref,
-                  rank_logits, label) -> bool:
-    """One pipeline run's records (every rank's) against one rank's:
-    tokens, final-prefill logits (bit for bit: PP_LOGITS_REL_L2; under pp x
-    tp tp's limits, as phase 3i holds tp), the ranks' agreement,
+                  rank_logits, label, what="one rank") -> bool:
+    """One pipeline run's records (every rank's) against one rank's or an
+    earlier run's: tokens, final-prefill logits (bit for bit:
+    PP_LOGITS_REL_L2, where the reference splits the heads as the run does,
+    one rank's for pp alone, tp = 2's for pp 2 x tp 2; else tp's limits, as
+    phase 3i holds tp), the ranks' agreement,
     cache_length, kv_cache_bytes, the per-layer lengths gathered over the
     stages, each stage's retained sets (one rank's at the stage's layers;
     not under tp, whose sums round elsewhere), B1 launches per stage (one
@@ -4085,11 +4284,17 @@ def _check_pp_run(phase, tag, mesh_kw, param_dtype, recs, ref,
     copies = tp * mesh_kw.get("dp", 1)  # ranks that run each stage
     rel = ((logits - ref["logits"]).norm() / ref["logits"].norm()).item()
     exact = torch.equal(logits, ref["logits"])
-    if tp > 1:
+    # the same arithmetic: the reference splits the heads and the past as
+    # the run does (pp moves activations, dp copies them)
+    same_sums = ({k: n for k, n in ref.get("mesh", {}).items()
+                  if k in ("tp", "sp") and n > 1}
+                 == {k: n for k, n in mesh_kw.items()
+                     if k in ("tp", "sp") and n > 1})
+    if same_sums:
+        limit = PP_LOGITS_REL_L2
+    else:
         limit = (MESH_INT8_LOGITS_REL_L2 if param_dtype == "int8"
                  else MESH_LOGITS_REL_L2)
-    else:
-        limit = PP_LOGITS_REL_L2
     agree = (all(r["tokens"] == r0["tokens"] for r in recs)
              and all(torch.equal(x, logits) for x in rank_logits))
     same = r0["tokens"] == ref["tokens"]
@@ -4106,17 +4311,17 @@ def _check_pp_run(phase, tag, mesh_kw, param_dtype, recs, ref,
             total[k] = total.get(k, 0) + n
     sum_ok = total == {k: n * copies for k, n in r0["one"].items() if n}
     counts_ok = sum_ok and all(r["counts_ok"] for r in recs)
-    run_ok = (agree and rel <= limit and (same or tp > 1) and lens_ok
+    run_ok = (agree and rel <= limit and (same or not same_sums) and lens_ok
               and ret_ok and counts_ok)
     log(f"[{phase} {tag}] {mesh_kw} weights {param_dtype} KV "
-        f"{r0['kv_dtype']}: tokens {r0['tokens']} vs one rank "
+        f"{r0['kv_dtype']}: tokens {r0['tokens']} vs {what} "
         f"{ref['tokens']} ({'equal' if same else 'differ'}); final-prefill "
         f"logits {'bit for bit equal' if exact else 'differ'}: rel L2 "
         f"{rel:.3e} (limit {limit}), max |diff| "
         f"{(logits - ref['logits']).abs().max().item():.3e}; ranks agree on "
         f"tokens and logits: {agree}; cache_length {r0['cache_length']} "
         f"kv_cache_bytes {r0['kv_cache_bytes']} per-layer lengths "
-        f"{sorted(set(r0['layer_lengths']))} (one rank "
+        f"{sorted(set(r0['layer_lengths']))} ({what} "
         f"{ref['cache_length']}, {ref['kv_cache_bytes']}, "
         f"{sorted(set(ref['layer_lengths']))}): {lens_ok}; retained sets per "
         f"stage as one rank's: {ret_ok if tp == 1 else 'not held under tp'}"
@@ -4132,10 +4337,10 @@ def _check_pp_run(phase, tag, mesh_kw, param_dtype, recs, ref,
             f"{'OK' if r['counts_ok'] else 'FAIL'}; the stage's group step "
             f"({r['step_rows']} rows over its layers) {r['step_ms']:.4f} ms;"
             f" resident {r['resident_gib']:.2f} GiB, peak "
-            f"{r['peak_gib']:.2f} GiB (one rank: {ref['resident_gib']:.2f} /"
+            f"{r['peak_gib']:.2f} GiB ({what}: {ref['resident_gib']:.2f} /"
             f" {ref['peak_gib']:.2f}); init {r['init_s']:.2f} s; request "
             f"wall {r['wall']:.3f} s, decode {r['decode_ms']:.2f} ms/token "
-            f"(one rank {ref['wall']:.3f} s, {ref['decode_ms']:.2f} "
+            f"({what} {ref['wall']:.3f} s, {ref['decode_ms']:.2f} "
             f"ms/token; {label}); spans(s) {r['spans']}")
     if "sampled" in r0:
         extras_ok = all(r["sampled"] == ref["sampled"]
@@ -4193,38 +4398,50 @@ def run_mesh(dev):
     return ok, kernel_rows, runs
 
 
-def run_card_mesh(dev, only=None) -> bool:
-    """`--mesh-cards [--mesh-runs TAGS]`: CARD_MESH_RUNS (those tagged in
-    `only`) with NCCL, one rank per card (2 or 4 cards), after phase 3i's
-    checks where a run other than a pipeline one is among them, against
-    one rank's run of request 0 on card 0 (seeded weights, as phase 3
-    runs it); `--mesh-runs serve`: phase 3k's server checks over
-    CARD_SERVE_RUNS instead."""
+def run_card_mesh(dev, only=None, one_card=False) -> bool:
+    """`--mesh-cards [--mesh-runs TAGS] [--one-card]`: with NCCL, one rank
+    per card (2 or 4 cards), the runs of CARD_MESH_RUNS[cards], or those
+    tagged in `only` from any machine's table whose mesh fits the cards,
+    grouped by their number of ranks (one process group each, on the first
+    cards; the smaller groups first), after phase 3i's checks where a 7B
+    run other than a pipeline one is among them, each against its
+    reference (MeshRun.against: one rank's run of request 0 on card 0,
+    seeded weights as phase 3 runs it, or an earlier run); then the server
+    runs of CARD_SERVE_RUNS[cards] tagged in `only` (`serve`: every one of
+    them), phase 3k's checks over NCCL. With `one_card`, the tagged mesh
+    runs of up to 4 ranks as gloo ranks sharing card 0 (no server runs):
+    the same checks, walls that say nothing of NCCL."""
     import torch
 
-    world = torch.cuda.device_count()
-    if world not in CARD_MESH_RUNS:
+    world = 4 if one_card else torch.cuda.device_count()
+    if world not in CARD_MESH_RUNS or (one_card and not only):
         log(f"--mesh-cards: {world} card(s); it runs on "
-            f"{sorted(CARD_MESH_RUNS)} FAIL")
+            f"{sorted(CARD_MESH_RUNS)}, and with --one-card the runs of "
+            "--mesh-runs FAIL")
         return False
-    if only == "serve":  # phase 3k's server checks over NCCL
-        ok, done = _serve_mesh_phase(dev, None, world, "nccl",
-                                     CARD_SERVE_RUNS[world],
-                                     f"NCCL across {world} cards")
-        return ok and bool(done)
-    runs = mesh_runs(world, "nccl", only=only)
-    if not runs:
-        log(f"--mesh-runs {only}: no run of {world} cards has those tags "
-            "FAIL")
-        return False
+    if only is None:
+        runs, serve = CARD_MESH_RUNS[world], ()
+    else:
+        tags = only.split(",")
+        runs = tuple(r for r in tagged_runs(only) if r.world <= world)
+        serve = () if one_card else tuple(
+            r for r in CARD_SERVE_RUNS[world]
+            if r.tag in tags or "serve" in tags)
+        unknown = (set(tags) - {"serve"} - {r.tag for r in runs + serve})
+        if unknown or not (runs or serve):
+            log(f"--mesh-runs {only}: no run of {world} cards has the tags "
+                f"{sorted(unknown)} FAIL")
+            return False
+    ok = True
     refs = {}
-    for _, _, param_dtype, kv_dtype in runs:
-        if (param_dtype, kv_dtype) in refs:
+    for run in runs:
+        if run.against != "one" or run.ref_key in refs:
             continue
         gc.collect()  # the previous reference's LVU, in a cycle
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        lvu = make_lvu(dev, param_dtype, kv_dtype)
+        lvu = make_lvu(dev, run.param_dtype, run.kv_dtype, model=run.model,
+                       layers=run.layers)
         torch.cuda.synchronize()
         resident = torch.cuda.memory_allocated() / 2**30
         inputs = make_request(lvu.model_config, lvu.tokenizer, QUESTIONS[0],
@@ -4234,18 +4451,32 @@ def run_card_mesh(dev, only=None) -> bool:
         # the second run is timed (reference_record)
         ref = reference_record(lvu, inputs, resident,
                                torch.cuda.max_memory_allocated() / 2**30)
-        refs[(param_dtype, kv_dtype)] = ref
-        log(f"[3i one rank] weights {param_dtype} KV {kv_dtype}: request "
-            f"wall {ref['wall']:.3f} s (its second run), decode "
-            f"{ref['decode_ms']:.2f} ms/token, resident "
+        refs[run.ref_key] = ref
+        log(f"[3i one rank] {run.model}"
+            f"{'' if run.layers is None else f' at {run.layers} layers'} "
+            f"weights {run.param_dtype} KV {run.kv_dtype}: tokens "
+            f"{ref['tokens']}, request wall {ref['wall']:.3f} s (its second "
+            f"run), decode {ref['decode_ms']:.2f} ms/token, resident "
             f"{resident:.2f} GiB, peak {ref['peak_gib']:.2f} GiB")
         del lvu
+        gc.collect()
         torch.cuda.empty_cache()
-    pp_only = all(kw.get("pp", 1) > 1 for _, kw, _, _ in runs)
-    ok, _, done, _ = _mesh_phase(world, "nccl", refs,
-                                 f"NCCL across {world} cards",
-                                 "3j" if pp_only else "3i", only)
-    return ok and bool(done)
+    backend, done = ("gloo" if one_card else "nccl"), {}
+    for size in sorted({r.world for r in runs}):
+        group = [r for r in runs if r.world == size]
+        pp_only = all(r.mesh.get("pp", 1) > 1 for r in group)
+        label = (f"gloo, {size} ranks on one card: its walls say nothing of "
+                 "NCCL between cards" if one_card
+                 else f"NCCL across {size} cards")
+        group_ok, _, recs, _ = _mesh_phase(
+            size, backend, refs, label, "3j" if pp_only else "3i",
+            ",".join(r.tag for r in group), done)
+        ok &= group_ok and bool(recs)
+    if serve:  # phase 3k's server checks over NCCL
+        serve_ok, done = _serve_mesh_phase(dev, None, world, "nccl", serve,
+                                           f"NCCL across {world} cards")
+        ok &= serve_ok and bool(done)
+    return ok
 
 
 # -- phase 3k: the HTTP server on a mesh ---------------------------------------
@@ -4253,12 +4484,36 @@ def run_card_mesh(dev, only=None) -> bool:
 # the runs of phase 3k (two gloo ranks sharing the card): (tag, mesh axes),
 # bf16 weights, phase 3f's seeded 64-frame videos; `--mesh-cards --mesh-runs
 # serve` makes CARD_SERVE_RUNS[cards] over NCCL, one rank per card
-SERVE_MESH_RUNS = (("tp2", {"tp": 2}), ("pp2", {"pp": 2}))
+class ServeRun(NamedTuple):
+    """One run of phase 3k: the HTTP server over the mesh `mesh`, bf16
+    seeded weights of the preset `model`."""
+
+    tag: str
+    mesh: dict
+    model: str = MODEL_7B
+
+
+SERVE_MESH_RUNS = (ServeRun("tp2", {"tp": 2}), ServeRun("pp2", {"pp": 2}))
 CARD_SERVE_RUNS = {
     2: SERVE_MESH_RUNS,
-    4: (("dp2_tp2", {"dp": 2, "tp": 2}), ("dp2_pp2", {"dp": 2, "pp": 2}),
-        ("pp2_tp2", {"pp": 2, "tp": 2})),
+    4: (ServeRun("dp2_tp2", {"dp": 2, "tp": 2}),
+        ServeRun("dp2_pp2", {"dp": 2, "pp": 2}),
+        ServeRun("pp2_tp2", {"pp": 2, "tp": 2}),
+        # the 72B at its 80 layers over tp = 4 (bf16 weights, "auto" KV:
+        # int8, ROADMAP C26)
+        ServeRun("72b_serve_tp4", {"tp": 4}, MODEL_72B)),
 }
+
+
+def serve_runs(world: int, backend: str, only=None):
+    """The runs of phase 3k: SERVE_MESH_RUNS over gloo on one card, or
+    CARD_SERVE_RUNS[world] over NCCL, those tagged in `only` unless it
+    holds `serve` or is not given."""
+    if backend == "gloo":
+        return SERVE_MESH_RUNS
+    tags = (only or "serve").split(",")
+    return tuple(r for r in CARD_SERVE_RUNS[world]
+                 if r.tag in tags or "serve" in tags)
 # lowered for the phase: a follower waits for its next job at most
 # SERVE_CONTROL_TIMEOUT_S (parallel/mesh.py CONTROL_TIMEOUT_S), the
 # leader's heartbeat comes every SERVE_HEARTBEAT_S (serving/server.py
@@ -4377,7 +4632,8 @@ def _serve_mesh_client(base, server, lvu, video, other, jobs, idle_s):
         time.sleep(idle_s)
         out["idle_s"] = idle_s
     code, body = _http(base, "/v1/chat/completions", {
-        "model": "qwen25-vl-7b", "max_tokens": 8, "messages": [{
+        "model": lvu.config.model_name_or_path, "max_tokens": 8,
+        "messages": [{
             "role": "user", "content": [
                 {"type": "video_url", "video_url": {"url": f"file://{video}"}},
                 {"type": "text", "text": questions[0]}]}]})
@@ -4386,8 +4642,8 @@ def _serve_mesh_client(base, server, lvu, video, other, jobs, idle_s):
     return out
 
 
-def _serve_mesh_run(dev, tag, mesh_kw, rank, work, idle_s):
-    """One run of phase 3k on this rank: the 7B LVU on the mesh (seeded
+def _serve_mesh_run(dev, run, rank, work, idle_s):
+    """One run of phase 3k on this rank: the LVU on the mesh (seeded
     bf16 weights, this rank's part), its direct calls (BATCH_QUESTIONS by
     LVU.generate; without pp a live session's two turns), then
     make_http_server: the leader serves _serve_mesh_client's requests, a
@@ -4404,6 +4660,7 @@ def _serve_mesh_run(dev, tag, mesh_kw, rank, work, idle_s):
     from quickvideo_tpu_torch.parallel import mesh as tmesh
     from quickvideo_tpu_torch.serving import server as tserver
 
+    tag, mesh_kw, model = run.tag, run.mesh, run.model
     tmesh.CONTROL_TIMEOUT_S = SERVE_CONTROL_TIMEOUT_S
     tserver.HEARTBEAT_S = SERVE_HEARTBEAT_S
     video, other = (os.path.join(work, n) for n in ("serve.mp4", "other.mp4"))
@@ -4412,7 +4669,7 @@ def _serve_mesh_run(dev, tag, mesh_kw, rank, work, idle_s):
     torch.cuda.reset_peak_memory_stats()
     with seeded_videos():
         lvu = _spelled(make_lvu(
-            dev, "bfloat16", mesh=MeshConfig(**mesh_kw),
+            dev, "bfloat16", mesh=MeshConfig(**mesh_kw), model=model,
             extra_kwargs={"max_pixels": FRAME_HW * FRAME_HW}))
         torch.cuda.synchronize()
         rec = dict(tag=tag, rank=rank, stage=lvu.mesh.stage,
@@ -4432,11 +4689,15 @@ def _serve_mesh_run(dev, tag, mesh_kw, rank, work, idle_s):
             for q, k in zip(BATCH_QUESTIONS, n_tok):
                 steps += ([_video_request_rows(lvu, q, video)[1]] * n
                           + [1] * ((k - 1) * n))
-            want = b1_kernels(lvu, steps)
-            rec["burst_want_b1"] = dict(want, flash=sum(want.values()))
             live = lvu.start_chat(video)
             rec["live"] = [live.ask(q, max_new_tokens=8)
                            for q in SESSION_QUESTIONS[:2]]
+            # the cache "auto" resolved to for this video (the 72B's:
+            # int8, ROADMAP C26)
+            variant = {False: "bf16", True: "int8", "k": "int8k"}[
+                live._cache.quantized]
+            want = b1_kernels(lvu, steps, variant)
+            rec["burst_want_b1"] = dict(want, flash=sum(want.values()))
             peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
             del live
         else:
@@ -4586,7 +4847,7 @@ def _serve_mesh_phase(dev, params, world, backend, runs, label):
         open(os.path.join(work, name), "wb").close()
     video = os.path.join(work, "serve.mp4")
     one_rank = None
-    if any(kw.get("pp", 1) > 1 for _, kw in runs):
+    if any(r.mesh.get("pp", 1) > 1 for r in runs):  # the 7B's
         with seeded_videos():
             one = _spelled(_path_lvu(dev, params))
             one_rank = [one.generate(q, video, max_new_tokens=8)[0]
@@ -4597,7 +4858,7 @@ def _serve_mesh_phase(dev, params, world, backend, runs, label):
     args = ["--mesh-rank", "{r}", "--mesh-dir", work, "--mesh-world",
             str(world), "--mesh-backend", backend, "--mesh-phase", "3k"]
     if backend != "gloo":
-        args += ["--mesh-runs", "serve"]
+        args += ["--mesh-runs", ",".join(r.tag for r in runs)]
     done = _spawn(args, world, SERVE_MESH_TIMEOUT_S, work)
     phase_s = time.perf_counter() - t0
     records = []
@@ -4613,9 +4874,9 @@ def _serve_mesh_phase(dev, params, world, backend, runs, label):
     log(f"[3k] {world} ranks ({label}) exited 0 after shutdown: phase "
         f"{phase_s:.1f} s")
     ok, done_runs = True, []
-    for i, (tag, mesh_kw) in enumerate(runs):
+    for i, run in enumerate(runs):
         recs = [rec["runs"][i] for rec in records]
-        ok &= _serve_lines(tag, mesh_kw, recs, one_rank, label)
+        ok &= _serve_lines(run.tag, run.mesh, recs, one_rank, label)
         done_runs.append(recs)
     return ok, done_runs
 
@@ -4629,28 +4890,143 @@ def run_serving_mesh(dev, params):
         "gloo on one card: its walls say nothing of NCCL between cards")
 
 
+# -- phase 3l: the other two model sizes --------------------------------------
+
+# (preset, decoder layers (None: all of them), param_dtype, kv_cache_dtype,
+# the cache variant B1 must run: "auto" resolves to bf16 for the 64-frame
+# request on one card, the 72B's 8 layers counted as the whole model)
+SIZE_RUNS = (
+    ("qwen25-vl-3b", None, "bfloat16", "auto", "bf16"),
+    ("qwen25-vl-3b", None, "int8", "auto", "bf16"),
+    ("qwen25-vl-3b", None, "bfloat16", "int8", "int8"),
+    ("qwen25-vl-72b", 8, "bfloat16", "auto", "bf16"),
+    ("qwen25-vl-72b", 8, "int8", "auto", "bf16"),
+    ("qwen25-vl-72b", 8, "bfloat16", "int8", "int8"),
+)
+
+
+def run_sizes(dev):
+    """Phase 3l: qwen25-vl-3b at full width and depth, and qwen25-vl-72b at
+    full width and 8 of its 80 layers (seeded weights, one card), each with
+    bf16 weights, int8 weights and an int8 KV cache: request 0 of phase 3
+    twice through LVUEngine.generate, the second timed and counted. B1
+    launches per variant, mode and kernel (rep 8: 8 q heads per kv head)
+    against the config's rules, cache lengths per layer, tokens in the
+    vocabulary, the cache the request resolved to, finite final-prefill
+    logits; init wall, parameter count, resident and peak memory. Returns
+    (ok, each counted request's launch counts)."""
+    import torch
+
+    from quickvideo_tpu_torch.prefill.engine import tensor_leaves
+
+    counters = _kernel_counters()
+    ok, runs = True, []
+    t_phase = time.perf_counter()
+    for model, layers, param_dtype, kv_dtype, variant in SIZE_RUNS:
+        tag = (f"[3l {model}{'' if layers is None else f', {layers} layers'}"
+               f", {param_dtype} weights, {kv_dtype} KV]")
+        gc.collect()  # the previous run's LVU, in a cycle
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated() / 2**30
+        t0 = time.perf_counter()
+        lvu = make_lvu(dev, param_dtype, kv_dtype, model=model,
+                       layers=layers)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tensor_leaves(lvu.params))
+        resident = torch.cuda.memory_allocated() / 2**30 - base
+        mcfg = lvu.model_config
+        inputs = make_request(mcfg, lvu.tokenizer, QUESTIONS[0], seed=0)
+        walls = []
+        for _ in range(2):  # the second is timed and counted
+            _reset_counters(counters)
+            t0 = time.perf_counter()
+            res = lvu.engine.generate(
+                inputs, max_new_tokens=8,
+                eos_token_ids=[lvu.tokenizer.eos_token_id])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        counts = _read_counters(counters)
+        runs.append(counts)
+        peak = torch.cuda.max_memory_allocated() / 2**30 - base
+        n = len(res.tokens)
+        want = expected_b1(lvu, inputs, n, variant)
+        want.update(expected_kernels(lvu, inputs, n, variant))
+        counts_ok = (
+            {k: counts[k] for k in want} == want
+            and counts["flash"] == counts[f"flash_{variant}"] == sum(
+                c for k, c in want.items() if not k.startswith("flash_kernel"))
+            and counts["vision_2d"] > 0
+            and (param_dtype != "int8"
+                 or min(counts["ln_gemm"], counts["ln_mlp"]) > 0))
+        want_len, want_layers = expected_lengths(lvu, inputs, n)
+        lens_ok = (res.cache_length == want_len
+                   and res.layer_lengths == want_layers)
+        vocab = mcfg.text.vocab_size
+        toks_ok = bool(n >= 1 and ((res.tokens >= 0)
+                                   & (res.tokens < vocab)).all())
+        cache, st = lvu.engine.prefill(inputs)
+        logits = lvu.engine.final_prefill(cache, st).float()
+        cache_ok = (cache.quantized is (variant == "int8")
+                    and st["kv_dtype"] == ("int8" if variant == "int8"
+                                           else "bfloat16"))
+        finite = bool(torch.isfinite(logits).all()
+                      and logits.shape[-1] == vocab)
+        run_ok = counts_ok and lens_ok and toks_ok and cache_ok and finite
+        ok &= run_ok
+        t = mcfg.text
+        log(f"{tag} {t.num_hidden_layers} layers, hidden {t.hidden_size}, "
+            f"heads {t.num_attention_heads} / {t.num_key_value_heads}: init "
+            f"{init_s:.2f} s, {n_params / 1e9:.3f} B parameter values, "
+            f"resident {resident:.2f} GiB, peak {peak:.2f} GiB; request wall "
+            f"{walls[0]:.3f} s then {walls[1]:.3f} s (timed); decode "
+            f"{1e3 * res.timings['decode'] / max(n - 1, 1):.2f} ms/token; "
+            f"tokens {res.tokens.tolist()} {toks_ok}; cache "
+            f"{st['kv_dtype']} (B1 {variant}) {cache_ok}; cache_length "
+            f"{res.cache_length} (expected {want_len}), per-layer "
+            f"{sorted(set(res.layer_lengths))} {lens_ok}; final-prefill "
+            f"logits finite over {vocab} {finite}; B1 launches "
+            + ", ".join(f"{k[6:]} {counts[k]}" for k in sorted(want)
+                        if want[k] or counts[k])
+            + f" (expected " + ", ".join(f"{k[6:]} {c}" for k, c in
+                                         sorted(want.items()) if c)
+            + f") {counts_ok}; spans(s) "
+            f"{ {k: round(v, 4) for k, v in sorted(res.timings.items())} } "
+            f"{'OK' if run_ok else 'FAIL'}")
+        del cache, st, logits, lvu
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[3l] phase {time.perf_counter() - t_phase:.1f} s")
+    return ok, runs
+
+
 # -- phase 4: card vs CPU ----------------------------------------------------
 
 
-def narrow_config():
-    """2 decoder layers at head_dim 128 (7 q heads / 1 kv head, the 7B's GQA
-    ratio) and 2 vision blocks at head_dim 80 (block 0 window, block 1 full)."""
+def narrow_config(q_heads=7, rms_norm_eps=1e-6, tokens_per_second=2.0):
+    """2 decoder layers at head_dim 128 (`q_heads` q heads / 1 kv head: 7,
+    the 7B's GQA ratio, or 8, the 3B's and the 72B's) and 2 vision blocks at
+    head_dim 80 (block 0 window, block 1 full); the text rmsnorm eps and
+    the vision tokens_per_second as given (the 72B's: 1e-5, 4.0)."""
     from quickvideo_tpu_torch.models.qwen25_vl.config import (
         ModelConfig,
         TextConfig,
         VisionConfig,
     )
 
+    hidden = 128 * q_heads
     return ModelConfig(
         name="narrow128",
         vision=VisionConfig(
             depth=2, hidden_size=160, intermediate_size=256, num_heads=2,
-            fullatt_block_indexes=(1,), out_hidden_size=896,
+            fullatt_block_indexes=(1,), out_hidden_size=hidden,
+            tokens_per_second=tokens_per_second,
         ),
         text=TextConfig(
-            vocab_size=2048, hidden_size=896, intermediate_size=1024,
-            num_hidden_layers=2, num_attention_heads=7,
-            num_key_value_heads=1,
+            vocab_size=2048, hidden_size=hidden, intermediate_size=1024,
+            num_hidden_layers=2, num_attention_heads=q_heads,
+            num_key_value_heads=1, rms_norm_eps=rms_norm_eps,
         ),
         image_token_id=2040,
         video_token_id=2041,
@@ -4689,7 +5065,8 @@ def run_card_vs_cpu(dev):
 
     tokenizer = load_tokenizer("", mcfg)
 
-    def run(params_gpu, params_cpu, image=None, source_hw=None, **kw):
+    def run(params_gpu, params_cpu, image=None, source_hw=None, cfg=mcfg,
+            **kw):
         """Final-prefill logits of one 16-frame request (2 groups of 8; an
         `image` before the video; frames at `source_hw` resized on the
         device) on the card (bf16 activations) and on the CPU (f32): (card
@@ -4699,9 +5076,9 @@ def run_card_vs_cpu(dev):
         out = []
         for params, dtype, device in ((params_gpu, torch.bfloat16, dev),
                                       (params_cpu, torch.float32, "cpu")):
-            eng = LVUEngine(params, mcfg, lvu_cfg, dtype, device)
+            eng = LVUEngine(params, cfg, lvu_cfg, dtype, device)
             cache, st = eng.prefill(make_request(
-                mcfg, tokenizer, "What happens in this video?", seed=7,
+                cfg, tokenizer, "What happens in this video?", seed=7,
                 n_frames=16, group_frames=8, image=image, source_hw=source_hw,
             ))
             out.append((eng.final_prefill(cache, st).float().cpu(), st, cache))
@@ -4800,6 +5177,20 @@ def run_card_vs_cpu(dev):
             f"{rel:.3e} (tol {tol}), B5 launches on the card {b5}, argmax "
             f"card {int(lg.argmax())} cpu {int(lc.argmax())} "
             f"{'OK' if this_ok else 'FAIL'}")
+
+    # the 3B's and the 72B's GQA ratio (8 q heads per kv head: B1 at rep 8)
+    # with the 72B's text eps and M-RoPE time scale
+    rcfg = narrow_config(q_heads=8, rms_norm_eps=1e-5, tokens_per_second=4.0)
+    rbase = init_params(rcfg, seed=3, dtype=torch.bfloat16, device="cpu")
+    lg, lc, rel, _, _, _ = run(params_to(rbase, device=dev),
+                               params_to(rbase, dtype=torch.float32),
+                               cfg=rcfg)
+    this_ok = bool(rel <= LOGITS_REL_L2 and torch.isfinite(lg).all())
+    ok &= this_ok
+    log(f"card vs CPU, 8 q heads / 1 kv head, text eps 1e-5, "
+        f"tokens_per_second 4.0, top_p=1: final-prefill logits rel L2 "
+        f"{rel:.3e} (tol {LOGITS_REL_L2}), argmax card {int(lg.argmax())} "
+        f"cpu {int(lc.argmax())} {'OK' if this_ok else 'FAIL'}")
     return ok
 
 
@@ -4849,15 +5240,23 @@ def main():
     ap.add_argument(
         "--mesh-runs", default=None,
         help="with --mesh-cards: the comma-separated tags of the runs to "
-             "make (default: every run for the number of cards), or serve: "
-             "phase 3k's server checks over NCCL",
+             "make (CARD_MESH_RUNS, TAGGED_RUNS, CARD_SERVE_RUNS; default: "
+             "every run of CARD_MESH_RUNS for the number of cards); serve: "
+             "every server run (phase 3k's checks over NCCL)",
     )
     ap.add_argument(
         "--mesh-cards", action="store_true",
         help="instead of the smoke test, run phase 3i's checks and requests "
              "with NCCL, one rank per card (2 or 4 cards)",
     )
+    ap.add_argument(
+        "--one-card", action="store_true",
+        help="with --mesh-cards and --mesh-runs: run the tagged runs (up to "
+             "4 ranks) as gloo ranks sharing card 0",
+    )
     args = ap.parse_args()
+    if args.one_card and not (args.mesh_cards and args.mesh_runs):
+        ap.error("--one-card goes with --mesh-cards and --mesh-runs")
     if args.root != ROOT:
         if not (args.compare_b1 or args.compare_fused):
             ap.error("--root goes with --compare-b1 or --compare-fused")
@@ -4908,18 +5307,20 @@ def main():
         if args.root == ROOT:
             ok &= flash_kernel_info()
         log(f"compare-b1: {'OK' if ok else 'FAIL'}")
-        return
+        sys.exit(0 if ok else 1)
     if args.mesh_cards:
-        ok = run_card_mesh(dev, args.mesh_runs)
+        for i, line in enumerate(_gpu_lines()):
+            log(f"gpu {i}: {line}")
+        ok = run_card_mesh(dev, args.mesh_runs, args.one_card)
         log(f"mesh-cards: {'OK' if ok else 'FAIL'} ({gpu}, "
             f"{torch.cuda.device_count()} cards)")
-        return
+        sys.exit(0 if ok else 1)
     if args.compare_fused:
         ok = compare_fused(dev, os.path.relpath(args.root, ROOT))
         if args.root == ROOT:
             ok &= fused_kernel_info()
         log(f"compare-fused: {'OK' if ok else 'FAIL'}")
-        return
+        sys.exit(0 if ok else 1)
 
     flash_cases = [
         (3600, 1807, 16384),  # group 2 step of the 7B main path
@@ -4936,11 +5337,12 @@ def main():
     tp_cases = [(g, length, cap, hq, hkv) for hq, hkv in ((14, 2), (7, 1))
                 for g, length, cap in ((3600, 1807, 16384), (1, 4000, 8192))]
     headline = (3600, 53744, 65536)  # the 1024-frame headline's last step
-    flash_rows = check_flash(dev, flash_cases + [headline] + tp_cases)
+    flash_rows = check_flash(dev, flash_cases + [headline] + tp_cases
+                             + REP8_CASES)
     flash_int8_rows = check_flash_int8(dev, flash_cases + [
         headline,
         (1, 122880, 131072),   # hour-scale decode
-    ] + tp_cases)
+    ] + tp_cases + REP8_CASES)
     mode_rows = check_flash_modes(dev, [
         (False, 3620, 1807, 16384),  # the 7B query-based group, 20-token prompt
         (False, 3620, 53744, 65536),  # ... at the 1024-frame headline's last step
@@ -4955,7 +5357,8 @@ def main():
         (False, 1, 4000, 4096),
         (False, 1, 0, 4096),
         (True, 3600, 0, 3600),
-    ])
+    ] + [(causal, 3600, 1807, 16384, hq, hkv) for hq, hkv in REP8_HEADS
+         for causal in (True, False)])
     check_b1_headline_sdpa(dev)
     vision_rows = check_vision(dev, [
         (64, 14400), (48, 3600), (36, 3600), (4, 3600), (900, 14400),
@@ -5027,6 +5430,9 @@ def main():
     ok &= mesh_ok
     pp_ok, pp_runs = run_pipeline(dev)
     ok &= pp_ok
+    sizes_ok, size_runs = run_sizes(dev)
+    ok &= sizes_ok
+    runs += size_runs
     launches = {k: sum(r[k] for r in runs) for k in launches}
     ok &= run_card_vs_cpu(dev)
 

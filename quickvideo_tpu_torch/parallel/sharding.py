@@ -129,8 +129,10 @@ def shard_leaf(leaf, rule: Optional[str], index: int, n: int):
         else:
             q8 = _slice(q8, -2, index, n)
         # (in, out) view of a row-major (out, in) tensor, as quantize_weight
-        # lays it out
-        return {"q8": q8.t().contiguous().t(), "sc": sc.clone()}
+        # lays it out; copied even where the column slice's transpose is
+        # already contiguous, so the whole matrix is not kept alive
+        q8 = q8.t().clone(memory_format=torch.contiguous_format).t()
+        return {"q8": q8, "sc": sc.clone()}
     dim = -1 if rule == COL or leaf.dim() == 1 else -2
     return _slice(leaf, dim, index, n).contiguous().clone()
 

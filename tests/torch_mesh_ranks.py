@@ -183,13 +183,43 @@ def case_generate(spec, rank):
     logits = lvu.engine.final_prefill(cache, st)
     sets = [i for g in st["retained"] for i in g if i is not None]
     sets += [i for i in (st.get("retained_final") or []) if i is not None]
+    loaded = None
+    if spec.get("sharded_load"):
+        loaded = _sharded_load(lvu, spec["sharded_load"])
     return dict(
+        sharded_load=loaded,
         tokens=res.tokens, cache_length=res.cache_length,
         layer_lengths=res.layer_lengths, kv_cache_bytes=res.kv_cache_bytes,
         prefill_lengths=lengths, capacity=cache.capacity,
         local_shape=tuple(cache.k.shape), kv_dtype=st["kv_dtype"],
         retained=[i.numpy() for i in sets], logits=logits.numpy(),
     )
+
+
+def _sharded_load(lvu, directory):
+    """"equal" when load_params_sharded reads this rank's part of the
+    checkpoint `directory` as the LVU holds it and as the whole tree cut by
+    mesh_params gives it, else what differs."""
+    import torch
+
+    from quickvideo_tpu_torch.models.qwen25_vl.load import (
+        load_params,
+        load_params_sharded,
+    )
+    from quickvideo_tpu_torch.parallel.sharding import mesh_params
+    from quickvideo_tpu_torch.prefill.engine import tensor_leaves
+
+    cfg, dtype = lvu.model_config, lvu.engine.dtype
+    part = list(tensor_leaves(load_params_sharded(directory, cfg, lvu.mesh,
+                                                  dtype, "cpu")))
+    for what, tree in (("the LVU's", lvu.params), ("the whole tree's cut",
+                       mesh_params(load_params(directory, cfg, dtype, "cpu"),
+                                   lvu.mesh))):
+        other = list(tensor_leaves(tree))
+        if len(other) != len(part) or not all(
+                torch.equal(a, b) for a, b in zip(part, other)):
+            return f"differs from {what}"
+    return "equal"
 
 
 def case_cp_past(spec, rank):
