@@ -142,6 +142,15 @@ checkout of the repository. Phases:
      counted: B1 launches per variant, mode and kernel, cache lengths per
      layer, the cache "auto" resolved to, tokens and finite logits, init
      wall, resident and peak memory;
+  3m. the preset path as bench.py builds it: an LVU of a preset name with
+     no checkpoint holds the JAX package's deterministic weights, made on
+     the card from their indices (the 7B with int8 weights, bench.py's
+     configuration, then the 7B and the 3B with bf16 weights, full size):
+     every leaf equal bit for bit to the JAX leaf computed whole on the
+     card (the JAX formula over a flat int32 iota), and at sampled blocks
+     to the index function's on the CPU; every leaf's dtype, shape and
+     strides those of the seeded path's, so its bytes too; and phase 3's
+     request 0 twice, counted as in 3l;
   4. the same prefill on the card and (plain versions) on the CPU for a
      narrow config with production head dims, with bf16 and with int8
      weights, with an int8 KV cache, with salient_tokens and query-based
@@ -149,7 +158,13 @@ checkout of the repository. Phases:
      image, and with 480 x 854 frames resized on the device, and for a
      narrow config at 8 q heads per kv head with the 72B's text eps and
      tokens_per_second: final-prefill logits agree, and the retained index
-     sets of the pruned runs.
+     sets of the pruned runs; and the first narrow model on the preset
+     path's deterministic weights, bf16 and int8, made on each side.
+
+Every phase but 3m (and 3m's own layout check) builds its preset LVUs on
+init_params' seeded normals (`_seeded_weights`), on which their limits
+were set; the port's preset path itself gives the JAX package's
+deterministic weights.
 
 QV_VISION_2D is set only around the phases that force the route.
 
@@ -188,8 +203,11 @@ on four also the 72B at 8 of its 80 layers (tp = 2 and tp = 4 against
 the same 8 on card 0, pp 2 x tp 2 against tp = 2 bit for bit, with a
 bf16 and an int8 cache). TAGS picks runs of CARD_MESH_RUNS, TAGGED_RUNS
 (made only so: the 72B at 16 layers over tp = 2; at its 80 layers tp = 4
-with "auto" and with bf16 KV, pp 2 x tp 2 against tp = 4 with each, and
-int8 weights over tp = 2 on two cards) and CARD_SERVE_RUNS, e.g.
+with "auto" and with bf16 KV, pp 2 x tp 2 against tp = 4 with each, int8
+weights over tp = 2 on two cards, and tp = 4 on the preset path's own
+weights, 72b_tp4_fast: each rank's part at sampled blocks, the int32
+iota's wrapped indices among them, and its parameter bytes against
+72b_tp4's) and CARD_SERVE_RUNS, e.g.
 --mesh-runs 72b_tp4,72b_tp4_bf16kv,72b_tp2_int8w,72b_serve_tp4; `serve`
 stands for every server run: phase 3k's checks over NCCL, tp = 2 and pp
 = 2 on two cards; on four dp 2 x tp 2, dp 2 x pp 2, pp 2 x tp 2 and the
@@ -260,6 +278,13 @@ INT8_KV_LOGITS_REL_L2 = LOGITS_REL_L2
 # least RETAINED_AGREE of its indices
 PRUNED_LOGITS_REL_L2 = 2 * LOGITS_REL_L2
 RETAINED_AGREE = 0.9
+# card vs CPU on the preset path's deterministic weights (phase 4's narrow
+# model at 7 q heads per kv head, made on each side from their indices):
+# the CPU's plain versions give 9.4e-3 with bf16 weights (6.7e-3 to
+# 1.01e-2 over five other request seeds) and 5.9e-3 with int8 weights for
+# bf16 vs f32 activations, against 5.6e-3 on the seeded normals, so the
+# bf16 budget holds with a margin of 5
+FAST_LOGITS_REL_L2 = LOGITS_REL_L2
 
 # the on-device resize on the card vs its own f32 run on the CPU, on the
 # 0..255 scale: two f32 products over 10-18 taps each, differing only in
@@ -1541,12 +1566,14 @@ def model_config(model=MODEL_7B, layers=None):
 
 
 def make_lvu(dev, param_dtype, kv_cache_dtype="auto", kv_cache_capacity=None,
-             params=None, model=MODEL_7B, layers=None, **pruning):
+             params=None, model=MODEL_7B, layers=None, fast=False, **pruning):
     """LVU for the preset `model` (qwen25-vl-7b by default) at full width
     and depth (`layers` decoder layers where given), random weights from
-    seed 0 (or `params`), as the main path runs it ("auto" KV, which
-    resolves to bf16 for the 64-frame requests on one card); `pruning`
-    overrides the key_norms_small policy's LVUConfig fields."""
+    seed 0 (init_params' normals, _seeded_weights), or with `fast` the
+    preset path's own deterministic weights (phase 3m), or `params`, as
+    the main path runs it ("auto" KV, which resolves to bf16 for the
+    64-frame requests on one card); `pruning` overrides the
+    key_norms_small policy's LVUConfig fields."""
     from quickvideo_tpu_torch.config import LVUConfig
     from quickvideo_tpu_torch.api import LVU
 
@@ -1565,8 +1592,26 @@ def make_lvu(dev, param_dtype, kv_cache_dtype="auto", kv_cache_capacity=None,
         kv_cache_capacity=kv_cache_capacity,
         seed=0,
     ).replace(**pruning)
-    with _preset(model, model_config(model, layers)):
+    with _preset(model, model_config(model, layers)), (
+            contextlib.nullcontext() if fast else _seeded_weights()):
         return LVU(cfg, params=params, device=dev)
+
+
+def _seeded_weights():
+    """A context inside which the port's preset path draws init_params'
+    seeded normals from the config's seed: every phase but 3m runs them,
+    since their limits were set on them; the preset's own weights after
+    it."""
+    from unittest import mock
+
+    from quickvideo_tpu_torch import api
+    from quickvideo_tpu_torch.models.qwen25_vl.convert import init_params
+
+    def drawn(mcfg, cfg, dtype, device, mesh):
+        return init_params(mcfg, cfg.seed, dtype, device,
+                           param_dtype=cfg.param_dtype, mesh=mesh)
+
+    return mock.patch.object(api, "preset_params", drawn)
 
 
 @contextlib.contextmanager
@@ -2175,7 +2220,10 @@ def _run_profile(dev, param_dtype, kv_cache_dtype, route, **pruning):
         wall = time.perf_counter() - t0
     spans, by_name = [], {}
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        # kernels only: not the device-side copies of the engine's spans
+        # (SpanTimer's annotate ranges, which cover their kernels' gaps)
+        if (e.device_type != DeviceType.CUDA
+                or getattr(e, "is_user_annotation", False)):
             continue
         start, end = e.time_range.start, e.time_range.end
         spans.append((start, end))
@@ -3103,13 +3151,15 @@ def _serve_checks(lvu, server, base, video, other, n, run, runs):
 @contextlib.contextmanager
 def _cli_lvu(built, **kw):
     """quickvideo_tpu_torch.api.LVU recording each instance the CLI builds
-    in `built` (spelled, `kw` passed on: params= for shared weights)."""
+    in `built` (spelled, a preset's weights seeded as make_lvu's, `kw`
+    passed on: params= for shared weights)."""
     from quickvideo_tpu_torch import api
 
     orig = api.LVU
 
     def make(cfg, device=None):
-        built.append(_spelled(orig(cfg, device=device, **kw)))
+        with _seeded_weights():
+            built.append(_spelled(orig(cfg, device=device, **kw)))
         return built[-1]
 
     api.LVU = make
@@ -3369,6 +3419,11 @@ class MeshRun(NamedTuple):
     model: str = MODEL_7B
     layers: Optional[int] = None
     against: str = "one"
+    # the preset path's deterministic weights instead of the seeded ones:
+    # each rank's part is checked at sampled blocks against the index
+    # function's (fast_samples), its parameter bytes against the seeded
+    # twin's (the tag without "_fast") where that ran before it
+    fast: bool = False
 
     @property
     def world(self) -> int:
@@ -3450,6 +3505,11 @@ TAGGED_RUNS = (
             MODEL_72B, against="72b_tp4_bf16kv"),
     MeshRun("72b_tp2_int8w", {"tp": 2}, "int8", "auto", MODEL_72B,
             against="none"),
+    # the preset path's own weights over tp = 4 (the JAX package's, whose
+    # int32 iota wraps in the 72B's stacked wq, wo, wg, wu and wd; ROADMAP
+    # C30), beside 72b_tp4's parameter bytes
+    MeshRun("72b_tp4_fast", {"tp": 4}, "bfloat16", "auto", MODEL_72B,
+            against="none", fast=True),
 )
 
 
@@ -3828,17 +3888,27 @@ def _mesh_request(dev, run, mesh_rank, work):
     import torch.distributed as dist
 
     from quickvideo_tpu_torch.config import MeshConfig
+    from quickvideo_tpu_torch.prefill.engine import tensor_leaves
 
     tag, mesh_kw = run.tag, run.mesh
     param_dtype, kv_dtype = run.param_dtype, run.kv_dtype
     counters = _kernel_counters()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # what an earlier run left
     t0 = time.perf_counter()
-    lvu = make_lvu(dev, param_dtype, kv_dtype, mesh=MeshConfig(**mesh_kw),
-                   model=run.model, layers=run.layers)
+    trees = []  # the preset path's tree, before the engine's prep
+    with (_capture_preset(trees) if run.fast
+          else contextlib.nullcontext()):
+        lvu = make_lvu(dev, param_dtype, kv_dtype,
+                       mesh=MeshConfig(**mesh_kw), model=run.model,
+                       layers=run.layers, fast=run.fast)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    resident = torch.cuda.memory_allocated() / 2**30
+    resident = (torch.cuda.memory_allocated() - base) / 2**30
+    param_bytes = sum(t.nbytes for t in tensor_leaves(lvu.params))
+    samples = (fast_samples(trees[0], lvu.model_config, lvu.mesh)
+               if run.fast else None)
+    del trees
     inputs = make_request(lvu.model_config, lvu.tokenizer, QUESTIONS[0],
                           seed=0)
     for _ in range(2):  # the second is timed and counted: the first sets up
@@ -3885,7 +3955,100 @@ def _mesh_request(dev, run, mesh_rank, work):
                     len(res.tokens) - 1, 1),
                 init_s=init_s, resident_gib=resident, peak_gib=peak,
                 local_shape=local_shape, retained=retained,
-                kv_dtype=variant)
+                kv_dtype=variant, param_bytes=param_bytes,
+                fast_samples=samples)
+
+
+def fast_samples(params, cfg, mesh):
+    """This rank's part `params` of the preset path's deterministic
+    weights, as the preset path made it (before the engine's prep), at
+    sampled blocks against the index function's on the CPU: the blocks of
+    up to 3 x 7 at the corners of the rank's slice of every leaf of the
+    embedding, the final norm, the lm_head, the vision tower's patch
+    embedding and merger, of the first and the last vision block, and of
+    the rank's first and last decoder layer and the one that holds a
+    stacked leaf's index 2^31 (where the JAX package's int32 iota wraps,
+    where the rank holds it); every
+    int8 scale is 8e-5. Returns (values checked, of them at wrapped
+    indices, the blocks that differ)."""
+    import torch
+
+    from quickvideo_tpu_torch.models.qwen25_vl.convert import (
+        FAST_SCALE,
+        fast_codes,
+        fast_index,
+        fast_values,
+    )
+    from quickvideo_tpu_torch.ops.quantization import is_quantized
+    from quickvideo_tpu_torch.parallel.sharding import (
+        COL,
+        LAYER_RULES,
+        stage_layers,
+        stage_of,
+    )
+
+    t = cfg.text
+    tpi, tpn = (0, 1) if mesh is None else (mesh.index("tp"), mesh.tp)
+    held = stage_layers(t.num_hidden_layers, *stage_of(mesh))
+    n_values, n_wrapped, bad = 0, 0, []
+
+    def check(name, leaf, rule=None, index=0):
+        """The corners of `leaf`, the rank's part of the `index`-th of a
+        stacked JAX leaf (tp `rule`; a 1-D leaf as one row)."""
+        nonlocal n_values, n_wrapped
+        q = leaf["q8"] if is_quantized(leaf) else leaf
+        if is_quantized(leaf) and not bool((leaf["sc"] == FAST_SCALE).all()):
+            bad.append(f"{name}.sc")
+        q = q if q.dim() == 2 else q[None]
+        rows, cols = q.shape
+        col_split, row_split = rule == COL, rule not in (None, COL)
+        r0 = tpi * rows if row_split else 0
+        c0 = tpi * cols if col_split else 0
+        shape = (rows * tpn if row_split else rows,
+                 cols * tpn if col_split else cols)
+        offset = index * shape[0] * shape[1]
+        for br in sorted({0, max(rows - 3, 0)}):
+            for bc in sorted({0, max(cols - 7, 0)}):
+                lr = range(br, min(br + 3, rows))
+                lc = range(bc, min(bc + 7, cols))
+                idx = fast_index(shape, offset, range(r0 + lr.start,
+                                                      r0 + lr.stop),
+                                 range(c0 + lc.start, c0 + lc.stop))
+                want = (fast_codes(idx) if is_quantized(leaf)
+                        else fast_values(idx, q.dtype))
+                got = q[lr.start:lr.stop, lc.start:lc.stop].cpu()
+                flat = (offset + (r0 + torch.arange(lr.start, lr.stop))[
+                    :, None] * shape[1] + (c0 + torch.arange(
+                        lc.start, lc.stop))[None, :])
+                n_values += want.numel()
+                n_wrapped += int((flat != idx).sum())
+                if not torch.equal(got, want):
+                    bad.append(f"{name} [{br}:, {bc}:]")
+
+    lang = params["language"]
+    for name in ("embed", "norm", "lm_head"):
+        if name in lang:
+            check(name, lang[name], COL if name == "lm_head" else None)
+    for key in lang["layers"][0] if lang["layers"] else ():
+        leaf = lang["layers"][0][key]
+        numel = (leaf["q8"] if is_quantized(leaf) else leaf).numel() * (
+            tpn if key in LAYER_RULES else 1)
+        wrap_layer = 2**31 // numel
+        for layer in sorted({held.start, held.stop - 1, wrap_layer}):
+            if layer in held:
+                check(f"layers[{layer}].{key}",
+                      lang["layers"][layer - held.start][key],
+                      LAYER_RULES.get(key), layer)
+    if "vision" in params:
+        vision = params["vision"]
+        check("patch_embed", vision["patch_embed"])
+        for key, leaf in vision["merger"].items():
+            check(f"merger.{key}", leaf)
+        depth = len(vision["blocks"])
+        for b in sorted({0, depth - 1}):
+            for key, leaf in vision["blocks"][b].items():
+                check(f"blocks[{b}].{key}", leaf, index=b)
+    return n_values, n_wrapped, bad
 
 
 def _pp_request(dev, run, mesh_rank, work, extras=False):
@@ -4185,7 +4348,9 @@ def _mesh_phase(world: int, backend: str, refs: dict, label: str,
         same_model = [t for t, d in done.items()
                       if (d["model"], d["layers"]) == (run.model, run.layers)]
         done[tag] = dict(r0, logits=logits, model=run.model,
-                         layers=run.layers, mesh=mesh_kw)
+                         layers=run.layers, mesh=mesh_kw,
+                         residents=[r["resident_gib"] for r in recs],
+                         param_bytes=[r.get("param_bytes") for r in recs])
         what = "one rank"
         if run.against == "one":
             ref = refs[run.ref_key]
@@ -4219,6 +4384,9 @@ def _mesh_phase(world: int, backend: str, refs: dict, label: str,
                   and all(r["counts_ok"] and r["lens_ok"] for r in recs))
         model = run.model + ("" if run.layers is None
                              else f" at {run.layers} layers")
+        if run.fast:
+            run_ok &= _check_fast_run(tag, recs, done.get(
+                tag.removesuffix("_fast")))
         if ref is None:
             held = "; ".join(
                 [f"tokens {r0['tokens']}; final-prefill logits finite, "
@@ -4258,6 +4426,34 @@ def _mesh_phase(world: int, backend: str, refs: dict, label: str,
                 f"device memory {r['peak_gib']:.2f} GiB")
         runs.append(recs)
     return ok, records[0]["kernel_rows"], runs, work
+
+
+def _check_fast_run(tag, recs, twin) -> bool:
+    """A run on the preset path's deterministic weights: every rank's
+    sampled blocks equal the index function's, wrapped indices among them;
+    each rank's parameter bytes equal the seeded `twin`'s (where it ran in
+    this call; the allocator's resident count beside them, which also
+    holds its block rounding, printed)."""
+    ok = True
+    for r in recs:
+        n, wrapped, bad = r["fast_samples"]
+        this_ok = not bad and n > 0 and wrapped > 0
+        ok &= this_ok
+        log(f"[3i {tag}] rank {r['rank']}: {n} sampled weights (at "
+            f"{wrapped} wrapped int32 indices) against the index "
+            f"function's: {'equal' if not bad else f'differ at {bad[:6]}'} "
+            f"{'OK' if this_ok else 'FAIL'}")
+    if twin is None:
+        log(f"[3i {tag}] its seeded twin did not run in this call: resident "
+            "memory not compared")
+        return ok
+    mine = [r["param_bytes"] for r in recs]
+    same = mine == twin["param_bytes"]
+    log(f"[3i {tag}] resident parameter bytes per rank {mine} vs the seeded "
+        f"run's {twin['param_bytes']} {'OK' if same else 'FAIL'} (allocated "
+        f"GiB {[round(r['resident_gib'], 3) for r in recs]} vs "
+        f"{[round(x, 3) for x in twin['residents']]}, printed)")
+    return ok and same
 
 
 def _rel_l2(a, b) -> float:
@@ -4905,19 +5101,87 @@ SIZE_RUNS = (
 )
 
 
+def _counted_request(lvu, tag, param_dtype, variant, counters, base,
+                     init_s, resident):
+    """Request 0 of phase 3 twice through LVUEngine.generate on `lvu`, the
+    second timed and counted: B1 launches per variant, mode and kernel
+    against the config's rules (B3 / B4 launched with int8 weights), cache
+    lengths per layer, tokens in the vocabulary, the cache the request
+    resolved to (B1 `variant`), finite final-prefill logits; logged beside
+    the init wall and resident memory (GiB above `base`). Returns (ok, the
+    counted request's launch counts)."""
+    import torch
+
+    from quickvideo_tpu_torch.prefill.engine import tensor_leaves
+
+    n_params = sum(t.numel() for t in tensor_leaves(lvu.params))
+    mcfg = lvu.model_config
+    inputs = make_request(mcfg, lvu.tokenizer, QUESTIONS[0], seed=0)
+    walls = []
+    for _ in range(2):  # the second is timed and counted
+        _reset_counters(counters)
+        t0 = time.perf_counter()
+        res = lvu.engine.generate(
+            inputs, max_new_tokens=8,
+            eos_token_ids=[lvu.tokenizer.eos_token_id])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    counts = _read_counters(counters)
+    peak = torch.cuda.max_memory_allocated() / 2**30 - base
+    n = len(res.tokens)
+    want = expected_b1(lvu, inputs, n, variant)
+    want.update(expected_kernels(lvu, inputs, n, variant))
+    counts_ok = (
+        {k: counts[k] for k in want} == want
+        and counts["flash"] == counts[f"flash_{variant}"] == sum(
+            c for k, c in want.items() if not k.startswith("flash_kernel"))
+        and counts["vision_2d"] > 0
+        and (param_dtype != "int8"
+             or min(counts["ln_gemm"], counts["ln_mlp"]) > 0))
+    want_len, want_layers = expected_lengths(lvu, inputs, n)
+    lens_ok = (res.cache_length == want_len
+               and res.layer_lengths == want_layers)
+    vocab = mcfg.text.vocab_size
+    toks_ok = bool(n >= 1 and ((res.tokens >= 0)
+                               & (res.tokens < vocab)).all())
+    cache, st = lvu.engine.prefill(inputs)
+    logits = lvu.engine.final_prefill(cache, st).float()
+    cache_ok = (cache.quantized is (variant == "int8")
+                and st["kv_dtype"] == ("int8" if variant == "int8"
+                                       else "bfloat16"))
+    finite = bool(torch.isfinite(logits).all()
+                  and logits.shape[-1] == vocab)
+    run_ok = counts_ok and lens_ok and toks_ok and cache_ok and finite
+    t = mcfg.text
+    log(f"{tag} {t.num_hidden_layers} layers, hidden {t.hidden_size}, "
+        f"heads {t.num_attention_heads} / {t.num_key_value_heads}: init "
+        f"{init_s:.2f} s, {n_params / 1e9:.3f} B parameter values, "
+        f"resident {resident:.2f} GiB, peak {peak:.2f} GiB; request wall "
+        f"{walls[0]:.3f} s then {walls[1]:.3f} s (timed); decode "
+        f"{1e3 * res.timings['decode'] / max(n - 1, 1):.2f} ms/token; "
+        f"tokens {res.tokens.tolist()} {toks_ok}; cache "
+        f"{st['kv_dtype']} (B1 {variant}) {cache_ok}; cache_length "
+        f"{res.cache_length} (expected {want_len}), per-layer "
+        f"{sorted(set(res.layer_lengths))} {lens_ok}; final-prefill "
+        f"logits finite over {vocab} {finite}; B1 launches "
+        + ", ".join(f"{k[6:]} {counts[k]}" for k in sorted(want)
+                    if want[k] or counts[k])
+        + f" (expected " + ", ".join(f"{k[6:]} {c}" for k, c in
+                                     sorted(want.items()) if c)
+        + f") {counts_ok}; spans(s) "
+        f"{ {k: round(v, 4) for k, v in sorted(res.timings.items())} } "
+        f"{'OK' if run_ok else 'FAIL'}")
+    return run_ok, counts
+
+
 def run_sizes(dev):
     """Phase 3l: qwen25-vl-3b at full width and depth, and qwen25-vl-72b at
     full width and 8 of its 80 layers (seeded weights, one card), each with
     bf16 weights, int8 weights and an int8 KV cache: request 0 of phase 3
-    twice through LVUEngine.generate, the second timed and counted. B1
-    launches per variant, mode and kernel (rep 8: 8 q heads per kv head)
-    against the config's rules, cache lengths per layer, tokens in the
-    vocabulary, the cache the request resolved to, finite final-prefill
-    logits; init wall, parameter count, resident and peak memory. Returns
-    (ok, each counted request's launch counts)."""
+    twice through LVUEngine.generate, the second timed and counted
+    (_counted_request); init wall, parameter count, resident and peak
+    memory. Returns (ok, each counted request's launch counts)."""
     import torch
-
-    from quickvideo_tpu_torch.prefill.engine import tensor_leaves
 
     counters = _kernel_counters()
     ok, runs = True, []
@@ -4934,70 +5198,198 @@ def run_sizes(dev):
                        layers=layers)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
-        n_params = sum(t.numel() for t in tensor_leaves(lvu.params))
         resident = torch.cuda.memory_allocated() / 2**30 - base
-        mcfg = lvu.model_config
-        inputs = make_request(mcfg, lvu.tokenizer, QUESTIONS[0], seed=0)
-        walls = []
-        for _ in range(2):  # the second is timed and counted
-            _reset_counters(counters)
-            t0 = time.perf_counter()
-            res = lvu.engine.generate(
-                inputs, max_new_tokens=8,
-                eos_token_ids=[lvu.tokenizer.eos_token_id])
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        counts = _read_counters(counters)
-        runs.append(counts)
-        peak = torch.cuda.max_memory_allocated() / 2**30 - base
-        n = len(res.tokens)
-        want = expected_b1(lvu, inputs, n, variant)
-        want.update(expected_kernels(lvu, inputs, n, variant))
-        counts_ok = (
-            {k: counts[k] for k in want} == want
-            and counts["flash"] == counts[f"flash_{variant}"] == sum(
-                c for k, c in want.items() if not k.startswith("flash_kernel"))
-            and counts["vision_2d"] > 0
-            and (param_dtype != "int8"
-                 or min(counts["ln_gemm"], counts["ln_mlp"]) > 0))
-        want_len, want_layers = expected_lengths(lvu, inputs, n)
-        lens_ok = (res.cache_length == want_len
-                   and res.layer_lengths == want_layers)
-        vocab = mcfg.text.vocab_size
-        toks_ok = bool(n >= 1 and ((res.tokens >= 0)
-                                   & (res.tokens < vocab)).all())
-        cache, st = lvu.engine.prefill(inputs)
-        logits = lvu.engine.final_prefill(cache, st).float()
-        cache_ok = (cache.quantized is (variant == "int8")
-                    and st["kv_dtype"] == ("int8" if variant == "int8"
-                                           else "bfloat16"))
-        finite = bool(torch.isfinite(logits).all()
-                      and logits.shape[-1] == vocab)
-        run_ok = counts_ok and lens_ok and toks_ok and cache_ok and finite
+        run_ok, counts = _counted_request(lvu, tag, param_dtype, variant,
+                                          counters, base, init_s, resident)
         ok &= run_ok
-        t = mcfg.text
-        log(f"{tag} {t.num_hidden_layers} layers, hidden {t.hidden_size}, "
-            f"heads {t.num_attention_heads} / {t.num_key_value_heads}: init "
-            f"{init_s:.2f} s, {n_params / 1e9:.3f} B parameter values, "
-            f"resident {resident:.2f} GiB, peak {peak:.2f} GiB; request wall "
-            f"{walls[0]:.3f} s then {walls[1]:.3f} s (timed); decode "
-            f"{1e3 * res.timings['decode'] / max(n - 1, 1):.2f} ms/token; "
-            f"tokens {res.tokens.tolist()} {toks_ok}; cache "
-            f"{st['kv_dtype']} (B1 {variant}) {cache_ok}; cache_length "
-            f"{res.cache_length} (expected {want_len}), per-layer "
-            f"{sorted(set(res.layer_lengths))} {lens_ok}; final-prefill "
-            f"logits finite over {vocab} {finite}; B1 launches "
-            + ", ".join(f"{k[6:]} {counts[k]}" for k in sorted(want)
-                        if want[k] or counts[k])
-            + f" (expected " + ", ".join(f"{k[6:]} {c}" for k, c in
-                                         sorted(want.items()) if c)
-            + f") {counts_ok}; spans(s) "
-            f"{ {k: round(v, 4) for k, v in sorted(res.timings.items())} } "
-            f"{'OK' if run_ok else 'FAIL'}")
-        del cache, st, logits, lvu
+        runs.append(counts)
+        del lvu
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[3l] phase {time.perf_counter() - t_phase:.1f} s")
+    return ok, runs
+
+
+# -- phase 3m: the preset path's deterministic weights -------------------------
+
+# (preset, param_dtype), "auto" KV (bf16 for the 64-frame request on one
+# card): first the 7B with int8 weights, bench.py:36-39's configuration,
+# which the port's bench is to run through its checkpoint-less LVU
+FAST_RUNS = (
+    (MODEL_7B, "int8"),
+    (MODEL_7B, "bfloat16"),
+    ("qwen25-vl-3b", "bfloat16"),
+)
+
+
+def _capture_preset(trees: list):
+    """A context inside which the port's preset path runs as it is, each
+    tree it makes appended to `trees` (the tree before the engine's weight
+    prep, which builds its own beside an int8 tower)."""
+    from unittest import mock
+
+    from quickvideo_tpu_torch import api
+
+    preset = api.preset_params
+
+    def capture(*args):
+        trees.append(preset(*args))
+        return trees[-1]
+
+    return mock.patch.object(api, "preset_params", capture)
+
+
+def _fast_whole(dev, tree, cfg, int8):
+    """The leaves of a one-card preset tree (before the engine's prep)
+    against the JAX package's, each computed whole on the card as the JAX
+    package computes it: a flat int32 iota over the JAX leaf's shape,
+    stacked leaves from their layer's offset (model.py::init_params_fast,
+    quantization.py::init_params_fast_quantized), compared in the JAX
+    layout, so that a slip of the port's layouts, offsets or chunks shows.
+    Returns (leaves, values, the paths that differ or are missing, and a
+    count of extra leaves)."""
+    import torch
+
+    from quickvideo_tpu_torch.models.qwen25_vl.convert import (
+        FAST_MATMUL_KEYS,
+        FAST_SCALE,
+        leaf_shapes,
+    )
+    from quickvideo_tpu_torch.ops.quantization import is_quantized
+    from quickvideo_tpu_torch.testing import leaf_items
+
+    t, v = cfg.text, cfg.vision
+    layer, block, merger = leaf_shapes(cfg)
+    want = [(("language", "embed"), (t.vocab_size, t.hidden_size), 0)]
+    want += [(("language", "layers", li, k), s, li * int(np.prod(s)))
+             for li in range(t.num_hidden_layers) for k, s in layer.items()]
+    want += [(("language", "norm"), (t.hidden_size,), 0),
+             (("language", "lm_head"), (t.hidden_size, t.vocab_size), 0),
+             (("vision", "patch_embed"), (v.patch_input_dim, v.hidden_size),
+              0)]
+    want += [(("vision", "blocks", b, k), s, b * int(np.prod(s)))
+             for b in range(v.depth) for k, s in block.items()]
+    want += [(("vision", "merger", k), s, 0) for k, s in merger.items()]
+    n_leaves, n_values, bad = 0, 0, []
+    for path, shape, offset in want:
+        name = "/".join(map(str, path))
+        leaf = tree
+        for p in path:
+            leaf = leaf[p] if leaf is not None and (
+                p in leaf if isinstance(leaf, dict) else p < len(leaf)) \
+                else None
+        if leaf is None:
+            bad.append(f"{name} (missing)")
+            continue
+        i = torch.arange(int(np.prod(shape)), dtype=torch.int64,
+                         device=dev).add_(offset).to(torch.int32).view(shape)
+        if int8 and (path[-1] == "embed" or path[-1] in FAST_MATMUL_KEYS):
+            if not is_quantized(leaf):
+                bad.append(f"{name} (not int8)")
+                continue
+            n_sc = shape[0] if path[-1] == "embed" else shape[1]
+            pairs = ((leaf["q8"], (i % 255 - 127).to(torch.int8)),
+                     (leaf["sc"], torch.full((n_sc,), FAST_SCALE,
+                                             dtype=torch.float32,
+                                             device=dev)))
+        else:
+            f32 = ((i % 17 - 8).to(torch.float32)
+                   * torch.full((), 0.01, dtype=torch.float32, device=dev))
+            pairs = ((leaf, f32.to(torch.bfloat16)),)
+            del f32
+        del i
+        for got, exp in pairs:
+            n_leaves += 1
+            n_values += exp.numel()
+            if (got.dtype, got.shape) != (exp.dtype, exp.shape) or (
+                    not torch.equal(got, exp)):
+                bad.append(name)
+        del pairs
+    extra = sum(1 for _ in leaf_items(tree)) - n_leaves
+    return n_leaves, n_values, bad, extra
+
+
+def run_fast_init(dev):
+    """Phase 3m: the LVU of a preset name without a checkpoint, as
+    bench.py builds it (the JAX package's deterministic weights, made on
+    the card from their indices), for each of FAST_RUNS at full width and
+    depth: every leaf the preset path made equals, bit for bit, the JAX
+    leaf computed whole on the card (_fast_whole), and at sampled blocks
+    of every leaf the index function's on the CPU (fast_samples); every
+    leaf has the dtype, shape and strides of the seeded path's
+    (init_params on the card), so the parameters' bytes are equal; request
+    0 of phase 3 twice, the second timed and counted (_counted_request;
+    its peak over the request). Returns (ok, each counted request's launch
+    counts)."""
+    import torch
+
+    from quickvideo_tpu_torch.models.qwen25_vl.convert import init_params
+    from quickvideo_tpu_torch.prefill.engine import tensor_leaves
+    from quickvideo_tpu_torch.testing import leaf_items
+
+    def layout(tree):
+        return {p: (x.dtype, tuple(x.shape), x.stride())
+                for p, x in leaf_items(tree)}
+
+    def nbytes(tree):
+        return sum(x.nbytes for x in tensor_leaves(tree))
+
+    counters = _kernel_counters()
+    ok, runs = True, []
+    t_phase = time.perf_counter()
+    for model, param_dtype in FAST_RUNS:
+        tag = f"[3m {model}, {param_dtype} weights, preset path]"
+        gc.collect()  # the previous LVU, in a cycle
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        trees = []
+        t0 = time.perf_counter()
+        with _capture_preset(trees):
+            lvu = make_lvu(dev, param_dtype, model=model, fast=True)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        tree, mcfg = trees.pop(), lvu.model_config
+        t0 = time.perf_counter()
+        n_leaves, n_values, bad, extra = _fast_whole(
+            dev, tree, mcfg, param_dtype == "int8")
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+        whole_ok = not bad and extra == 0 and n_leaves > 0
+        n_sampled, _, bad_samples = fast_samples(tree, mcfg, None)
+        samples_ok = not bad_samples and n_sampled > 0
+        seeded = init_params(mcfg, 0, torch.bfloat16, dev,
+                             param_dtype=param_dtype)
+        layout_ok = layout(tree) == layout(seeded)
+        fast_bytes, seeded_bytes = nbytes(tree), nbytes(seeded)
+        bytes_ok = fast_bytes == seeded_bytes
+        del tree, seeded  # the int8 tower's leaves the prep replaced
+        gc.collect()
+        torch.cuda.empty_cache()
+        resident = (torch.cuda.memory_allocated() - base) / 2**30
+        ok &= whole_ok and samples_ok and layout_ok and bytes_ok
+        log(f"{tag} {n_leaves} tensors, {n_values / 1e9:.3f} B values "
+            f"equal, bit for bit, the JAX leaves computed whole on the card "
+            f"({whole_s:.2f} s)"
+            f"{'' if not bad else f': differ {bad[:8]}'}"
+            f"{'' if not extra else f', {extra} extra'} "
+            f"{'OK' if whole_ok else 'FAIL'}; {n_sampled} sampled values "
+            f"equal the index function's on the CPU"
+            f"{'' if not bad_samples else f': differ {bad_samples[:8]}'} "
+            f"{'OK' if samples_ok else 'FAIL'}; dtypes, shapes and strides "
+            f"those of the seeded path's tree {layout_ok}, parameter bytes "
+            f"{fast_bytes} vs {seeded_bytes} "
+            f"{'OK' if bytes_ok else 'FAIL'} (after the engine's prep "
+            f"{nbytes(lvu.params)})")
+        torch.cuda.reset_peak_memory_stats()
+        run_ok, counts = _counted_request(
+            lvu, tag, param_dtype, "bf16", counters, base / 2**30, init_s,
+            resident)
+        ok &= run_ok
+        runs.append(counts)
+        del lvu
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[3m] phase {time.perf_counter() - t_phase:.1f} s")
     return ok, runs
 
 
@@ -5191,6 +5583,28 @@ def run_card_vs_cpu(dev):
         f"tokens_per_second 4.0, top_p=1: final-prefill logits rel L2 "
         f"{rel:.3e} (tol {LOGITS_REL_L2}), argmax card {int(lg.argmax())} "
         f"cpu {int(lc.argmax())} {'OK' if this_ok else 'FAIL'}")
+
+    # the preset path's deterministic weights (phase 3m), made on the card
+    # and on the CPU by the index function, bf16 and int8
+    from quickvideo_tpu_torch.models.qwen25_vl.convert import (
+        init_params_fast,
+        init_params_fast_quantized,
+    )
+
+    for what, make, kw in (
+        ("bf16", init_params_fast, {}),
+        ("int8", init_params_fast_quantized, dict(param_dtype="int8")),
+    ):
+        lg, lc, rel, _, _, _ = run(
+            make(mcfg, torch.bfloat16, dev),
+            params_to(make(mcfg, torch.bfloat16, "cpu"), dtype=torch.float32),
+            **kw)
+        this_ok = bool(rel <= FAST_LOGITS_REL_L2 and torch.isfinite(lg).all())
+        ok &= this_ok
+        log(f"card vs CPU, the preset's deterministic {what} weights, "
+            f"top_p=1: final-prefill logits rel L2 {rel:.3e} (tol "
+            f"{FAST_LOGITS_REL_L2}), argmax card {int(lg.argmax())} cpu "
+            f"{int(lc.argmax())} {'OK' if this_ok else 'FAIL'}")
     return ok
 
 
@@ -5433,6 +5847,9 @@ def main():
     sizes_ok, size_runs = run_sizes(dev)
     ok &= sizes_ok
     runs += size_runs
+    fast_ok, fast_runs = run_fast_init(dev)
+    ok &= fast_ok
+    runs += fast_runs
     launches = {k: sum(r[k] for r in runs) for k in launches}
     ok &= run_card_vs_cpu(dev)
 

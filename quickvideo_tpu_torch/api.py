@@ -3,11 +3,13 @@
 Counterpart of quickvideo_tpu/api.py for the slice: `LVU(config)` builds
 the parameters on the device, the engine, and binds the registered engine's
 run/chat drivers. A bare preset name (qwen25-vl-3b / -7b / -72b, tiny) gives
-deterministic random weights at the preset's shapes, made on the device from
-`config.seed`; a local directory is a safetensors checkpoint, read leaf by
+the JAX package's deterministic weights at the preset's shapes, made on the
+device (`preset_params`; `config.seed` does not shape them, it seeds
+sampling); a local directory is a safetensors checkpoint, read leaf by
 leaf onto the device (models/qwen25_vl/load.py); any other name with a "/"
-is refused. `config.param_dtype="int8"` quantizes the weights (random ones
-as they are drawn, loaded or passed-in float ones in place).
+is refused. `config.param_dtype="int8"` quantizes the weights (a preset's
+int8 codes are made as such, loaded or passed-in float weights are
+quantized in place).
 
 Beside `generate` and `chat`: `loglikelihood` / `loglikelihood_multi`
 (teacher-forced scoring of continuations, several against one prefill) and
@@ -28,8 +30,8 @@ parameters are this rank's part: under pipeline parallelism its stage's
 layers (the vision tower and embedding on the first stage, the norm and
 lm_head on the last), and of those its tensor-parallel slices. They are
 cut from `params`, read from a checkpoint directory tensor by tensor
-(load_params with the rank's stage and tp slice), or drawn from the seed
-in one device's order with the rest dropped as it is drawn
+(load_params with the rank's stage and tp slice), or, for a preset name,
+computed from the indices of the rank's part alone
 (quickvideo_tpu/api.py:100-107 likewise never replicates the weights
 under pp). Every rank runs every request; each returns the same answer.
 """
@@ -51,12 +53,25 @@ from quickvideo_tpu_torch.models import (
     lvu_init_model_map,
     lvu_run_model_map,
 )
-from quickvideo_tpu_torch.models.qwen25_vl.convert import init_params
+from quickvideo_tpu_torch.models.qwen25_vl.convert import (
+    init_params_fast,
+    init_params_fast_quantized,
+)
 from quickvideo_tpu_torch.ops.quantization import quantize_model_params
 from quickvideo_tpu_torch.parallel.sharding import mesh_params, stage_of
 from quickvideo_tpu_torch.prefill.engine import LVUEngine, check_slice
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def preset_params(model_config, config: LVUConfig, dtype, device, mesh):
+    """The weights of a preset name without a checkpoint: the JAX
+    package's deterministic ones (quickvideo_tpu/api.py:78-89), int8 ones
+    made without a float tree first; this rank's part under `mesh`.
+    `config.seed` does not shape them."""
+    if config.param_dtype == "int8":
+        return init_params_fast_quantized(model_config, dtype, device, mesh)
+    return init_params_fast(model_config, dtype, device, mesh)
 
 
 class LVU:
@@ -122,10 +137,8 @@ class LVU:
                 "meaningless; this mode exists for benchmarking only.",
                 name, self.model_config.name, self.device,
             )
-            self.params = init_params(
-                self.model_config, config.seed, dtype, self.device,
-                param_dtype=config.param_dtype, mesh=self.mesh,
-            )
+            self.params = preset_params(self.model_config, config, dtype,
+                                        self.device, self.mesh)
         self.tokenizer = load_tokenizer(
             config.model_name_or_path or "", self.model_config
         )

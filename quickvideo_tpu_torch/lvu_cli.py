@@ -22,6 +22,10 @@ reads the questions and hands them to the other ranks. Under pipeline
 parallelism (`--mesh 1,2,1,1`: two stages) the last stage picks each token
 and every stage gets it, so rank 0, on the first stage, prints the answer.
 `--interactive` is refused under pp, as chat sessions are (ValueError).
+
+With QV_TRACE_DIR set, the run, the LVU's build included, is traced by
+torch.profiler into that directory, one Chrome trace per process, the
+engine's spans as named ranges in it (utils/tracing.py).
 """
 
 from __future__ import annotations
@@ -167,6 +171,7 @@ def main(argv=None):
     args = build_parser().parse_args(argv)
     from quickvideo_tpu_torch.config import LVUConfig
     from quickvideo_tpu_torch.api import LVU
+    from quickvideo_tpu_torch.utils.tracing import maybe_trace
 
     mesh_kw = mesh_from_flag(args.mesh)
     if mesh_kw is None:
@@ -217,11 +222,12 @@ def main(argv=None):
         param_dtype=args.param_dtype or args.dtype,
         **mesh_kw,
     )
-    lvu = LVU(cfg, device=args.device)
-    quiet = lvu.mesh is not None and lvu.mesh.rank != 0
-    with (contextlib.redirect_stdout(io.StringIO()) if quiet
-          else contextlib.nullcontext()):
-        return _run(args, lvu, video)
+    with maybe_trace():  # a trace of the whole run where QV_TRACE_DIR is set
+        lvu = LVU(cfg, device=args.device)
+        quiet = lvu.mesh is not None and lvu.mesh.rank != 0
+        with (contextlib.redirect_stdout(io.StringIO()) if quiet
+              else contextlib.nullcontext()):
+            return _run(args, lvu, video)
 
 
 def _read_question(mesh):

@@ -1,7 +1,8 @@
 """Helpers shared by `chip_smoke.py` and the tests: the checks of the int8
-vision kernels (B3, B4, B6) against their plain versions, and a writer of
+vision kernels (B3, B4, B6) against their plain versions, a writer of
 safetensors checkpoints (`write_checkpoint`) for machines without the
-`safetensors` package.
+`safetensors` package, and a leaf-by-leaf comparison of parameter trees
+(`differing_leaves`).
 
 Tolerances. Kernel and plain version compute the same rounding points, but
 their f32 row sums (rmsnorm), rsqrt and exp differ by ulps. Now and then
@@ -218,3 +219,31 @@ def write_checkpoint(directory: str, params: dict, cfg,
                          f"model-{i + 1:05d}-of-{shards:05d}.safetensors"),
         )
     return directory
+
+
+def leaf_items(tree, path: str = ""):
+    """(path, tensor) for every leaf of a parameter tree of dicts and
+    lists, in order ("/language/layers/0/wq/q8")."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from leaf_items(v, f"{path}/{k}")
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from leaf_items(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def differing_leaves(got: dict, want: dict) -> list:
+    """The paths where `got` is not `want` bit for bit: a leaf missing or
+    extra, or of another dtype, shape or strides, or another value (`got`
+    may lie on another device)."""
+    have = dict(leaf_items(got))
+    bad = []
+    for path, w in leaf_items(want):
+        g = have.pop(path, None)
+        if g is None or (g.dtype, g.shape, g.stride()) != (
+                w.dtype, w.shape, w.stride()) or not torch.equal(
+                    g.to(w.device), w):
+            bad.append(path)
+    return bad + sorted(have)

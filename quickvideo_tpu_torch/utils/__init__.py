@@ -1,1 +1,1 @@
-"""Span timing."""
+"""Span timing and tracing."""

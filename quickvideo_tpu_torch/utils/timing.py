@@ -6,6 +6,8 @@ sync=True (or QV_SYNC_SPANS=1) both span edges call
 `torch.cuda.synchronize()`, and the spans partition device time. Sync mode
 removes the overlap the engine works for; it is for attribution, not for
 headline timing. On a machine without CUDA the barrier does nothing.
+Each span is also a named range of a torch.profiler trace
+(utils/tracing.py), so a trace shows the spans the report sums.
 """
 
 from __future__ import annotations
@@ -17,6 +19,8 @@ from collections import defaultdict
 from typing import Dict
 
 import torch
+
+from quickvideo_tpu_torch.utils.tracing import annotate
 
 
 def device_barrier() -> None:
@@ -40,7 +44,8 @@ class SpanTimer:
             device_barrier()
         t0 = time.perf_counter()
         try:
-            yield
+            with annotate(name):
+                yield
         finally:
             if self.sync:
                 device_barrier()

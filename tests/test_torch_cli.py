@@ -165,6 +165,32 @@ def test_main_prints_what_the_jax_cli_prints(clis, capsys, tmp_path, extra):
     assert clis.built[-1].device.type == "cpu"
 
 
+@pytest.mark.parametrize("traced", [True, False], ids=["env", "unset"])
+def test_main_writes_a_trace_where_qv_trace_dir_is_set(
+        clis, capsys, tmp_path, monkeypatch, traced):
+    """The port's CLI runs under utils/tracing.py::maybe_trace: with
+    QV_TRACE_DIR set, one Chrome trace of the run, holding the engine's
+    spans (SpanTimer's annotate ranges); without it, nothing is written,
+    and the printed answers are the same either way."""
+    out = tmp_path / "trace"
+    out.mkdir()
+    argv = BASE + ["--video_path", str(tmp_path / "clip.mp4"),
+                   "--question", "What moves?", "--json", "--device", "cpu"]
+    monkeypatch.delenv("QV_TRACE_DIR", raising=False)
+    plain = clis(tcli, argv, capsys)
+    if traced:
+        monkeypatch.setenv("QV_TRACE_DIR", str(out))
+    assert clis(tcli, argv, capsys) == plain
+    files = sorted(out.iterdir())
+    if not traced:
+        assert files == []
+        return
+    assert len(files) == 1 and files[0].name.startswith("trace_")
+    names = {e.get("name") for e in json.loads(files[0].read_text())[
+        "traceEvents"]}
+    assert {"vision", "prefill", "final_prefill", "decode"} <= names
+
+
 @pytest.mark.parametrize("resumer", [jcli, tcli], ids=["jax", "port"])
 def test_interactive_session_file_round_trip(clis, capsys, tmp_path, resumer):
     """--interactive with queued questions and an empty stdin, saved to

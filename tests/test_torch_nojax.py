@@ -16,6 +16,8 @@ import shutil
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 # the modules a run must not have imported
@@ -265,7 +267,7 @@ def test_port_session_scoring_and_checkpoint_load_import_no_jax():
 
 def test_mesh_ranks_import_nothing_of_jax(tmp_path):
     """Each rank of a gloo mesh (tp = 2 and sp = 2 on the tiny preset's
-    seeded weights, through the CLI: LVU's process-group init, sharded
+    deterministic weights, through the CLI: LVU's process-group init, sharded
     init, the tp and sp routes, parallel/*) holds no jax and no
     quickvideo_tpu module at its end; the parallel modules import alone
     without either."""
@@ -331,7 +333,7 @@ print("NOJAX_OK")
 def test_mesh_server_and_the_model_functions_import_nothing_of_jax(
         tmp_path):
     """The HTTP server on a tp = 2 gloo mesh (tests/torch_mesh_ranks.py::
-    case_serve on the seeded weights: the leader serves the script, the
+    case_serve on the preset's weights: the leader serves the script, the
     follower runs its jobs) holds no jax and no quickvideo_tpu module on
     either rank at its end; forward_full_sequence, params_from_torch_model
     and SpanTimer.report run in a fresh interpreter without either."""
@@ -389,6 +391,73 @@ def test_chip_smoke_imports_nothing_of_jax():
     bad = [m for m in names
            if m.split(".")[0] in ("jax", "quickvideo_tpu", "safetensors")]
     assert not bad, bad
+
+
+PRESET = FORBIDDEN + r"""
+import torch
+torch.set_num_threads(1)
+from quickvideo_tpu_torch.config import LVUConfig
+from quickvideo_tpu_torch.api import LVU
+from quickvideo_tpu_torch.models.qwen25_vl.config import get_config
+from quickvideo_tpu_torch.models.qwen25_vl.convert import (
+    init_params_fast, init_params_fast_quantized)
+for param_dtype, make in (("bfloat16", init_params_fast),
+                          ("int8", init_params_fast_quantized)):
+    lvu = LVU(LVUConfig(model_name_or_path="tiny", dtype="float32",
+                        param_dtype=param_dtype, seed=7), device="cpu")
+    want = make(get_config("tiny"), torch.float32)["language"]
+    got = lvu.params["language"]
+    for key in ("embed", "lm_head"):
+        a, b = got[key], want[key]
+        if isinstance(b, dict):
+            a, b = a["q8"], b["q8"]
+        assert torch.equal(a, b), (param_dtype, key)
+assert not forbidden(), forbidden()
+print("NOJAX_OK")
+"""
+
+
+def test_preset_weights_are_the_fast_init_and_import_no_jax():
+    """LVU on a preset name without params (float and int8 weights) holds
+    init_params_fast's / init_params_fast_quantized's leaves, whatever
+    the seed, and imports no jax and no quickvideo_tpu module."""
+    proc = _run(["-c", PRESET], ROOT)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NOJAX_OK" in proc.stdout
+
+
+TRACING = FORBIDDEN + r"""
+import glob, os, sys
+import torch
+from quickvideo_tpu_torch.utils.tracing import annotate, maybe_trace
+out = sys.argv[1]
+with maybe_trace(None if sys.argv[2] == "env" else out
+                 if sys.argv[2] == "argument" else None) as path:
+    with annotate("qv_fast_init_span"):
+        torch.ones(8).sum()
+files = glob.glob(os.path.join(out, "*"))
+if sys.argv[2] == "neither":
+    assert path is None and files == [], (path, files)
+else:
+    assert files == [path], (path, files)
+    with open(path) as f:
+        assert "qv_fast_init_span" in f.read()
+assert not forbidden(), forbidden()
+print("NOJAX_OK")
+"""
+
+
+@pytest.mark.parametrize("given", ["argument", "env", "neither"])
+def test_tracing_writes_a_trace_only_when_asked(tmp_path, given):
+    """utils/tracing.py: maybe_trace with a directory (or QV_TRACE_DIR)
+    writes one trace holding the annotate span's name; with neither it
+    writes nothing. No jax is imported."""
+    out = tmp_path / "trace"
+    out.mkdir()
+    proc = _run(["-c", TRACING, str(out), given], ROOT,
+                QV_TRACE_DIR=str(out) if given == "env" else "")
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NOJAX_OK" in proc.stdout
 
 
 def _no_result(proc):

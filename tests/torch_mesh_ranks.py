@@ -155,7 +155,7 @@ def _lvu(spec):
 
     kw = dict(spec["lvu"])
     kw["mesh"] = MeshConfig(**kw.get("mesh", {}))
-    p = spec.get("params")  # None: the seeded random weights
+    p = spec.get("params")  # None: the preset's deterministic weights
     p = torch.load(p, weights_only=False) if p else None
     return LVU(LVUConfig(**kw), params=p, device="cpu")
 
