@@ -226,6 +226,7 @@ share and error against the plain version at S = 14,400 and 250, and
 """
 
 import contextlib
+import faulthandler
 import gc
 import json
 import os
@@ -3505,6 +3506,11 @@ TAGGED_RUNS = (
             MODEL_72B, against="72b_tp4_bf16kv"),
     MeshRun("72b_tp2_int8w", {"tp": 2}, "int8", "auto", MODEL_72B,
             against="none"),
+    # int8 weights over pp 2 x tp 2 against 72b_tp2_int8w: the same sums
+    # (tp = 2 in each stage), so bit for bit (PP_LOGITS_REL_L2, equal
+    # tokens; ROADMAP A2.4)
+    MeshRun("72b_pp2_tp2_int8w", {"pp": 2, "tp": 2}, "int8", "auto",
+            MODEL_72B, against="72b_tp2_int8w"),
     # the preset path's own weights over tp = 4 (the JAX package's, whose
     # int32 iota wraps in the 72B's stacked wq, wo, wg, wu and wd; ROADMAP
     # C30), beside 72b_tp4's parameter bytes
@@ -4195,11 +4201,14 @@ def run_mesh_rank(dev, rank: int, world: int, work: str,
 
     init_multihost(f"file://{work}/init", world, rank, backend=backend)
     if phase == "3k":  # the server on the mesh
+        # where a rank hangs, its threads' stacks before the kill
+        faulthandler.dump_traceback_later(SERVE_MESH_TIMEOUT_S - 30)
         out = dict(runs=[])
         for i, run in enumerate(serve_runs(world, backend, only)):
             out["runs"].append(_serve_mesh_run(
                 dev, run, rank, work, SERVE_IDLE_S if i == 0 else 0))
             dist.barrier()
+        faulthandler.cancel_dump_traceback_later()
         with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
             json.dump(out, f)
         dist.destroy_process_group()
@@ -4713,12 +4722,21 @@ def serve_runs(world: int, backend: str, only=None):
 # lowered for the phase: a follower waits for its next job at most
 # SERVE_CONTROL_TIMEOUT_S (parallel/mesh.py CONTROL_TIMEOUT_S), the
 # leader's heartbeat comes every SERVE_HEARTBEAT_S (serving/server.py
-# HEARTBEAT_S), and the first run's leader idles SERVE_IDLE_S once
-SERVE_CONTROL_TIMEOUT_S = 5.0
-SERVE_HEARTBEAT_S = 1.0
-SERVE_IDLE_S = 7.0
+# HEARTBEAT_S), and the first run's leader idles SERVE_IDLE_S once. The
+# timeout also bounds how long the rank that failed a job waits in the
+# outcome's agreement for the slowest rank to leave it: over NCCL that
+# rank aborts its communicators first (0.75-1.42 s each on four H100s)
+SERVE_CONTROL_TIMEOUT_S = 20.0
+SERVE_HEARTBEAT_S = 2.0
+SERVE_IDLE_S = 24.0
 SERVE_MESH_TIMEOUT_S = 600
 SERVE_B1 = ("flash",) + tuple(f"flash_kernel_{k}" for k in B1_KERNELS)
+# the fault run of a tp mesh: the question that arms it, the rank that
+# meets it (a follower: the leader is left waiting in a collective), and
+# the longest the leader may take to answer it after the fault
+FAULT_QUESTION = "What goes wrong?"
+FAULT_RANK = 1
+FAULT_ANSWER_S = 60.0
 
 
 def _b1_counts(counts):
@@ -4734,10 +4752,33 @@ def _add_counts(total, counts):
 def _log_jobs(server, counters, jobs):
     """Record each job this rank's server dispatches: its kind, payloads,
     wall and B1 launches (every rank dispatches the same jobs in the same
-    order, so the leader's job indices name the followers' too)."""
+    order, so the leader's job indices name the followers' too), and on a
+    mesh the wall of the job's agreement around its dispatch (the hosts'
+    checks, the fault watch, the outcome's gather; `agree`)."""
     import torch
 
     dispatch = server._dispatch
+    run_job, any_ = server._run_job, server._any
+    votes = []
+
+    def voted(flag):
+        t0 = time.perf_counter()
+        try:
+            return any_(flag)
+        finally:
+            votes.append(time.perf_counter() - t0)
+
+    def agreed(batch, job_id):
+        n, t0 = len(jobs), time.perf_counter()
+        votes.clear()
+        try:
+            run_job(batch, job_id)
+        finally:
+            if len(jobs) > n:
+                jobs[-1].update(agree=time.perf_counter() - t0
+                                - jobs[-1]["wall"], votes=sum(votes))
+
+    server._any, server._run_job = voted, agreed
 
     def logged(batch):
         torch.cuda.synchronize()
@@ -4753,6 +4794,82 @@ def _log_jobs(server, counters, jobs):
                              b1={k: after[k] - before[k] for k in SERVE_B1}))
 
     server._dispatch = logged
+
+
+def _inject_oom(server, rank, dev, fault):
+    """This rank's fault and its records, by patching inside the process:
+    on FAULT_RANK, at the job whose question is FAULT_QUESTION, an
+    allocation of more than the card holds right after the job's first
+    collective of the model's groups (a real torch.OutOfMemoryError; its
+    wall time in fault["at"]); on every rank, each abort's and rebuild's
+    wall in fault["aborts"] / fault["rebuilds"]."""
+    import torch
+    import torch.distributed as dist
+
+    mesh = server.lvu.mesh
+    armed = [False]
+
+    def after_first(name):
+        real = getattr(dist, name)
+
+        def collective(*a, **kw):
+            work = real(*a, **kw)
+            if armed[0] and kw.get("group") is not mesh.control_group:
+                armed[0] = False
+                if work is not None:
+                    work.wait()
+                # past the card's capacity: past its free memory even once
+                # the allocator has released what it holds cached
+                total = torch.cuda.mem_get_info(dev)[1]
+                try:
+                    torch.empty(total + 2**30, dtype=torch.uint8, device=dev)
+                finally:
+                    fault["at"] = time.time()
+            return work
+
+        setattr(dist, name, collective)
+
+    if rank == FAULT_RANK:
+        for name in ("all_reduce", "all_gather", "broadcast", "isend",
+                     "irecv", "recv", "barrier"):
+            after_first(name)
+    for name in ("abort", "rebuild"):
+        real = getattr(mesh, name)
+
+        def timed(real=real, key=name + "s"):
+            t0 = time.perf_counter()
+            try:
+                return real()
+            finally:
+                fault.setdefault(key, []).append(time.perf_counter() - t0)
+
+        setattr(mesh, name, timed)
+    dispatch = server._dispatch
+
+    def arming(batch):
+        armed[0] = (rank == FAULT_RANK and
+                    batch[0].payload.get("question") == FAULT_QUESTION)
+        try:
+            return dispatch(batch)
+        finally:
+            armed[0] = False
+
+    server._dispatch = arming
+
+
+def _serve_fault(base, video, jobs):
+    """The leader's fault run: a request that FAULT_RANK fails out of
+    memory, then a plain one (BATCH_QUESTIONS[0]). Returns what it saw,
+    with the index of the plain request's job."""
+    t0 = time.time()
+    code, body = _http(base, "/v1/generate", {
+        "video": video, "question": FAULT_QUESTION, "max_new_tokens": 8})
+    answered = time.time()
+    i0 = len(jobs)
+    code2, body2 = _http(base, "/v1/generate", {
+        "video": video, "question": BATCH_QUESTIONS[0], "max_new_tokens": 8})
+    return dict(sent_at=t0, answered_at=answered, code=code, body=body,
+                next=[code2, body2.get("answer")], next_job=i0)
 
 
 def _serve_mesh_client(base, server, lvu, video, other, jobs, idle_s):
@@ -4875,6 +4992,8 @@ def _serve_mesh_run(dev, run, rank, work, idle_s):
         for q in BATCH_QUESTIONS:
             direct.append(run(lvu.generate, q, video, max_new_tokens=8)[0])
             n_tok.append(len(lvu.last_result.tokens))
+            if not counts:  # the fault run's plain request is this one
+                rec["first_b1"] = _b1_counts(run.counts)
             _add_counts(counts, _b1_counts(run.counts))
             wall, peak = wall + run.wall, max(peak, run.peak)
         rec.update(direct=direct, direct_b1=counts, direct_wall=wall)
@@ -4905,6 +5024,10 @@ def _serve_mesh_run(dev, run, rank, work, idle_s):
         httpd, server = tserver.make_http_server(lvu, cfg)
         jobs = []
         _log_jobs(server, counters, jobs)
+        faults = mesh_kw.get("tp", 1) > 1
+        if faults:
+            rec["fault"] = {}
+            _inject_oom(server, rank, dev, rec["fault"])
         rec["leader"] = server.is_leader
         if server.is_leader:
             threading.Thread(target=httpd.serve_forever, daemon=True).start()
@@ -4912,6 +5035,8 @@ def _serve_mesh_run(dev, run, rank, work, idle_s):
             try:
                 rec.update(_serve_mesh_client(base, server, lvu, video, other,
                                               jobs, idle_s))
+                if faults:
+                    rec["fault"].update(_serve_fault(base, video, jobs))
             finally:
                 httpd.shutdown()
                 server.shutdown()
@@ -5020,6 +5145,22 @@ def _serve_lines(tag, mesh_kw, recs, one_rank, label):
              f"{ch['code']} {ch['content']} vs {lead['direct'][0]}",
              ch["code"] == 200 and ch["object"] == "chat.completion"
              and ch["content"] == lead["direct"][0])
+    if "fault" in lead:
+        ok &= _fault_lines(tag, recs, lead, line)
+    log(f"[3k {tag}] {label}: each job's agreement (its wall outside its "
+        "dispatch: the hosts' checks, the fault watch, the outcome's "
+        "gather, a rebuild after a fault), s: " + "; ".join(
+            f"rank {r['rank']} " + _spread([j["agree"] for j in r["jobs"]
+                                            if "agree" in j]) for r in recs)
+        + "; of which its two one-number all-reduces, waiting for the "
+        "slowest rank included: " + "; ".join(
+            f"rank {r['rank']} " + _spread([j["votes"] for j in r["jobs"]
+                                            if "votes" in j]) for r in recs)
+        + "; per job on the rank that waited least in them (about their "
+        "own cost): " + _spread([
+            min(r["jobs"][i]["votes"] for r in recs)
+            for i in range(min(len(r["jobs"]) for r in recs))
+            if all("votes" in r["jobs"][i] for r in recs)]))
     keys = ("requests", "errors", "spills", "resumes")
     line("every follower ran every job: " + "; ".join(
         f"rank {r['rank']} {[r['stats'][k] for k in keys]}" for r in recs)
@@ -5029,6 +5170,55 @@ def _serve_lines(tag, mesh_kw, recs, one_rank, label):
             and len(r["jobs"]) == len(lead["jobs"]) for r in recs)
         and not lead["worker_alive"])
     return ok
+
+
+def _spread(walls) -> str:
+    """Median, largest and count of a list of walls in seconds."""
+    if not walls:
+        return "none"
+    w = sorted(walls)
+    return f"median {w[len(w) // 2]:.6f} max {w[-1]:.6f} over {len(w)} jobs"
+
+
+def _fault_lines(tag, recs, lead, line) -> bool:
+    """Phase 3k's fault run: the leader's answer to the request that rank
+    FAULT_RANK failed out of memory (status, body, time from the fault),
+    each rank's aborts and rebuilds, and the plain request after it
+    against the direct call (answer, B1 launches per rank)."""
+    f = lead["fault"]
+    hit = recs[FAULT_RANK]["fault"]
+    after = f["answered_at"] - hit.get("at", float("nan"))
+    body = f["body"]
+    ok = (f["code"] == 500 and body.get("rank") == FAULT_RANK
+          and body.get("error", "").startswith("OutOfMemoryError: ")
+          and 0 <= after < FAULT_ANSWER_S)
+    line(f"fault: rank {FAULT_RANK} allocates more than the card holds "
+         f"after its first collective of a served request: HTTP {f['code']} "
+         f"{json.dumps(body)[:300]}; answered {after:.4f} s after the fault "
+         f"(limit {FAULT_ANSWER_S} s), {f['answered_at'] - f['sent_at']:.4f}"
+         " s after the request", ok)
+    log(f"[3k {tag}] fault: aborts / rebuilds per rank (s): " + "; ".join(
+        f"rank {r['rank']} abort "
+        f"{[round(t, 6) for t in r['fault'].get('aborts', [])]} rebuild "
+        f"{[round(t, 4) for t in r['fault'].get('rebuilds', [])]}"
+        for r in recs))
+    rebuilt = all(len(r["fault"].get("rebuilds", [])) == 1 for r in recs)
+    waited = all(len(r["fault"].get("aborts", [])) == int(
+        r["rank"] != FAULT_RANK) for r in recs if r["leader"]
+        or r["rank"] == FAULT_RANK)
+    i = f["next_job"]
+    got = [r["jobs"][i]["b1"] if len(r["jobs"]) > i else None for r in recs]
+    next_ok = (f["next"] == [200, lead["direct"][0]]
+               and all(g == r["first_b1"] for g, r in zip(got, recs)))
+    line(f"fault: every rank rebuilt its groups once: {rebuilt}; the leader "
+         f"aborted, rank {FAULT_RANK} did not: {waited}; the next request "
+         f"HTTP {f['next'][0]} {f['next'][1]} vs the direct call's "
+         f"{lead['direct'][0]}; its B1 launches per rank " + "; ".join(
+             f"rank {r['rank']} "
+             f"{_kern({k: (g or {}).get(k, 0) for k in SERVE_B1[1:]})} vs "
+             f"{_kern({k: r['first_b1'][k] for k in SERVE_B1[1:]})}"
+             for g, r in zip(got, recs)), rebuilt and waited and next_ok)
+    return ok and rebuilt and waited and next_ok
 
 
 def _serve_mesh_phase(dev, params, world, backend, runs, label):
@@ -5057,14 +5247,16 @@ def _serve_mesh_phase(dev, params, world, backend, runs, label):
         args += ["--mesh-runs", ",".join(r.tag for r in runs)]
     done = _spawn(args, world, SERVE_MESH_TIMEOUT_S, work)
     phase_s = time.perf_counter() - t0
+    if any(rc != 0 for rc, _ in done):
+        for r, (rc, out) in enumerate(done):
+            log(f"[3k rank {r}] exited with {rc}; its output's end:\n"
+                + out[-3000:])
+        log(f"[3k] a rank exited with another code than 0 (None: killed "
+            f"at {SERVE_MESH_TIMEOUT_S} s; every rank must exit 0 after "
+            "the leader's shutdown) FAIL")
+        return False, []
     records = []
-    for r, (rc, out) in enumerate(done):
-        if rc != 0:
-            log(out[-3000:])
-            log(f"[3k] rank {r} exited with {rc} (None: killed at "
-                f"{SERVE_MESH_TIMEOUT_S} s; every rank must exit 0 after "
-                "the leader's shutdown) FAIL")
-            return False, []
+    for r in range(world):
         with open(os.path.join(work, f"rank{r}.json")) as f:
             records.append(json.load(f))
     log(f"[3k] {world} ranks ({label}) exited 0 after shutdown: phase "

@@ -43,7 +43,7 @@ import torch
 
 from quickvideo_tpu_torch.models.qwen25_vl import rope
 from quickvideo_tpu_torch.ops.kv_cache import KVCache
-from quickvideo_tpu_torch.parallel.comm import all_gather
+from quickvideo_tpu_torch.parallel.comm import all_gather, barrier
 from quickvideo_tpu_torch.parallel.context_parallel import shard_cache_cp
 from quickvideo_tpu_torch.parallel.sharding import shard_cache
 from quickvideo_tpu_torch.tokenization import special_ids
@@ -327,8 +327,8 @@ class ChatSession:
             with open(part, "wb") as f:
                 np.savez(f, meta=json.dumps(meta), **arrays)
             os.replace(part, path)
-        if mesh is not None and mesh.model_group is not None:
-            torch.distributed.barrier(group=mesh.model_group)
+        if mesh is not None:
+            barrier(mesh.model_group)
 
     @classmethod
     def load(cls, lvu, path: str) -> "ChatSession":

@@ -26,9 +26,12 @@ ends of its point-to-point links) and of the last stage (the source of
 each broadcast token), and the control group: every rank, over gloo, with
 its own long timeout (CONTROL_TIMEOUT_S), which carries the HTTP server's
 job descriptions from rank 0 to the others (serving/server.py) and never
-the model's tensors. `init_multihost` starts the process group from the environment:
-QV_COORDINATOR / QV_NUM_PROCESSES / QV_PROCESS_ID (the JAX package's
-contract), else torchrun's RANK / WORLD_SIZE / MASTER_ADDR / MASTER_PORT.
+the model's tensors. `Mesh.abort` and `Mesh.rebuild` end a job that one
+rank failed and make the model's groups anew (serving/server.py); the
+control group is never aborted. `init_multihost` starts the process
+group from the environment: QV_COORDINATOR / QV_NUM_PROCESSES /
+QV_PROCESS_ID (the JAX package's contract), else torchrun's RANK /
+WORLD_SIZE / MASTER_ADDR / MASTER_PORT.
 The backend is the caller's choice: "nccl" by default on a CUDA device,
 "gloo" on the CPU; nothing switches it, and a failed init raises.
 """
@@ -38,12 +41,15 @@ from __future__ import annotations
 import datetime
 import itertools
 import os
-from typing import Dict, Optional
+import threading
+from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
+from torch.distributed import distributed_c10d
 
 from quickvideo_tpu_torch.config import MeshConfig
+from quickvideo_tpu_torch.parallel import comm
 
 AXES = ("dp", "pp", "tp", "sp")
 # how long a rank may wait in one collective of the control group: a
@@ -161,6 +167,9 @@ class Mesh:
         self.model_ranks = model_ranks  # their global ranks, ascending
         self.device = device
         self.control_group = control_group  # every rank, gloo
+        # aborted groups, held until no work this rank posted on them is
+        # left (comm.unfinished): dropping a gloo group joins its threads
+        self._retired: List[object] = []
 
     def size(self, axis: str) -> int:
         return getattr(self.config, axis)
@@ -224,6 +233,69 @@ class Mesh:
         return (f"Mesh({self.config}, rank={self.rank}, coords="
                 f"{self.coords}, device={self.device})")
 
+    def _model_groups(self) -> list:
+        """This rank's axis groups and model group (not the control
+        group), each once."""
+        out = []
+        for g in (*self.groups.values(), self.model_group):
+            if g is not None and all(g is not h for h in out):
+                out.append(g)
+        return out
+
+    def abort(self) -> None:
+        """End this rank's part in a job that another rank failed (any
+        thread; the job's own may be blocked in a collective): every
+        collective raises from now on (comm.abandon), and the model's
+        groups are aborted through torch.distributed, which ends the NCCL
+        work in flight. The groups stay unusable until `rebuild`."""
+        comm.abandon()
+        _abort_all(self._model_groups())
+
+    def rebuild(self) -> None:
+        """Make the model's groups anew after a job in which a rank called
+        `abort` (collective: every rank calls it once the job has ended on
+        every rank) and swap them into this Mesh in place, where the model
+        reads them per call. The old groups are aborted here where they
+        were not, the device's work is waited for, and the new groups are
+        made in make_mesh's order."""
+        old = self._model_groups()
+        _abort_all(old)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self._retired.extend(old)
+        groups, self.model_group, self.model_ranks = _make_model_groups(
+            self.config, self.rank)
+        self.groups.update(groups)
+        comm.reset()
+        self.drop_retired()
+
+    def drop_retired(self) -> None:
+        """Drop the aborted groups on which no work of this rank is left
+        (a peer's dropping its side ends the work this rank left)."""
+        self._retired[:] = [g for g in self._retired if comm.unfinished(g)]
+
+
+def _abort(group) -> None:
+    try:
+        distributed_c10d._abort_process_group(group)
+    except ValueError:
+        pass  # aborted already
+
+
+def _abort_all(groups) -> None:
+    """Abort `groups` at once, each from a thread of its own. An NCCL
+    communicator's abort waits for the card's work to end, and a kernel
+    blocked in another communicator ends only at that one's abort: a rank
+    blocked in two groups at once (under pp x tp, a tp collective and a
+    send to the next stage) would wait forever on the first abort of a
+    sequence."""
+    threads = [threading.Thread(target=_abort, args=(g,), daemon=True,
+                                name="qv-abort") for g in groups]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+
 
 def _coords(cfg: MeshConfig, rank: int):
     out = []
@@ -263,6 +335,17 @@ def _new_groups(cfg: MeshConfig, axes, rank: int):
     return mine, ranks_mine
 
 
+def _make_model_groups(cfg: MeshConfig, rank: int):
+    """(axis -> this rank's group or None, its model group, the model
+    group's ranks), made collectively in one order on every rank."""
+    groups = {a: _new_groups(cfg, (a,), rank)[0] if getattr(cfg, a) > 1
+              else None for a in AXES}
+    model_group, model_ranks = None, [rank]
+    if cfg.pp * cfg.tp * cfg.sp > 1:
+        model_group, model_ranks = _new_groups(cfg, ("pp", "tp", "sp"), rank)
+    return groups, model_group, model_ranks
+
+
 def make_mesh(cfg: MeshConfig, device=None) -> Mesh:
     """The Mesh of this process. A mesh of one device needs no process
     group; a larger one needs torch.distributed started (init_multihost)
@@ -282,15 +365,7 @@ def make_mesh(cfg: MeshConfig, device=None) -> Mesh:
         raise ValueError(f"mesh {cfg} needs {need} ranks, the process group "
                          f"has {world}")
     rank = dist.get_rank()
-    groups = {}
-    for a in AXES:
-        if getattr(cfg, a) > 1:
-            groups[a] = _new_groups(cfg, (a,), rank)[0]
-        else:
-            groups[a] = None
-    model_group, model_ranks = None, [rank]
-    if cfg.pp * cfg.tp * cfg.sp > 1:
-        model_group, model_ranks = _new_groups(cfg, ("pp", "tp", "sp"), rank)
+    groups, model_group, model_ranks = _make_model_groups(cfg, rank)
     control = dist.new_group(
         list(range(world)), backend="gloo",
         timeout=datetime.timedelta(seconds=CONTROL_TIMEOUT_S))

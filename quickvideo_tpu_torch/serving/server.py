@@ -33,13 +33,27 @@ bodies, status codes and statistics:
   `_dispatch` with its own sessions, so spills and resumes come at the
   same job everywhere (a spill is itself a collective, chat.py). Where
   the leader streams, a follower passes an `on_tokens` that does nothing,
-  so the decode chunks alike. Errors that come from the request arise on
-  every rank at the same point; the leader alone answers them. An idle
-  leader sends a heartbeat every HEARTBEAT_S, well within the control
-  group's timeout (parallel/mesh.py CONTROL_TIMEOUT_S); `shutdown()` on the
-  leader sends a stop, and every follower's `serve_forever()` returns.
-  Sessions spill into `spill_dir`, which every rank must see (one
-  directory on one host; a shared filesystem across hosts).
+  so the decode chunks alike. Every rank ends every job alike
+  (`_run_job`): the ranks first agree over the control group on what only
+  a host can see (the video, a spilled session's file), and a check that
+  fails anywhere fails the job on every rank before any device work, as
+  the route's 400. A rank whose job fails posts the fault in the store
+  behind the process group; a rank still inside the job aborts the
+  model's groups (parallel/mesh.py `Mesh.abort`), so that the collective
+  it waits in raises. Then every rank joins one agreement on the outcome:
+  the leader answers success only where every rank succeeded, else the
+  first failing rank's error with the status this server gives it alone
+  (the body names the rank where not every rank failed alike); the
+  groups are rebuilt where any rank aborted them, and sessions that a
+  spill or resume left unlike are closed on every rank. A rank that exits
+  fails every later job; one that dies without posting its fault leaves
+  the others to the model groups' timeout; one whose job has not ended
+  ABORT_BOUND_S after its abort exits. An idle leader sends a
+  heartbeat every HEARTBEAT_S, well within the control group's timeout
+  (parallel/mesh.py CONTROL_TIMEOUT_S); `shutdown()` on the leader sends a
+  stop, and every follower's `serve_forever()` returns. Sessions spill
+  into `spill_dir`, which every rank must see (one directory on one host;
+  a shared filesystem across hosts).
 * **OpenAI-compatible adapter.** `POST /v1/chat/completions` accepts
   `video_url` content parts and returns a `chat.completion` object.
 * **Streaming (SSE).** `"stream": true` on /v1/generate,
@@ -70,6 +84,7 @@ per rank: `torchrun --nproc-per-node 2 -m quickvideo_tpu_torch.serving
 
 from __future__ import annotations
 
+import faulthandler
 import json
 import logging
 import os
@@ -89,6 +104,17 @@ from urllib.parse import urlparse
 HEARTBEAT_S = 60.0
 # the payload keys that stay on the leader (a stream's queue and nonce)
 _LEADER_ONLY = ("_stream", "_stream_nonce")
+# a rank's watch for another rank's fault during a job: how often it looks
+# at the store, and how long it lets the job end by itself before it
+# aborts the model's groups (an error that every rank meets at the same
+# point ends every rank's job at once and costs no abort)
+FAULT_POLL_S = 0.05
+FAULT_GRACE_S = 0.5
+# how long a rank that aborted the model's groups waits for its job to end,
+# and then for the groups' rebuild, before it exits: a rank whose card or
+# communicators cannot be released ends as a rank that exits does (the
+# others find it gone), not in a hang
+ABORT_BOUND_S = 30.0
 
 
 @dataclass
@@ -118,6 +144,32 @@ class BodyTooLargeError(RequestError):
 
 class OverloadedError(RuntimeError):
     """Work queue at max_queue_depth -> HTTP 503 (load shedding)."""
+
+
+class RankFault(RuntimeError):
+    """A job that failed on a mesh, as every rank agreed it: the first
+    failing rank (None: every rank met the same error) and its error's
+    type name and message. The leader answers it with the status and body
+    the one-process server gives that error (400 for a RequestError, else
+    500); the body names the rank where not every rank failed alike."""
+
+    def __init__(self, rank: Optional[int], type_name: str, message: str,
+                 request_error: bool):
+        where = "every rank" if rank is None else f"rank {rank}"
+        super().__init__(f"{where}: {type_name}: {message}")
+        self.rank, self.type_name = rank, type_name
+        self.message, self.request_error = message, request_error
+
+    @property
+    def status(self) -> int:
+        return 400 if self.request_error else 500
+
+    def body(self) -> dict:
+        body = {"error": self.message if self.request_error
+                else f"{self.type_name}: {self.message}"}
+        if self.rank is not None:
+            body["rank"] = self.rank
+        return body
 
 
 @dataclass
@@ -159,6 +211,17 @@ class LVUServer:
         self._control = None if mesh is None else mesh.control_group
         self.is_leader = mesh is None or mesh.rank == 0
         self._broken: Optional[BaseException] = None
+        # where a rank posts its fault during a job: the store behind the
+        # process group, reachable from every rank without a collective
+        self._store = None
+        if mesh is not None:
+            from torch.distributed import distributed_c10d
+
+            self._store = distributed_c10d._get_default_store()
+        # the sessions this job spilled and resumed (uncounted where a
+        # failed job's reconciliation closes them)
+        self._job_spilled: List[str] = []
+        self._job_resumed: List[str] = []
         self.spill_dir = self.cfg.spill_dir or os.path.join(
             os.environ.get("TMPDIR", "/tmp"), "qv_sessions"
         )
@@ -274,17 +337,17 @@ class LVUServer:
                 self._admitted -= 1
 
     def _stream_cb(self, p: dict):
-        """(on_tokens, finish) for a streaming payload; (None, noop) when
-        the request is not streaming. Text deltas re-decode the full token
-        prefix each push — per-token decode corrupts multi-byte/BPE-merge
-        boundaries."""
+        """The on_tokens of a streaming payload (None when the request is
+        not streaming); the final answer frame comes with the job's
+        release. Text deltas re-decode the full token prefix each push —
+        per-token decode corrupts multi-byte/BPE-merge boundaries."""
         sq = p.get("_stream")
         if sq is None:
             if p.get("_streamed"):
                 # a follower's copy of a streamed job: the decode chunks as
                 # on the leader, whose stream alone is read
-                return (lambda new: None), (lambda answer: None)
-            return None, lambda answer: None
+                return lambda new: None
+            return None
         tok = self.lvu.tokenizer
         eos = {tok.eos_token_id}
         acc: List[int] = []
@@ -298,11 +361,24 @@ class LVUServer:
             if delta:
                 sq.put({"delta": delta})
 
-        def finish(answer: str):
-            sq.put({"answer": answer})
-            sq.put(None)
+        return on_tokens
 
-        return on_tokens, finish
+    def _complete(self, job: _Job, result: dict) -> None:
+        """Record a job's result. Alone the server answers it at once;
+        under a mesh the worker does once every rank has agreed that the
+        job succeeded."""
+        job.result = result
+        if self._control is None:
+            self._release(job)
+
+    @staticmethod
+    def _release(job: _Job) -> None:
+        """Answer a job: its stream's final frame, then its waiter."""
+        sq = job.payload.get("_stream")
+        if sq is not None:
+            sq.put({"answer": job.result["answer"]})
+            sq.put(None)
+        job.done.set()
 
     def pause(self):
         """Hold the worker before its next job (drain point; also lets
@@ -329,11 +405,13 @@ class LVUServer:
 
     # ---- the mesh's control channel (leader: worker thread only) ---------
 
-    def _send(self, kind: str, batch: List[_Job]) -> None:
+    def _send(self, kind: str, batch: List[_Job],
+              job_id: Optional[str] = None) -> None:
         """Broadcast a dispatch to the followers before any device work:
-        the kind and each payload without what stays on the leader. A
-        failure (a follower has exited) fails this and every later job:
-        the leader does not serve on alone."""
+        the kind, each payload without what stays on the leader, and the
+        job's id (the key of its faults). A failure (a follower has
+        exited) fails this and every later job: the leader does not serve
+        on alone."""
         if self._control is None:
             return
         if self._broken is not None:
@@ -349,7 +427,7 @@ class LVUServer:
         import torch.distributed as dist
 
         try:
-            dist.broadcast_object_list([(kind, payloads)], src=0,
+            dist.broadcast_object_list([(kind, payloads, job_id)], src=0,
                                        group=self._control)
         except BaseException as e:  # noqa: BLE001 - fails the jobs
             self._broken = e
@@ -385,28 +463,166 @@ class LVUServer:
 
     def follow(self) -> None:
         """A follower's loop: run each job the leader broadcasts, through
-        the same `_dispatch`, until the leader's stop. Errors that come
-        from the request arise here as on the leader, which answers them;
-        the follower goes on to the next job."""
+        the same `_run_job`, until the leader's stop. A job that failed on
+        any rank ends here as on the leader, which answers it; the
+        follower goes on to the next job."""
         import torch.distributed as dist
 
         self._bind_device()
         while True:
             msg = [None]
             dist.broadcast_object_list(msg, src=0, group=self._control)
-            kind, payloads = msg[0]
+            kind, payloads, job_id = msg[0]
             if kind == "stop":
                 return
             if kind == "noop":
                 continue
             batch = [_Job(kind, p) for p in payloads]
             try:
-                self._dispatch(batch)
-            except Exception as e:  # noqa: BLE001 - the leader answers it
+                self._run_job(batch, job_id)
+            except RankFault as e:  # the leader answers it
                 self.stats["errors"] += len(batch)
                 logging.getLogger(__name__).warning(
-                    "rank %d: %s job failed: %s: %s", self.lvu.mesh.rank,
-                    kind, type(e).__name__, e)
+                    "rank %d: %s job failed on %s", self.lvu.mesh.rank,
+                    kind, e)
+
+    # ---- one job on every rank of a mesh (leader: worker thread) ---------
+
+    def _run_job(self, batch: List[_Job], job_id: str) -> None:
+        """Run a job on this rank of a mesh; every rank runs each job in
+        the same order. First the ranks agree on what only a host can see
+        (`_host_problem`); then the job runs under a watch for another
+        rank's fault: a rank that fails posts it under the job's key, and
+        a rank still inside the job aborts the model's groups, so that a
+        collective it is blocked in raises; then every rank joins the
+        agreement on the outcome, the groups are rebuilt where any rank
+        aborted them, and a failed job's sessions are made alike. Raises
+        the agreed RankFault on every rank where any rank failed."""
+        mesh = self.lvu.mesh
+        problem = self._host_problem(batch)
+        if self._any(problem is not None):
+            problems = self._gather(problem)
+            bad = next(r for r, p in enumerate(problems) if p is not None)
+            raise RankFault(_named(problems, bad), "RequestError",
+                            problems[bad], True)
+        self._job_spilled, self._job_resumed = [], []
+        key = f"qv_fault/{job_id}"
+        watch = _FaultWatch(self._store, key, mesh)
+        error = None
+        try:
+            self._dispatch(batch)
+        except Exception as e:  # noqa: BLE001 - agreed below
+            error = (type(e).__name__, str(e), isinstance(e, RequestError))
+        finally:
+            aborted = watch.end()
+        if error is not None and not aborted:
+            # failed by itself: the other ranks may wait for it in a
+            # collective
+            self._store.set(key, json.dumps([mesh.rank, *error[:2]]))
+            logging.getLogger(__name__).warning(
+                "rank %d: %s job failed: %s: %s", mesh.rank, batch[0].kind,
+                *error[:2])
+            self._check_device()
+        if not self._any(error is not None or aborted):
+            mesh.drop_retired()
+            return
+        outcomes = self._gather((error, aborted))
+        if any(a for _, a in outcomes):
+            bound = _Bound(mesh.rank, "the rebuild of the model's groups")
+            mesh.rebuild()
+            bound.cancel()
+        failed = [r for r, (e, _) in enumerate(outcomes) if e is not None]
+        if failed:
+            self._reconcile_sessions()
+        mesh.drop_retired()
+        if failed:
+            # the rank whose own error ended the job, not one that left
+            # it because of that error
+            first = next((r for r in failed if not outcomes[r][1]),
+                         failed[0])
+            raise RankFault(_named([e for e, _ in outcomes], first),
+                            *outcomes[first][0])
+
+    def _any(self, flag: bool) -> bool:
+        """Whether `flag` holds on any rank: one all-reduce of one number
+        over the control group (a job that every rank ends well costs no
+        more)."""
+        import torch
+        import torch.distributed as dist
+
+        x = torch.tensor([int(flag)])
+        self._control_op(dist.all_reduce, x, op=dist.ReduceOp.MAX)
+        return bool(x.item())
+
+    def _gather(self, obj) -> list:
+        """Every rank's `obj`, by rank, over the control group."""
+        import torch.distributed as dist
+
+        out = [None] * dist.get_world_size(self._control)
+        self._control_op(dist.all_gather_object, out, obj)
+        return out
+
+    def _control_op(self, collective, *args, **kw) -> None:
+        """`collective` over the control group during a job. A failure (a
+        rank has exited) fails this job and, on the leader, every later
+        one, as in `_send`."""
+        try:
+            collective(*args, group=self._control, **kw)
+        except Exception as e:  # noqa: BLE001 - fails the job
+            if self.is_leader:
+                self._broken = e
+            raise RuntimeError(
+                "a follower rank left the mesh during a job; the server "
+                f"cannot serve without it: {e}") from e
+
+    def _host_problem(self, batch: List[_Job]) -> Optional[str]:
+        """What this rank's host lacks for the job, as the RequestError's
+        message (None: nothing): a video that is not there (the route
+        checks it on the leader's host alone), a spilled session's file
+        for its resume."""
+        for j in batch:
+            p = j.payload
+            where = None
+            if j.kind in ("generate", "session_new"):
+                where = p["video"]
+            elif j.kind == "ask":
+                where = self._spilled.get(p["session_id"])
+            if where is None:
+                continue
+            if where.startswith("unmaterialized:"):
+                where = where.split(":", 1)[1]
+            elif j.kind == "ask":
+                if not os.path.exists(where):
+                    return f"spilled session file not found: {where}"
+                continue
+            if not os.path.exists(where):
+                return f"video not found: {where}"
+        return None
+
+    def _check_device(self) -> None:
+        """Raise where this rank's card has a sticky error (the job's own
+        ended it): the rank then exits, and the others find it gone."""
+        device = getattr(self.lvu, "device", None)
+        if device is not None and device.type == "cuda":
+            import torch
+
+            torch.cuda.synchronize(device)
+
+    def _reconcile_sessions(self) -> None:
+        """After a failed job, close on every rank each session that the
+        ranks no longer hold alike (a spill or a resume failed on some of
+        them), so that a later ask finds it unknown everywhere, as the
+        one-process server finds a session whose spill failed. A spill or
+        resume of such a session in this job is not counted."""
+        table = {sid: "resident" for sid in self._sessions}
+        table.update((sid, "spilled") for sid in self._spilled)
+        tables = self._gather(table)
+        differ = {sid for t in tables for sid in t
+                  if any(u.get(sid) != t[sid] for u in tables)}
+        for sid in sorted(differ):
+            self._forget(sid)
+            self.stats["spills"] -= self._job_spilled.count(sid)
+            self.stats["resumes"] -= self._job_resumed.count(sid)
 
     # ---- worker (single thread owns ALL device work) ---------------------
 
@@ -472,8 +688,14 @@ class LVUServer:
                 if job.kind == "session_new":
                     # drawn here, so that every rank keeps the same id
                     job.payload.setdefault("session_id", uuid.uuid4().hex[:16])
-                self._send(job.kind, batch)
-                self._dispatch(batch)
+                if self._control is None:
+                    self._dispatch(batch)
+                else:
+                    job_id = uuid.uuid4().hex
+                    self._send(job.kind, batch, job_id)
+                    self._run_job(batch, job_id)
+                    for j in batch:
+                        self._release(j)
                 self.stats["last_e2e_s"] = round(time.monotonic() - t0, 3)
             except BaseException as e:  # noqa: BLE001 - reported per-job
                 self.stats["errors"] += len(batch)
@@ -500,8 +722,7 @@ class LVUServer:
         }.get(kind)
         if handler is None:
             raise RequestError(f"unknown job kind {kind!r}")
-        job.result = handler(job.payload)
-        job.done.set()
+        self._complete(job, handler(job.payload))
 
     # ---- generate (batched) ----------------------------------------------
 
@@ -514,7 +735,7 @@ class LVUServer:
             # plain path, still on this worker thread
             for j in batch:
                 p = j.payload
-                on_tokens, finish = self._stream_cb(p)
+                on_tokens = self._stream_cb(p)
                 texts = self.lvu.generate(
                     p["question"], p["video"],
                     max_new_tokens=p["max_new_tokens"],
@@ -524,9 +745,7 @@ class LVUServer:
                     on_tokens=on_tokens,
                     **p.get("video_kwargs", {}),
                 )
-                j.result = {"answer": texts[0]}
-                j.done.set()
-                finish(texts[0])
+                self._complete(j, {"answer": texts[0]})
             return
 
         from quickvideo_tpu_torch.engines.qwen25 import (
@@ -565,8 +784,7 @@ class LVUServer:
             top_k=p0["top_k"],
         )
         for j, toks in zip(batch, token_lists):
-            j.result = {"answer": self._decode([int(t) for t in toks])}
-            j.done.set()
+            self._complete(j, {"answer": self._decode([int(t) for t in toks])})
 
     def _decode(self, tokens: List[int]) -> str:
         # exactly the single-sample path's decode (engines/qwen25.py
@@ -592,6 +810,7 @@ class LVUServer:
             sess.save(path)
             self._spilled[old_sid] = path
             self.stats["spills"] += 1
+            self._job_spilled.append(old_sid)
 
     def _resident(self, sid: str):
         if sid in self._sessions:
@@ -605,6 +824,7 @@ class LVUServer:
         else:
             sess = self.lvu.resume_chat(where)
             self.stats["resumes"] += 1
+            self._job_resumed.append(sid)
         self._sessions[sid] = sess
         self._evict_to_fit()
         return sess
@@ -622,17 +842,17 @@ class LVUServer:
 
     def _do_ask(self, p: dict) -> dict:
         sess = self._resident(p["session_id"])
-        on_tokens, finish = self._stream_cb(p)
         answer = sess.ask(
             p["question"], max_new_tokens=p["max_new_tokens"],
             do_sample=not p["greedy"], temperature=p["temperature"],
-            top_p=p["top_p"], top_k=p["top_k"], on_tokens=on_tokens,
+            top_p=p["top_p"], top_k=p["top_k"],
+            on_tokens=self._stream_cb(p),
         )
-        finish(answer)
         return {"answer": answer}
 
-    def _do_close(self, p: dict) -> dict:
-        sid = p["session_id"]
+    def _forget(self, sid: str) -> bool:
+        """Drop a session, resident or spilled (its file too); whether it
+        was known."""
         found = self._sessions.pop(sid, None) is not None
         where = self._spilled.pop(sid, None)
         if where and not where.startswith("unmaterialized:"):
@@ -640,24 +860,101 @@ class LVUServer:
                 os.unlink(where)
             except OSError:
                 pass
-        if not found and where is None:
+        return found or where is not None
+
+    def _do_close(self, p: dict) -> dict:
+        sid = p["session_id"]
+        if not self._forget(sid):
             raise RequestError(f"unknown session {sid!r}")
         return {"closed": sid}
 
     # ---- OpenAI chat adapter ------------------------------------------------
 
     def _do_chat(self, p: dict) -> dict:
-        on_tokens, finish = self._stream_cb(p)
         texts = self.lvu.chat(
             p["messages"],
             max_new_tokens=p["max_new_tokens"],
             do_sample=not p["greedy"],
             temperature=p["temperature"],
             top_p=p["top_p"], top_k=p["top_k"],
-            on_tokens=on_tokens,
+            on_tokens=self._stream_cb(p),
         )
-        finish(texts[0])
         return {"answer": texts[0]}
+
+
+def _named(per_rank: list, rank: int) -> Optional[int]:
+    """`rank`, unless every rank's entry is the same (an error every rank
+    met alike names none)."""
+    return None if all(x == per_rank[0] for x in per_rank) else rank
+
+
+class _FaultWatch:
+    """A rank's watch, from a thread of its own, for another rank's fault
+    during one job: once the job's key appears in the store and the job
+    has not ended within FAULT_GRACE_S, the mesh's groups are aborted, and
+    the job has ABORT_BOUND_S more to end."""
+
+    def __init__(self, store, key: str, mesh):
+        self._store, self._key, self._mesh = store, key, mesh
+        self._ended = threading.Event()
+        self._lock = threading.Lock()
+        self.aborted = False
+        self._bound: Optional[_Bound] = None
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="lvu-fault-watch")
+        self._thread.start()
+
+    def _run(self):
+        while not self._ended.wait(FAULT_POLL_S):
+            try:
+                if self._store.check([self._key]):
+                    break
+            except Exception:  # noqa: BLE001 - the store's host has gone,
+                return  # and with it the job's collectives
+        else:
+            return
+        if self._ended.wait(FAULT_GRACE_S):
+            return
+        with self._lock:
+            if self._ended.is_set():
+                return
+            self.aborted = True
+            self._bound = _Bound(self._mesh.rank, "its job")
+        logging.getLogger(__name__).warning(
+            "rank %d: another rank failed the job (%s); aborting the "
+            "model's groups", self._mesh.rank, self._key)
+        self._mesh.abort()
+
+    def end(self) -> bool:
+        """The job has ended on this rank; whether the watch aborted it."""
+        with self._lock:
+            self._ended.set()
+        self._thread.join()
+        if self._bound is not None:
+            self._bound.cancel()
+        return self.aborted
+
+
+class _Bound:
+    """Exit the process unless `cancel` comes within ABORT_BOUND_S, with
+    every thread's stack on stderr."""
+
+    def __init__(self, rank: int, what: str):
+        self._timer = threading.Timer(ABORT_BOUND_S, self._expire,
+                                      args=(rank, what))
+        self._timer.daemon = True
+        self._timer.start()
+
+    @staticmethod
+    def _expire(rank: int, what: str) -> None:
+        logging.getLogger(__name__).error(
+            "rank %d: %s did not end within %.0f s of the abort of the "
+            "model's groups; the rank exits", rank, what, ABORT_BOUND_S)
+        faulthandler.dump_traceback(all_threads=True)
+        os._exit(1)
+
+    def cancel(self) -> None:
+        self._timer.cancel()
 
 
 # ---- OpenAI message translation ------------------------------------------
@@ -785,7 +1082,8 @@ class _Handler(BaseHTTPRequestHandler):
                        "choices": [{"index": 0, "delta": {},
                                     "finish_reason": "stop"}]})
         except BaseException as e:  # noqa: BLE001 - mid-stream: in-band
-            w({"error": f"{type(e).__name__}: {e}"})
+            w(e.body() if isinstance(e, RankFault)
+              else {"error": f"{type(e).__name__}: {e}"})
         self.wfile.write(b"data: [DONE]\n\n")
         self.wfile.flush()
 
@@ -902,6 +1200,8 @@ class _Handler(BaseHTTPRequestHandler):
             return self._json(413, {"error": str(e)})
         except RequestError as e:
             return self._json(400, {"error": str(e)})
+        except RankFault as e:
+            return self._json(e.status, e.body())
         except OverloadedError as e:
             return self._json(503, {"error": str(e)})
         except TimeoutError as e:

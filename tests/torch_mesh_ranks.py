@@ -650,7 +650,11 @@ def case_serve(spec, rank):
     directory (slow writes, _slow_cache_writes) and rank 0 serves two
     requests for one video instead of the script. With
     spec["follower_exits"] rank 1 exits (code 3) when its first generate
-    job comes, and rank 0 sends two requests after it instead."""
+    job comes, and rank 0 sends two requests after it instead. With
+    spec["follower_stuck"] rank 0 fails its first generate job by itself
+    (torch.OutOfMemoryError) while rank 1's job never ends, not even after
+    it aborts the model's groups (serving/server.py ABORT_BOUND_S set to
+    spec["abort_bound_s"]), and rank 0 sends two requests as above."""
     from quickvideo_tpu_torch.parallel import mesh as tmesh
     from quickvideo_tpu_torch.serving import server as tserver
     from quickvideo_tpu_torch.video import reader as treader
@@ -686,6 +690,21 @@ def case_serve(spec, rank):
             return dispatch(batch)
 
         server._dispatch = exit_at_generate
+    if spec.get("follower_stuck"):
+        import torch
+
+        tserver.ABORT_BOUND_S = spec["abort_bound_s"]
+        dispatch = server._dispatch
+
+        def stuck_at_generate(batch):
+            if batch[0].kind == "generate":
+                if rank == 0:
+                    raise torch.OutOfMemoryError(OOM_MESSAGE)
+                while True:  # deaf to the abort
+                    time.sleep(1.0)
+            return dispatch(batch)
+
+        server._dispatch = stuck_at_generate
     if not server.is_leader:
         assert httpd.server_address is None  # binds nothing
         httpd.serve_forever()
@@ -698,7 +717,7 @@ def case_serve(spec, rank):
     base = f"http://127.0.0.1:{httpd.server_address[1]}"
     out = dict(role="leader", direct=direct)
     try:
-        if spec.get("follower_exits"):
+        if spec.get("follower_exits") or spec.get("follower_stuck"):
             body = {"video": video, "question": SERVE_QUESTIONS[0],
                     "max_new_tokens": 4}
             out["after_exit"] = [http(base, "/v1/generate", body)
@@ -726,7 +745,175 @@ def case_serve(spec, rank):
     return out
 
 
+# the served mesh's faults (tests/test_torch_serving_faults.py): the
+# questions that arm a fault, the rank that meets it, and the errors the
+# injections raise (the same text in the JAX server's process)
+FAULT_QUESTIONS = {"fault:follower": 1, "fault:leader": 0}
+OOM_MESSAGE = "CUDA out of memory (injected after the first collective)"
+SPILL_MESSAGE = "spill write failed (injected after the write)"
+
+
+def fault_script(base, video, missing, other, sessions):
+    """The requests of the fault tests, in order, each beside how long its
+    answer took: (a) a follower's and (b) the leader's out-of-memory error
+    after the request's first collective, (c) a video that rank 1 cannot
+    see, each followed by a plain request; with `sessions` (d) a session
+    whose spill fails on a follower, then an ask of it and a plain
+    request; without, the session refused on every rank."""
+    plain = {"video": video, "question": SERVE_QUESTIONS[0],
+             "max_new_tokens": 4}
+    steps = []
+
+    def step(name, path, body=None, method=None):
+        t0 = time.monotonic()
+        code, out = http(base, path, body, method)
+        steps.append((name, code, out, time.monotonic() - t0))
+        return out
+
+    for name, question in (("a", "fault:follower"), ("b", "fault:leader")):
+        step(name, "/v1/generate", dict(plain, question=question))
+        step(name + "_next", "/v1/generate", plain)
+    step("c", "/v1/generate", dict(plain, video=missing))
+    step("c_next", "/v1/generate", plain)
+    if not sessions:
+        step("sessions_refused", "/v1/sessions", {"video": video})
+        step("refused_next", "/v1/generate", plain)
+        return steps
+    sid = step("d_session", "/v1/sessions", {"video": video})["session_id"]
+    step("d_ask", f"/v1/sessions/{sid}/ask",
+         {"question": SESSION_QUESTIONS[0], "max_new_tokens": 4})
+    step("d", "/v1/sessions", {"video": other})  # spills the first
+    out = step("d_gone", f"/v1/sessions/{sid}/ask", {"question": "?"})
+    out["error"] = out["error"].replace(sid, "<id>")
+    step("d_next", "/v1/generate", plain)
+    return steps
+
+
+def _inject_faults(server, rank, spec, events):
+    """This rank's injections, by patching inside the process: at a job
+    whose question FAULT_QUESTIONS gives this rank, torch.OutOfMemoryError
+    after the job's first collective of the model's groups; on rank 1 the
+    video spec["missing"] reported absent and, at the session job on
+    spec["other"], the spill raising after its write. Records each job's
+    kind, results and outcome, and the mesh's aborts and rebuilds, in
+    `events`."""
+    import torch
+    import torch.distributed as dist
+
+    from quickvideo_tpu_torch import chat
+    from quickvideo_tpu_torch.serving.server import RankFault
+
+    mesh = server.lvu.mesh
+    armed = {"oom": False, "spill": False}
+    counts = {"aborts": 0, "rebuilds": 0}
+
+    def after_first(name):
+        real = getattr(dist, name)
+
+        def op(*a, **kw):
+            work = real(*a, **kw)
+            if armed["oom"] and kw.get("group") is not mesh.control_group:
+                if work is not None:
+                    work.wait()
+                armed["oom"] = False
+                raise torch.OutOfMemoryError(OOM_MESSAGE)
+            return work
+
+        setattr(dist, name, op)
+
+    for name in ("all_reduce", "all_gather", "broadcast", "isend", "irecv",
+                 "recv", "barrier"):
+        after_first(name)
+    if rank == 1:
+        exists = os.path.exists
+        os.path.exists = lambda p: p != spec["missing"] and exists(p)
+        save = chat.ChatSession.save
+
+        def failing_save(self, path):
+            save(self, path)
+            if armed["spill"]:
+                raise OSError(SPILL_MESSAGE)
+
+        chat.ChatSession.save = failing_save
+    for name in ("abort", "rebuild"):
+        real = getattr(mesh, name)
+
+        def counted(real=real, key=name + "s"):
+            counts[key] += 1
+            return real()
+
+        setattr(mesh, name, counted)
+    run_job = server._run_job
+
+    def logged(batch, job_id):
+        p = batch[0].payload
+        armed["oom"] = FAULT_QUESTIONS.get(p.get("question")) == rank
+        armed["spill"] = (batch[0].kind == "session_new"
+                          and p["video"] == spec["other"])
+        before = dict(counts)
+        outcome = "ok"
+        try:
+            run_job(batch, job_id)
+        except RankFault as e:
+            outcome = e.body()
+            raise
+        finally:
+            armed.update(oom=False, spill=False)
+            events.append(dict(
+                kind=batch[0].kind, outcome=outcome,
+                results=[j.result for j in batch],
+                **{k: counts[k] - before[k] for k in counts}))
+
+    server._run_job = logged
+
+
+def case_serve_faults(spec, rank):
+    """The port's server on the mesh meeting faults: every rank makes the
+    direct call of SERVE_QUESTIONS[0], then rank 0 serves fault_script
+    while the others follow, with the injections of _inject_faults; every
+    rank records its jobs, its stats and the aborted groups it still
+    holds."""
+    from torch.distributed import distributed_c10d
+
+    from quickvideo_tpu_torch.serving import server as tserver
+
+    patch_port_readers()
+    video = spec["video"]
+    lvu = spell(_lvu(spec))
+    direct = lvu.generate(SERVE_QUESTIONS[0], video, max_new_tokens=4)[0]
+    cfg = tserver.ServerConfig(port=0, spill_dir=spec["spill"],
+                               default_max_new_tokens=4,
+                               request_timeout_s=120)
+    httpd, server = tserver.make_http_server(lvu, cfg)
+    events = []
+    _inject_faults(server, rank, spec, events)
+    groups = len(distributed_c10d._world.pg_map)
+    out = dict(direct=direct, events=events)
+    if not server.is_leader:
+        httpd.serve_forever()
+        server.shutdown()
+        httpd.server_close()
+    else:
+        thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+        thread.start()
+        try:
+            out["steps"] = fault_script(
+                f"http://127.0.0.1:{httpd.server_address[1]}", video,
+                spec["missing"], spec["other"], lvu.config.mesh.pp == 1)
+        finally:
+            httpd.shutdown()
+            server.shutdown()
+            httpd.server_close()
+        out["worker_alive"] = server._worker.is_alive()
+    live = distributed_c10d._world.pg_map
+    out.update(stats=server.stats, retired=len(lvu.mesh._retired),
+               groups=[groups, len(live)],
+               live=all(g in live for g in lvu.mesh._model_groups()))
+    return out
+
+
 CASES = {
+    "serve_faults": case_serve_faults,
     "pipeline": case_pipeline,
     "generate": case_generate,
     "cp_past": case_cp_past,
