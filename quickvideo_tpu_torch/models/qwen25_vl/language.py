@@ -92,6 +92,7 @@ from quickvideo_tpu_torch.parallel.context_parallel import (
     cp_stacked_grouped_attention,
     cp_stacked_past_attention,
 )
+from quickvideo_tpu_torch.utils import timing
 
 
 @dataclasses.dataclass(frozen=True)
@@ -321,12 +322,13 @@ def layer_step(
         # the raw rotary keys are scored; the kept raw rows are (re)quantized
         # into the compact, which overwrites the first keep_k slots of the
         # group; a raw tail stays past the valid length, never attended
-        res = prune_ops.select_and_compact(
-            spec.predict_type, spec.keep_k, k_grp, v_grp, hidden=x[:gv],
-            group_probs=group_probs, accum_attn=accum, generator=generator,
-            group=tp,
-        )
-        kv.stacked_append(cache, li, length, res.k_keep, res.v_keep)
+        with timing.span("prune"):
+            res = prune_ops.select_and_compact(
+                spec.predict_type, spec.keep_k, k_grp, v_grp, hidden=x[:gv],
+                group_probs=group_probs, accum_attn=accum,
+                generator=generator, group=tp,
+            )
+            kv.stacked_append(cache, li, length, res.k_keep, res.v_keep)
         indices = res.indices
     elif not appended:
         kv.stacked_append(cache, li, length, k_grp, v_grp)

@@ -14,6 +14,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from quickvideo_tpu_torch.utils import timing
+
 
 def get_rope_index(
     input_ids: np.ndarray,  # (L,) int — single sequence, no padding
@@ -148,7 +150,8 @@ def mrope_cos_sin(
     """Merged (L, head_dim) f32 tables built ON the device from the (3, L)
     positions (only the positions cross to the device). f32 arithmetic, like
     the JAX package's precompute_mrope_cos_sin_device."""
-    pos = torch.as_tensor(np.asarray(positions), device=device).float()
+    with timing.host_wait():  # a copy from pageable host memory
+        pos = torch.as_tensor(np.asarray(positions), device=device).float()
     inv_freq = 1.0 / (
         rope_theta
         ** (torch.arange(0, head_dim, 2, device=device).float() / head_dim)

@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from quickvideo_tpu_torch.models.qwen25_vl.config import VisionConfig
+from quickvideo_tpu_torch.utils import timing
 from quickvideo_tpu_torch.video.preprocess import patch_norm_scale_bias
 from quickvideo_tpu_torch.ops.fused_vision_mlp import (
     ln_dual_gemm_silu_quant,
@@ -189,15 +190,19 @@ def build_layout(
 
 def layout_tensors(layout: VisionLayout, device) -> dict:
     """The layout's index and rotary tables as tensors on `device`."""
-    out = {
-        "perm": torch.as_tensor(layout.perm, device=device),
-        "inv_perm_units": torch.as_tensor(layout.inv_perm_units, device=device),
-        "cos": torch.as_tensor(layout.cos, device=device),
-        "sin": torch.as_tensor(layout.sin, device=device),
-    }
-    if layout.frame_perm is not None:
-        out["frame_perm"] = torch.as_tensor(layout.frame_perm, device=device)
-        out["frame_inv"] = torch.as_tensor(layout.frame_inv, device=device)
+    with timing.host_wait():  # copies from pageable host memory
+        out = {
+            "perm": torch.as_tensor(layout.perm, device=device),
+            "inv_perm_units": torch.as_tensor(layout.inv_perm_units,
+                                              device=device),
+            "cos": torch.as_tensor(layout.cos, device=device),
+            "sin": torch.as_tensor(layout.sin, device=device),
+        }
+        if layout.frame_perm is not None:
+            out["frame_perm"] = torch.as_tensor(layout.frame_perm,
+                                                device=device)
+            out["frame_inv"] = torch.as_tensor(layout.frame_inv,
+                                               device=device)
     return out
 
 
@@ -379,9 +384,11 @@ def vision_forward(
         scale, bias = patch_norm_scale_bias(
             cfg.patch_size, cfg.temporal_patch_size, cfg.in_channels
         )
-        pixels = pixels.float() * torch.as_tensor(
-            scale, device=pixels.device
-        ) + torch.as_tensor(bias, device=pixels.device)
+        pixels = pixels.float()
+        with timing.host_wait():  # copies from pageable host memory
+            scale = torch.as_tensor(scale, device=pixels.device)
+            bias = torch.as_tensor(bias, device=pixels.device)
+        pixels = pixels * scale + bias
     x = linear(pixels.to(pdtype), params["patch_embed"], act_quant=False)
     x = x[lt["perm"]]
     # the rotary tables in the activation dtype, once for all blocks

@@ -33,6 +33,7 @@ from typing import Optional
 import torch
 
 from quickvideo_tpu_torch.parallel.comm import all_reduce_sum
+from quickvideo_tpu_torch.utils import timing
 
 RANDOM_PREDICTORS = frozenset(
     {"random", "key_norms_small_random", "attention_weights_sum_with_random"}
@@ -125,8 +126,11 @@ def _random_indices(generator: torch.Generator, l: int, k: int,
     (it replaces the last draw when absent)."""
     sel = torch.randperm(l, generator=generator,
                          device=generator.device)[:k].to(device)
-    if force_first and k > 0 and not bool((sel == 0).any()):
-        sel[k - 1] = 0
+    if force_first and k > 0:
+        with timing.host_wait():
+            absent = not bool((sel == 0).any())
+        if absent:
+            sel[k - 1] = 0
     return torch.sort(sel).values
 
 

@@ -89,6 +89,7 @@ JAX package's 'pallas' route).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from dataclasses import dataclass, field
@@ -120,6 +121,7 @@ from quickvideo_tpu_torch.ops import kv_cache as kvc
 from quickvideo_tpu_torch.parallel.comm import all_reduce_sum
 from quickvideo_tpu_torch.parallel.pipeline import PipelinedStack
 from quickvideo_tpu_torch.parallel.sharding import check_tp, global_nbytes
+from quickvideo_tpu_torch.utils import timing
 from quickvideo_tpu_torch.utils.timing import SpanTimer
 
 
@@ -212,6 +214,23 @@ def tensor_leaves(tree):
         yield tree
 
 
+_END = object()
+
+
+def _frame_waits(groups: Iterable, n: int):
+    """Iterates `groups`; the wait for each of the first `n` (the pixel
+    groups the plan expects, which a stream's threads may still be
+    decoding or uploading) runs under a "frame_wait" span."""
+    it = iter(groups)
+    for _ in range(n):
+        with timing.span("frame_wait"):
+            item = next(it, _END)
+        if item is _END:
+            return
+        yield item
+    yield from it
+
+
 class LVUEngine:
     """One model + one LVUConfig on one device; reusable across requests."""
 
@@ -273,7 +292,10 @@ class LVUEngine:
     def _to_device(self, pixels) -> torch.Tensor:
         if not isinstance(pixels, torch.Tensor):
             pixels = torch.from_numpy(np.ascontiguousarray(pixels))
-        pixels = pixels.to(self.device)
+        # a block on the host comes from pageable memory: the copy waits
+        upload = pixels.device.type == "cpu" and self.device.type != "cpu"
+        with timing.host_wait() if upload else contextlib.nullcontext():
+            pixels = pixels.to(self.device)
         # uint8 frames stay uint8 (normalized on the device); float inputs
         # run in the compute dtype
         return pixels if pixels.dtype == torch.uint8 else pixels.to(self.dtype)
@@ -332,9 +354,11 @@ class LVUEngine:
             # resolves the same request at the same point)
             n = global_nbytes(self.params, self.lvu.mesh.tp)
             if self.pp is not None:
-                n = int(all_reduce_sum(
+                total = all_reduce_sum(
                     torch.tensor([n], dtype=torch.int64, device=self.device),
-                    self.pp.group("pp")))
+                    self.pp.group("pp"))
+                with timing.host_wait():
+                    n = int(total)
             self._weight_bytes = n
         return resolve_auto_kv_dtype(
             capacity, self.cfg.text, self._weight_bytes,
@@ -462,7 +486,8 @@ class LVUEngine:
                                        cache, self.dtype)
 
         lang = self.params["language"]
-        ids_t = torch.as_tensor(ids, device=self.device)
+        with timing.host_wait():
+            ids_t = torch.as_tensor(ids, device=self.device)
         # query-based mode: the question suffix rides with every group
         prompt_len = L - suffix_start if lvu.query_based else 0
         # image embeddings per group: group 0 takes the prefix images; in
@@ -486,7 +511,8 @@ class LVUEngine:
                 pixel_iter, desc="Processing video groups",
                 total=len(inputs.group_grids),
             )
-        for gi, pixels in enumerate(pixel_iter):
+        for gi, pixels in enumerate(_frame_waits(pixel_iter,
+                                                 len(inputs.group_grids))):
             grid = tuple(int(x) for x in inputs.group_grids[gi])
             in_len = group_input_lens[gi]
             if pixels is not None:
@@ -639,7 +665,8 @@ class LVUEngine:
         if lvu.do_top_k_for_query:
             keep_k = resolve_effective_top_k(lvu, 0, n, L - ss)
         with timer.span("final_prefill"):
-            ids = torch.as_tensor(state["ids"][ss:L], device=self.device)
+            with timing.host_wait():
+                ids = torch.as_tensor(state["ids"][ss:L], device=self.device)
             x = self._embed(ids, state.get("img_suffix"))
             rows = slice(ss, L)
             if keep_k > 0:
@@ -732,8 +759,12 @@ class LVUEngine:
         """One token drawn from the filtered logits / temperature."""
         flt = self._filter_logits(logits.float(), top_p, top_k)
         probs = torch.softmax(flt / temperature, dim=-1)
-        return int(torch.multinomial(probs, 1,
-                                     generator=self._generator(probs.device)))
+        drawn = torch.multinomial(probs, 1,
+                                  generator=self._generator(probs.device))
+        if drawn.device.type == "cpu":  # host sampling
+            return int(drawn)
+        with timing.host_wait():
+            return int(drawn)
 
     def _generate_from_cache(
         self, cache, state, max_new_tokens, eos_token_ids, greedy=True,
@@ -763,9 +794,12 @@ class LVUEngine:
 
         def pick(logits) -> int:
             if greedy:
-                return int(torch.argmax(logits))
+                best = torch.argmax(logits)
+                with timing.host_wait():
+                    return int(best)
             if on_host:
-                logits = logits.cpu()
+                with timing.host_wait():
+                    logits = logits.cpu()
             return self._sample(logits, temperature, top_p, top_k)
 
         def next_token() -> int:
@@ -794,7 +828,8 @@ class LVUEngine:
                           if on_tokens is not None else max_new - len(out))
                 new = []
                 while len(new) < n_stop:
-                    new.append(next_token())
+                    with timing.span("decode_step"):
+                        new.append(next_token())
                     out.append(new[-1])
                     if new[-1] in eos_token_ids:
                         break
@@ -914,7 +949,8 @@ class LVUEngine:
         q = len(combined)
         saved = list(cache.lengths)
         with timer.span("score"):
-            ids = torch.as_tensor(combined, device=self.device)
+            with timing.host_wait():
+                ids = torch.as_tensor(combined, device=self.device)
             hidden, _ = self._pass(
                 cache, state, self._embed(ids, state.get("img_suffix")),
                 slice(ss, ss + q), StepSpec(q_len=q), min_rows=0,
@@ -928,7 +964,8 @@ class LVUEngine:
             stack = state.get("pp_stack")
             if stack is not None:  # the last stage's two scalars
                 pair = stack.share(pair, (2,), torch.float32)
-            total, greedy = pair.tolist()
+            with timing.host_wait():
+                total, greedy = pair.tolist()
         if restore:  # each stage restores its own layers' lengths
             cache.lengths[:] = saved
         return float(total), bool(greedy)

@@ -7,8 +7,10 @@ chrome://tracing) named after the process, so the ranks of a mesh each
 write their own.
 
 The CLI (lvu_cli.py) runs under `maybe_trace()`, so QV_TRACE_DIR traces
-a CLI run; every span of utils/timing.py::SpanTimer is an `annotate`
-range.
+a CLI run; every span of utils/timing.py is an `annotate` range. Where
+this torch can, the trace records every thread's ranges, so the frame
+stream's "frame_fetch" and "processing" spans show on their own threads
+(a profiler records only the thread that started it otherwise).
 
 Usage:
     with maybe_trace("/tmp/qv_trace"):       # env QV_TRACE_DIR also works
@@ -45,9 +47,21 @@ def maybe_trace(trace_dir: Optional[str] = None):
     os.makedirs(trace_dir, exist_ok=True)
     path = os.path.join(trace_dir,
                         f"trace_{os.getpid()}_{time.time_ns()}.json")
-    with profile(activities=activities) as prof:
+    with profile(activities=activities, **_all_threads()) as prof:
         yield path
     prof.export_chrome_trace(path)
+
+
+def _all_threads() -> dict:
+    """profile() keywords that record every thread's ranges, where this
+    torch has the switch (none otherwise)."""
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        return {"experimental_config":
+                _ExperimentalConfig(profile_all_threads=True)}
+    except (ImportError, TypeError):
+        return {}
 
 
 def annotate(name: str):

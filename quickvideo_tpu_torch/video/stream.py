@@ -23,7 +23,6 @@ from __future__ import annotations
 import logging
 import queue
 import threading
-import time
 from typing import Iterator, Optional
 
 import numpy as np
@@ -56,30 +55,29 @@ class AsyncPixelGroups:
         self.lvu = lvu
         self.device = torch.device(device)
         self.timer = timer or SpanTimer()
-        t0 = time.perf_counter()
-        self.reader = reader or qd.InterleavedVideoReader(
-            path,
-            num_threads=lvu.decode_threads,
-            num_intervals=lvu.decode_intervals,
-        )
-        self.plan = plan or plan_from_reader(self.reader, lvu)
-        self.native_hw = None
-        if lvu.resize_on_device:
-            # decode at the source size; vision_forward resamples on the
-            # device
-            self.native_hw = (
-                self.reader.source_height, self.reader.source_width
+        with self.timer.span("decode_start"):
+            self.reader = reader or qd.InterleavedVideoReader(
+                path,
+                num_threads=lvu.decode_threads,
+                num_intervals=lvu.decode_intervals,
             )
-        else:
-            self.reader.height = self.plan.resized_height
-            self.reader.width = self.plan.resized_width
-            self.reader.interpolation = "LANCZOS"
-        if lvu.decode_output.lower() == "yuv420":
-            self.reader.output_format = "YUV420"
-        # start the native decode of the sampled frames now: decode of group
-        # i+1 overlaps prefill of group i
-        self.reader.process(self.plan.indices.tolist())
-        self.timer.add("decode_start", time.perf_counter() - t0)
+            self.plan = plan or plan_from_reader(self.reader, lvu)
+            self.native_hw = None
+            if lvu.resize_on_device:
+                # decode at the source size; vision_forward resamples on the
+                # device
+                self.native_hw = (
+                    self.reader.source_height, self.reader.source_width
+                )
+            else:
+                self.reader.height = self.plan.resized_height
+                self.reader.width = self.plan.resized_width
+                self.reader.interpolation = "LANCZOS"
+            if lvu.decode_output.lower() == "yuv420":
+                self.reader.output_format = "YUV420"
+            # start the native decode of the sampled frames now: decode of
+            # group i+1 overlaps prefill of group i
+            self.reader.process(self.plan.indices.tolist())
         self._q: queue.Queue = queue.Queue(maxsize=lvu.prefetch_depth)
         self._to_device = lvu.prefetch_to_device
         self._exc: Optional[BaseException] = None
@@ -127,9 +125,8 @@ class AsyncPixelGroups:
                 if self._closed:
                     return
                 self.reader.frame_iter = cnt
-                t0 = time.perf_counter()
-                block = next(self.reader)  # blocks on the native decode
-                self.timer.add("frame_fetch", time.perf_counter() - t0)
+                with self.timer.span("frame_fetch"):
+                    block = next(self.reader)  # blocks on the native decode
                 if block.shape[0] != cnt:
                     raise IOError(
                         f"group {gi}: expected {cnt} frames, got {block.shape[0]}"
@@ -165,9 +162,8 @@ class AsyncPixelGroups:
                 if block is _SENTINEL:
                     self._put(self._q, _SENTINEL)
                     return
-                t0 = time.perf_counter()
-                item = self._upload(block)
-                self.timer.add("processing", time.perf_counter() - t0)
+                with self.timer.span("processing"):
+                    item = self._upload(block)
                 if not self._put(self._q, item):
                     return
         except BaseException as e:  # noqa: BLE001

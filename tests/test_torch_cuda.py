@@ -25,6 +25,8 @@ with chip_smoke.py.
 """
 
 import collections
+import contextlib
+import traceback
 
 import numpy as np
 import pytest
@@ -1049,3 +1051,80 @@ def test_lvu_on_the_default_device_names_its_card(dev):
     want = torch.device("cuda", torch.cuda.current_device())
     for device in (None, "cuda"):
         assert LVU(cfg, device=device).device == want
+
+
+def _narrow_model():
+    """Two decoder layers at the 7B's head width (7 q heads, 1 kv head)
+    and two vision blocks at head_dim 80: the smallest model the card's
+    kernels take (chip_smoke.py::narrow_config)."""
+    from quickvideo_tpu_torch.models.qwen25_vl.config import (
+        ModelConfig,
+        TextConfig,
+        VisionConfig,
+    )
+
+    return ModelConfig(
+        name="narrow128",
+        vision=VisionConfig(
+            depth=2, hidden_size=160, intermediate_size=256, num_heads=2,
+            fullatt_block_indexes=(1,), out_hidden_size=896,
+        ),
+        text=TextConfig(
+            vocab_size=2048, hidden_size=896, intermediate_size=1024,
+            num_hidden_layers=2, num_attention_heads=7,
+            num_key_value_heads=1,
+        ),
+        image_token_id=2040, video_token_id=2041,
+        vision_start_token_id=2042, vision_end_token_id=2043,
+    )
+
+
+def test_a_request_waits_for_the_card_only_inside_host_wait_spans(
+        dev, monkeypatch):
+    """Two streamed requests with the benchmark's options (int8 weights,
+    pruning at every layer, several tokens; the first one cold) under
+    torch.cuda.set_sync_debug_mode("error"), which only the port's
+    "host_wait" spans lift: a wait for the card without the span fails
+    the test. Prints the sites of the spans it passed through."""
+    from quickvideo_tpu_torch import api
+    from quickvideo_tpu_torch.config import LVUConfig
+    from quickvideo_tpu_torch.models.qwen25_vl.convert import init_params
+    from quickvideo_tpu_torch.utils import timing
+    from quickvideo_tpu_torch.video import quickdecode as qd
+
+    model = _narrow_model()
+    monkeypatch.setattr(api, "get_config", lambda name: model)
+    monkeypatch.setattr(qd, "InterleavedVideoReader",
+                        lambda path, **kw: _Reader())
+    named, sites = timing.host_wait, collections.Counter()
+
+    @contextlib.contextmanager
+    def lifted():
+        site = traceback.extract_stack()[-3]
+        sites[f"{site.filename.rsplit('/', 1)[-1]}:{site.lineno}"] += 1
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            with named():
+                yield
+        finally:
+            torch.cuda.set_sync_debug_mode("error")
+
+    monkeypatch.setattr(timing, "host_wait", lifted)
+    cfg = LVUConfig(model_name_or_path="narrow128",
+                    model_type="qwen25_lvu_interleaved", param_dtype="int8",
+                    num_frames=16, video_group_size=8,
+                    top_k_predict_type="key_norms_small", top_p=0.5,
+                    max_decode_tokens=16, decode_output="yuv420")
+    lvu = api.LVU(cfg, params=init_params(model, 0, torch.bfloat16,
+                                          device=dev), device=dev)
+    torch.cuda.synchronize(dev)
+    tokens = []
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(2):
+            lvu.generate("what moves?", "clip.mp4", max_new_tokens=6)
+            tokens.append(len(lvu.last_result.tokens))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    print("host_wait sites:", dict(sorted(sites.items())))
+    assert all(n >= 1 for n in tokens) and sites
