@@ -1326,6 +1326,136 @@ def compare_fused(dev, tree):
     return ok
 
 
+# the language model's int8 glue (ops/int8_glue.py) at the 7B's widths:
+# rows of a group step (timed), of a short final prefill (int_mm pads fewer
+# than 17) and of a long one
+GLUE_ROWS = (3600, 5, 37)
+GLUE_TIMED = 3600
+GLUE_SEEDS = 3
+GLUE_KERNEL_NAMES = (
+    "row_quantize_kernel<true> (rms_quantize)",
+    "row_quantize_kernel<false> (quantize_rows)", "rescale_kernel (rescale)",
+    "swiglu_quantize_kernel (swiglu_quantize)",
+)
+
+
+def _glue_inputs(dev, rows, seed):
+    """The glue's cases at the 7B's widths (C 3584, q/o 3584, I 18944) on
+    int_mm's real results: (name, kernel, plain, args, compare, kernel name
+    in a trace). rescale and quantize_rows must equal their plain versions
+    bit for bit; rms_quantize and swiglu_quantize are held to the B4 rule
+    (quickvideo_tpu_torch/testing.py)."""
+    import torch
+
+    from quickvideo_tpu_torch.ops import int8_glue as glue
+    from quickvideo_tpu_torch.ops.quantization import (
+        int_mm,
+        quantize_act,
+        quantize_weight,
+    )
+    from quickvideo_tpu_torch.testing import quantized_close
+
+    def same(got, ref):
+        pairs = list(zip(got, ref)) if isinstance(got, tuple) else [(got, ref)]
+        ok = all(torch.equal(a, b) for a, b in pairs)
+        err = max((a.float() - b.float()).abs().max().item() if a.numel()
+                  else 0.0 for a, b in pairs)
+        return err, ok, "" if ok else "not bit-identical"
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(rows + 1000 * seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    c, inter = 3584, 18944
+    x = rnd(rows, c, scale=2.0).bfloat16()
+    ln = (1 + rnd(c, scale=0.1)).bfloat16()
+    wo, wg, wu = (quantize_weight(rnd(c, n, scale=0.02))
+                  for n in (c, inter, inter))
+    b = rnd(c, scale=0.05).bfloat16()
+    xq, xs = quantize_act(x)
+    acc = int_mm(xq, wo["q8"])
+    g, u = int_mm(xq, wg["q8"]), int_mm(xq, wu["q8"])
+    eps = 1e-6
+    return (
+        ("rms_quantize", glue.rms_quantize, glue.rms_quantize_plain,
+         (x, ln, eps), quantized_close, "row_quantize_kernel"),
+        ("quantize_rows", glue.quantize_rows, glue.quantize_rows_plain,
+         (x,), same, "row_quantize_kernel"),
+        ("rescale (bias)", lambda *a: glue.rescale(*a[:3], bias=a[3]),
+         lambda *a: glue.rescale_plain(*a[:3], bias=a[3]),
+         (acc, xs, wo["sc"], b), same, "rescale_kernel"),
+        ("rescale (residual)", lambda *a: glue.rescale(*a[:3], residual=a[3]),
+         lambda *a: glue.rescale_plain(*a[:3], residual=a[3]),
+         (acc, xs, wo["sc"], x), same, "rescale_kernel"),
+        ("swiglu_quantize", glue.swiglu_quantize, glue.swiglu_quantize_plain,
+         (g, u, xs, wg["sc"], wu["sc"]), quantized_close,
+         "swiglu_quantize_kernel"),
+    )
+
+
+def check_glue(dev, cases=GLUE_ROWS, seeds=GLUE_SEEDS):
+    """rms_quantize, quantize_rows, rescale (with a bias, with a residual)
+    and swiglu_quantize against their plain versions at the 7B's widths
+    for each row count and seed. Seed 0 at GLUE_TIMED rows is timed: the
+    kernel's device time (torch.profiler), CUDA events, the plain version,
+    the bytes bound (inputs read once, outputs written once)."""
+    import torch
+
+    rows_out = []
+    for rows in cases:
+        for seed in range(seeds):
+            for name, kernel, plain, args, compare, kname in _glue_inputs(
+                    dev, rows, seed):
+                got, ref = kernel(*args), plain(*args)
+                torch.cuda.synchronize()
+                err, ok, why = compare(got, ref)
+                row = dict(name=name, s=rows, seed=seed, err=err, ok=ok)
+                line = f"{name} M={rows} seed {seed}: max_abs_err={err:.3e}"
+                if seed == 0 and rows == GLUE_TIMED:
+                    ms = _device_ms(lambda: kernel(*args), (kname,), 20)
+                    events_ms = _time_ms(lambda: kernel(*args), 20)
+                    plain_ms = _time_ms(lambda: plain(*args), 5)
+                    moved = nbytes(args, got)
+                    bound_ms, bound_by = bound(moved, {})
+                    row.update(ms=ms, events_ms=events_ms, plain_ms=plain_ms,
+                               bound_ms=bound_ms, bound_by=bound_by,
+                               bytes=moved)
+                    line += (f" kernel {ms:.4f} ms device, "
+                             f"{100 * bound_ms / ms:.1f}% of the bound "
+                             f"{bound_ms:.4f} ms ({bound_by}, "
+                             f"{moved / 1e6:.1f} MB); events "
+                             f"{events_ms:.4f} ms; plain {plain_ms:.4f} ms")
+                log(f"{line} {'OK' if ok else 'FAIL: ' + why}")
+                rows_out.append(row)
+                del got, ref
+            torch.cuda.empty_cache()
+    return rows_out
+
+
+def glue_kernel_info():
+    """Registers, spilled (local) bytes and shared memory of the glue's
+    kernels (csrc/int8_glue.cu's qv_glue_kernel_info). Returns whether
+    every query succeeded and no kernel spills."""
+    import ctypes
+
+    from quickvideo_tpu_torch import _build
+
+    lib = _build.library()
+    ok = True
+    for i, name in enumerate(GLUE_KERNEL_NAMES):
+        vals = [ctypes.c_int() for _ in range(4)]
+        err = lib.qv_glue_kernel_info(i, *(ctypes.byref(v) for v in vals))
+        regs, local, smem, _ = (v.value for v in vals)
+        ok &= err == 0 and local == 0
+        why = (f" FAIL (CUDA error {err})" if err else
+               " FAIL (spills)" if local else "")
+        log(f"{name}: {regs} registers, {local} B spilled (local), {smem} B "
+            f"static shared memory{why}")
+    return ok
+
+
 # -- phase 3: the main path ------------------------------------------------
 
 
@@ -1531,6 +1661,7 @@ def _read_counters(counters):
 
 def _kernel_counters():
     from quickvideo_tpu_torch.ops import fused_vision_mlp as fm
+    from quickvideo_tpu_torch.ops import int8_glue as glue
     from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
     from quickvideo_tpu_torch.ops.vision_attention import (
         block_diag_attention,
@@ -1546,7 +1677,39 @@ def _kernel_counters():
         "ln_gemm": fm.ln_gemm_bias,
         "ln_mlp": fm.ln_dual_gemm_silu_quant,
         "mlp_pre": fm.dual_gemm_silu_quant,
+        "glue_rms": glue.rms_quantize,  # the language model's int8 glue
+        "glue_rows": glue.quantize_rows,
+        "glue_rescale": glue.rescale,
+        "glue_swiglu": glue.swiglu_quantize,
     }
+
+
+# the glue's launches of one act-quantized decoder layer step (the int8
+# chain of models/qwen25_vl/language.py)
+GLUE_PER_STEP = {"glue_rms": 2, "glue_rows": 1, "glue_rescale": 5,
+                 "glue_swiglu": 1}
+
+
+def expected_glue(lvu, inputs):
+    """The glue's launches of one int8-weight request on one device: every
+    layer step whose rows pass the act-quant row gate runs the chain
+    (GLUE_PER_STEP): each group step at the rows that reach the layer
+    (group_layer_rows), the final prefill (the gate at 0 rows, or at
+    ACT_MIN_ROWS where it prunes the suffix); decode steps (one row) none."""
+    from quickvideo_tpu_torch.config import resolve_effective_top_k
+    from quickvideo_tpu_torch.ops.quantization import ACT_MIN_ROWS
+
+    lc = lvu.config
+    n = lvu.model_config.text.num_hidden_layers
+    ids = np.asarray(inputs.input_ids)
+    vid = np.nonzero(ids == lvu.model_config.video_token_id)[0]
+    suffix = len(ids) - int(vid[-1]) - 1
+    prunes = lc.do_top_k_for_query and resolve_effective_top_k(
+        lc, 0, n, suffix) > 0
+    steps = sum(rows >= ACT_MIN_ROWS for per_layer in
+                group_layer_rows(lvu, inputs) for rows in per_layer)
+    steps += n if (not prunes or suffix >= ACT_MIN_ROWS) else 0
+    return {k: v * steps for k, v in GLUE_PER_STEP.items()}
 
 
 MODEL_7B = "qwen25-vl-7b"
@@ -1759,6 +1922,8 @@ def run_main_path(dev, param_dtype="bfloat16", kv_cache_dtype="auto"):
         if param_dtype == "int8":
             exp["ln_gemm"] += n_groups * mcfg.vision.depth
             exp["ln_mlp"] += n_groups * mcfg.vision.depth
+            for k, v in expected_glue(lvu, inputs).items():
+                exp[k] += v
         want_len = expected_lengths(lvu, inputs, len(res.tokens))[0]
         exp[f"flash_{variant}"] = exp[f"flash_{variant}_unified"] = exp["flash"]
         for k, n in expected_kernels(lvu, inputs, len(res.tokens),
@@ -5991,6 +6156,9 @@ def main():
     ok &= all(r["ok"] for r in fused_rows)
     ok &= fused_kernel_info()
     int_mm_yardstick(dev)
+    glue_rows = check_glue(dev)
+    ok &= all(r["ok"] for r in glue_rows)
+    ok &= glue_kernel_info()
 
     lvu, main_ok, launches, logits_bf16 = run_main_path(dev)
     ok &= main_ok
@@ -6174,6 +6342,20 @@ def main():
         entry("dual_gemm_silu_quant (B6)", fused, "fused_vision_mlp.py:126",
               launches["mlp_pre"], *_fused_rows(fused_rows, "B6")),
     ]
+    # the language model's int8 glue replaces no TPU kernel (XLA fused it
+    # into the JAX package's products): "replaces" names the JAX package's
+    # function whose glue it runs
+    for key, name, label in (
+        ("glue_rms", "rms_quantize", "rms_quantize"),
+        ("glue_rows", "quantize_rows", "quantize_rows"),
+        ("glue_rescale", "rescale", "rescale (residual)"),
+        ("glue_swiglu", "swiglu_quantize", "swiglu_quantize"),
+    ):
+        rows = [r for r in glue_rows if r["name"].split(" ")[0] == name]
+        row = next(r for r in glue_rows if r["name"] == label and "ms" in r)
+        kernels.append(entry(f"{name} (int8 glue)", "int8_glue.cu",
+                             "quantization.py:qdot_pre", launches[key], rows,
+                             row))
     if not ok:
         log("chip_smoke: FAILED (see the lines marked FAIL)")
         sys.exit(1)

@@ -75,6 +75,18 @@ SIGNATURES = {
     "qv_fused_kernel_info": [_I] + [_P] * 4,
     # chunk, cluster, nch, stages; out: resident clusters
     "qv_fused_max_clusters": [_I] * 4 + [_P],
+    # the language model's int8 glue (csrc/int8_glue.cu). x, row stride,
+    # ln_w, xq, xs; m, c; eps; stream
+    "qv_rms_quantize": [_P, _L, _P, _P, _P, _I, _I, _F, _P],
+    # x, row stride, xq, xs; m, c; stream
+    "qv_quantize_rows": [_P, _L, _P, _P, _I, _I, _P],
+    # acc, row stride, xs, sc, bias (or null), residual (or null), its row
+    # stride, out; m, n; stream
+    "qv_rescale": [_P, _L, _P, _P, _P, _P, _L, _P, _I, _I, _P],
+    # g, row stride, u, row stride, xs, sc_g, sc_u, mq, ms; m, n; stream
+    "qv_swiglu_quantize": [_P, _L, _P, _L] + [_P] * 5 + [_I, _I, _P],
+    # kernel index; out: registers, local bytes, static and dynamic smem
+    "qv_glue_kernel_info": [_I] + [_P] * 4,
 }
 
 _lock = threading.Lock()

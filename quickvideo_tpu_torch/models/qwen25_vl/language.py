@@ -53,6 +53,20 @@ or int8 weights alike (the JAX package's qdot / qdot_multi / qtake call
 sites). `min_rows` is the act-quant row gate: None is the default gate
 (decode steps of one row stay weight-only), 0 acts for the final prefill,
 which the JAX package runs as a padded bucket of at least 32 rows.
+
+The int8 chain. Where a layer's products act-quantize (int8 weights, the
+gate passing) and there is no tp group, their glue runs as
+ops/int8_glue.py's kernels around `int_mm`: rms_quantize (ln1), the q/k/v
+products each rescaled with its bias; quantize_rows on the attention
+output, the o-projection rescaled onto the residual; rms_quantize (ln2),
+the gate and up products, swiglu_quantize, the down product rescaled onto
+the residual (`_project_qkv`, `_attn_residual`, `_mlp_residual`;
+`int8_glue.chain_applies` is the rule). The chain keeps the plain route's
+rounding points, and on the CPU its plain versions are that route's ops.
+Under tp the layer keeps the plain route whole: the row-parallel wo and wd
+quantize each row with its max over the ranks' slices and sum f32 partials
+over the ranks before rounding, which a fused requantize on one rank
+cannot do. Decode (below the row gate) and bf16 weights never reach it.
 """
 
 from __future__ import annotations
@@ -66,6 +80,7 @@ import torch.nn.functional as F
 
 from quickvideo_tpu_torch.models.qwen25_vl.config import TextConfig
 from quickvideo_tpu_torch.models.qwen25_vl.rope import apply_rotary
+from quickvideo_tpu_torch.ops import int8_glue as glue
 from quickvideo_tpu_torch.ops import kv_cache as kv
 from quickvideo_tpu_torch.ops import prune as prune_ops
 from quickvideo_tpu_torch.ops.attention import (
@@ -76,8 +91,11 @@ from quickvideo_tpu_torch.ops.attention import (
     past_partial_attention,
 )
 from quickvideo_tpu_torch.ops.flash_attention import flash_past_attention
+from quickvideo_tpu_torch.ops.int8_glue import rms_norm
 from quickvideo_tpu_torch.ops.predictors import RANDOM_PREDICTORS
 from quickvideo_tpu_torch.ops.quantization import (
+    act_gate,
+    int_mm,
     linear,
     linear_multi,
     qdot,
@@ -136,12 +154,6 @@ def layer_generator(seed_key: Optional[Sequence[int]], li: int,
     return torch.Generator().manual_seed(int(seed))
 
 
-def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(x.dtype) * w
-
-
 def _groups(mesh):
     """(tp group, sp group) of the mesh; None for an axis of one rank."""
     if mesh is None:
@@ -166,19 +178,57 @@ def swiglu_mlp(x: torch.Tensor, lp: dict,
     return _row_parallel(F.silu(g) * u, lp["wd"], tp, min_rows)
 
 
-def _project_qkv(lp: dict, h: torch.Tensor, cfg: TextConfig,
-                 min_rows: Optional[int] = None):
-    """(L, C) -> q (Hq, L, D), k/v (Hkv, L, D), as strided views; under tp
-    the weights hold the rank's heads, and so do q, k and v."""
-    l = h.shape[0]
+def _mlp_residual(x: torch.Tensor, lp: dict, eps: float,
+                  min_rows: Optional[int] = None, tp=None) -> torch.Tensor:
+    """x + swiglu_mlp(rms_norm(x, ln2)): the int8 chain (module docstring)
+    where it applies to the gate/up products and the down product's gate
+    passes at the intermediate width, else the plain route."""
+    ws = (lp["wg"], lp["wu"], lp["wd"])
+    if glue.chain_applies(x, ws, min_rows, tp) and act_gate(
+            x.shape[0], ws[2]["q8"].shape[0], min_rows):
+        wg, wu, wd = ws
+        xq, xs = glue.rms_quantize(x, lp["ln2"], eps)
+        mq, ms = glue.swiglu_quantize(
+            int_mm(xq, wg["q8"]), int_mm(xq, wu["q8"]), xs, wg["sc"],
+            wu["sc"], dtype=x.dtype,
+        )
+        return glue.rescale(int_mm(mq, wd["q8"]), ms, wd["sc"], residual=x,
+                            dtype=x.dtype)
+    return x + swiglu_mlp(rms_norm(x, lp["ln2"], eps), lp, min_rows, tp)
+
+
+def _attn_residual(x: torch.Tensor, attn: torch.Tensor, lp: dict,
+                   min_rows: Optional[int] = None, tp=None) -> torch.Tensor:
+    """x + the o-projection of `attn`: the int8 chain where it applies, else
+    the plain route (`_row_parallel`)."""
+    wo = lp["wo"]
+    if glue.chain_applies(attn, (wo,), min_rows, tp):
+        aq, a_s = glue.quantize_rows(attn)
+        return glue.rescale(int_mm(aq, wo["q8"]), a_s, wo["sc"], residual=x,
+                            dtype=x.dtype)
+    return x + _row_parallel(attn, wo, tp, min_rows)
+
+
+def _project_qkv(lp: dict, x: torch.Tensor, cfg: TextConfig,
+                 min_rows: Optional[int] = None, tp=None):
+    """(L, C) layer input -> ln1, then q (Hq, L, D), k/v (Hkv, L, D) with
+    their biases, as strided views: the int8 chain where it applies, else
+    the plain route; under tp the weights hold the rank's heads, and so do
+    q, k and v."""
+    l = x.shape[0]
     hd = cfg.head_dim
-    q, k, v = linear_multi(
-        h, (lp["wq"], lp["wk"], lp["wv"]), min_rows=min_rows
-    )
-    q = (q + lp["bq"]).view(l, -1, hd)
-    k = (k + lp["bk"]).view(l, -1, hd)
-    v = (v + lp["bv"]).view(l, -1, hd)
-    return q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1)
+    ws = (lp["wq"], lp["wk"], lp["wv"])
+    biases = (lp["bq"], lp["bk"], lp["bv"])
+    if glue.chain_applies(x, ws, min_rows, tp):
+        xq, xs = glue.rms_quantize(x, lp["ln1"], cfg.rms_norm_eps)
+        qkv = [glue.rescale(int_mm(xq, w["q8"]), xs, w["sc"], bias=b,
+                            dtype=x.dtype) for w, b in zip(ws, biases)]
+    else:
+        h = rms_norm(x, lp["ln1"], cfg.rms_norm_eps)
+        qkv = [y + b for y, b in zip(linear_multi(h, ws, min_rows=min_rows),
+                                     biases)]
+    q, k, v = (y.view(l, -1, hd).transpose(0, 1) for y in qkv)
+    return q, k, v
 
 
 def embed_tokens(params: dict, token_ids: torch.Tensor,
@@ -277,8 +327,7 @@ def layer_step(
     tp, sp = _groups(mesh)
     length = cache.lengths[li]
     scale = cfg.head_dim ** -0.5
-    h = rms_norm(x, lp["ln1"], cfg.rms_norm_eps)
-    q, k, v = _project_qkv(lp, h, cfg, min_rows)
+    q, k, v = _project_qkv(lp, x, cfg, min_rows, tp)
     q, k = apply_rotary(q, k, cos, sin)
     gv = spec.video_len
     k_grp, v_grp = k[:, :gv], v[:, :gv]
@@ -316,7 +365,7 @@ def layer_step(
             group_probs = group_probs_from_lse(q, k_grp, lse, scale, tp)
     ql = x.shape[0]
     attn = out.to(x.dtype).transpose(0, 1).reshape(ql, -1)
-    x = x + _row_parallel(attn, lp["wo"], tp, min_rows)
+    x = _attn_residual(x, attn, lp, min_rows, tp)
     indices = None
     if spec.keep_k > 0:
         # the raw rotary keys are scored; the kept raw rows are (re)quantized
@@ -332,8 +381,7 @@ def layer_step(
         indices = res.indices
     elif not appended:
         kv.stacked_append(cache, li, length, k_grp, v_grp)
-    x = x + swiglu_mlp(rms_norm(x, lp["ln2"], cfg.rms_norm_eps), lp, min_rows,
-                       tp)
+    x = _mlp_residual(x, lp, cfg.rms_norm_eps, min_rows, tp)
     return x, indices
 
 
@@ -437,11 +485,10 @@ def full_forward_logits(
     n = x.shape[0]
     scale = cfg.head_dim ** -0.5
     for lp in params["layers"]:
-        h = rms_norm(x, lp["ln1"], cfg.rms_norm_eps)
-        q, k, v = _project_qkv(lp, h, cfg)
+        q, k, v = _project_qkv(lp, x, cfg)
         q, k = apply_rotary(q, k, cos, sin)
         out, _ = flash_past_attention(q, k, v, 0, scale)
-        x = x + linear(out.to(x.dtype).transpose(0, 1).reshape(n, -1),
-                       lp["wo"])
-        x = x + swiglu_mlp(rms_norm(x, lp["ln2"], cfg.rms_norm_eps), lp)
+        x = _attn_residual(x, out.to(x.dtype).transpose(0, 1).reshape(n, -1),
+                           lp)
+        x = _mlp_residual(x, lp, cfg.rms_norm_eps)
     return compute_logits(params, x, cfg)

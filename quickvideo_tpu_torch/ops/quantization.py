@@ -30,6 +30,17 @@ rank's slice of each activation row. `group` (the tp process group) makes
 `quantize_act` take each row's max over the whole row (an all-reduce max),
 so every rank quantizes with the scale one device would use, and the gates
 count the whole row's width.
+
+The language model's act-quantized products without a tp group (every
+group step and final prefill on one device, and under sp or pp) do not come
+here for their glue: models/qwen25_vl/language.py runs them as a chain of
+ops/int8_glue.py's kernels around `int_mm` (norm + quantize, rescale with
+the bias or the residual, SwiGLU + requantize), whose plain versions are
+this module's op sequence. Under tp the layer stays on this module's
+functions: a row-split product's requantize needs the all-reduced row max
+between a row's max and its codes, and its f32 partials sum over the ranks
+before they round, neither of which a fused pass on one rank can do. The
+vision tower and products below the gates (decode) stay here too.
 """
 
 from __future__ import annotations
@@ -134,10 +145,16 @@ def mm_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return x.float() @ w.float()
 
 
+def act_gate(rows: int, cols: int, min_rows: Optional[int],
+             group=None) -> bool:
+    """Whether a product of `rows` activation rows of `cols` columns (a tp
+    rank's slice under `group`) act-quantizes (module docstring)."""
+    floor = ACT_MIN_ROWS if min_rows is None else min_rows
+    return cols * group_size(group) >= ACT_MIN_DIM and rows >= floor
+
+
 def _act_gate(x: torch.Tensor, min_rows: Optional[int], group=None) -> bool:
-    rows = ACT_MIN_ROWS if min_rows is None else min_rows
-    return (x.ndim >= 2 and x.shape[-1] * group_size(group) >= ACT_MIN_DIM
-            and x.shape[-2] >= rows)
+    return x.ndim >= 2 and act_gate(x.shape[-2], x.shape[-1], min_rows, group)
 
 
 def qdot(x: torch.Tensor, w, *, min_rows: Optional[int] = None,

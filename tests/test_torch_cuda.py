@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from quickvideo_tpu_torch.ops import fused_vision_mlp as fm
+from quickvideo_tpu_torch.ops import int8_glue as glue
 from quickvideo_tpu_torch.ops.attention import (
     NEG_INF,
     cache_attention,
@@ -47,6 +48,7 @@ from quickvideo_tpu_torch.ops.kv_cache import (
 from quickvideo_tpu_torch.ops.quantization import (
     int_mm,
     qdot,
+    qdot_pre,
     quantize_act,
     quantize_weight,
 )
@@ -920,6 +922,224 @@ def test_int8_products_off_the_multiple_of_8(dev, k, n):
     assert got.shape == (40, n)
     ref = a.cpu().long() @ w["q8"].cpu().long()
     assert torch.equal(got.cpu().long(), ref)
+
+
+# -- the language model's int8 glue (ops/int8_glue.py) -----------------------
+
+
+def _glue_rows(dev, rows, c, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return (torch.randn(rows, c, generator=gen, device=dev) * 2).bfloat16()
+
+
+def _glue_weight(dev, k, n, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return quantize_weight(torch.randn(k, n, generator=gen, device=dev) * 0.02)
+
+
+def _glue_launches():
+    return tuple(getattr(glue, f).launches for f in GLUE_ENTRIES)
+
+
+GLUE_ENTRIES = ("rms_quantize", "quantize_rows", "rescale", "swiglu_quantize")
+
+
+@pytest.mark.parametrize("rows,c", [(1, 3584), (5, 3584), (17, 3584),
+                                    (3600, 3584), (300, 8192)])
+def test_glue_row_quantize_on_the_card(dev, rows, c):
+    """quantize_rows gives quantize_act's codes and scales bit for bit;
+    rms_quantize passes the B4 rule against its plain version (its row sum
+    runs in another order than torch's mean), a zero row too."""
+    x = _glue_rows(dev, rows, c, rows + c)
+    x[0] = 0
+    ln = (1 + 0.1 * _glue_rows(dev, 1, c, 3)[0].float()).bfloat16()
+    before = _glue_launches()
+    got = glue.quantize_rows(x)
+    ref = glue.quantize_rows_plain(x)
+    assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+    got = glue.rms_quantize(x, ln, 1e-6)
+    ref = glue.rms_quantize_plain(x, ln, 1e-6)
+    assert_quantized_close(got, ref)
+    assert not got[0][0].any()
+    assert _glue_launches() == (before[0] + 1, before[1] + 1, *before[2:])
+
+
+@pytest.mark.parametrize("rows,n", [(3600, 3584), (3600, 512), (5, 3584),
+                                    (17, 512), (300, 8192)])
+def test_glue_rescale_is_bit_identical_to_plain(dev, rows, n):
+    """The three epilogues (none, the q/k/v bias, the o/down residual) on
+    int_mm's s32 result, a row slice of a padded product below 17 rows."""
+    x = _glue_rows(dev, rows, 3584, rows)
+    w = _glue_weight(dev, 3584, n, n)
+    xq, xs = quantize_act(x)
+    acc = int_mm(xq, w["q8"])
+    b = (_glue_rows(dev, 1, n, 5)[0] * 0.05).bfloat16()
+    res = _glue_rows(dev, rows, n, 6)
+    for kw in ({}, {"bias": b}, {"residual": res},
+               {"bias": b, "residual": res}):
+        got = glue.rescale(acc, xs, w["sc"], **kw)
+        assert torch.equal(got, glue.rescale_plain(acc, xs, w["sc"], **kw))
+    want = qdot_pre(xq, xs, w).to(torch.bfloat16) + b
+    assert torch.equal(glue.rescale(acc, xs, w["sc"], bias=b), want)
+
+
+@pytest.mark.parametrize("rows,inter", [(3600, 18944), (5, 18944),
+                                        (300, 29568)])
+def test_glue_swiglu_quantize_on_the_card(dev, rows, inter):
+    """The SwiGLU + requantize against its plain version (torch's bf16 silu
+    and product), under the B4 rule; the 72B's width needs shared memory
+    past 48 KB. Prints the share of rows whose codes are identical."""
+    x = _glue_rows(dev, rows, 3584, inter)
+    wg, wu = _glue_weight(dev, 3584, inter, 1), _glue_weight(dev, 3584, inter, 2)
+    xq, xs = quantize_act(x)
+    g, u = int_mm(xq, wg["q8"]), int_mm(xq, wu["q8"])
+    before = glue.swiglu_quantize.launches
+    got = glue.swiglu_quantize(g, u, xs, wg["sc"], wu["sc"])
+    ref = glue.swiglu_quantize_plain(g, u, xs, wg["sc"], wu["sc"])
+    assert glue.swiglu_quantize.launches == before + 1
+    assert_quantized_close(got, ref)
+    same = ((got[0] == ref[0]).all(1) & (got[1] == ref[1]).squeeze(1))
+    print(f"swiglu_quantize rows {rows} I {inter}: "
+          f"{same.float().mean().item():.4f} of rows bit-identical")
+
+
+def _layer_7b(dev, seed=0):
+    """One 7B decoder layer with int8 weights (7B widths, seeded)."""
+    from quickvideo_tpu_torch.models.qwen25_vl.config import get_config
+
+    text = get_config("qwen25-vl-7b").text
+    c, i, d = text.hidden_size, text.intermediate_size, text.head_dim
+    kv = text.num_key_value_heads * d
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    lp = {
+        "ln1": (1 + rnd(c, scale=0.1)).bfloat16(),
+        "ln2": (1 + rnd(c, scale=0.1)).bfloat16(),
+        "bq": rnd(c, scale=0.05).bfloat16(),
+        "bk": rnd(kv, scale=0.05).bfloat16(),
+        "bv": rnd(kv, scale=0.05).bfloat16(),
+    }
+    for name, shape in (("wq", (c, c)), ("wk", (c, kv)), ("wv", (c, kv)),
+                        ("wo", (c, c)), ("wg", (c, i)), ("wu", (c, i)),
+                        ("wd", (i, c))):
+        lp[name] = quantize_weight(rnd(*shape, scale=0.02))
+    return text, lp
+
+
+def _layer_run(dev, text, lp, x, length, cap, seed=1):
+    from quickvideo_tpu_torch.models.qwen25_vl import language as tlang
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cache = init_cache(1, text.num_key_value_heads, cap, text.head_dim,
+                       dtype=torch.bfloat16, device=dev)
+    cache.k[0, :, :length] = torch.randn(
+        text.num_key_value_heads, length, text.head_dim, generator=gen,
+        device=dev).bfloat16()
+    cache.v[0, :, :length] = torch.randn(
+        text.num_key_value_heads, length, text.head_dim, generator=gen,
+        device=dev).bfloat16()
+    cache.lengths[0] = length
+    rows = x.shape[0]
+    ang = torch.rand(rows, text.head_dim, generator=gen, device=dev) * 6.28
+    out, _ = tlang.layer_step(lp, x, ang.cos(), ang.sin(), cache, 0, text,
+                              tlang.StepSpec(q_len=rows))
+    torch.cuda.synchronize(dev)
+    return out, cache.k[0, :, : length + rows], cache.v[0, :, : length + rows]
+
+
+def test_int8_layer_step_on_the_chain_matches_the_plain_route(dev,
+                                                              monkeypatch):
+    """A 7B int8 layer's group step (G = 3,600 over 1,807 slots) on the
+    chain against the same step on the plain route (torch ops around the
+    same products). The appended K and V pass the B3 rule
+    (bf16_rows_close). The output differs where rms_quantize's row sum
+    (another order than torch's mean) moved a code, and with it a row's
+    scale further on: such a row's later products round to other int8
+    codes, a different draw of the act-quant noise (about 0.08 a value in
+    the down projection here, 3.6% of its output). So the output is held
+    to its relative L2 against the layer's update (out - x), at most
+    FUSED_RTOL. The step launches rms_quantize 2, quantize_rows 1, rescale
+    5 and swiglu_quantize 1; a decode step of one row launches none."""
+    from quickvideo_tpu_torch.testing import FUSED_RTOL
+
+    text, lp = _layer_7b(dev)
+    x = _glue_rows(dev, 3600, text.hidden_size, 11) * 0.5
+    before = _glue_launches()
+    got = _layer_run(dev, text, lp, x, 1807, 8192)
+    assert tuple(a - b for a, b in zip(_glue_launches(), before)) == (
+        2, 1, 5, 1)
+    with monkeypatch.context() as m:
+        m.setattr(glue, "chain_applies", lambda *a, **k: False)
+        ref = _layer_run(dev, text, lp, x, 1807, 8192)
+    checks = []
+    for name, a, b in zip(("out", "k", "v"), got, ref):
+        if a.ndim == 3:  # (Hkv, L, D) -> (L, Hkv D)
+            a, b = (t.transpose(0, 1).flatten(1) for t in (a, b))
+        err, rows_ok, why = bf16_rows_close(a, b)
+        same = (a == b).all(1).float().mean().item()
+        rel = ((a.float() - b.float()).norm()
+               / (b.float() - x.float()).norm()).item() if name == "out" \
+            else None
+        print(f"layer step {name}: max abs diff {err:.3e}, {same:.4f} of "
+              f"rows bit-identical, B3 rule {'OK' if rows_ok else why}"
+              + (f", rel L2 over the update {rel:.3e}" if rel is not None
+                 else ""))
+        checks.append((name, torch.isfinite(a).all().item(),
+                       rows_ok if rel is None else rel <= FUSED_RTOL))
+    assert all(finite and ok for _, finite, ok in checks), checks
+    before = _glue_launches()
+    _layer_run(dev, text, lp, x[:1], 1807, 8192)
+    assert _glue_launches() == before
+
+
+def test_glue_entries_refuse_what_the_kernels_do_not_take(dev):
+    x = _glue_rows(dev, 64, 512, 0)
+    ln = torch.ones(512, dtype=torch.bfloat16, device=dev)
+    acc = torch.zeros(64, 512, dtype=torch.int32, device=dev)
+    xs = torch.ones(64, 1, device=dev)
+    sc = torch.ones(512, device=dev)
+    before = _glue_launches()
+    with pytest.raises(TypeError):  # f32 rows
+        glue.rms_quantize(x.float(), ln, 1e-6)
+    with pytest.raises(ValueError):  # rows not 16-byte aligned
+        glue.quantize_rows(x[:, 4:500])
+    with pytest.raises(ValueError):  # wider than a row in registers
+        glue.quantize_rows(_glue_rows(dev, 4, 8200, 0))
+    with pytest.raises(ValueError):  # ln_w of another width
+        glue.rms_quantize(x, ln[:256], 1e-6)
+    with pytest.raises(TypeError):  # an f32 result asked of the kernel
+        glue.rescale(acc, xs, sc, dtype=torch.float32)
+    with pytest.raises(TypeError):  # f32 accumulators
+        glue.rescale(acc.float(), xs, sc)
+    with pytest.raises(ValueError):  # a residual of another shape
+        glue.rescale(acc, xs, sc, residual=x[:32])
+    with pytest.raises(ValueError):  # u of another shape
+        glue.swiglu_quantize(acc, acc[:, :256], xs, sc, sc)
+    with pytest.raises(ValueError):  # a bf16 row past shared memory
+        wide = torch.zeros(2, 120000, dtype=torch.int32, device=dev)
+        glue.swiglu_quantize(wide, wide, xs[:2], wide[0].float(),
+                             wide[0].float())
+    assert _glue_launches() == before
+    empty = glue.rms_quantize(x[:0], ln, 1e-6)
+    assert empty[0].shape == (0, 512) and empty[1].shape == (0, 1)
+    assert glue.rescale(acc[:0], xs[:0], sc).shape == (0, 512)
+    assert _glue_launches() == before
+
+
+def test_no_glue_kernel_spills(dev):
+    import ctypes
+
+    from quickvideo_tpu_torch import _build
+
+    lib = _build.library()
+    for which in range(4):
+        vals = [ctypes.c_int() for _ in range(4)]
+        assert lib.qv_glue_kernel_info(
+            which, *(ctypes.byref(v) for v in vals)) == 0
+        assert vals[1].value == 0, (which, [v.value for v in vals])
 
 
 class _Reader:
