@@ -24,12 +24,7 @@ from __future__ import annotations
 
 from typing import Dict, List
 
-from qvbench.roofline import (
-    PEAK_OPS_PER_S,
-    bound,
-    flash_bound,
-    int8_gemm_bound,
-)
+from qvbench.roofline import bound, flash_bound, int8_gemm_bound
 
 
 def _add(acc: Dict[str, float], kind: str, n: float) -> None:
@@ -84,7 +79,7 @@ def request_ops(spec, mix, question: str, n_tokens: int) -> Dict[str, float]:
     acc: Dict[str, float] = {}
     h, w = int(mix.video["height"]), int(mix.video["width"])
     gh, gw = h // spec.vision.patch, w // spec.vision.patch
-    for cnt in mix.group_frames():
+    for cnt in mix.group_frames(spec):
         vision_ops(spec, -(-cnt // spec.vision.temporal_patch), gh, gw, acc)
     past = 0
     for rows in mix.group_rows(spec, question):
@@ -101,11 +96,6 @@ def request_ops(spec, mix, question: str, n_tokens: int) -> Dict[str, float]:
             layer_ops(spec, 1, past + j, 1, acc)
         _add(acc, w8, 2 * t.hidden * t.vocab)
     return acc
-
-
-def peak_seconds(ops: Dict[str, float]) -> float:
-    """The least time the card's peaks allow for `ops`."""
-    return sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items())
 
 
 def b1_group_bound_s(spec, mix, question: str, variant: str) -> float:

@@ -382,7 +382,7 @@ def run_request(wts: Weights, spec, mix, pool, video: int, question: str,
     v, t = spec.vision, spec.text
     h, w = int(mix.video["height"]), int(mix.video["width"])
     fps = float(mix.video["fps"])
-    counts = mix.group_frames()
+    counts = mix.group_frames(spec)
     tokens = mix.group_tokens(spec)
     ids = request_ids(spec, question, sum(tokens))
     t_total = sum(-(-c // v.temporal_patch) for c in counts)

@@ -23,6 +23,11 @@ def bound(nbytes: float, ops: dict):
     )
 
 
+def peak_seconds(ops: dict) -> float:
+    """The least time the card's peaks allow for `ops` by type."""
+    return sum(n / PEAK_OPS_PER_S[k] for k, n in ops.items())
+
+
 def flash_bound(g, length, variant="bf16", causal=True, out_bytes=2,
                 with_lse=False, hq=28, hkv=4, d=128):
     """B1's bound: q (bf16) read, the attended slots' K and V (and scales)

@@ -4,20 +4,26 @@
 
 The cell (BENCHMARK.json's `workloads` entry) names a configuration, whose
 published config.json with the run's settings sits at the entry's `file`,
-and a traffic mix (qvbench/traffic/<name>.json). One run:
+and a traffic mix (qvbench/traffic/<name>.json). The configuration's
+`model_type` names its family (qvbench/families/<model_type>/): the
+spec, the weights, the port's engine, the reference, the control and the
+operation counts come from there, and nothing here names a model. One run:
 
   set-up    the weights made on the card from the seed, the port's `LVU`
-            built on them (int8 codes made by the port where the
-            configuration serves int8 weights), one request of the mix's
-            shape; kernels load from the port's build directory inside the
-            checkout (built there by a checkout's first run)
-  window    for --seconds, one client sends the mix's requests through
+            built on them with the family's engine (int8 codes made by the
+            port where the configuration serves int8 weights), one request
+            of the mix's shape; kernels load from the port's build
+            directory inside the checkout (built there by a checkout's
+            first run)
+  window    (one intra-op CPU thread; what set-up made frozen out of
+            the garbage collector's scans)
+            for --seconds, one client sends the mix's requests through
             `LVU.generate`, each when the one before has finished; with
             --trace 1 under torch.profiler (CPU and CUDA)
   check     the program freed, a seeded sample of the finished requests
-            (the longest question among them) goes through the plain
-            PyTorch reference (qvbench/reference/); each number compared
-            is printed beside its limit (qvbench/limits/<cell>.json)
+            (the longest question among them) goes through the family's
+            plain PyTorch reference; each number compared is printed
+            beside its limit (qvbench/limits/<cell>.json)
 
 The last line of standard output is one JSON object: `correct`,
 `attempted`, `failed`, `metrics` (the cell's end-to-end metrics, or with
@@ -28,11 +34,14 @@ result. It exits 3, and prints no result, if jax, jaxlib, flax or
 quickvideo_tpu is loaded once the run is over (the window, the metric
 readers and the check), just before the result would be printed.
 
-`--control` runs the cell's control instead of the program's check: for a
-configuration of int8 weights it keeps the program's window and puts the
-reference with int4 weights in its place. `--describe` prints what the
-harness finds for the cell (configuration, mix, metric readers, limits)
-and runs nothing.
+`--control` runs the cell's control instead of the program's check: it
+keeps the program's window and puts the family's control (for Qwen2.5-VL
+with int8 weights, the reference with int4 weights) in its place; where
+the family has none for the configuration it exits with the family's
+reason before anything is made. `--describe` prints what the harness finds
+for the cell (family, configuration, mix, metric readers, limits) and runs
+nothing. A `model_type` without a family package stops both before any
+weights are made.
 """
 
 from __future__ import annotations
@@ -101,6 +110,7 @@ class Cell:
     per_layer: List[str]
     limits: Dict[str, float]
     units: Dict[str, str]
+    family: object  # the configuration's package under qvbench/families/
 
 
 def _applies(metric: dict, workload: str) -> bool:
@@ -108,6 +118,8 @@ def _applies(metric: dict, workload: str) -> bool:
 
 
 def load_cell(root: Path, workload: str) -> Cell:
+    from qvbench import families
+
     bench = json.loads((root / "BENCHMARK.json").read_text())
     cells = {w["name"]: w for w in bench["workloads"]}
     if workload not in cells:
@@ -116,9 +128,10 @@ def load_cell(root: Path, workload: str) -> Cell:
     config = {c["name"]: c for c in bench["configs"]}[w["config"]]
     limits = json.loads((root / "qvbench" / "limits" / f"{workload}.json")
                         .read_text())
+    config_file = root / config["file"]
     return Cell(
         root=root, name=workload, chips=int(w["chips"]),
-        config_file=root / config["file"], traffic=w["traffic"],
+        config_file=config_file, traffic=w["traffic"],
         end_to_end=[m["name"] for m in bench["end_to_end"]
                     if _applies(m, workload)],
         per_layer=[m["name"] for m in bench["per_layer"]
@@ -126,6 +139,7 @@ def load_cell(root: Path, workload: str) -> Cell:
         limits=limits,
         units={m["name"]: m["unit"]
                for m in bench["end_to_end"] + bench["per_layer"]},
+        family=families.of_config(config_file),
     )
 
 
@@ -151,6 +165,13 @@ class Record:
     @property
     def ttft(self) -> float:
         return self.t_first - self.t_call
+
+
+# What the harness asks of a family's engine (qvbench/README.md): after
+# `lvu.generate`, `lvu.last_result` carries `tokens`, `kv_cache_bytes`,
+# `cache_length` and `layer_lengths`; `lvu.engine.prefill(inputs, timer,
+# extra_capacity)` returns `(cache, state)` with the kept rows of every
+# (group, layer) in `state["retained"]`.
 
 
 def capture_retained(lvu) -> dict:
@@ -218,14 +239,6 @@ def end_to_end(records: List[Record], peak: int, setup_s: float) -> dict:
     return out
 
 
-def kv_variant(spec, rec: Record) -> str:
-    t = spec.text
-    per = rec.kv_bytes / max(rec.cache_length, 1) / (t.layers * t.kv_heads)
-    d = t.head_dim
-    return {4 * d: "bf16", 2 * (d + 4): "int8", 3 * d + 4: "int8k"}.get(
-        round(per), "bf16")
-
-
 @dataclass
 class Context:
     trace: object
@@ -233,6 +246,7 @@ class Context:
     spec: object
     mix: object
     kv_variant: str
+    family: object = None
 
 
 # -- the run --------------------------------------------------------------
@@ -264,35 +278,33 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     from qvbench import frames as qframes
     from qvbench.frames import FramePool, seeded_videos
     from qvbench.metrics import reader
-    from qvbench.reference.compare import NUMBERS, check_control, \
-        check_program
-    from qvbench.spec import load_spec
     from qvbench.trace import WINDOW_SPAN, Trace, profiler
     from qvbench.traffic import load_mix
-    from qvbench.weights import make_params
 
+    fam = cell.family
     device = torch.device(device)
-    spec = load_spec(cell.config_file)
+    spec = fam.load_spec(cell.config_file)
+    if control:
+        reason = fam.control_unavailable(spec)
+        if reason is not None:
+            raise SystemExit(reason)
     mix = load_mix(cell.root / "qvbench", cell.traffic)
     wseed = qframes.hash64(seed, 0x5EED)
     pool = FramePool(seed)
     video = mix.video
-    if control and not spec.int8_weights:
-        raise SystemExit(f"{spec.name}: a control is defined for int8 "
-                         "weights only (the reference at int4)")
     settings = dict(spec.run)
 
     from quickvideo_tpu_torch.api import LVU
     from quickvideo_tpu_torch.config import LVUConfig
 
     cfg = LVUConfig(model_name_or_path=str(cell.config_file.parent),
-                    model_type="qwen25_lvu_interleaved", seed=0,
+                    model_type=fam.LVU_MODEL_TYPE, seed=0,
                     **settings, **mix.lvu)
     failed = attempted = 0
     with seeded_videos(pool, video["frames"], video["fps"],
                        (video["height"], video["width"])):
-        params = make_params(spec, wseed, device,
-                             getattr(torch, settings["dtype"]))
+        params = fam.make_params(spec, wseed, device,
+                                 getattr(torch, settings["dtype"]))
         _sync(device)
         t_w = time.perf_counter()
         lvu = LVU(cfg, params=params, device=device)
@@ -307,6 +319,9 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
             f"{t_l - t_w:.2f} s, warm-up {time.perf_counter() - t_l:.2f} s")
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
+        # what set-up made stays out of the collector's scans in the window
+        gc.collect()
+        gc.freeze()
         prof = profiler(device.type) if trace else None
         requests = mix.requests(seed)
         records: List[Record] = []
@@ -327,6 +342,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
                 records.append(rec)
             _sync(device)
         t_end = time.perf_counter()
+        gc.unfreeze()
         if prof is not None:
             prof.stop()
             log(f"profiler stop {time.perf_counter() - t_end:.2f} s")
@@ -344,7 +360,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
         del prof
         log(f"trace read {time.perf_counter() - t_p:.2f} s")
         ctx = Context(tr, records, spec, mix,
-                      kv_variant(spec, records[0]) if records else "bf16")
+                      fam.kv_variant(spec, records[0]) if records else "bf16",
+                      fam)
         for name in cell.per_layer:
             value = reader(name)(ctx)
             if value is not None:
@@ -381,25 +398,25 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    tree = make_params(spec, wseed, device, getattr(torch, spec.run["dtype"]))
+    tree = fam.make_params(spec, wseed, device,
+                           getattr(torch, spec.run["dtype"]))
     if not checked:
-        readings = {k: math.inf for k in NUMBERS}
+        readings = {k: math.inf for k in fam.NUMBERS}
     elif control:
-        readings = check_control(tree, spec, mix, pool, checked, device,
-                                 "int4")
+        readings = fam.check_control(tree, spec, mix, pool, checked, device)
     else:
-        readings = check_program(tree, spec, mix, pool, checked, device)
+        readings = fam.check_program(tree, spec, mix, pool, checked, device)
     del tree
     log(f"reference: {len(checked)} requests, "
         f"{sum(len(r.tokens) for r in checked)} tokens, "
         f"{time.perf_counter() - t_ref:.2f} s")
     # a number without a limit in the cell's file has no upper reading
     # there (PERF.md): it is printed, not compared
-    for k in NUMBERS:
+    for k in fam.NUMBERS:
         if k not in cell.limits:
             log(f"{k} {readings[k]!r} (not compared in this cell)")
     checks = {k: {"value": readings[k], "limit": cell.limits[k]}
-              for k in NUMBERS if k in cell.limits}
+              for k in fam.NUMBERS if k in cell.limits}
     result["correct"] = bool(
         checked and failed == 0
         and all(c["value"] <= c["limit"] for c in checks.values()))
@@ -412,14 +429,13 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device,
 def describe(cell: Cell) -> dict:
     """What the harness finds for `cell`, by name, without running it."""
     from qvbench.metrics import reader
-    from qvbench.spec import load_spec
     from qvbench.traffic import load_mix
 
-    spec = load_spec(cell.config_file)
+    spec = cell.family.load_spec(cell.config_file)
     mix = load_mix(cell.root / "qvbench", cell.traffic)
     return {
-        "workload": cell.name, "config": spec.name,
-        "layers": spec.text.layers, "traffic": mix.name,
+        "workload": cell.name, "family": cell.family.__name__.split(".")[-1],
+        "config": spec.name, "layers": spec.layers, "traffic": mix.name,
         "frames": mix.video["frames"],
         "end_to_end": cell.end_to_end,
         "per_layer": {n: reader(n).__module__ for n in cell.per_layer},
@@ -464,6 +480,11 @@ def main(argv=None) -> int:
         log(f"needs {cell.chips} CUDA device(s); found "
             f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}")
         return 2
+    # one intra-op CPU thread: the stream's copy of each frame block into
+    # pinned memory runs on torch's intra-op threads, and a pool of one a
+    # core beside the host loop and the stream's threads made it twice as
+    # slow and the runs' times unsteady (PERF.md)
+    torch.set_num_threads(1)
     return report(cell, args.seed, args.seconds, bool(args.trace), "cuda:0",
                   control=args.control)
 

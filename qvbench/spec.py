@@ -73,6 +73,10 @@ class ModelSpec:
     def int8_weights(self) -> bool:
         return self.run.get("param_dtype") == "int8"
 
+    @property
+    def layers(self) -> int:
+        return self.text.layers
+
 
 def load_spec(path) -> ModelSpec:
     path = Path(path)

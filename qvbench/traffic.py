@@ -26,8 +26,8 @@ from typing import Iterator, List
 
 import numpy as np
 
+from qvbench import families
 from qvbench import frames as qframes
-from qvbench.template import prefix_ids, suffix_ids
 
 LETTERS = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz    ", np.uint8)
 
@@ -61,41 +61,30 @@ class Mix:
     def check_requests(self) -> int:
         return int(self.raw["check_requests"])
 
-    def group_frames(self) -> List[int]:
-        """Frames of each group: the group size rounded up to the temporal
-        patch (2), the last group what is left."""
-        n = int(self.video["frames"])
-        g = int(self.lvu["video_group_size"])
-        g += g % 2
-        return [min(g, n - off) for off in range(0, n, g)]
+    # a mix's shapes in a model's tokens: the spec's family works them out
+    # (qvbench/families/)
+
+    def group_frames(self, spec) -> List[int]:
+        """Frames of each group."""
+        return families.of_spec(spec).group_frames(spec, self)
 
     def group_tokens(self, spec) -> List[int]:
-        """Merged video tokens of each group at the model grid (the
-        frames' own size: the mix keeps it within the pixel budget)."""
-        v = spec.vision
-        h, w = int(self.video["height"]), int(self.video["width"])
-        per_t = (h // v.patch // v.merge) * (w // v.patch // v.merge)
-        return [-(-cnt // v.temporal_patch) * per_t
-                for cnt in self.group_frames()]
+        """Video tokens of each group."""
+        return families.of_spec(spec).group_tokens(spec, self)
 
     def patches_per_group(self, spec):
         """Patches each group's vision tower runs, where every group has
         the same count; else None."""
-        v = spec.vision
-        h, w = int(self.video["height"]), int(self.video["width"])
-        per_t = (h // v.patch) * (w // v.patch)
-        counts = {-(-c // v.temporal_patch) * per_t
-                  for c in self.group_frames()}
-        return counts.pop() if len(counts) == 1 else None
+        return families.of_spec(spec).patches_per_group(spec, self)
 
     def group_rows(self, spec, question: str) -> List[int]:
         """Rows each group step runs: group 0 also carries the prefix."""
         rows = self.group_tokens(spec)
-        rows[0] += len(prefix_ids(spec))
+        rows[0] += families.of_spec(spec).prefix_len(spec)
         return rows
 
     def suffix_len(self, spec, question: str) -> int:
-        return len(suffix_ids(spec, question))
+        return families.of_spec(spec).suffix_len(spec, question)
 
     def keep(self, rows: int) -> int:
         """Rows a group step keeps in every layer (top_p of them, all where
